@@ -12,19 +12,29 @@ final line):
 2. build   - compiles the hand-written kernels from `ragb_vae_tpu_torch/csrc`.
 3. kernels - each kernel against its plain PyTorch version and against an
              exact fp32 reference (the attention's log-sum-exp included), in
-             bf16 at the shapes the serving path gives it plus short ragged
-             lengths: errors, tolerances, and the median of 10
-             CUDA-event-timed runs of kernel and plain version.
+             bf16 at the shapes the serving path and the training step give it
+             plus short ragged ones: errors, tolerances, the median of 10
+             CUDA-event-timed runs of kernel and plain version, and the bound
+             (the least time the card could take for the same work).
 4. slice   - builds FluxTextAlphaModel at full published width (FLUX.1-Kontext
              transformer, FLUX `ae` RGBA VAE) with random weights from a seed,
              serves 3 requests through InferenceServer, checks each answer and
              that every kernel launched during that run.
+
+5. train   - builds the RGBA VAE at full FLUX `ae` width (fp32 parameters, bf16
+             compute, fused kernels, remat="half") with a frozen reference and
+             an LPIPS term over seeded weights, takes 3 optimizer steps at
+             512^2 (8 images in 2 micro-batches of 4) and one eval step, checks
+             losses, gradients, parameter movement and that the forward and
+             backward kernels launched, then holds the whole gradient tree
+             through the kernels against the plain route at 128^2.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -58,7 +68,32 @@ KERNELS = {
         "source": "ragb_vae_tpu_torch/csrc/flash_attention.cu",
         "replaces": "ragb_vae_tpu/ops/pallas/flash_attention.py:46",
     },
+    "resnet_conv3x3_stats_bwd": {
+        "source": "ragb_vae_tpu_torch/csrc/resnet_block_bwd.cu",
+        "replaces": "ragb_vae_tpu/ops/pallas/resnet_block.py:952",
+    },
+    "subpixel_upsample_conv3x3_stats_bwd": {
+        "source": "ragb_vae_tpu_torch/csrc/resnet_block_bwd.cu",
+        "replaces": "ragb_vae_tpu/ops/pallas/resnet_block.py:2003",
+    },
 }
+
+# Published peaks of one H100 SXM (dense bf16 tensor-core rate, HBM3 rate):
+# a kernel's bound is the larger of its operations over the first and the
+# bytes it must move (each input read once, each output written once) over
+# the second.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 # Each kernel is held against two references on the same bf16 inputs:
 # - its plain version (the counterpart of the JAX package's XLA path), which
@@ -84,6 +119,22 @@ CONV_STATS_EXACT_TOL = 1e-4    # vs exact: fp32 summation order only
 ATTN_PLAIN_REL_TOL = 5e-2      # vs plain: its logits are rounded to bf16
 ATTN_EXACT_REL_TOL = 1e-2      # vs fp32: P and O rounded to bf16 once each
 ATTN_LSE_ABS_TOL = 1e-4        # vs fp32 logsumexp of the same logits
+# Backward kernels (K6, K7): every cotangent's max abs error relative to
+# max|reference|. The exact reference repeats the kernel's rounding points
+# (dye and the recomputed activation rounded to bf16, fp32 sums, dx and dskip
+# rounded once), so the bf16 outputs differ by one ulp of the largest value
+# and the fp32 sums by summation order, plus the rare element whose bf16
+# rounding flips on the last bit of expf. A weight-gradient partial left out
+# drops 1/S of the pixels (S <= 32 slices: >= 3e-2 of the sum), a halo row
+# left out of the data gradient is wrong by the size of the value itself on
+# every tile's edge rows, and the statistics cotangent (drawn at 0.1) moves
+# dye by ~10%: each is far past these bounds.
+BWD_BF16_EXACT_TOL = 1e-2      # dx, dskip vs exact
+BWD_SUM_EXACT_TOL = 2e-3       # da, db, dW, dbias, dws, dwsb vs exact
+# vs plain: autograd through the plain forward rounds dye's terms, dA and the
+# activation's cotangent to bf16 at other places, 2^-8 relative each
+BWD_BF16_PLAIN_TOL = 4e-2
+BWD_SUM_PLAIN_TOL = 2e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -177,6 +228,72 @@ def upsample_conv3x3_stats_exact(x, w, bias):
     return y, rb.tensor_stats(y)
 
 
+def _dye_exact(y, gy, gstats):
+    """The cotangent of the conv output once the statistics' share is added:
+    fp32 from bf16 g, bf16 y and fp32 ds, rounded to bf16 (kept as fp32)."""
+    dye = gy.float() + gstats[:, 0, None, None, :] + 2.0 * y.float() * gstats[:, 1, None, None, :]
+    return dye.to(torch.bfloat16).float()
+
+
+def _pixel_outer(lhs, rhs):
+    """sum over (b, h, w) of lhs[b,h,w,:]^T rhs[b,h,w,:] -> (C, N) in fp32."""
+    return lhs.reshape(-1, lhs.shape[-1]).t() @ rhs.reshape(-1, rhs.shape[-1])
+
+
+def conv3x3_stats_bwd_exact(x, a, b, w, bias, skip, ws, wsb, y, gy, gstats, activation):
+    """K6's arithmetic in fp32 PyTorch with its rounding points."""
+    _, h, wd, _ = x.shape
+    dye = _dye_exact(y, gy, gstats)
+    wf = w.to(torch.bfloat16).float()
+    wt = wf.flip(0, 1).permute(0, 1, 3, 2)                      # (3, 3, N, C)
+    d_act = F.conv2d(dye.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    xf = x.float()
+    t = xf * a[:, None, None, :] + b[:, None, None, :]
+    if activation == "silu":
+        sg = torch.sigmoid(t)
+        d_t = d_act * (sg * (1.0 + t * (1.0 - sg)))
+        act = t * sg
+    else:
+        d_t, act = d_act, t
+    dx = (d_t * a[:, None, None, :]).to(torch.bfloat16)
+    da, db = (d_t * xf).sum(dim=(1, 2)), d_t.sum(dim=(1, 2))
+    ap = F.pad(act.to(torch.bfloat16).float(), (0, 0, 1, 1, 1, 1))  # zero AFTER the activation
+    dw = torch.stack([
+        torch.stack([_pixel_outer(ap[:, u : u + h, v : v + wd], dye) for v in range(3)])
+        for u in range(3)
+    ])
+    dbias = dye.sum(dim=(0, 1, 2))
+    dskip = dws = dwsb = None
+    if ws is not None:
+        dskip = (dye @ ws.to(torch.bfloat16).float().t()).to(torch.bfloat16)
+        dws, dwsb = _pixel_outer(skip.float(), dye), dbias
+    elif skip is not None:
+        dskip = dye.to(torch.bfloat16)
+    return dx, da, db, dw, dbias, dskip, dws, dwsb
+
+
+def upsample_conv3x3_stats_bwd_exact(x, w, bias, y, gy, gstats):
+    """K7's arithmetic in fp32 PyTorch: dx as the stride-2 conv4x4 of dye over
+    the doubly folded weights rounded to bf16; the folded weights' gradient
+    tap by tap (small-grid pixel (r+a+u-1, c+b+v-1) against large-grid pixel
+    (2r+a, 2c+b)), unfolded in fp32."""
+    _, h, wd, c = x.shape
+    dye = _dye_exact(y, gy, gstats)
+    wb = rb.fold_subpixel_bwd_weights(w.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+    dx = F.conv2d(dye.permute(0, 3, 1, 2), wb.permute(3, 2, 0, 1), stride=2, padding=1)
+    dx = dx.permute(0, 2, 3, 1).to(torch.bfloat16)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    dw_fold = torch.stack([
+        torch.stack([
+            torch.stack([
+                torch.cat([_pixel_outer(xp[:, pa + u : pa + u + h, pb + v : pb + v + wd],
+                                        dye[:, pa::2, pb::2]) for v in range(2)])
+                for u in range(2)])
+            for pb in range(2)])
+        for pa in range(2)])
+    return dx, rb.unfold_subpixel_weight_grad(dw_fold), dye.sum(dim=(0, 1, 2))
+
+
 def attention_exact(q, k, v, scale):
     """fp32 attention of the same bf16 inputs: (out, lse)."""
     logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
@@ -194,7 +311,7 @@ def _conv_errors(y, stats, y_ref, stats_ref):
     return err_y, err_y / rf.abs().max().item(), err_s, err_s / norm
 
 
-def _check_conv(label, run_k, run_p, run_x):
+def _check_conv(label, run_k, run_p, run_x, flops, nbytes):
     y, st = run_k()
     y_p, st_p = run_p()
     y_x, st_x = run_x()
@@ -209,11 +326,11 @@ def _check_conv(label, run_k, run_p, run_x):
         f"stats max_abs_err={abs_s:.4g} (normalised {s_p:.3g} <= {CONV_STATS_PLAIN_TOL}); "
         f"vs exact y rel {rel_x:.3g} (<= {CONV_Y_EXACT_TOL}) stats {s_x:.3g} (<= {CONV_STATS_EXACT_TOL}); "
         f"plain vs exact stats {s_px:.3g}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-        f"{'ok' if ok else 'FAIL'}")
-    return ok, label, err_y, ms, plain_ms
+        f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms ({bound(flops, nbytes)['bound_by']}) {'ok' if ok else 'FAIL'}")
+    return ok, label, err_y, ms, plain_ms, None, bound(flops, nbytes)
 
 
-def check_conv(gen, shape, n_out, *, skip, activation):
+def _conv_inputs(gen, shape, n_out, skip):
     bsz, h, w, c = shape
     x = _randn(gen, shape)
     a = 1.0 + 0.1 * torch.randn((bsz, c), generator=gen, device="cuda")
@@ -227,12 +344,22 @@ def check_conv(gen, shape, n_out, *, skip, activation):
         sk = x
         ws = _randn(gen, (c, n_out), 1.0 / math.sqrt(c))
         wsb = 0.1 * torch.randn((n_out,), generator=gen, device="cuda")
+    return x, a, b, wt, bias, sk, ws, wsb
+
+
+def check_conv(gen, shape, n_out, *, skip, activation):
+    bsz, h, w, c = shape
+    x, a, b, wt, bias, sk, ws, wsb = _conv_inputs(gen, shape, n_out, skip)
     args = (x, a, b, wt, bias, sk, ws, wsb, activation)
+    c_skip = 0 if ws is None else sk.shape[3]
+    flops = 2 * (9 * c + c_skip) * bsz * h * w * n_out
+    nbytes = (_nbytes(x, a, b, wt, bias, ws, wsb) + (_nbytes(sk) if skip == "identity" else 0)
+              + 2 * bsz * h * w * n_out + 4 * bsz * 2 * n_out)       # y, stats
     return _check_conv(
         f"resnet_conv3x3_stats {shape}->{n_out} {activation} skip={skip}",
         lambda: rb.conv3x3_stats_cuda(*args),
         lambda: rb.conv3x3_stats_plain(*args),
-        lambda: conv3x3_stats_exact(*args),
+        lambda: conv3x3_stats_exact(*args), flops, nbytes,
     )
 
 
@@ -241,12 +368,84 @@ def check_upsample(gen, shape, n_out):
     x = _randn(gen, shape)
     wt = _randn(gen, (3, 3, c, n_out), 1.0 / math.sqrt(9 * c))
     bias = 0.1 * torch.randn((n_out,), generator=gen, device="cuda")
+    bsz, h, w, _ = shape
+    flops = 2 * 16 * bsz * h * w * c * n_out            # four parities of four taps each
+    nbytes = _nbytes(x, wt, bias) + 2 * 4 * bsz * h * w * n_out + 4 * bsz * 2 * n_out
     return _check_conv(
         f"subpixel_upsample_conv3x3_stats {shape}->{n_out}",
         lambda: rb.upsample_conv3x3_stats_cuda(x, wt, bias),
         lambda: rb.upsample_conv3x3_stats_plain(x, wt, bias),
-        lambda: upsample_conv3x3_stats_exact(x, wt, bias),
+        lambda: upsample_conv3x3_stats_exact(x, wt, bias), flops, nbytes,
     )
+
+
+BWD_NAMES_K6 = ("dx", "da", "db", "dW", "dbias", "dskip", "dws", "dwsb")
+BWD_NAMES_K7 = ("dx", "dW", "dbias")
+
+
+def _check_bwd(label, names, run_k, run_p, run_x, flops, nbytes):
+    """Every cotangent of a backward kernel against the plain version and the
+    exact reference, each relative to max|reference|."""
+    got, plain, exact = run_k(), run_p(), run_x()
+    torch.cuda.synchronize()
+    ok, worst_abs, parts = True, 0.0, []
+    for name, g, p_ref, x_ref in zip(names, got, plain, exact):
+        if x_ref is None:
+            ok &= g is None and p_ref is None
+            continue
+        bf16_out = g.dtype == torch.bfloat16
+        tol_x = BWD_BF16_EXACT_TOL if bf16_out else BWD_SUM_EXACT_TOL
+        tol_p = BWD_BF16_PLAIN_TOL if bf16_out else BWD_SUM_PLAIN_TOL
+        err_x = (g.float() - x_ref.float()).abs().max().item()
+        rel_x = err_x / x_ref.float().abs().max().item()
+        rel_p = (g.float() - p_ref.float()).abs().max().item() / p_ref.float().abs().max().item()
+        fine = (g.shape == x_ref.shape and bool(torch.isfinite(g.float()).all())
+                and rel_x <= tol_x and rel_p <= tol_p)
+        ok &= fine
+        worst_abs = max(worst_abs, err_x)
+        parts.append(f"{name} exact {rel_x:.2g}<={tol_x} plain {rel_p:.2g}<={tol_p}"
+                     f"{'' if fine else ' FAIL'}")
+    ms, plain_ms = time_ms(run_k), time_ms(run_p)
+    log("kernels", f"{label}: " + "; ".join(parts) + f"; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+        f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms ({bound(flops, nbytes)['bound_by']}) {'ok' if ok else 'FAIL'}")
+    return ok, label, worst_abs, ms, plain_ms, None, bound(flops, nbytes)
+
+
+def check_conv_bwd(gen, shape, n_out, *, skip, activation):
+    bsz, h, w, c = shape
+    x, a, b, wt, bias, sk, ws, wsb = _conv_inputs(gen, shape, n_out, skip)
+    y, _ = rb.conv3x3_stats_cuda(x, a, b, wt, bias, sk, ws, wsb, activation)
+    gy = _randn(gen, y.shape)
+    gstats = 0.1 * torch.randn((bsz, 2, n_out), generator=gen, device="cuda")
+    args = (x, a, b, wt, bias, sk, ws, wsb, y, gy, gstats, activation)
+    c_skip = 0 if ws is None else sk.shape[3]
+    flops = 2 * (2 * 9 * c + 2 * c_skip) * bsz * h * w * n_out
+    nbytes = (_nbytes(x, a, b, wt, y, gy, gstats, ws) + (_nbytes(sk) if ws is not None else 0)
+              + _nbytes(x) + 4 * (wt.numel() + 2 * a.numel() + n_out)            # dx, dW, da, db, dbias
+              + (0 if sk is None else _nbytes(sk)) + 4 * (0 if ws is None else ws.numel() + n_out))
+    return _check_bwd(
+        f"resnet_conv3x3_stats_bwd {shape}->{n_out} {activation} skip={skip}", BWD_NAMES_K6,
+        lambda: rb.conv3x3_stats_bwd_cuda(*args),
+        lambda: rb.conv3x3_stats_bwd_plain(*args),
+        lambda: conv3x3_stats_bwd_exact(*args), flops, nbytes)
+
+
+def check_upsample_bwd(gen, shape, n_out):
+    bsz, h, w, c = shape
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, c, n_out), 1.0 / math.sqrt(9 * c))
+    bias = 0.1 * torch.randn((n_out,), generator=gen, device="cuda")
+    y, _ = rb.upsample_conv3x3_stats_cuda(x, wt, bias)
+    gy = _randn(gen, y.shape)
+    gstats = 0.1 * torch.randn((bsz, 2, n_out), generator=gen, device="cuda")
+    args = (x, wt, bias, y, gy, gstats)
+    flops = 2 * 2 * 16 * bsz * h * w * c * n_out
+    nbytes = _nbytes(x, wt, y, gy, gstats) + _nbytes(x) + 4 * (wt.numel() + n_out)
+    return _check_bwd(
+        f"subpixel_upsample_conv3x3_stats_bwd {shape}->{n_out}", BWD_NAMES_K7,
+        lambda: rb.upsample_conv3x3_stats_bwd_cuda(*args),
+        lambda: rb.upsample_conv3x3_stats_bwd_plain(*args),
+        lambda: upsample_conv3x3_stats_bwd_exact(*args), flops, nbytes)
 
 
 def check_attention(gen, shape):
@@ -264,13 +463,19 @@ def check_attention(gen, shape):
     rel_x = (out.float() - ref_x).abs().max().item() / ref_x.abs().max().item()
     err_lse = (lse - lse_x).abs().max().item()
     ms, plain_ms = time_ms(run_k), time_ms(run_p)
+    # the one PyTorch call that computes the same function: a yardstick here,
+    # called nowhere in the port
+    q4, k4, v4 = (t.reshape(bsz, heads, seq, d) for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+    limit = bound(4 * bsz * heads * seq * seq * d, _nbytes(q, k, v, out, lse))
     ok = (rel_p <= ATTN_PLAIN_REL_TOL and rel_x <= ATTN_EXACT_REL_TOL
           and err_lse <= ATTN_LSE_ABS_TOL and bool(torch.isfinite(out.float()).all()))
     log("kernels", f"flash_attention_fwd {shape}: vs plain max_abs_err={err:.4g} "
         f"(rel {rel_p:.3g} <= {ATTN_PLAIN_REL_TOL}); vs fp32 rel {rel_x:.3g} "
         f"(<= {ATTN_EXACT_REL_TOL}) lse {err_lse:.3g} (<= {ATTN_LSE_ABS_TOL}); "
-        f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
-    return ok, f"{shape}", err, ms, plain_ms
+        f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms scaled_dot_product_attention "
+        f"{library_ms:.3f} ms bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}) {'ok' if ok else 'FAIL'}")
+    return ok, f"{shape}", err, ms, plain_ms, library_ms, limit
 
 
 def phase_kernels() -> dict:
@@ -292,6 +497,20 @@ def phase_kernels() -> dict:
             lambda: check_attention(gen, (1, 1, 4096, 512)),
             lambda: check_attention(gen, (1, 1, 120, 512)),     # ragged: 24 of 120 keys in it
         ],
+        # the shapes one training micro-batch of 4 at 512^2 gives them (the
+        # encoder sees the triplet, batch 12), and a ragged one
+        "resnet_conv3x3_stats_bwd": [
+            lambda: check_conv_bwd(gen, (4, 128, 128, 512), 512, skip=None, activation="silu"),
+            lambda: check_conv_bwd(gen, (4, 256, 256, 512), 256, skip="proj", activation="silu"),
+            lambda: check_conv_bwd(gen, (12, 64, 64, 512), 512, skip="identity", activation="silu"),
+            lambda: check_conv_bwd(gen, (1, 64, 64, 128), 128, skip="identity", activation="identity"),
+            lambda: check_conv_bwd(gen, (2, 37, 50, 128), 256, skip="proj", activation="silu"),
+        ],
+        "subpixel_upsample_conv3x3_stats_bwd": [
+            lambda: check_upsample_bwd(gen, (4, 64, 64, 512), 512),
+            lambda: check_upsample_bwd(gen, (4, 256, 256, 256), 256),
+            lambda: check_upsample_bwd(gen, (1, 19, 27, 64), 128),
+        ],
     }
     results, all_ok = {}, True
     for name, fns in cases.items():
@@ -303,6 +522,8 @@ def phase_kernels() -> dict:
             "max_abs_err": max(r[2] for r in runs),
             "ms": first[3],
             "plain_ms": first[4],
+            "library_ms": first[5],
+            **first[6],
         }
     if not all_ok:
         raise SystemExit("[kernels] a kernel disagrees with its plain version or exact reference")
@@ -369,11 +590,204 @@ def phase_slice() -> dict:
     return counts
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 5: the RGBA-VAE training step at full width
+# ---------------------------------------------------------------------------
+# The whole backward through the kernels, held against two references on the
+# same weights, batch and noise: the plain route in bf16 (fused=False: cuDNN
+# convs and PyTorch autograd) and the plain route in fp32. The bf16 routes
+# round at different places (the plain route rounds GroupNorm's output,
+# SiLU's output and every conv's output to bf16, the kernels keep them in
+# fp32 up to one rounding), so each leaf's gradient carries accumulated bf16
+# noise, largest in the encoder's first block, which sits below ~60 convs. On
+# an H100 the worst leaf reads 0.12 (cosine 0.994) for the kernels against
+# fp32 and 0.14 (0.991) for the plain bf16 route against fp32, so the bounds
+# leave that noise half again as much room. A wrong cotangent (a missing skip
+# gradient, a transposed weight gradient) moves the leaves below it by the
+# size of the gradient itself: relative error ~1, cosine near 0.
+GRAD_REL_TOL = 0.2             # worst leaf's ||g_kernel - g_ref|| / ||g_ref||, each reference
+GRAD_COS_TOL = 0.98            # worst leaf's cosine, each reference
+
+
+def train_objects(remat, seed=SEED):
+    """The flux-`ae`-width RGBA VAE with fp32 parameters and bf16 compute, its
+    frozen reference (bf16 copy of the initial weights), the perceptual term
+    over seeded VGG16 weights, and the step configuration of
+    configs/flux_vae.yaml."""
+    from ragb_vae_tpu_torch.models.losses import AlphaVaeLossConfig
+    from ragb_vae_tpu_torch.models.lpips import make_perceptual_loss, random_lpips
+    from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
+    from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
+    from ragb_vae_tpu_torch.training.vae_step import VaeStepConfig
+
+    cfg = AutoencoderConfig.flux()
+    cfg.in_channels = cfg.out_channels = 4
+    torch.manual_seed(seed)
+    model = RgbaVAE(cfg, dtype=torch.float32, compute_dtype=torch.bfloat16, fused=True,
+                    remat=remat, device="cuda")
+    ref = RgbaVAE(cfg, dtype=torch.bfloat16, fused=True, device="cuda")
+    ref.module.load_state_dict(model.module.state_dict())
+    ref.module.requires_grad_(False)
+    lpips_fn = make_perceptual_loss(random_lpips(seed, device="cuda"), compute_dtype=torch.bfloat16)
+    loss_cfg = AlphaVaeLossConfig(reduce_mean=True, use_lpips=True)
+    step_cfg = VaeStepConfig(kl_scale=1e-6, ref_kl_scale=1e-16, lpips_scale=0.5,
+                             gradient_accumulation_steps=2)
+    return model, ref, lpips_fn, loss_cfg, step_cfg
+
+
+def _bwd_counts() -> dict:
+    return {
+        "resnet_conv3x3_stats": rb.CONV_LAUNCHES,
+        "subpixel_upsample_conv3x3_stats": rb.UPSAMPLE_LAUNCHES,
+        "flash_attention_fwd": fa.LAUNCHES,
+        "resnet_conv3x3_stats_bwd": rb.CONV_BWD_LAUNCHES,
+        "subpixel_upsample_conv3x3_stats_bwd": rb.UPSAMPLE_BWD_LAUNCHES,
+    }
+
+
+def _grad_tree_check(model, ref, lpips_fn, loss_cfg, step_cfg) -> None:
+    """One microbatch's gradient tree through the kernels and through the
+    plain route, leaf by leaf."""
+    from ragb_vae_tpu_torch.models import vae as vae_module
+    from ragb_vae_tpu_torch.training.vae_step import vae_loss_fn
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+    batch = {"images": torch.rand((2, 128, 128, 4), generator=gen, device="cuda")}
+    eps = torch.randn((2, 16, 16, model.config.latent_channels), generator=gen, device="cuda")
+    # the key bias is left out: a constant added to every key changes no
+    # softmax, so its true gradient is zero and both routes hold only noise
+    named = [(n, p) for n, p in model.module.named_parameters()
+             if p.requires_grad and not n.endswith("to_k.bias")]
+
+    def grads(fused: bool, dtype: torch.dtype):
+        model.module.set_fused(fused)
+        model.set_compute_dtype(dtype)
+        for _, p in named:
+            p.grad = None
+        loss, _ = vae_loss_fn(model, batch, loss_cfg=loss_cfg, step_cfg=step_cfg, ref_model=ref,
+                              lpips_fn=lpips_fn, eps=eps)
+        loss.backward()
+        return loss.item(), [p.grad.detach().double().flatten() for _, p in named]
+
+    def attention_fp32(q, k, v):
+        # the fp32 reference's mid-block attention: the kernel takes bf16 only
+        b, h, s, d = q.shape
+        out = fa.attention_plain(q.reshape(b * h, s, d), k.reshape(b * h, s, d), v.reshape(b * h, s, d),
+                                 sm_scale=1.0 / math.sqrt(d))
+        return out.reshape(b, h, s, d)
+
+    try:
+        loss_k, g_k = grads(True, torch.bfloat16)
+        loss_p, g_p = grads(False, torch.bfloat16)
+        vae_module.attention = attention_fp32
+        loss_f, g_f = grads(False, torch.float32)
+    finally:
+        vae_module.attention = fa.attention
+        model.module.set_fused(True)
+        model.set_compute_dtype(torch.bfloat16)
+    torch.cuda.synchronize()
+
+    def worst(got, want):
+        rel, cos = (0.0, ""), (1.0, "")
+        for (name, _), a, b in zip(named, got, want):
+            r = ((a - b).norm() / b.norm()).item()
+            c = (torch.dot(a, b) / (a.norm() * b.norm())).item()
+            if not (math.isfinite(r) and math.isfinite(c)):
+                raise SystemExit(f"[train] gradient of {name} is not finite on one route")
+            rel, cos = max(rel, (r, name)), min(cos, (c, name))
+        return rel, cos
+
+    ok = True
+    log("train", f"gradient tree at 128^2 micro-batch 2, {len(named)} leaves: loss kernels "
+        f"{loss_k:.6f}, plain bf16 {loss_p:.6f}, plain fp32 {loss_f:.6f}")
+    for label, got, want, held in (("kernels vs plain bf16", g_k, g_p, True),
+                                   ("kernels vs plain fp32", g_k, g_f, True),
+                                   ("plain bf16 vs plain fp32", g_p, g_f, False)):
+        rel, cos = worst(got, want)
+        fine = not held or (rel[0] <= GRAD_REL_TOL and cos[0] >= GRAD_COS_TOL)
+        ok &= fine
+        bounds = f" (<= {GRAD_REL_TOL}, >= {GRAD_COS_TOL})" if held else " (for information)"
+        log("train", f"  {label}: worst relative error {rel[0]:.4f} ({rel[1]}), worst cosine "
+            f"{cos[0]:.5f} ({cos[1]}){bounds} {'ok' if fine else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[train] the kernels' gradient tree disagrees with the plain route's")
+
+
+def phase_train() -> dict:
+    from ragb_vae_tpu_torch.training.vae_step import (
+        init_train_state, make_eval_step, make_optimizer, make_train_step, trainable_parameters)
+
+    t0 = time.perf_counter()
+    model, ref, lpips_fn, loss_cfg, step_cfg = train_objects("half")
+    params = trainable_parameters(model)
+    optimizer = make_optimizer(params, 1e-5, max_grad_norm=1.0)
+    init_train_state(model, optimizer)
+    train_step = make_train_step(model, optimizer, loss_cfg, step_cfg, ref_model=ref, lpips_fn=lpips_fn)
+    eval_step = make_eval_step(model)
+    torch.cuda.synchronize()
+    log("train", f"built RGBA VAE ({sum(p.numel() for p in params) / 1e6:.1f} M params, fp32) + bf16 "
+        f"reference + LPIPS in {time.perf_counter() - t0:.1f} s; remat=half, 8 images per step in "
+        f"2 micro-batches of 4 at 512^2")
+
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    before = [p.detach().clone() for p in params]
+    torch.cuda.reset_peak_memory_stats()
+    rb.reset_launch_counts()
+    fa.reset_launch_counts()
+    for i in range(3):
+        batch = {"images": torch.rand((8, 512, 512, 4), generator=gen, device="cuda")}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = train_step(batch, generator=gen)
+        end.record()
+        end.synchronize()
+        values = {k: v.item() for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in values.values()):
+            raise SystemExit(f"[train] step {i}: a loss or metric is not finite: {values}")
+        bad = [n for n, p in model.module.named_parameters()
+               if p.requires_grad and (p.grad is None or not bool(torch.isfinite(p.grad).all()))]
+        if bad or not values["train/grad_norm"] > 0.0:
+            raise SystemExit(f"[train] step {i}: missing or non-finite gradients {bad[:5]}, "
+                             f"grad norm {values['train/grad_norm']}")
+        log("train", f"step {i}: " + " ".join(f"{k.split('/')[1]}={v:.6g}" for k, v in values.items())
+            + f"; {start.elapsed_time(end):.1f} ms")
+    images = torch.rand((4, 512, 512, 4), generator=gen, device="cuda")
+    out = eval_step(images, generator=gen)
+    torch.cuda.synchronize()
+    counts = _bwd_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ev = {k: v.float().mean().item() for k, v in out.items() if k != "recon"}
+    if out["recon"].shape != images.shape or not all(math.isfinite(v) for v in ev.values()):
+        raise SystemExit(f"[train] eval step: wrong shape or non-finite metrics {ev}")
+    unchanged = sum(int(torch.equal(a, p.detach())) for a, p in zip(before, params))
+    log("train", f"eval: " + " ".join(f"{k}={v:.4f}" for k, v in ev.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+    if unchanged:
+        raise SystemExit(f"[train] {unchanged} of {len(params)} parameters did not change in 3 steps")
+    if not all(n > 0 for n in counts.values()):
+        raise SystemExit(f"[train] a kernel of the path never launched: {counts}")
+    del before, optimizer, train_step
+    _grad_tree_check(model, ref, lpips_fn, loss_cfg, step_cfg)
+    return counts
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default="kernels,slice,train",
+                        help="comma-separated subset of kernels,slice,train (device and build "
+                             "always run); the final ok line is printed only when all ran")
+    args = parser.parse_args(argv)
+    phases = set(args.phases.split(","))
     name = phase_device()
     phase_build()
-    results = phase_kernels()
-    counts = phase_slice()
+    results = phase_kernels() if "kernels" in phases else {}
+    counts = phase_slice() if "slice" in phases else {}
+    if "train" in phases:
+        for key, n in phase_train().items():
+            counts[key] = counts.get(key, 0) + n
+    if phases != {"kernels", "slice", "train"}:
+        log("done", f"ran only {sorted(phases)}: no summary")
+        return 0
     summary = {"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": counts[k], **results[k]}
         for k in KERNELS

@@ -1,0 +1,365 @@
+// The implicit-GEMM conv kernel shared by the resnet-block kernels, forward
+// (resnet_block.cu) and backward (resnet_block_bwd.cu). NHWC bf16 in and out.
+//
+// One block computes a TH x TW tile of output pixels for TN output channels:
+// M = 64 pixels, N = 64 channels, K = taps x input channels, on tensor cores
+// through nvcuda::wmma bf16 fragments with fp32 accumulation. Each K chunk's
+// halo'd input slab is loaded ONCE into shared memory (optionally through the
+// GroupNorm-coefficient + SiLU transform, rounded to bf16 there), and every
+// tap reads its shifted window of it. MODE picks the taps:
+//   MODE_CONV3    3x3 SAME conv                                   (K1, K6 dA)
+//   MODE_SUBPIXEL four 2x2 parity convs of a nearest-2x upsample  (K2)
+//   MODE_CONV1    1x1 conv                                        (K6 dskip)
+//   MODE_DOWN4    4x4 stride-2 conv of a (2H, 2W) input           (K7 dx)
+// EPI picks what happens to the fp32 tile:
+//   EPI_FWD       + bias [+ skip | + skip @ ws + wsb], round, store, and the
+//                 per-channel (sum, sumsq) of the rounded output as partials
+//                 (bias and partial may be null: a bare conv that only stores)
+//   EPI_BWD_ACT   the chain rule through act(x*a + b): d_t = tile * act'(t),
+//                 dx = d_t * a rounded and stored, per-channel partial sums of
+//                 (d_t * x, d_t) for the coefficient cotangents (da, db)
+// Per-block partials land in a (B, T, 2, N) scratch and `stats_reduce_kernel`
+// adds them in a fixed order: no float atomics, so results are bit-for-bit
+// reproducible. Tile edges (H, W, N not multiples of the tile) are masked; C
+// and N must be multiples of 8 (16-byte vector loads).
+#pragma once
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int TW = 16;                  // tile width in pixels: one fragment's 16 rows
+constexpr int TH = 4;                   // tile height in rows
+constexpr int TN = 64;                  // output channels per block
+constexpr int KC = 32;                  // input channels per K chunk
+constexpr int A_LD = KC + 16;           // smem row stride (elements) of the input slab
+constexpr int B_LD = TN + 8;            // smem row stride of a weight chunk
+constexpr int C_LD = TN + 4;            // smem row stride of the fp32 epilogue tile
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int TILE_PIX = TH * TW;       // 64 output pixels
+
+enum { MODE_CONV3 = 0, MODE_SUBPIXEL = 1, MODE_CONV1 = 2, MODE_DOWN4 = 3 };
+enum { EPI_FWD = 0, EPI_BWD_ACT = 1 };
+enum { SKIP_NONE = 0, SKIP_ADD = 1, SKIP_PROJ = 2 };
+
+template <int MODE>
+struct TapGeometry {
+  static constexpr int P = (MODE == MODE_SUBPIXEL) ? 4 : 1;          // output parities
+  static constexpr int NTAPS =
+      (MODE == MODE_CONV3) ? 9 : (MODE == MODE_SUBPIXEL) ? 4 : (MODE == MODE_CONV1) ? 1 : 16;
+  static constexpr int PS = (MODE == MODE_DOWN4) ? 2 : 1;            // input pixels per output pixel
+  static constexpr int HALO = (MODE == MODE_CONV1) ? 0 : 1;
+  static constexpr int SH = PS * TH + 2 * HALO;                      // slab rows
+  static constexpr int SW = PS * TW + 2 * HALO;                      // slab columns
+  static constexpr int SLAB_PIX = SH * SW;
+};
+
+struct ConvArgs {
+  const bf16* x;       // conv input (B, Hin, Win, C); Hin = PS*H, Win = PS*W
+  const float* a;      // (B, C) GroupNorm scale coefficients applied on load, or null
+  const float* b;      // (B, C) GroupNorm shift coefficients
+  const bf16* w;       // (taps, C, N); K2: (2, 2, 2, 2C, N) folded
+  const float* bias;   // (N,) or null
+  const bf16* skip;    // (B, H, W, N) or (B, H, W, Cs)
+  const bf16* ws;      // (Cs, N)
+  const float* wsb;    // (N,)
+  bf16* y;             // K2: (B, 2H, 2W, N); else (B, H, W, N)
+  float* partial;      // (B, T, 2, N) per-block partial sums, or null
+  // EPI_BWD_ACT: the forward's input and coefficients, (B, H, W, N) and (B, N)
+  const bf16* act_x;
+  const float* act_a;
+  const float* act_b;
+  int B, H, W, C, N, Cs;
+  int silu;
+  int skip_mode;
+  int tiles_w, tiles_h;
+};
+
+template <int MODE>
+__host__ __device__ constexpr size_t conv_smem_bytes() {
+  using G = TapGeometry<MODE>;
+  size_t main = (size_t)G::SLAB_PIX * A_LD * sizeof(bf16) + (size_t)G::NTAPS * KC * B_LD * sizeof(bf16);
+  size_t epi = (size_t)TILE_PIX * C_LD * sizeof(float) + (size_t)8 * TN * sizeof(float);
+  return main > epi ? main : epi;
+}
+
+template <int MODE, int EPI>
+__global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
+  using G = TapGeometry<MODE>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* slab = reinterpret_cast<bf16*>(smem_raw);
+  bf16* wsm = slab + G::SLAB_PIX * A_LD;
+
+  constexpr int P = G::P;
+  constexpr int NTAPS = G::NTAPS;
+  constexpr int PS = G::PS;
+  const int tile = blockIdx.x;
+  const int tw = tile % p.tiles_w;
+  const int th = tile / p.tiles_w;
+  const int n0 = blockIdx.y * TN;
+  const int b = blockIdx.z / P;
+  const int parity = blockIdx.z % P;
+  const int pa = parity >> 1, pb = parity & 1;
+  const int h0 = th * TH, w0 = tw * TW;
+  const int H = p.H, W = p.W, C = p.C, N = p.N;
+  const int Hin = PS * H, Win = PS * W;
+  const int warp = threadIdx.x >> 5;
+  const int wrow = warp >> 1;           // tile row this warp's fragments cover
+  const int wcol = (warp & 1) * 32;     // first of its 32 output channels
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.0f);
+  wmma::fill_fragment(acc[1], 0.0f);
+
+  for (int c0 = 0; c0 < C; c0 += KC) {
+    // halo'd input slab, zero outside the image AFTER the transform (SAME
+    // padding pads the activated value)
+    for (int i = threadIdx.x; i < G::SLAB_PIX * (KC / 8); i += NTHREADS) {
+      const int pix = i / (KC / 8);
+      const int cv = (i % (KC / 8)) * 8;
+      const int r = pix / G::SW, c = pix % G::SW;
+      const int hh = PS * h0 - G::HALO + r, ww = PS * w0 - G::HALO + c;
+      const int ch = c0 + cv;
+      uint4 out = zero_vec();
+      if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C) {
+        uint4 raw = *reinterpret_cast<const uint4*>(p.x + (((size_t)b * Hin + hh) * Win + ww) * C + ch);
+        if (MODE == MODE_CONV3 && p.a != nullptr) {
+          const bf16* xv = reinterpret_cast<const bf16*>(&raw);
+          bf16 o[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float t = __bfloat162float(xv[j]) * p.a[b * C + ch + j] + p.b[b * C + ch + j];
+            if (p.silu) t = t / (1.0f + expf(-t));
+            o[j] = __float2bfloat16(t);
+          }
+          out = *reinterpret_cast<const uint4*>(o);
+        } else {
+          out = raw;
+        }
+      }
+      *reinterpret_cast<uint4*>(slab + pix * A_LD + cv) = out;
+    }
+    // this chunk's weights for every tap: NTAPS x KC x TN
+    for (int i = threadIdx.x; i < NTAPS * KC * (TN / 8); i += NTHREADS) {
+      const int t = i / (KC * (TN / 8));
+      const int rem = i % (KC * (TN / 8));
+      const int k = rem / (TN / 8);
+      const int nv = (rem % (TN / 8)) * 8;
+      const int ch = c0 + k, n = n0 + nv;
+      uint4 val = zero_vec();
+      if (ch < C && n < N) {
+        const bf16* wt;
+        if (MODE == MODE_SUBPIXEL) {
+          const int u = t >> 1, v = t & 1;
+          wt = p.w + ((size_t)((parity * 2 + u) * 2) * C + (size_t)v * C) * N;
+        } else {
+          wt = p.w + (size_t)t * C * N;
+        }
+        val = *reinterpret_cast<const uint4*>(wt + (size_t)ch * N + n);
+      }
+      *reinterpret_cast<uint4*>(wsm + (t * KC + k) * B_LD + nv) = val;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int t = 0; t < NTAPS; ++t) {
+      int dy, dx;
+      if (MODE == MODE_CONV3) {
+        dy = t / 3;
+        dx = t % 3;
+      } else if (MODE == MODE_SUBPIXEL) {
+        dy = pa + (t >> 1);
+        dx = pb + (t & 1);
+      } else if (MODE == MODE_CONV1) {
+        dy = 0;
+        dx = 0;
+      } else {
+        dy = t / 4;
+        dx = t % 4;
+      }
+      // fragment row j is output pixel (wrow, j): slab pixel (PS*wrow + dy, PS*j + dx)
+      const bf16* arow = slab + ((PS * wrow + dy) * G::SW + dx) * A_LD;
+      const bf16* bt = wsm + t * KC * B_LD;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, arow + kk, PS * A_LD);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, bt + kk * B_LD + wcol + j * 16, B_LD);
+          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (MODE == MODE_CONV3 && EPI == EPI_FWD && p.skip_mode == SKIP_PROJ) {
+    // 1x1 conv_shortcut on the raw skip tile, into the same accumulators
+    for (int c0 = 0; c0 < p.Cs; c0 += KC) {
+      for (int i = threadIdx.x; i < TILE_PIX * (KC / 8); i += NTHREADS) {
+        const int pix = i / (KC / 8);
+        const int cv = (i % (KC / 8)) * 8;
+        const int hh = h0 + pix / TW, ww = w0 + pix % TW;
+        const int ch = c0 + cv;
+        uint4 val = zero_vec();
+        if (hh < H && ww < W && ch < p.Cs)
+          val = *reinterpret_cast<const uint4*>(p.skip + (((size_t)b * H + hh) * W + ww) * p.Cs + ch);
+        *reinterpret_cast<uint4*>(slab + pix * A_LD + cv) = val;
+      }
+      for (int i = threadIdx.x; i < KC * (TN / 8); i += NTHREADS) {
+        const int k = i / (TN / 8);
+        const int nv = (i % (TN / 8)) * 8;
+        uint4 val = zero_vec();
+        if (c0 + k < p.Cs && n0 + nv < N)
+          val = *reinterpret_cast<const uint4*>(p.ws + (size_t)(c0 + k) * N + n0 + nv);
+        *reinterpret_cast<uint4*>(wsm + k * B_LD + nv) = val;
+      }
+      __syncthreads();
+      const bf16* arow = slab + (wrow * TW) * A_LD;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, arow + kk, A_LD);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, wsm + kk * B_LD + wcol + j * 16, B_LD);
+          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // epilogue: fragments -> fp32 tile in shared memory (reusing the slab)
+  float* ctile = reinterpret_cast<float*>(smem_raw);
+  float* red = ctile + TILE_PIX * C_LD;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    wmma::store_matrix_sync(ctile + (wrow * TW) * C_LD + wcol + j * 16, acc[j], C_LD,
+                            wmma::mem_row_major);
+  __syncthreads();
+
+  const int n_local = threadIdx.x % TN;
+  const int grp = threadIdx.x / TN;     // 4 groups of 16 pixels (one tile row each)
+  const int n = n0 + n_local;
+  float s0 = 0.0f, s1 = 0.0f;
+  if (n < N) {
+    if (EPI == EPI_FWD) {
+      const float bn = (p.bias != nullptr ? p.bias[n] : 0.0f) +
+                       (p.skip_mode == SKIP_PROJ ? p.wsb[n] : 0.0f);
+      for (int q = 0; q < TILE_PIX / 4; ++q) {
+        const int pix = grp * (TILE_PIX / 4) + q;
+        const int hh = h0 + pix / TW, ww = w0 + pix % TW;
+        if (hh < H && ww < W) {
+          float v = ctile[pix * C_LD + n_local] + bn;
+          if (p.skip_mode == SKIP_ADD)
+            v += __bfloat162float(p.skip[(((size_t)b * H + hh) * W + ww) * N + n]);
+          size_t oidx;
+          if (MODE == MODE_SUBPIXEL)
+            oidx = (((size_t)b * (2 * H) + 2 * hh + pa) * (2 * W) + 2 * ww + pb) * N + n;
+          else
+            oidx = (((size_t)b * H + hh) * W + ww) * N + n;
+          const bf16 yb = __float2bfloat16(v);
+          p.y[oidx] = yb;
+          const float yr = __bfloat162float(yb);   // stats of the ROUNDED output
+          s0 += yr;
+          s1 += yr * yr;
+        }
+      }
+    } else {
+      const float av = p.act_a[b * N + n], bv = p.act_b[b * N + n];
+      for (int q = 0; q < TILE_PIX / 4; ++q) {
+        const int pix = grp * (TILE_PIX / 4) + q;
+        const int hh = h0 + pix / TW, ww = w0 + pix % TW;
+        if (hh < H && ww < W) {
+          const size_t idx = (((size_t)b * H + hh) * W + ww) * N + n;
+          const float xv = __bfloat162float(p.act_x[idx]);
+          float d_t = ctile[pix * C_LD + n_local];
+          if (p.silu) {
+            const float t = xv * av + bv;
+            const float s = 1.0f / (1.0f + expf(-t));
+            d_t *= s * (1.0f + t * (1.0f - s));
+          }
+          p.y[idx] = __float2bfloat16(d_t * av);
+          s0 += d_t * xv;
+          s1 += d_t;
+        }
+      }
+    }
+  }
+  if (p.partial == nullptr) return;
+  red[(grp * 2 + 0) * TN + n_local] = s0;
+  red[(grp * 2 + 1) * TN + n_local] = s1;
+  __syncthreads();
+  if (grp == 0 && n < N) {
+    float t0 = 0.0f, t1 = 0.0f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      t0 += red[(g * 2 + 0) * TN + n_local];
+      t1 += red[(g * 2 + 1) * TN + n_local];
+    }
+    const size_t T = (size_t)P * p.tiles_h * p.tiles_w;
+    const size_t tid = (size_t)parity * p.tiles_h * p.tiles_w + tile;
+    p.partial[(((size_t)b * T + tid) * 2 + 0) * N + n] = t0;
+    p.partial[(((size_t)b * T + tid) * 2 + 1) * N + n] = t1;
+  }
+}
+
+// Sums the (B, T, 2, N) partials into (B, 2, N) in a fixed order: thread
+// lane j adds tiles j, j+32, ... in sequence, then lane 0 adds the 32 lanes.
+__global__ void stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ stats,
+                                    int T, int N) {
+  __shared__ float red[2][32][33];
+  const int n = blockIdx.x * 32 + threadIdx.x;
+  const int b = blockIdx.y;
+  float s0 = 0.0f, s1 = 0.0f;
+  if (n < N) {
+    for (int t = threadIdx.y; t < T; t += 32) {
+      s0 += partial[(((size_t)b * T + t) * 2 + 0) * N + n];
+      s1 += partial[(((size_t)b * T + t) * 2 + 1) * N + n];
+    }
+  }
+  red[0][threadIdx.y][threadIdx.x] = s0;
+  red[1][threadIdx.y][threadIdx.x] = s1;
+  __syncthreads();
+  if (threadIdx.y == 0 && n < N) {
+    float t0 = 0.0f, t1 = 0.0f;
+    for (int j = 0; j < 32; ++j) {
+      t0 += red[0][j][threadIdx.x];
+      t1 += red[1][j][threadIdx.x];
+    }
+    stats[((size_t)b * 2 + 0) * N + n] = t0;
+    stats[((size_t)b * 2 + 1) * N + n] = t1;
+  }
+}
+
+// Launches the conv and, when `sums` is given, the fixed-order reduce of its
+// partials into `sums` (B, 2, N). T is the caller's count of partial tiles.
+template <int MODE, int EPI>
+int launch_conv(ConvArgs& p, float* sums, int T, cudaStream_t stream) {
+  constexpr int P = TapGeometry<MODE>::P;
+  p.tiles_w = (p.W + TW - 1) / TW;
+  p.tiles_h = (p.H + TH - 1) / TH;
+  if (p.C % 8 || p.N % 8 || p.Cs % 8) return (int)cudaErrorInvalidValue;
+  if (p.partial != nullptr && T != P * p.tiles_w * p.tiles_h) return (int)cudaErrorInvalidValue;
+  if ((long long)p.B * P > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = conv_smem_bytes<MODE>();
+  cudaError_t e = cudaFuncSetAttribute(conv_taps_kernel<MODE, EPI>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(p.tiles_w * p.tiles_h, (p.N + TN - 1) / TN, p.B * P);
+  conv_taps_kernel<MODE, EPI><<<grid, NTHREADS, smem, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.partial == nullptr) return (int)e;
+  stats_reduce_kernel<<<dim3((p.N + 31) / 32, p.B), dim3(32, 32), 0, stream>>>(p.partial, sums,
+                                                                               T, p.N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -1,0 +1,392 @@
+// Backward of the whole-resnet-block conv kernels for Hopper (sm_90a).
+//
+// Replaces two TPU kernels of ragb_vae_tpu/ops/pallas/resnet_block.py:
+//   K6 `_bwd_kernel` (driven by `_chain_bwd_impl`): every cotangent of
+//      y = conv3x3(act(x*a + b)) + bias [+ skip | + skip @ ws + wsb] with the
+//      (sum, sumsq) statistics of y, in one entry point:
+//        dye   = g + ds0 + 2*y*ds1                  (stats-chain cotangent)
+//        dA    = conv3x3(dye, flipped-transposed W)
+//        dx    = dA * act'(t) * a,  t = x*a + b recomputed from x
+//        da,db = per-(B, C) sums of dA*act'(t)*x and dA*act'(t)
+//        dW    = A-patches^T @ dye,  A = act(t) recomputed, rounded to bf16
+//        dbias = sum dye;  dskip = dye | dye @ ws^T;  dws = skip^T @ dye
+//   K7 `_subpixel_bwd_kernel` (driven by `_subpixel_bwd_impl`): every
+//      cotangent of the nearest-2x upsample + conv3x3: dye on the (2H, 2W)
+//      grid, dx as a stride-2 4x4 conv of dye over doubly folded weights, the
+//      gradient of the FOLDED weights (unfolded by the wrapper), dbias.
+// One TPU kernel becomes several __global__ functions behind one C entry
+// point: an elementwise dye pass, a data-gradient conv, a weight-gradient
+// GEMM, and fixed-order reduces.
+//
+// What bounds it on the H100: the data gradient and the weight gradient are
+// each a GEMM of the forward's size (2*9*C*N FLOPs per pixel against a few
+// (C+N) bytes), far above the bf16 ridge (~295 FLOP/byte): tensor-core FLOPs
+// bound them; the dye pass and the reduces are bytes-bound and small. The
+// design therefore (1) forms dye ONCE, in fp32 from bf16 g, bf16 y and the
+// fp32 statistics cotangent, rounds it to bf16 and stores it (it is dskip
+// itself under an identity skip), so both GEMMs stream one operand instead
+// of two and dbias falls out of the same pass; (2) runs the data gradient
+// through the forward's conv template (conv_taps.cuh) with the chain rule
+// through act(x*a + b) fused into its epilogue, where x is read once more and
+// neither t nor A ever goes to device memory; (3) runs the weight gradient as
+// a split-K GEMM on wmma tensor-core fragments, K = pixels: a block owns a
+// 64 x 64 (c, n) tile of one row of taps and a slice of the image rows,
+// recomputes A = act(x*a + b) on load, and writes an fp32 partial. The TPU
+// grid ran in order and kept dW, da, db, dbias in scratch across all steps;
+// CUDA blocks run in parallel, so every cross-block sum goes through
+// per-slice fp32 partials (a bounded number of slices, not one per tile) and
+// a second kernel that adds them in a fixed order: no float atomics, so a
+// training step is bit-for-bit reproducible.
+// Rounding points follow the TPU kernel: dye rounded to bf16 before the
+// GEMMs, A rounded to bf16 for dW, dx and dskip rounded once on store; SAME
+// padding zeroes A and dye outside the image, not x.
+// Not yet done (later work): wgmma, TMA pipelines, larger tiles, fusing the
+// three row taps of dW into one pass over x.
+
+#include "conv_taps.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// dye = bf16(g + ds0 + 2*y*ds1), and per-slice column sums of the rounded dye
+// ---------------------------------------------------------------------------
+// grid (S, B), block (N/8, PL): thread (v, l) owns channels 8v..8v+7 and the
+// pixels l, l+PL, ... of its slice; partial is (B*S, N).
+__global__ void dye_kernel(const bf16* __restrict__ g, const bf16* __restrict__ y,
+                           const float* __restrict__ ds, bf16* __restrict__ dye,
+                           float* __restrict__ partial, int HW, int N, int S) {
+  extern __shared__ float dye_red[];     // (PL, N)
+  const int b = blockIdx.y, s = blockIdx.x;
+  const int pps = (HW + S - 1) / S;
+  const int p_end = min(HW, (s + 1) * pps);
+  const int n0 = threadIdx.x * 8;
+  float ds0[8], ds1[8], acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ds0[j] = ds[((size_t)b * 2 + 0) * N + n0 + j];
+    ds1[j] = 2.0f * ds[((size_t)b * 2 + 1) * N + n0 + j];
+    acc[j] = 0.0f;
+  }
+  for (int pix = s * pps + threadIdx.y; pix < p_end; pix += blockDim.y) {
+    const size_t idx = ((size_t)b * HW + pix) * N + n0;
+    const uint4 graw = *reinterpret_cast<const uint4*>(g + idx);
+    const uint4 yraw = *reinterpret_cast<const uint4*>(y + idx);
+    const bf16* gv = reinterpret_cast<const bf16*>(&graw);
+    const bf16* yv = reinterpret_cast<const bf16*>(&yraw);
+    bf16 o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j] = __float2bfloat16(__bfloat162float(gv[j]) + ds0[j] + __bfloat162float(yv[j]) * ds1[j]);
+      acc[j] += __bfloat162float(o[j]);
+    }
+    *reinterpret_cast<uint4*>(dye + idx) = *reinterpret_cast<const uint4*>(o);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dye_red[threadIdx.y * N + n0 + j] = acc[j];
+  __syncthreads();
+  if (threadIdx.y == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float t = 0.0f;
+      for (int l = 0; l < blockDim.y; ++l) t += dye_red[l * N + n0 + j];
+      partial[((size_t)b * S + s) * N + n0 + j] = t;
+    }
+  }
+}
+
+// out[m] = sum over r < R of partial[r*M + m], in a fixed order: lane j adds
+// rows j, j+32, ... in sequence, then lane 0 adds the 32 lanes.
+__global__ void reduce_rows_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                                   int R, size_t M) {
+  __shared__ float red[32][33];
+  const size_t m = (size_t)blockIdx.x * 32 + threadIdx.x;
+  float s = 0.0f;
+  if (m < M)
+    for (int r = threadIdx.y; r < R; r += 32) s += partial[(size_t)r * M + m];
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && m < M) {
+    float t = 0.0f;
+    for (int j = 0; j < 32; ++j) t += red[j][threadIdx.x];
+    out[m] = t;
+  }
+}
+
+int launch_reduce_rows(const float* partial, float* out, int R, size_t M, cudaStream_t stream) {
+  reduce_rows_kernel<<<(unsigned)((M + 31) / 32), dim3(32, 32), 0, stream>>>(partial, out, R, M);
+  return (int)cudaGetLastError();
+}
+
+int launch_dye(const bf16* g, const bf16* y, const float* ds, bf16* dye, float* partial,
+               float* dbias, int B, int HW, int N, int S, cudaStream_t stream) {
+  const int nv = N / 8;
+  if (N % 8 || nv > 1024 || S < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  const int pl = nv >= 256 ? 1 : 256 / nv;
+  const size_t smem = (size_t)pl * N * sizeof(float);
+  dye_kernel<<<dim3(S, B), dim3(nv, pl), smem, stream>>>(g, y, ds, dye, partial, HW, N, S);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_reduce_rows(partial, dbias, B * S, (size_t)N, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradient: dW[tap][c][n] = sum over pixels of A[pixel + tap][c] * dye[pixel][n]
+// ---------------------------------------------------------------------------
+constexpr int WG_PW = 64;               // pixels (GEMM K) per chunk: part of one image row
+constexpr int WG_TC = 64;               // input channels (GEMM M) per block
+constexpr int WG_TN = 64;               // output channels (GEMM N) per block
+constexpr int WG_A_LD = WG_TC + 16;     // 32-byte aligned rows: fragments start at any pixel
+constexpr int WG_B_LD = WG_TN + 8;
+constexpr int WG_S_LD = WG_TN + 4;      // fp32 staging tile of the masked store
+
+enum { WG_CONV3 = 0, WG_CONV1 = 1, WG_SUBPIXEL = 2 };
+
+struct WgradArgs {
+  const bf16* x;       // (B, H, W, C): the forward's input (or the skip)
+  const float* a;      // (B, C) or null: A = act(x*a + b) rounded to bf16, else A = x
+  const float* b;
+  const bf16* dye;     // (B, DS*H, DS*W, N), DS = 2 for WG_SUBPIXEL else 1
+  float* partial;      // (S, groups, taps, C, N)
+  int B, H, W, C, N, S;
+  int silu;
+};
+
+__host__ __device__ constexpr size_t wgrad_smem_bytes() {
+  size_t main = (size_t)(WG_PW + 2) * WG_A_LD * sizeof(bf16) + (size_t)WG_PW * WG_B_LD * sizeof(bf16);
+  size_t stage = (size_t)WG_TC * WG_S_LD * sizeof(float);
+  return main > stage ? main : stage;
+}
+
+// MODE WG_CONV3: groups = 3 tap rows u, 3 taps v each: A pixel (h+u-1, w+v-1).
+// MODE WG_CONV1: one group, one tap: A pixel (h, w)                  (dws).
+// MODE WG_SUBPIXEL: groups = 8 (pa, pb, u), 2 taps v each: the gradient of the
+//   folded weights [pa][pb][u][v]: A pixel (r+pa+u-1, c+pb+v-1) of the small
+//   grid against dye pixel (2r+pa, 2c+pb) of the large one.
+// grid (C/64, N/64, groups * S); 8 warps, each a 16 x 32 piece of every tap.
+template <int MODE>
+__global__ void __launch_bounds__(NTHREADS) wgrad_kernel(WgradArgs p) {
+  constexpr int GROUPS = (MODE == WG_CONV3) ? 3 : (MODE == WG_CONV1) ? 1 : 8;
+  constexpr int NTV = (MODE == WG_CONV3) ? 3 : (MODE == WG_CONV1) ? 1 : 2;
+  constexpr int DS = (MODE == WG_SUBPIXEL) ? 2 : 1;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);         // slot s <-> x column w0 - 1 + s
+  bf16* Bs = As + (WG_PW + 2) * WG_A_LD;
+
+  const int c0 = blockIdx.x * WG_TC;
+  const int n0 = blockIdx.y * WG_TN;
+  const int group = blockIdx.z % GROUPS;
+  const int slice = blockIdx.z / GROUPS;
+  const int H = p.H, W = p.W, C = p.C, N = p.N;
+  int row_off, col_off0, pa = 0, pb = 0;   // A row = r + row_off; tap v's A column = c + col_off0 + v
+  if (MODE == WG_CONV3) {
+    row_off = group - 1;
+    col_off0 = -1;
+  } else if (MODE == WG_CONV1) {
+    row_off = 0;
+    col_off0 = 0;
+  } else {
+    pa = group >> 2;
+    pb = (group >> 1) & 1;
+    row_off = pa + (group & 1) - 1;
+    col_off0 = pb - 1;
+  }
+  const int warp = threadIdx.x >> 5;
+  const int ci = (warp >> 1) * 16;         // this warp's 16 input channels of the tile
+  const int nj = (warp & 1) * 32;          // first of its 32 output channels
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NTV][2];
+#pragma unroll
+  for (int v = 0; v < NTV; ++v) {
+    wmma::fill_fragment(acc[v][0], 0.0f);
+    wmma::fill_fragment(acc[v][1], 0.0f);
+  }
+
+  const int rows = p.B * H;
+  const int rps = (rows + p.S - 1) / p.S;
+  const int row_end = min(rows, (slice + 1) * rps);
+  for (int row = slice * rps; row < row_end; ++row) {
+    const int b = row / H, r = row % H;
+    const int ar = r + row_off;
+    if (ar < 0 || ar >= H) continue;       // a zero row of A adds nothing
+    const bf16* xrow = p.x + ((size_t)b * H + ar) * W * C;
+    const bf16* drow = p.dye + (((size_t)b * DS * H + DS * r + pa) * DS * W + pb) * N;
+    for (int w0 = 0; w0 < W; w0 += WG_PW) {
+      for (int i = threadIdx.x; i < (WG_PW + 2) * (WG_TC / 8); i += NTHREADS) {
+        const int slot = i / (WG_TC / 8);
+        const int cv = (i % (WG_TC / 8)) * 8;
+        const int ww = w0 - 1 + slot, ch = c0 + cv;
+        uint4 out = zero_vec();
+        if (ww >= 0 && ww < W && ch < C) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(xrow + (size_t)ww * C + ch);
+          if (p.a != nullptr) {
+            const bf16* xv = reinterpret_cast<const bf16*>(&raw);
+            bf16 o[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              float t = __bfloat162float(xv[j]) * p.a[b * C + ch + j] + p.b[b * C + ch + j];
+              if (p.silu) t = t / (1.0f + expf(-t));
+              o[j] = __float2bfloat16(t);
+            }
+            out = *reinterpret_cast<const uint4*>(o);
+          } else {
+            out = raw;
+          }
+        }
+        *reinterpret_cast<uint4*>(As + slot * WG_A_LD + cv) = out;
+      }
+      for (int i = threadIdx.x; i < WG_PW * (WG_TN / 8); i += NTHREADS) {
+        const int k = i / (WG_TN / 8);
+        const int nv = (i % (WG_TN / 8)) * 8;
+        uint4 val = zero_vec();
+        if (w0 + k < W && n0 + nv < N)
+          val = *reinterpret_cast<const uint4*>(drow + (size_t)(w0 + k) * DS * N + n0 + nv);
+        *reinterpret_cast<uint4*>(Bs + k * WG_B_LD + nv) = val;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < WG_PW; kk += 16) {
+        if (w0 + kk < W) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+          wmma::load_matrix_sync(fb[0], Bs + kk * WG_B_LD + nj, WG_B_LD);
+          wmma::load_matrix_sync(fb[1], Bs + kk * WG_B_LD + nj + 16, WG_B_LD);
+#pragma unroll
+          for (int v = 0; v < NTV; ++v) {
+            // A^T: element (c, pixel k) sits at As[(slot of pixel k + tap) * LD + c]
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
+            wmma::load_matrix_sync(fa, As + (kk + 1 + col_off0 + v) * WG_A_LD + ci, WG_A_LD);
+            wmma::mma_sync(acc[v][0], fa, fb[0], acc[v][0]);
+            wmma::mma_sync(acc[v][1], fa, fb[1], acc[v][1]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // masked store of each tap's 64 x 64 tile through an fp32 staging tile
+  float* stage = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int v = 0; v < NTV; ++v) {
+    wmma::store_matrix_sync(stage + ci * WG_S_LD + nj, acc[v][0], WG_S_LD, wmma::mem_row_major);
+    wmma::store_matrix_sync(stage + ci * WG_S_LD + nj + 16, acc[v][1], WG_S_LD, wmma::mem_row_major);
+    __syncthreads();
+    float* out = p.partial + (((size_t)slice * GROUPS + group) * NTV + v) * C * N;
+    for (int i = threadIdx.x; i < WG_TC * WG_TN; i += NTHREADS) {
+      const int c = i / WG_TN, n = i % WG_TN;
+      if (c0 + c < C && n0 + n < N) out[(size_t)(c0 + c) * N + n0 + n] = stage[c * WG_S_LD + n];
+    }
+    __syncthreads();
+  }
+}
+
+// Launches the split-K weight gradient and the fixed-order reduce of its S
+// partials into `dw` (groups * taps * C * N floats).
+template <int MODE>
+int launch_wgrad(WgradArgs& p, float* dw, cudaStream_t stream) {
+  constexpr int GROUPS = (MODE == WG_CONV3) ? 3 : (MODE == WG_CONV1) ? 1 : 8;
+  constexpr int NTV = (MODE == WG_CONV3) ? 3 : (MODE == WG_CONV1) ? 1 : 2;
+  if (p.C % 8 || p.N % 8 || p.S < 1 || (long long)GROUPS * p.S > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wgrad_smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(wgrad_kernel<MODE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((p.C + WG_TC - 1) / WG_TC, (p.N + WG_TN - 1) / WG_TN, GROUPS * p.S);
+  wgrad_kernel<MODE><<<grid, NTHREADS, smem, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_reduce_rows(p.partial, dw, p.S, (size_t)GROUPS * NTV * p.C * p.N, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K6. Scratch and outputs are the wrapper's: dye (B, H, W, N) bf16 (it IS
+// dskip under an identity skip), dbias_partial (B*S_dye, N), dab_partial
+// (B, T, 2, C), dw_partial (S_w, 3, 3, C, N), dws_partial (S_w, Cs, N).
+// wt is w flipped and transposed, (3, 3, N, C); wst is ws transposed, (N, Cs).
+int ragb_resnet_conv3x3_stats_bwd(
+    const void* x, const float* a, const float* b, const void* wt, const void* skip,
+    const void* wst, const void* y, const void* gy, const float* gstats,
+    void* dye, void* dx, float* dab, float* dw, float* dbias, void* dskip, float* dws,
+    float* dbias_partial, float* dab_partial, float* dw_partial, float* dws_partial,
+    int T, int S_dye, int S_w, int B, int H, int W, int C, int N, int Cs, int silu,
+    int skip_mode, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  int err = launch_dye(static_cast<const bf16*>(gy), static_cast<const bf16*>(y), gstats,
+                       static_cast<bf16*>(dye), dbias_partial, dbias, B, H * W, N, S_dye, stream);
+  if (err) return err;
+
+  ConvArgs da{};                        // dA = conv3x3(dye, wt), then the chain rule through act
+  da.x = static_cast<const bf16*>(dye);
+  da.w = static_cast<const bf16*>(wt);
+  da.y = static_cast<bf16*>(dx);
+  da.partial = dab_partial;
+  da.act_x = static_cast<const bf16*>(x);
+  da.act_a = a;
+  da.act_b = b;
+  da.B = B; da.H = H; da.W = W; da.C = N; da.N = C;
+  da.silu = silu;
+  err = launch_conv<MODE_CONV3, EPI_BWD_ACT>(da, dab, T, stream);
+  if (err) return err;
+
+  WgradArgs wg{};
+  wg.x = static_cast<const bf16*>(x);
+  wg.a = a;
+  wg.b = b;
+  wg.dye = static_cast<const bf16*>(dye);
+  wg.partial = dw_partial;
+  wg.B = B; wg.H = H; wg.W = W; wg.C = C; wg.N = N; wg.S = S_w;
+  wg.silu = silu;
+  err = launch_wgrad<WG_CONV3>(wg, dw, stream);
+  if (err) return err;
+
+  if (skip_mode == SKIP_PROJ) {
+    ConvArgs ds{};                      // dskip = dye @ ws^T
+    ds.x = static_cast<const bf16*>(dye);
+    ds.w = static_cast<const bf16*>(wst);
+    ds.y = static_cast<bf16*>(dskip);
+    ds.B = B; ds.H = H; ds.W = W; ds.C = N; ds.N = Cs;
+    err = launch_conv<MODE_CONV1, EPI_FWD>(ds, nullptr, 0, stream);
+    if (err) return err;
+    WgradArgs ws{};                     // dws = skip^T @ dye
+    ws.x = static_cast<const bf16*>(skip);
+    ws.dye = static_cast<const bf16*>(dye);
+    ws.partial = dws_partial;
+    ws.B = B; ws.H = H; ws.W = W; ws.C = Cs; ws.N = N; ws.S = S_w;
+    err = launch_wgrad<WG_CONV1>(ws, dws, stream);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// K7. x (B, H, W, C); y, gy, dye (B, 2H, 2W, N); wb (4, 4, N, C) the doubly
+// folded transposed weights; dwf (2, 2, 2, 2C, N) the folded weights' gradient.
+int ragb_subpixel_upsample_conv3x3_stats_bwd(
+    const void* x, const void* wb, const void* y, const void* gy, const float* gstats,
+    void* dye, void* dx, float* dwf, float* dbias, float* dbias_partial, float* dwf_partial,
+    int S_dye, int S_w, int B, int H, int W, int C, int N, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  int err = launch_dye(static_cast<const bf16*>(gy), static_cast<const bf16*>(y), gstats,
+                       static_cast<bf16*>(dye), dbias_partial, dbias, B, 4 * H * W, N, S_dye,
+                       stream);
+  if (err) return err;
+
+  ConvArgs dxa{};                       // dx = stride-2 conv4x4(dye, wb)
+  dxa.x = static_cast<const bf16*>(dye);
+  dxa.w = static_cast<const bf16*>(wb);
+  dxa.y = static_cast<bf16*>(dx);
+  dxa.B = B; dxa.H = H; dxa.W = W; dxa.C = N; dxa.N = C;
+  err = launch_conv<MODE_DOWN4, EPI_FWD>(dxa, nullptr, 0, stream);
+  if (err) return err;
+
+  WgradArgs wg{};
+  wg.x = static_cast<const bf16*>(x);
+  wg.dye = static_cast<const bf16*>(dye);
+  wg.partial = dwf_partial;
+  wg.B = B; wg.H = H; wg.W = W; wg.C = C; wg.N = N; wg.S = S_w;
+  return launch_wgrad<WG_SUBPIXEL>(wg, dwf, stream);
+}
+
+}  // extern "C"

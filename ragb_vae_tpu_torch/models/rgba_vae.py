@@ -1,10 +1,15 @@
-"""RgbaVAE: the RGBA-widened AutoencoderKL, inference side.
+"""RgbaVAE: the RGBA-widened AutoencoderKL.
 
 Counterpart of `ragb_vae_tpu/models/rgba_vae.py` (encode, decode, forward,
-reconstruct, the fused switch and `from_pretrained_rgb`; the loss, tiling
-and slicing are not ported yet). Where the JAX class passes parameters
-explicitly, this one owns an `AutoencoderKL` module (`.module`) whose state
-dict carries the diffusers keys.
+reconstruct, the fused switch, `remat` and `from_pretrained_rgb`; the inline
+loss, tiling and slicing are not ported yet: training uses
+`models/losses.py`, as the JAX training loop does). Where the JAX class
+passes parameters explicitly, this one owns an `AutoencoderKL` module
+(`.module`) whose state dict carries the diffusers keys.
+
+`dtype` is the parameters' dtype and `compute_dtype` (default: the same)
+the dtype of activations and kernel operands: serving holds bf16
+parameters, training fp32 parameters with bf16 compute.
 """
 from __future__ import annotations
 
@@ -30,13 +35,18 @@ class RgbaVAE:
         config: AutoencoderConfig,
         *,
         dtype: torch.dtype = torch.float32,
+        compute_dtype: Optional[torch.dtype] = None,
         fused: bool = False,
+        remat: Union[bool, str] = "none",
         device: Union[str, torch.device, None] = None,
     ):
         self.config = config
         self.dtype = dtype
+        self.compute_dtype = compute_dtype or dtype
         self.fused = fused
-        self.module = AutoencoderKL(config, fused=fused, device=device, dtype=dtype)
+        self.remat = remat
+        self.module = AutoencoderKL(config, fused=fused, device=device, dtype=dtype,
+                                    compute_dtype=compute_dtype, remat=remat)
 
     # diffusers-API-parity toggles
     def enable_fused(self) -> None:
@@ -48,6 +58,12 @@ class RgbaVAE:
     def disable_fused(self) -> None:
         self.fused = False
         self.module.set_fused(False)
+
+    def set_compute_dtype(self, compute_dtype: Optional[torch.dtype]) -> None:
+        """Run activations and kernel operands in `compute_dtype` from now on
+        (None: the parameters' dtype); the parameters do not change."""
+        self.compute_dtype = compute_dtype or self.dtype
+        self.module.set_compute_dtype(compute_dtype)
 
     @classmethod
     def from_pretrained_rgb(
@@ -73,11 +89,11 @@ class RgbaVAE:
 
     def encode(self, x_vae_range: Tensor) -> DiagonalGaussian:
         """Raw encode of [-1, 1] NHWC inputs -> posterior."""
-        return self.module.encode(x_vae_range.to(self.dtype))
+        return self.module.encode(x_vae_range.to(self.compute_dtype))
 
     def decode(self, z: Tensor) -> Tensor:
         """Raw decode -> [-1, 1] NHWC output."""
-        return self.module.decode(z.to(self.dtype))
+        return self.module.decode(z.to(self.compute_dtype))
 
     def forward(
         self,
@@ -88,12 +104,12 @@ class RgbaVAE:
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[Tensor, DiagonalGaussian]:
         """[0,1] RGBA/RGB in -> ([0,1] clamped RGBA reconstruction, posterior)."""
-        vae_input = to_vae_range(ensure_alpha(x)).to(self.dtype)
+        vae_input = to_vae_range(ensure_alpha(x)).to(self.compute_dtype)
         posterior = self.encode(vae_input)
         if sample:
-            z = posterior.sample(eps, generator=generator, dtype=self.dtype)
+            z = posterior.sample(eps, generator=generator, dtype=self.compute_dtype)
         else:
-            z = posterior.mode().to(self.dtype)
+            z = posterior.mode().to(self.compute_dtype)
         recon = self.decode(z)
         return torch.clamp(from_vae_range(recon.float()), 0.0, 1.0), posterior
 

@@ -12,14 +12,23 @@ ResnetBlock runs as two launches of the whole-block kernel
 its output to the next block, exactly as the JAX package threads them:
 blocks chain the statistics, attention breaks the chain, the fused Upsample
 re-seeds it, and `conv_norm_out` is seeded from it.
+
+Parameters and compute may have different dtypes: training keeps fp32
+parameters for the optimizer and runs activations and kernel operands in
+`compute_dtype` (bf16 on the card), as the JAX package's modules do with
+their `dtype`. `remat` checkpoints resnet blocks ("all": every block of the
+down / up stacks, "half": the even-indexed ones, "none") with
+`torch.utils.checkpoint`, which runs their forward kernels once more inside
+the backward.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
 from ragb_vae_tpu_torch.ops.gaussian import DiagonalGaussian
@@ -46,18 +55,21 @@ class _KernelWeights(nn.Module):
     folded, fp32 biases) across calls instead of remaking them per launch.
 
     A copy is remade when its source tensor is written in place (its version
-    counter moves), and all copies are dropped when the module is moved or
-    cast (`_apply`) or loads a state dict. While autograd records a parameter
-    that requires grad nothing is kept, so gradients still reach it."""
+    counter moves, as an optimizer step moves it), and all copies are dropped
+    when the module is moved or cast (`_apply`) or loads a state dict. While
+    autograd records a parameter that requires grad nothing is kept and the
+    parameter's own dtype is passed on, so the kernel's fp32 weight cotangent
+    reaches an fp32 parameter unrounded; a kept copy is in `dtype`."""
 
-    def _derived(self, name: str, src: Tensor, make: Callable[[Tensor], Tensor]) -> Tensor:
+    def _derived(self, name: str, src: Tensor, make: Callable[[Tensor], Tensor],
+                 dtype: Optional[torch.dtype] = None) -> Tensor:
         if torch.is_grad_enabled() and src.requires_grad:
             return make(src)
-        key = (src.data_ptr(), -1 if src.is_inference() else src._version)
+        key = (src.data_ptr(), -1 if src.is_inference() else src._version, dtype)
         cache = self.__dict__.setdefault("_derived_cache", {})
         hit = cache.get(name)
         if hit is None or hit[0] != key:
-            hit = cache[name] = (key, make(src.detach()))
+            hit = cache[name] = (key, make(src.detach().to(dtype or src.dtype)))
         return hit[1]
 
     def _apply(self, fn, *args, **kwargs):
@@ -69,10 +81,24 @@ class _KernelWeights(nn.Module):
         return super()._load_from_state_dict(*args, **kwargs)
 
 
+def compute_dtype_of(module: nn.Module, weight: Tensor) -> torch.dtype:
+    """The dtype a module computes in: its `compute_dtype` when one was set
+    (`AutoencoderKL.set_compute_dtype`), else its parameters' dtype."""
+    return getattr(module, "compute_dtype", None) or weight.dtype
+
+
 def conv_nhwc(conv: nn.Conv2d, x: Tensor) -> Tensor:
-    """Apply an nn.Conv2d to an NHWC tensor in the conv's dtype; NHWC out."""
-    y = conv(x.to(conv.weight.dtype).permute(0, 3, 1, 2))
+    """Apply an nn.Conv2d to an NHWC tensor in the conv's compute dtype; NHWC out."""
+    dtype = compute_dtype_of(conv, conv.weight)
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype),
+                 None if conv.bias is None else conv.bias.to(dtype), conv.stride, conv.padding)
     return y.permute(0, 2, 3, 1)
+
+
+def linear_cd(linear: nn.Linear, x: Tensor) -> Tensor:
+    """Apply an nn.Linear in its compute dtype."""
+    dtype = compute_dtype_of(linear, linear.weight)
+    return F.linear(x.to(dtype), linear.weight.to(dtype), linear.bias.to(dtype))
 
 
 def _apply_coeffs(x: Tensor, a: Tensor, b: Tensor, dtype: torch.dtype) -> Tensor:
@@ -95,7 +121,7 @@ class FastGroupNorm(nn.GroupNorm):
         if stats is None:
             stats = tensor_stats(x)
         a, b = stats_to_coeffs(stats, self.weight, self.bias, self.num_groups, h * w, self.eps)
-        return _apply_coeffs(x, a, b, self.weight.dtype)
+        return _apply_coeffs(x, a, b, compute_dtype_of(self, self.weight))
 
 
 class ResnetBlock(_KernelWeights):
@@ -114,23 +140,23 @@ class ResnetBlock(_KernelWeights):
             nn.Conv2d(in_channels, out_channels, 1, **kw) if in_channels != out_channels else None
         )
 
-    def _kernel_conv(self, name: str, conv: nn.Conv2d, layout) -> dict:
+    def _kernel_conv(self, name: str, conv: nn.Conv2d, layout, dtype: torch.dtype) -> dict:
         """{kernel: conv's weight in the kernel's layout, bias: fp32}, kept across calls."""
-        return {"kernel": self._derived(name, conv.weight, layout),
+        return {"kernel": self._derived(name, conv.weight, layout, dtype),
                 "bias": self._derived(name + ".bias", conv.bias, lambda b: b.float())}
 
     def forward(self, x: Tensor, stats: Stats = None) -> Tuple[Tensor, Stats]:
-        dtype = self.conv1.weight.dtype
+        dtype = compute_dtype_of(self, self.conv1.weight)
         if self.fused:
             p = {
                 "norm1": {"scale": self.norm1.weight, "bias": self.norm1.bias},
-                "conv1": self._kernel_conv("conv1", self.conv1, lambda w: _hwio(w).contiguous()),
+                "conv1": self._kernel_conv("conv1", self.conv1, lambda w: _hwio(w).contiguous(), dtype),
                 "norm2": {"scale": self.norm2.weight, "bias": self.norm2.bias},
-                "conv2": self._kernel_conv("conv2", self.conv2, lambda w: _hwio(w).contiguous()),
+                "conv2": self._kernel_conv("conv2", self.conv2, lambda w: _hwio(w).contiguous(), dtype),
             }
             if self.conv_shortcut is not None:
                 p["conv_shortcut"] = self._kernel_conv(
-                    "conv_shortcut", self.conv_shortcut, lambda w: w[:, :, 0, 0].t().contiguous())
+                    "conv_shortcut", self.conv_shortcut, lambda w: w[:, :, 0, 0].t().contiguous(), dtype)
             return fused_resnet_block(x.to(dtype), p, num_groups=self.num_groups, stats=stats)
         h = F.silu(self.norm1(x)).to(dtype)
         h = conv_nhwc(self.conv1, h)
@@ -150,8 +176,7 @@ class Downsample(nn.Module):
         self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0, **kw)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Stats]:
-        x = F.pad(x.to(self.conv.weight.dtype).permute(0, 3, 1, 2), (0, 1, 0, 1))
-        return self.conv(x).permute(0, 2, 3, 1), None
+        return conv_nhwc(self.conv, F.pad(x, (0, 0, 0, 1, 0, 1))), None
 
 
 class Upsample(_KernelWeights):
@@ -165,14 +190,19 @@ class Upsample(_KernelWeights):
         self.conv = nn.Conv2d(channels, channels, 3, padding=1, **kw)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Stats]:
-        x = x.to(self.conv.weight.dtype)
+        dtype = compute_dtype_of(self, self.conv.weight)
+        x = x.to(dtype)
         if self.fused:
-            # the kernel takes the sub-pixel weights folded in fp32 and rounded once
+            # the kernel takes the sub-pixel weights folded in fp32 and rounded
+            # once; the fold is kept across calls unless a gradient is recorded
+            # (the backward kernel differentiates with respect to the weights
+            # themselves, so the forward folds them anew)
+            weight = self.conv.weight
             w_fold = None
-            if x.is_cuda:
-                w_fold = self._derived("w_fold", self.conv.weight, lambda w: fold_subpixel_weights(
-                    _hwio(w).float()).to(w.dtype).contiguous())
-            return fused_upsample_conv3x3_stats(x, _hwio(self.conv.weight), self.conv.bias, w_fold=w_fold)
+            if x.is_cuda and not (torch.is_grad_enabled() and weight.requires_grad):
+                w_fold = self._derived("w_fold", weight, lambda w: fold_subpixel_weights(
+                    _hwio(w).float()).to(w.dtype).contiguous(), dtype)
+            return fused_upsample_conv3x3_stats(x, _hwio(weight), self.conv.bias, w_fold=w_fold)
         up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return conv_nhwc(self.conv, up), None
 
@@ -192,9 +222,9 @@ class SpatialAttention(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         b, h, w, c = x.shape
         y = self.group_norm(x).reshape(b, h * w, c)
-        q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
+        q, k, v = linear_cd(self.to_q, y), linear_cd(self.to_k, y), linear_cd(self.to_v, y)
         out = attention(q[:, None], k[:, None], v[:, None])[:, 0]
-        return x + self.to_out[0](out).reshape(b, h, w, c)
+        return x + linear_cd(self.to_out[0], out).reshape(b, h, w, c)
 
 
 class MidBlock(nn.Module):
@@ -214,6 +244,21 @@ class MidBlock(nn.Module):
             x = self.attentions[0](x)
             stats = None
         return self.resnets[1](x, stats)
+
+
+def _remat_block(remat: Union[bool, str], idx: int) -> bool:
+    """Whether resnet block `idx` of a down / up stack is checkpointed:
+    True / "all" every block, "half" the even-indexed ones (half the
+    recompute for about half the activation saving), False / "none" none."""
+    if remat not in (True, False, "all", "half", "none"):
+        raise ValueError(f"remat must be 'all', 'half' or 'none', got {remat!r}")
+    return remat in (True, "all") or (remat == "half" and idx % 2 == 0)
+
+
+def _run_block(resnet: nn.Module, x: Tensor, stats: Stats, remat: bool) -> Tuple[Tensor, Stats]:
+    if remat and torch.is_grad_enabled():
+        return checkpoint(resnet, x, stats, use_reentrant=False)
+    return resnet(x, stats)
 
 
 class _DownBlock(nn.Module):
@@ -237,10 +282,12 @@ class _UpBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, config: AutoencoderConfig, fused: bool = False, **kw):
+    def __init__(self, config: AutoencoderConfig, fused: bool = False,
+                 remat: Union[bool, str] = "none", **kw):
         super().__init__()
         cfg = config
         ch = cfg.block_out_channels
+        self.remat = remat
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1, **kw)
         self.down_blocks = nn.ModuleList([
             _DownBlock(ch[max(i - 1, 0)], out, cfg, i == len(ch) - 1, fused, **kw)
@@ -253,20 +300,23 @@ class Encoder(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         x = conv_nhwc(self.conv_in, x)
         stats = None  # conv_in seeds the chain fresh
+        bi = 0
         for block in self.down_blocks:
             for resnet in block.resnets:
-                x, stats = resnet(x, stats)
+                x, stats = _run_block(resnet, x, stats, _remat_block(self.remat, bi))
+                bi += 1
             for down in block.downsamplers:
                 x, stats = down(x)
         x, stats = self.mid_block(x)
-        x = F.silu(self.conv_norm_out(x, stats)).to(self.conv_out.weight.dtype)
-        return conv_nhwc(self.conv_out, x)
+        return conv_nhwc(self.conv_out, F.silu(self.conv_norm_out(x, stats)))
 
 
 class Decoder(nn.Module):
-    def __init__(self, config: AutoencoderConfig, fused: bool = False, **kw):
+    def __init__(self, config: AutoencoderConfig, fused: bool = False,
+                 remat: Union[bool, str] = "none", **kw):
         super().__init__()
         cfg = config
+        self.remat = remat
         rev = tuple(reversed(cfg.block_out_channels))
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1, **kw)
         self.mid_block = MidBlock(rev[0], cfg.norm_num_groups, cfg.mid_block_add_attention, fused, **kw)
@@ -280,28 +330,40 @@ class Decoder(nn.Module):
     def forward(self, z: Tensor) -> Tensor:
         z = conv_nhwc(self.conv_in, z)
         z, stats = self.mid_block(z)
+        bi = 0
         for block in self.up_blocks:
             for resnet in block.resnets:
-                z, stats = resnet(z, stats)
+                z, stats = _run_block(resnet, z, stats, _remat_block(self.remat, bi))
+                bi += 1
             for up in block.upsamplers:
                 # the fused Upsample re-seeds the chain from its epilogue
                 z, stats = up(z)
-        z = F.silu(self.conv_norm_out(z, stats)).to(self.conv_out.weight.dtype)
-        return conv_nhwc(self.conv_out, z)
+        return conv_nhwc(self.conv_out, F.silu(self.conv_norm_out(z, stats)))
 
 
 class AutoencoderKL(nn.Module):
     """KL autoencoder with a Gaussian posterior. NHWC in/out, values in [-1, 1]."""
 
-    def __init__(self, config: AutoencoderConfig, *, fused: bool = False, device=None, dtype=None):
+    def __init__(self, config: AutoencoderConfig, *, fused: bool = False, device=None, dtype=None,
+                 compute_dtype: Optional[torch.dtype] = None, remat: Union[bool, str] = "none"):
         super().__init__()
+        _remat_block(remat, 0)  # validates the value
         kw = {"device": device, "dtype": dtype}
         self.config = config
-        self.encoder = Encoder(config, fused, **kw)
-        self.decoder = Decoder(config, fused, **kw)
+        self.encoder = Encoder(config, fused, remat, **kw)
+        self.decoder = Decoder(config, fused, remat, **kw)
         lat = config.latent_channels
         self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1, **kw) if config.use_quant_conv else None
         self.post_quant_conv = nn.Conv2d(lat, lat, 1, **kw) if config.use_post_quant_conv else None
+        self.set_compute_dtype(compute_dtype)
+
+    def set_compute_dtype(self, compute_dtype: Optional[torch.dtype]) -> None:
+        """Run every module's activations and kernel operands in
+        `compute_dtype` while the parameters keep their own dtype; None
+        computes in the parameters' dtype."""
+        for m in self.modules():
+            m.compute_dtype = compute_dtype
+            m.__dict__.pop("_derived_cache", None)
 
     def set_fused(self, fused: bool) -> None:
         """Switch every ResnetBlock and Upsample between the fused kernels

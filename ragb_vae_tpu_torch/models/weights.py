@@ -119,7 +119,9 @@ def _set_path(tree: dict, path: Tuple[str, ...], value) -> None:
 def params_from_flax(tree: dict) -> StateDict:
     """The JAX package's VAE parameter tree (nested dicts of arrays) -> the
     port's state dict (fp32 CPU tensors): conv kernels HWIO -> OIHW, dense
-    kernels (in, out) -> (out, in). Loads with `strict=True`."""
+    kernels (in, out) -> (out, in). Loads with `strict=True`; the module's
+    own dtype and device are kept, so an fp32 module (training's master
+    parameters) receives the values unrounded."""
     state: StateDict = {}
     for path, value in _iter_leaves(tree):
         arr = np.asarray(value, dtype=np.float32)
@@ -144,6 +146,17 @@ def params_to_flax(state: StateDict, *, strip_prefix: str = "vae.") -> dict:
             arr = arr.transpose(transpose)
         _set_path(tree, path, np.ascontiguousarray(arr))
     return tree
+
+
+def grads_to_flax(module: torch.nn.Module) -> dict:
+    """The gradients a backward left in `module`'s parameters, as the JAX
+    package's tree of fp32 numpy arrays (kernels transposed like the
+    parameters themselves), so a test compares gradient trees leaf by leaf.
+    Raises on a parameter without a gradient."""
+    missing = [name for name, p in module.named_parameters() if p.grad is None]
+    if missing:
+        raise ValueError(f"parameters without a gradient: {missing}")
+    return params_to_flax({name: p.grad for name, p in module.named_parameters()}, strip_prefix="")
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ explicitly, so callers decide where the noise comes from (a
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +33,10 @@ class DiagonalGaussian(NamedTuple):
     def std(self) -> Tensor:
         return torch.exp(0.5 * self.logvar)
 
+    @property
+    def var(self) -> Tensor:
+        return torch.exp(self.logvar)
+
     def mode(self) -> Tensor:
         return self.mean
 
@@ -50,3 +55,37 @@ class DiagonalGaussian(NamedTuple):
                 self.mean.shape, generator=generator, device=self.mean.device, dtype=torch.float32
             )
         return self.mean.to(dtype) + self.std.to(dtype) * eps.to(dtype)
+
+    def kl(self, other: Optional["DiagonalGaussian"] = None) -> Tensor:
+        """KL divergence summed over all non-batch axes -> (B,), in fp32:
+        against the standard normal, or against `other` (two-Gaussian form)."""
+        mean, logvar = self.mean.float(), self.logvar.float()
+        var = torch.exp(logvar)
+        axes = tuple(range(1, mean.ndim))
+        if other is None:
+            return 0.5 * torch.sum(mean**2 + var - 1.0 - logvar, dim=axes)
+        o_mean, o_logvar = other.mean.float(), other.logvar.float()
+        o_var = torch.exp(o_logvar)
+        return 0.5 * torch.sum(
+            (mean - o_mean) ** 2 / o_var + var / o_var - 1.0 - logvar + o_logvar, dim=axes
+        )
+
+    def nll(self, sample: Tensor) -> Tensor:
+        """Negative log-likelihood of `sample` per batch element -> (B,), fp32."""
+        mean, logvar = self.mean.float(), self.logvar.float()
+        axes = tuple(range(1, mean.ndim))
+        return 0.5 * torch.sum(
+            math.log(2.0 * math.pi) + logvar + (sample.float() - mean) ** 2 / torch.exp(logvar),
+            dim=axes,
+        )
+
+
+def split_batch(dist: DiagonalGaussian, parts: int) -> Tuple[DiagonalGaussian, ...]:
+    """Split a posterior along the batch axis into `parts` equal chunks."""
+    if dist.mean.shape[0] % parts != 0:
+        raise ValueError(
+            f"Posterior batch dimension {dist.mean.shape[0]} must be divisible by {parts}."
+        )
+    means = torch.chunk(dist.mean, parts, dim=0)
+    logvars = torch.chunk(dist.logvar, parts, dim=0)
+    return tuple(DiagonalGaussian(m, lv) for m, lv in zip(means, logvars))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`ragb_vae_tpu_torch/csrc/*.cu`).
 
-The sources compile with `nvcc` for Hopper (`sm_90a`) into ONE shared
-library with a plain C interface, loaded with `ctypes`. Nothing here runs at
+The sources compile with `nvcc` for Hopper (`sm_90a`), one `nvcc` per `.cu`
+file and all of them at once, and link into ONE shared library with a plain
+C interface, loaded with `ctypes`. Nothing here runs at
 import time: `library()` builds on its first call, so the package imports on
 a machine with no CUDA toolkit, and only the first kernel launch needs one.
 
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "ragb_resnet_conv3x3_stats": [_P] * 11 + [_I] * 9 + [_P],
     "ragb_subpixel_upsample_conv3x3_stats": [_P] * 6 + [_I] * 6 + [_P],
     "ragb_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "ragb_resnet_conv3x3_stats_bwd": [_P] * 20 + [_I] * 11 + [_P],
+    "ragb_subpixel_upsample_conv3x3_stats_bwd": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -80,16 +83,29 @@ def build() -> Path:
         return target
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cu_files = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu_files]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = str(Path(objdir) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
     os.replace(tmp, target)
     return target
 

@@ -1,11 +1,19 @@
-"""Flash attention (online softmax), forward.
+"""Flash attention (online softmax): the forward kernel and its gradient.
 
-Counterpart of `ragb_vae_tpu/ops/pallas/flash_attention.py` (forward only).
-The FLUX blocks (24 heads x 128) and the VAE mid-block (1 head x 512) both
-route through `attention`. A CPU tensor takes the plain PyTorch version
-`attention_plain` (exact, query-chunked so no S x S matrix is held at once);
-a CUDA tensor launches the hand-written kernel in `csrc/flash_attention.cu`
-or raises.
+Counterpart of `ragb_vae_tpu/ops/pallas/flash_attention.py`. The FLUX blocks
+(24 heads x 128) and the VAE mid-block (1 head x 512) both route through
+`attention`, a `torch.autograd.Function` on every device. Forward: a CPU
+tensor takes the plain PyTorch version `attention_plain` (exact,
+query-chunked so no S x S matrix is held at once); a CUDA tensor launches
+the hand-written kernel in `csrc/flash_attention.cu` or raises.
+
+Backward, routed by head dim as in the JAX package (`_uses_fused_bwd`): for
+d >= 384 (the VAE mid-block) a query-chunked recompute in plain PyTorch that
+saves only q, k, v and keeps one chunk's logits alive at a time; these
+products sit outside any kernel in the JAX package too. For d < 384 the JAX
+package runs its dQ and dK/dV kernels, which are not ported yet: on CUDA
+such a call raises when a gradient is required instead of returning a
+tensor cut off from the graph.
 """
 from __future__ import annotations
 
@@ -77,18 +85,79 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float) ->
     return out, lse
 
 
+# head dims below this take the (unported) fused backward kernels in the JAX package
+FUSED_BWD_MAX_HEAD_DIM = 384
+
+
+def backward_route(device_type: str, head_dim: int) -> str:
+    """Which backward a call that needs a gradient gets: "recompute" (the
+    q-chunked plain PyTorch recompute) or "unported" (the JAX package's fused
+    dQ / dK,dV kernels, K4/K5, have no counterpart yet: the call raises). The
+    CPU has no kernels, so it always recomputes."""
+    if device_type == "cuda" and head_dim < FUSED_BWD_MAX_HEAD_DIM:
+        return "unported"
+    return "recompute"
+
+
+def attention_bwd_recompute(
+    q: Tensor, k: Tensor, v: Tensor, g: Tensor, *, sm_scale: float, chunk: int = 1024
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) of `attention_plain` from q, k, v alone: each query chunk's
+    logits and softmax are recomputed and differentiated, then dropped, so
+    one (chunk, S) block is alive at a time (counterpart of the VJP of the
+    rematerialised `chunked_attention_3d`)."""
+    k_leaf = k.detach().requires_grad_(True)
+    v_leaf = v.detach().requires_grad_(True)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    dqs = []
+    for start in range(0, q.shape[1], chunk):
+        with torch.enable_grad():
+            q_blk = q[:, start : start + chunk].detach().requires_grad_(True)
+            out = attention_plain(q_blk, k_leaf, v_leaf, sm_scale=sm_scale, chunk=chunk)
+            dq_blk, dk_blk, dv_blk = torch.autograd.grad(
+                out, (q_blk, k_leaf, v_leaf), g[:, start : start + chunk].to(out.dtype))
+        dqs.append(dq_blk)
+        dk += dk_blk
+        dv += dv_blk
+    return torch.cat(dqs, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """(BH, S, D) attention; saves q, k, v only (the recompute backward needs
+    neither the output nor the log-sum-exp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        if q.is_cuda:
+            out, _ = flash_attention_cuda(q, k, v, sm_scale=sm_scale)
+        else:
+            out = attention_plain(q, k, v, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return attention_bwd_recompute(q, k, v, g, sm_scale=ctx.sm_scale) + (None,)
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: Optional[float] = None) -> Tensor:
-    """(B, H, S, D) attention: the flash kernel on CUDA, the plain version on CPU."""
+    """(B, H, S, D) attention: the flash kernel on CUDA, the plain version on
+    CPU; differentiable as `backward_route` says."""
     b, h, s, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention: unsupported device {q.device}")
+    needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if needs_grad and backward_route(q.device.type, d) == "unported":
+        raise NotImplementedError(
+            f"attention: backward not ported yet (K4/K5) for head dim {d} < "
+            f"{FUSED_BWD_MAX_HEAD_DIM} on CUDA; run under torch.no_grad() or on the CPU")
     q3 = q.reshape(b * h, s, d)
     k3 = k.reshape(b * h, k.shape[2], d)
     v3 = v.reshape(b * h, v.shape[2], d)
-    if q.device.type == "cpu":
-        out = attention_plain(q3, k3, v3, sm_scale=sm_scale)
-    elif q.is_cuda:
-        out, _ = flash_attention_cuda(q3, k3, v3, sm_scale=sm_scale)
-    else:
-        raise ValueError(f"attention: unsupported device {q.device}")
-    return out.reshape(b, h, s, d)
+    return _Attention.apply(q3, k3, v3, float(sm_scale)).reshape(b, h, s, d)

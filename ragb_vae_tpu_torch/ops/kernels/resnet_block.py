@@ -1,16 +1,20 @@
 """Whole-resnet-block kernels: GN-apply + SiLU + conv3x3 with a fused
-stats / skip epilogue, and the decoder's sub-pixel upsample conv.
+stats / skip epilogue, the decoder's sub-pixel upsample conv, and the
+backward of both.
 
-Counterpart of `ragb_vae_tpu/ops/pallas/resnet_block.py` (forward only).
-Tensors are NHWC. A ResnetBlock becomes two launches of
-`gn_silu_conv3x3_stats` with only (B, C)-sized coefficient math between
-them; each launch also returns the per-channel (sum, sum of squares) of its
-own bf16 output, so the next GroupNorm needs no statistics pass.
+Counterpart of `ragb_vae_tpu/ops/pallas/resnet_block.py`. Tensors are NHWC.
+A ResnetBlock becomes two launches of `gn_silu_conv3x3_stats` with only
+(B, C)-sized coefficient math between them; each launch also returns the
+per-channel (sum, sum of squares) of its own bf16 output, so the next
+GroupNorm needs no statistics pass. Both entry points are
+`torch.autograd.Function`s on every device: their backwards return every
+cotangent (the statistics' included) in one call.
 
 Dispatch: a CPU tensor takes the plain PyTorch version beside each kernel
-(`conv3x3_stats_plain`, `upsample_conv3x3_stats_plain`); a CUDA tensor
-launches the hand-written kernel in `csrc/resnet_block.cu` or raises. There
-is no fallback from one to the other.
+(`conv3x3_stats_plain`, `upsample_conv3x3_stats_plain` and their `_bwd_plain`
+counterparts); a CUDA tensor launches the hand-written kernels in
+`csrc/resnet_block.cu` (forward) and `csrc/resnet_block_bwd.cu` (backward) or
+raises. There is no fallback from one to the other, and no route by size.
 """
 from __future__ import annotations
 
@@ -27,12 +31,22 @@ Tensor = torch.Tensor
 # launches of each kernel since the last reset (the plain versions never count)
 CONV_LAUNCHES = 0
 UPSAMPLE_LAUNCHES = 0
+CONV_BWD_LAUNCHES = 0
+UPSAMPLE_BWD_LAUNCHES = 0
+
+# The weight gradient is a split-K GEMM: the image rows are cut into at most
+# this many slices, each with an fp32 partial that a second pass adds in order.
+MAX_WGRAD_SLICES = 32
+MAX_DYE_SLICES = 64
+_WGRAD_TARGET_BLOCKS = 4 * 132
 
 
 def reset_launch_counts() -> None:
-    global CONV_LAUNCHES, UPSAMPLE_LAUNCHES
+    global CONV_LAUNCHES, UPSAMPLE_LAUNCHES, CONV_BWD_LAUNCHES, UPSAMPLE_BWD_LAUNCHES
     CONV_LAUNCHES = 0
     UPSAMPLE_LAUNCHES = 0
+    CONV_BWD_LAUNCHES = 0
+    UPSAMPLE_BWD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -211,11 +225,181 @@ def gn_silu_conv3x3_stats(
     `skip` inside the kernel (ws: (C_skip, N)).
     """
     ws, wsb = proj if proj is not None else (None, None)
-    if x.device.type == "cpu":
-        return conv3x3_stats_plain(x, a, b, w, bias, skip, ws, wsb, activation)
-    if x.is_cuda:
-        return conv3x3_stats_cuda(x, a, b, w, bias, skip, ws, wsb, activation)
-    raise ValueError(f"gn_silu_conv3x3_stats: unsupported device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gn_silu_conv3x3_stats: unsupported device {x.device}")
+    return _ConvStats.apply(x, a, b, w, bias, skip, ws, wsb, activation)
+
+
+# ---------------------------------------------------------------------------
+# K6: every cotangent of K1
+# ---------------------------------------------------------------------------
+def conv3x3_stats_bwd_plain(
+    x: Tensor,
+    a: Tensor,
+    b: Tensor,
+    w: Tensor,
+    bias: Tensor,
+    skip: Optional[Tensor],
+    ws: Optional[Tensor],
+    wsb: Optional[Tensor],
+    y: Tensor,
+    gy: Tensor,
+    gstats: Tensor,
+    activation: str = "silu",
+) -> Tuple[Optional[Tensor], ...]:
+    """Plain version of the K6 kernel: autograd through `conv3x3_stats_plain`
+    (counterpart of the `restate + jax.vjp` route). Returns (dx, da, db, dw,
+    dbias, dskip, dws, dwsb), each in its operand's dtype, None for an absent
+    operand. `y` is recomputed, not read."""
+    operands = [x, a, b, w, bias, skip, ws, wsb]
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(True) for t in operands]
+        y2, stats2 = conv3x3_stats_plain(*leaves, activation)
+        present = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad(
+            [y2, stats2], present, [gy.to(y2.dtype), gstats.to(stats2.dtype)]))
+    return tuple(None if t is None else next(grads) for t in leaves)
+
+
+def _wgrad_slices(rows: int, c_in: int, n_out: int, groups: int) -> int:
+    """Row slices of the split-K weight gradient: enough blocks to fill the
+    card, never more than MAX_WGRAD_SLICES partials."""
+    tiles = -(-c_in // 64) * -(-n_out // 64) * groups
+    slices = max(1, min(MAX_WGRAD_SLICES, rows, -(-_WGRAD_TARGET_BLOCKS // tiles)))
+    return -(-rows // -(-rows // slices))      # no slice without a row
+
+
+def _dye_slices(pixels: int) -> int:
+    return max(1, min(MAX_DYE_SLICES, pixels // 64))
+
+
+def conv3x3_stats_bwd_cuda(
+    x: Tensor,
+    a: Tensor,
+    b: Tensor,
+    w: Tensor,
+    bias: Tensor,
+    skip: Optional[Tensor],
+    ws: Optional[Tensor],
+    wsb: Optional[Tensor],
+    y: Tensor,
+    gy: Tensor,
+    gstats: Tensor,
+    activation: str = "silu",
+) -> Tuple[Optional[Tensor], ...]:
+    """Launch the K6 kernels (`ragb_resnet_conv3x3_stats_bwd`): (dx, da, db,
+    dw, dbias, dskip, dws, dwsb); dx and dskip bf16, the rest fp32 (the
+    accumulators as they are), None for an absent operand."""
+    global CONV_BWD_LAUNCHES
+    name = "resnet_conv3x3_stats_bwd"
+    if activation not in ("silu", "identity"):
+        raise ValueError(f"{name}: unknown activation {activation!r}")
+    if x.ndim != 4 or w.shape[:3] != (3, 3, x.shape[3]):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} do not match")
+    bsz, height, width, c_in = x.shape
+    n_out = w.shape[3]
+    dev = x.device
+    x = x.contiguous()
+    y = y.contiguous()
+    gy = gy.to(x.dtype).contiguous()
+    gstats = gstats.float().contiguous()
+    a = a.float().contiguous()
+    b = b.float().contiguous()
+    # the data gradient is a conv3x3 of dye with the taps flipped and (C, N) transposed
+    wt = w.to(x.dtype).flip(0, 1).permute(0, 1, 3, 2).contiguous()
+    skip_mode, c_skip, wst = 0, 0, None
+    if skip is not None:
+        skip = skip.contiguous()
+        if ws is not None:
+            skip_mode, c_skip = 2, skip.shape[3]
+            wst = ws.to(x.dtype).t().contiguous()
+            if ws.shape != (c_skip, n_out) or skip.shape[:3] != x.shape[:3]:
+                raise ValueError(f"{name}: projection shapes do not match")
+        else:
+            skip_mode = 1
+            if skip.shape != (bsz, height, width, n_out):
+                raise ValueError(f"{name}: skip {tuple(skip.shape)} must be {(bsz, height, width, n_out)}")
+    _check_cuda(name, x=x, a=a, b=b, wt=wt, skip=skip, wst=wst, y=y, gy=gy, gstats=gstats)
+    _check_dtype(name, torch.bfloat16, x=x, wt=wt, skip=skip, wst=wst, y=y, gy=gy)
+    out_shape = (bsz, height, width, n_out)
+    if y.shape != out_shape or gy.shape != out_shape or gstats.shape != (bsz, 2, n_out):
+        raise ValueError(f"{name}: y, gy must be {out_shape} and gstats {(bsz, 2, n_out)}")
+    if a.shape != (bsz, c_in) or b.shape != (bsz, c_in):
+        raise ValueError(f"{name}: coefficient shapes do not match")
+    if c_in % 8 or n_out % 8 or c_skip % 8:
+        raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out} Cs={c_skip}")
+    th, tw = _tile_shape()
+    tiles = -(-height // th) * -(-width // tw)
+    s_dye = _dye_slices(height * width)
+    s_w = _wgrad_slices(bsz * height, min(c_in, c_skip or c_in), n_out, 3)
+    f32 = {"dtype": torch.float32, "device": dev}
+    dye = torch.empty(out_shape, dtype=x.dtype, device=dev)   # dskip itself under an identity skip
+    dx = torch.empty_like(x)
+    dab = torch.empty((bsz, 2, c_in), **f32)
+    dw = torch.empty((3, 3, c_in, n_out), **f32)
+    dbias = torch.empty((n_out,), **f32)
+    dskip = dws = dws_partial = None
+    if skip_mode == 1:
+        dskip = dye
+    elif skip_mode == 2:
+        dskip = torch.empty_like(skip)
+        dws = torch.empty((c_skip, n_out), **f32)
+        dws_partial = torch.empty((s_w, c_skip, n_out), **f32)
+    dbias_partial = torch.empty((bsz * s_dye, n_out), **f32)
+    dab_partial = torch.empty((bsz, tiles, 2, c_in), **f32)
+    dw_partial = torch.empty((s_w, 3, 3, c_in, n_out), **f32)
+    err = _build.library().ragb_resnet_conv3x3_stats_bwd(
+        _ptr(x), _ptr(a), _ptr(b), _ptr(wt), _ptr(skip), _ptr(wst), _ptr(y), _ptr(gy), _ptr(gstats),
+        _ptr(dye), _ptr(dx), _ptr(dab), _ptr(dw), _ptr(dbias), _ptr(dskip), _ptr(dws),
+        _ptr(dbias_partial), _ptr(dab_partial), _ptr(dw_partial), _ptr(dws_partial),
+        tiles, s_dye, s_w, bsz, height, width, c_in, n_out, c_skip,
+        1 if activation == "silu" else 0, skip_mode,
+        ctypes.c_void_p(_build.stream_ptr(dev)),
+    )
+    _build.check(err, name)
+    CONV_BWD_LAUNCHES += 1
+    # the projection's bias cotangent is the same sum of dye as dbias
+    dwsb = dbias.clone() if skip_mode == 2 else None
+    return dx, dab[:, 0], dab[:, 1], dw, dbias, dskip, dws, dwsb
+
+
+def _to_dtypes(grads, dtypes):
+    """Each cotangent in its operand's dtype; None where there is no operand."""
+    return tuple(None if g is None or d is None else g.to(d) for g, d in zip(grads, dtypes))
+
+
+class _ConvStats(torch.autograd.Function):
+    """K1 forward with K6 as its backward. Saves the operands (on CUDA the
+    weights in the compute dtype the kernel read them in) and its own output
+    y, nothing else: the backward recomputes the activation from x. Weight
+    cotangents return in the dtype the weights came in, so an fp32 parameter
+    receives the fp32 accumulator unrounded."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w, bias, skip, ws, wsb, activation):
+        ctx.dtypes = tuple(None if t is None else t.dtype for t in (x, a, b, w, bias, skip, ws, wsb))
+        if x.is_cuda:
+            w = w.to(x.dtype)
+            ws = None if ws is None else ws.to(x.dtype)
+            y, stats = conv3x3_stats_cuda(x, a, b, w, bias, skip, ws, wsb, activation)
+        else:
+            y, stats = conv3x3_stats_plain(x, a, b, w, bias, skip, ws, wsb, activation)
+        ctx.save_for_backward(x, a, b, w, bias, skip, ws, wsb, y)
+        ctx.activation = activation
+        ctx.set_materialize_grads(False)
+        return y, stats
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy, gstats):
+        x, a, b, w, bias, skip, ws, wsb, y = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(y)
+        if gstats is None:
+            gstats = torch.zeros((y.shape[0], 2, y.shape[3]), dtype=torch.float32, device=y.device)
+        bwd = conv3x3_stats_bwd_cuda if x.is_cuda else conv3x3_stats_bwd_plain
+        grads = bwd(x, a, b, w, bias, skip, ws, wsb, y, gy, gstats, ctx.activation)
+        return _to_dtypes(grads, ctx.dtypes) + (None,)
 
 
 # ---------------------------------------------------------------------------
@@ -302,11 +486,123 @@ def fused_upsample_conv3x3_stats(
     """Nearest-2x upsample + conv3x3 (w: (3, 3, C, N) HWIO) + bias, with the
     stats epilogue. On CUDA the kernel reads only the small tensor, through
     the folded weights (`w_fold`, made from `w` when not given)."""
-    if x.device.type == "cpu":
-        return upsample_conv3x3_stats_plain(x, w, bias)
-    if x.is_cuda:
-        return upsample_conv3x3_stats_cuda(x, w, bias, w_fold=w_fold)
-    raise ValueError(f"fused_upsample_conv3x3_stats: unsupported device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_upsample_conv3x3_stats: unsupported device {x.device}")
+    return _UpsampleConvStats.apply(x, w, bias, w_fold)
+
+
+# ---------------------------------------------------------------------------
+# K7: every cotangent of K2
+# ---------------------------------------------------------------------------
+def fold_subpixel_bwd_weights(w: Tensor) -> Tensor:
+    """(3, 3, C, N) -> (4, 4, N, C): the doubly folded, transposed weights of
+    the backward's stride-2 conv4x4. Row tap r reads dye row 2i - 1 + r and
+    sums the forward's (parity, tap) pairs that reach it: [W2, W1+W2, W0+W1,
+    W0]; columns fold the same way."""
+    rows = [w[2], w[1] + w[2], w[0] + w[1], w[0]]          # (3, C, N) each
+    out = []
+    for r in rows:
+        cols = [r[2], r[1] + r[2], r[0] + r[1], r[0]]      # (C, N) each
+        out.append(torch.stack([c.t() for c in cols], dim=0))
+    return torch.stack(out, dim=0)
+
+
+def unfold_subpixel_weight_grad(dw_fold: Tensor) -> Tensor:
+    """Adjoint of `fold_subpixel_weights`: the gradient of the folded weights
+    (2, 2, 2, 2C, N) -> the gradient of the conv3x3 weights (3, 3, C, N)."""
+    c_in, n_out = dw_fold.shape[3] // 2, dw_fold.shape[4]
+    with torch.enable_grad():
+        w = torch.zeros((3, 3, c_in, n_out), dtype=dw_fold.dtype, device=dw_fold.device,
+                        requires_grad=True)
+        (dw,) = torch.autograd.grad(fold_subpixel_weights(w), w, dw_fold)
+    return dw
+
+
+def upsample_conv3x3_stats_bwd_plain(
+    x: Tensor, w: Tensor, bias: Tensor, y: Tensor, gy: Tensor, gstats: Tensor
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of the K7 kernel: autograd through the literal
+    nearest-2x + conv3x3 -> (dx, dw, dbias). `y` is recomputed, not read."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, w, bias)]
+        y2, stats2 = upsample_conv3x3_stats_plain(*leaves)
+        grads = torch.autograd.grad(
+            [y2, stats2], leaves, [gy.to(y2.dtype), gstats.to(stats2.dtype)])
+    return tuple(grads)
+
+
+def upsample_conv3x3_stats_bwd_cuda(
+    x: Tensor, w: Tensor, bias: Tensor, y: Tensor, gy: Tensor, gstats: Tensor
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Launch the K7 kernels (`ragb_subpixel_upsample_conv3x3_stats_bwd`):
+    (dx bf16, dw fp32, dbias fp32). The kernel returns the gradient of the
+    FOLDED weights; its adjoint fold to (3, 3, C, N) is fp32 glue here."""
+    global UPSAMPLE_BWD_LAUNCHES
+    name = "subpixel_upsample_conv3x3_stats_bwd"
+    if x.ndim != 4 or w.shape[:3] != (3, 3, x.shape[3]):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} do not match")
+    bsz, height, width, c_in = x.shape
+    n_out = w.shape[3]
+    dev = x.device
+    x = x.contiguous()
+    y = y.contiguous()
+    gy = gy.to(x.dtype).contiguous()
+    gstats = gstats.float().contiguous()
+    # folded in fp32 from the weights the forward used, rounded once
+    wb = fold_subpixel_bwd_weights(w.to(x.dtype).float()).to(x.dtype).contiguous()
+    _check_cuda(name, x=x, wb=wb, y=y, gy=gy, gstats=gstats)
+    _check_dtype(name, torch.bfloat16, x=x, wb=wb, y=y, gy=gy)
+    out_shape = (bsz, 2 * height, 2 * width, n_out)
+    if y.shape != out_shape or gy.shape != out_shape or gstats.shape != (bsz, 2, n_out):
+        raise ValueError(f"{name}: y, gy must be {out_shape} and gstats {(bsz, 2, n_out)}")
+    if c_in % 8 or n_out % 8:
+        raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out}")
+    s_dye = _dye_slices(4 * height * width)
+    s_w = _wgrad_slices(bsz * height, c_in, n_out, 8)
+    f32 = {"dtype": torch.float32, "device": dev}
+    dye = torch.empty(out_shape, dtype=x.dtype, device=dev)
+    dx = torch.empty_like(x)
+    dw_fold = torch.empty((2, 2, 2, 2 * c_in, n_out), **f32)
+    dbias = torch.empty((n_out,), **f32)
+    dbias_partial = torch.empty((bsz * s_dye, n_out), **f32)
+    dw_partial = torch.empty((s_w,) + tuple(dw_fold.shape), **f32)
+    err = _build.library().ragb_subpixel_upsample_conv3x3_stats_bwd(
+        _ptr(x), _ptr(wb), _ptr(y), _ptr(gy), _ptr(gstats),
+        _ptr(dye), _ptr(dx), _ptr(dw_fold), _ptr(dbias), _ptr(dbias_partial), _ptr(dw_partial),
+        s_dye, s_w, bsz, height, width, c_in, n_out,
+        ctypes.c_void_p(_build.stream_ptr(dev)),
+    )
+    _build.check(err, name)
+    UPSAMPLE_BWD_LAUNCHES += 1
+    return dx, unfold_subpixel_weight_grad(dw_fold), dbias
+
+
+class _UpsampleConvStats(torch.autograd.Function):
+    """K2 forward with K7 as its backward; saves x, w (on CUDA in the compute
+    dtype), bias and its output. `w_fold` is a cached fold of w or None."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, w_fold):
+        ctx.dtypes = (x.dtype, w.dtype, bias.dtype)
+        if x.is_cuda:
+            w = w.to(x.dtype)
+            y, stats = upsample_conv3x3_stats_cuda(x, w, bias, w_fold=w_fold)
+        else:
+            y, stats = upsample_conv3x3_stats_plain(x, w, bias)
+        ctx.save_for_backward(x, w, bias, y)
+        ctx.set_materialize_grads(False)
+        return y, stats
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy, gstats):
+        x, w, bias, y = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(y)
+        if gstats is None:
+            gstats = torch.zeros((y.shape[0], 2, y.shape[3]), dtype=torch.float32, device=y.device)
+        bwd = upsample_conv3x3_stats_bwd_cuda if x.is_cuda else upsample_conv3x3_stats_bwd_plain
+        return _to_dtypes(bwd(x, w, bias, y, gy, gstats), ctx.dtypes) + (None,)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,70 @@
+"""Show that `chip_smoke.py`'s bounds on the backward kernels (K6, K7) bite.
+
+    python3 scripts/planted_faults_bwd.py
+
+For each fault below, the package and `chip_smoke.py` are copied into a
+temporary directory, one line of a CUDA source in the COPY is replaced, and
+`python3 chip_smoke.py --phases kernels` runs there (it rebuilds the kernels
+from the copy). A fault counts as caught when that run exits non-zero with a
+FAIL on a backward kernel's line. The tree itself is never touched. Exits 0
+only when every fault was caught; needs an NVIDIA GPU and nvcc.
+"""
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+FAULTS = [
+    ("one weight-gradient partial left out of the reduce", "resnet_block_bwd.cu",
+     "return launch_reduce_rows(p.partial, dw, p.S,",
+     "return launch_reduce_rows(p.partial, dw, p.S > 1 ? p.S - 1 : p.S,"),
+    ("top halo row missing from the data-gradient conv's slab", "conv_taps.cuh",
+     "if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C) {",
+     "if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C && !(EPI == EPI_BWD_ACT && r == 0)) {"),
+    ("statistics cotangent's sum-of-squares term left out of dye", "resnet_block_bwd.cu",
+     "ds1[j] = 2.0f * ds[", "ds1[j] = 0.0f * ds["),
+]
+
+
+def run_fault(label: str, source: str, old: str, new: str) -> bool:
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        shutil.copytree(ROOT / "ragb_vae_tpu_torch", work / "ragb_vae_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(ROOT / "chip_smoke.py", work / "chip_smoke.py")
+        path = work / "ragb_vae_tpu_torch" / "csrc" / source
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"[fault] {label}: the line to replace occurs {text.count(old)} times in {source}")
+        path.write_text(text.replace(old, new))
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "kernels"], cwd=work,
+                              capture_output=True, text=True)
+    failing = [line for line in proc.stdout.splitlines() if "FAIL" in line and "_bwd" in line]
+    caught = proc.returncode != 0 and bool(failing)
+    print(f"[fault] {label}: exit {proc.returncode}, {len(failing)} backward cases fail, "
+          f"{'caught' if caught else 'NOT caught'}", flush=True)
+    for line in failing:
+        parts = [p.strip() for p in re.split(r"[:;]", line) if "FAIL" in p]
+        print(f"[fault]   {line.split(':')[0]}: " + "; ".join(parts), flush=True)
+    if not caught:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+    return caught
+
+
+def main() -> int:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    results = [run_fault(*fault) for fault in FAULTS]
+    print(f"[fault] {sum(results)} of {len(results)} planted faults caught", flush=True)
+    return 0 if all(results) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,7 @@
 """Per-phase times, peak memory and a device-time breakdown of the PyTorch
-port's serving path on one NVIDIA GPU.
+port's serving path and of its RGBA-VAE training step on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_slice.py [--out chiprun_out/profile_slice.json]
+    python3 scripts/profile_torch_slice.py [--what serve,train] [--out FILE]
 
 The model is the one `chip_smoke.py` serves: FLUX.1-Kontext transformer
 (`FluxTransformerConfig()` defaults) and the FLUX `ae` VAE widened to RGBA,
@@ -13,6 +13,14 @@ step) and decode; peak device memory over the cell. Then one b1 512x512
 request under `torch.profiler`: device time by kernel class, and the idle
 share of the device between its first and last kernel. Prints one line per
 measurement and writes every number, unrounded, to `--out` as JSON.
+
+The training cells take the objects `chip_smoke.py` trains (the FLUX `ae`
+RGBA VAE with fp32 parameters and bf16 compute, fused kernels, a frozen
+reference, LPIPS over seeded weights, the loss scales of
+configs/flux_vae.yaml): 4 images of 512x512 per step in one micro-batch,
+for `remat` all / half / none, one warm-up step and three timed steps each
+(CUDA events around the step), peak memory per cell, then one remat="half"
+step under `torch.profiler`.
 """
 from __future__ import annotations
 
@@ -38,12 +46,22 @@ STEPS = 4
 REPEATS = 3
 CELLS = [(1, 512, 512), (2, 512, 512), (1, 1024, 1024)]
 PROFILE_CELL = (1, 512, 512)
+TRAIN_CELL = (4, 512)           # images per step (one micro-batch), image size
 
 # kernel classes of the device-time breakdown, first match wins
+def _conv_taps(mode: int, epilogue: int):
+    return re.compile(rf"conv_taps_kernel<(\(int\))?{mode}, ?(\(int\))?{epilogue}>")
+
+
 KERNEL_CLASSES = [
-    ("K1 resnet conv (conv_taps_kernel<0>)", re.compile(r"conv_taps_kernel<[^>]*0>")),
-    ("K2 sub-pixel upsample (conv_taps_kernel<1>)", re.compile(r"conv_taps_kernel<[^>]*1>")),
-    ("K1/K2 stats reduce", re.compile(r"stats_reduce_kernel")),
+    ("K1 resnet conv (conv_taps_kernel<0, 0>)", _conv_taps(0, 0)),
+    ("K2 sub-pixel upsample (conv_taps_kernel<1, 0>)", _conv_taps(1, 0)),
+    ("K6 data gradient (conv_taps_kernel<0, 1>)", _conv_taps(0, 1)),
+    ("K6 skip-projection gradient (conv_taps_kernel<2, 0>)", _conv_taps(2, 0)),
+    ("K7 data gradient (conv_taps_kernel<3, 0>)", _conv_taps(3, 0)),
+    ("K6/K7 weight gradient (wgrad_kernel)", re.compile(r"wgrad_kernel")),
+    ("K6/K7 dye pass and partial reduces", re.compile(r"dye_kernel|reduce_rows_kernel")),
+    ("K1/K2/K6 stats reduce", re.compile(r"stats_reduce_kernel")),
     ("K3 flash attention", re.compile(r"flash_fwd")),
     ("cuDNN conv", re.compile(r"fprop|dgrad|wgrad|cudnn|convolve|winograd", re.I)),
     ("cuBLAS GEMM/GEMV", re.compile(r"gemm|gemv|xmma|cutlass|nvjet|cublas", re.I)),
@@ -126,14 +144,13 @@ def kernel_breakdown(events):
             "idle_share": 1.0 - busy / span if span else None, "classes": classes}
 
 
-def profile_request(model, steps, gen, out_dir):
+def profile_call(label, fn, out_dir):
+    """One call of `fn` (after one untraced call) under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    bsz, h, w = PROFILE_CELL
-    x = torch.rand((bsz, h, w, 4), generator=gen, device="cuda")
-    run_request(model, x, steps, gen)
+    fn()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_request(model, x, steps, gen)
+        fn()
         torch.cuda.synchronize()
     trace = out_dir / "profile_slice_trace.json"
     prof.export_chrome_trace(str(trace))
@@ -143,7 +160,7 @@ def profile_request(model, steps, gen, out_dir):
     if not events:
         print("[profile] the profiler recorded no device kernels: breakdown not measured", flush=True)
         return None
-    result = {"cell": f"b{bsz} {h}x{w}", **kernel_breakdown(events)}
+    result = {"cell": label, **kernel_breakdown(events)}
     print(f"[profile] {result['cell']}: {result['kernel_ms']} ms of kernels in a "
           f"{result['span_ms']} ms device span, idle share {result['idle_share']}", flush=True)
     for c in result["classes"]:
@@ -152,20 +169,13 @@ def profile_request(model, steps, gen, out_dir):
     return result
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default="chiprun_out/profile_slice.json")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("[profile] no CUDA device: this script runs only on a GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
+def profile_request(model, steps, gen, out_dir):
+    bsz, h, w = PROFILE_CELL
+    x = torch.rand((bsz, h, w, 4), generator=gen, device="cuda")
+    return profile_call(f"b{bsz} {h}x{w}", lambda: run_request(model, x, steps, gen), out_dir)
 
+
+def measure_serving(out_dir):
     vae_cfg = AutoencoderConfig.flux()
     vae_cfg.in_channels = vae_cfg.out_channels = 4
     t0 = time.perf_counter()
@@ -176,10 +186,79 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(SEED)
     with torch.inference_mode():
         cells = [measure_cell(model, cell, STEPS, REPEATS, gen) for cell in CELLS]
-        breakdown = profile_request(model, STEPS, gen, out.parent)
-    out.write_text(json.dumps({"device": smi, "torch": torch.__version__, "steps": STEPS,
-                               "repeats": REPEATS, "cells": cells, "profile": breakdown},
-                              indent=1))
+        breakdown = profile_request(model, STEPS, gen, out_dir)
+    return {"steps": STEPS, "cells": cells, "profile": breakdown}
+
+
+def _train_step_for(remat):
+    import dataclasses
+
+    from chip_smoke import train_objects
+    from ragb_vae_tpu_torch.training.vae_step import make_optimizer, make_train_step, trainable_parameters
+
+    model, ref, lpips_fn, loss_cfg, step_cfg = train_objects(remat)
+    step_cfg = dataclasses.replace(step_cfg, gradient_accumulation_steps=1)
+    optimizer = make_optimizer(trainable_parameters(model), 1e-5, max_grad_norm=1.0)
+    return make_train_step(model, optimizer, loss_cfg, step_cfg, ref_model=ref, lpips_fn=lpips_fn)
+
+
+def measure_training(out_dir):
+    bsz, size = TRAIN_CELL
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    batch = {"images": torch.rand((bsz, size, size, 4), generator=gen, device="cuda")}
+    cells, breakdown = [], None
+    for remat in ("all", "half", "none"):
+        step = _train_step_for(remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch, generator=gen)  # warm-up: cuDNN plans, allocator, optimizer state
+        times = []
+        for _ in range(REPEATS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(batch, generator=gen)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise SystemExit(f"[profile] non-finite training metrics {metrics}")
+        peak = torch.cuda.max_memory_allocated()
+        median = statistics.median(times)
+        cells.append({"cell": f"train b{bsz} {size}x{size} remat={remat}", "step_ms": times,
+                      "median_step_ms": median, "images_per_s": bsz / median * 1e3,
+                      "peak_memory_bytes": peak})
+        print(f"[cell] {cells[-1]['cell']}: median {median} ms/step over {REPEATS} steps "
+              f"({min(times)}..{max(times)} ms), {bsz / median * 1e3} img/s; peak {peak / 2**30} GiB",
+              flush=True)
+        if remat == "half":
+            breakdown = profile_call(f"train b{bsz} {size}x{size} remat=half",
+                                     lambda: step(batch, generator=gen), out_dir)
+        del step
+    return {"cells": cells, "profile": breakdown}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="chiprun_out/profile_slice.json")
+    ap.add_argument("--what", default="serve,train", help="comma-separated subset of serve,train")
+    args = ap.parse_args()
+    what = set(args.what.split(","))
+    if not torch.cuda.is_available():
+        raise SystemExit("[profile] no CUDA device: this script runs only on a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+
+    result = {"device": smi, "torch": torch.__version__, "repeats": REPEATS}
+    if "serve" in what:
+        result["serving"] = measure_serving(out.parent)
+    if "train" in what:
+        result["training"] = measure_training(out.parent)
+    out.write_text(json.dumps(result, indent=1))
     print(f"[done] wrote {out}", flush=True)
     return 0
 

@@ -1,12 +1,14 @@
 """Port of the flash-attention forward (K3) against the JAX Pallas kernel
-run in interpret mode.
+run in interpret mode, and of its gradient against the JAX package's.
 
 fp32 inputs on both sides: the Pallas kernel's online softmax and the plain
 version's one-pass softmax differ only in summation order and in the
-exp(m_old - m_new) rescaling, so 1e-4 holds.
+exp(m_old - m_new) rescaling, so 1e-4 holds; the recompute backward sums the
+same products chunk by chunk, so 1e-4 holds for the gradients too.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,3 +61,59 @@ def test_attention_plain_chunking_is_exact():
     whole = tfa.attention_plain(q, k, v, sm_scale=0.2, chunk=1024)
     chunked = tfa.attention_plain(q, k, v, sm_scale=0.2, chunk=16)
     np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _port_grads(q, k, v, g, **kw):
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tfa.attention(*leaves, **kw)
+    assert out.grad_fn is not None
+    return out, torch.autograd.grad(out, leaves, torch.from_numpy(g))
+
+
+@pytest.mark.parametrize("d,seq", [(512, 200), (64, 150)])
+def test_attention_backward_matches_jax_chunked_recompute(d, seq):
+    """d = 512 is the VAE mid-block's head: the JAX package differentiates the
+    rematerialised `chunked_attention_3d` there. On the CPU the port takes the
+    same recompute for every head dim."""
+    q, k, v = _qkv((1, 1, seq, d), seed=10 + d)
+    g = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+
+    def f(q_, k_, v_):
+        return jfa.chunked_attention_3d(q_[0], k_[0], v_[0], sm_scale=scale, chunk=64)[None]
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    _, got = _port_grads(q, k, v, g)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL, atol=TOL, err_msg=f"d{name}")
+
+
+def test_attention_recompute_backward_matches_native_autograd_across_chunks():
+    """S = 70 over chunks of 16: dk and dv add up over the query chunks."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv((2, 70, 32), seed=4))
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 70, 32)).astype(np.float32))
+    got = tfa.attention_bwd_recompute(q, k, v, g, sm_scale=0.2, chunk=16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(tfa.attention_plain(*leaves, sm_scale=0.2), leaves, g)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_attention_function_saves_only_q_k_v():
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv((1, 1, 40, 16), seed=6))
+    out = tfa.attention(q, k, v)
+    saved = out.grad_fn.next_functions[0][0].saved_tensors
+    assert len(saved) == 3 and all(t.shape[-1] == 16 for t in saved)
+
+
+@pytest.mark.parametrize("device,d,route", [
+    ("cuda", 64, "unported"), ("cuda", 128, "unported"), ("cuda", 383, "unported"),
+    ("cuda", 384, "recompute"), ("cuda", 512, "recompute"),
+    ("cpu", 64, "recompute"), ("cpu", 512, "recompute"),
+])
+def test_backward_route_follows_the_jax_head_dim_split(device, d, route):
+    """The predicate behind "d < 384 with a gradient required raises on CUDA"
+    (the raise itself needs a card; `tests/test_torch_kernels_cuda.py` hits it)."""
+    assert tfa.backward_route(device, d) == route
+    assert (route == "unported") == (device == "cuda" and jfa._uses_fused_bwd(d))

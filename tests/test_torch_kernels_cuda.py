@@ -9,8 +9,12 @@ bf16 in and out. Tolerances: conv outputs round to bf16 once in the kernel
 and twice in the plain version (2^-8 relative each), so 3e-2 of the largest
 value; statistics normalised by H*W*mean(y^2) to 1e-2; attention to 2e-2
 absolute (probabilities rounded to bf16 before vs after normalisation), and
-its LSE to 1e-4 of the fp32 logsumexp. `chip_smoke.py` adds the sharper
-checks against exact fp32 references.
+its LSE to 1e-4 of the fp32 logsumexp. Backward kernels (K6, K7): every
+cotangent against the plain backward (autograd through the plain forward,
+which rounds dye's terms, dA and the activation's cotangent to bf16 at other
+places): 4e-2 of the largest reference value for the bf16 outputs, 2e-2 for
+the fp32 sums. `chip_smoke.py` adds the sharper checks against exact fp32
+references.
 """
 import math
 
@@ -129,3 +133,137 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     q32 = torch.zeros((1, 4, 8, 128), device="cuda")  # fp32
     with pytest.raises(ValueError):
         fa.attention(q32, q32, q32)
+
+
+def _conv_case(gen, shape, n, skip):
+    bsz, h, w, c = shape
+    x = _randn(gen, shape)
+    a = 1.0 + 0.1 * torch.randn((bsz, c), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((bsz, c), generator=gen, device="cuda")
+    wt = _randn(gen, (3, 3, c, n), 1.0 / math.sqrt(9 * c))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    sk = ws = wsb = None
+    if skip == "identity":
+        sk = _randn(gen, (bsz, h, w, n))
+    elif skip == "proj":
+        sk, ws = _randn(gen, shape), _randn(gen, (c, n), c ** -0.5)
+        wsb = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    return [x, a, b, wt, bias, sk, ws, wsb]
+
+
+def _check_cotangents(got, want):
+    assert len(got) == len(want)
+    for g, r in zip(got, want):
+        assert (g is None) == (r is None)
+        if g is None:
+            continue
+        assert g.shape == r.shape and bool(torch.isfinite(g.float()).all())
+        tol = 4e-2 if g.dtype == torch.bfloat16 else 2e-2
+        assert (g.float() - r.float()).abs().max() <= tol * r.float().abs().max()
+
+
+@pytest.mark.parametrize("shape,n,skip,act", [
+    ((1, 36, 24, 128), 128, None, "silu"),
+    ((2, 37, 50, 64), 128, "proj", "silu"),            # ragged in H, W and the channel tiles
+    ((1, 19, 33, 64), 64, "identity", "identity"),
+    ((3, 8, 8, 512), 512, "identity", "silu"),
+])
+def test_conv3x3_stats_bwd_kernel(shape, n, skip, act):
+    gen = torch.Generator("cuda").manual_seed(4)
+    ops = _conv_case(gen, shape, n, skip)
+    y, _ = rb.conv3x3_stats_cuda(*ops, act)
+    gy = _randn(gen, y.shape)
+    gstats = 0.1 * torch.randn((shape[0], 2, n), generator=gen, device="cuda")
+    before = rb.CONV_BWD_LAUNCHES
+    got = rb.conv3x3_stats_bwd_cuda(*ops, y, gy, gstats, act)
+    assert rb.CONV_BWD_LAUNCHES == before + 1
+    _check_cotangents(got, rb.conv3x3_stats_bwd_plain(*ops, y, gy, gstats, act))
+
+
+def test_conv3x3_stats_bwd_kernel_is_deterministic():
+    gen = torch.Generator("cuda").manual_seed(5)
+    ops = _conv_case(gen, (2, 64, 64, 256), 256, "proj")
+    y, _ = rb.conv3x3_stats_cuda(*ops, "silu")
+    gy, gstats = _randn(gen, y.shape), 0.1 * torch.randn((2, 2, 256), generator=gen, device="cuda")
+    first = rb.conv3x3_stats_bwd_cuda(*ops, y, gy, gstats, "silu")
+    second = rb.conv3x3_stats_bwd_cuda(*ops, y, gy, gstats, "silu")
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("shape,n", [((1, 36, 24, 256), 256), ((2, 9, 13, 64), 128), ((4, 64, 64, 128), 128)])
+def test_upsample_bwd_kernel(shape, n):
+    gen = torch.Generator("cuda").manual_seed(6)
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, shape[3], n), 1.0 / math.sqrt(9 * shape[3]))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    y, _ = rb.upsample_conv3x3_stats_cuda(x, wt, bias)
+    gy = _randn(gen, y.shape)
+    gstats = 0.1 * torch.randn((shape[0], 2, n), generator=gen, device="cuda")
+    before = rb.UPSAMPLE_BWD_LAUNCHES
+    got = rb.upsample_conv3x3_stats_bwd_cuda(x, wt, bias, y, gy, gstats)
+    assert rb.UPSAMPLE_BWD_LAUNCHES == before + 1
+    _check_cotangents(got, rb.upsample_conv3x3_stats_bwd_plain(x, wt, bias, y, gy, gstats))
+
+
+def test_functions_carry_the_graph_and_differentiate_like_the_plain_route():
+    """A block and an upsample chained through their statistics, fp32 leaves
+    under bf16 compute: the outputs carry a grad_fn, the backward launches K6
+    and K7, fp32 weights receive fp32 cotangents, and every leaf's gradient
+    agrees with the same chain through the plain versions (4e-2 of its
+    largest entry: two bf16 roundings per conv on either route)."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    c = 64
+    leaves = {
+        "x": torch.randn((2, 12, 20, c), generator=gen, device="cuda"),
+        "scale": 1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda"),
+        "shift": 0.1 * torch.randn((c,), generator=gen, device="cuda"),
+        "w1": torch.randn((3, 3, c, c), generator=gen, device="cuda") / math.sqrt(9 * c),
+        "b1": 0.1 * torch.randn((c,), generator=gen, device="cuda"),
+        "w2": torch.randn((3, 3, c, c), generator=gen, device="cuda") / math.sqrt(9 * c),
+        "b2": 0.1 * torch.randn((c,), generator=gen, device="cuda"),
+    }
+
+    def chain(conv, upsample):
+        p = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+        x = p["x"].to(torch.bfloat16)
+        a, b = rb.stats_to_coeffs(rb.tensor_stats(x), p["scale"], p["shift"], 4, 12 * 20)
+        y, stats = conv(x, a, b, p["w1"], p["b1"], x)
+        a2, b2 = rb.stats_to_coeffs(stats, p["scale"], p["shift"], 4, 12 * 20)
+        y2 = (y.float() * a2[:, None, None, :] + b2[:, None, None, :]).to(torch.bfloat16)
+        out, stats2 = upsample(y2, p["w2"], p["b2"])
+        assert out.grad_fn is not None and stats2.grad_fn is not None
+        (out.float().square().mean() + 1e-4 * stats2.mean()).backward()
+        return p
+
+    counts = (rb.CONV_BWD_LAUNCHES, rb.UPSAMPLE_BWD_LAUNCHES)
+    got = chain(rb.gn_silu_conv3x3_stats, rb.fused_upsample_conv3x3_stats)
+    assert (rb.CONV_BWD_LAUNCHES, rb.UPSAMPLE_BWD_LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+
+    def plain_conv(x, a, b, w, bias, skip):
+        return rb.conv3x3_stats_plain(x, a, b, w, bias, skip)
+
+    want = chain(plain_conv, rb.upsample_conv3x3_stats_plain)
+    for name in leaves:
+        g, r = got[name].grad, want[name].grad
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert (g - r).abs().max() <= 4e-2 * r.abs().max(), name
+
+
+def test_attention_with_a_gradient_on_the_card():
+    """d = 512 (the VAE mid-block) differentiates through the recompute;
+    d < 384 needs the unported dQ / dK,dV kernels and raises instead of
+    returning a tensor cut off from the graph."""
+    gen = torch.Generator("cuda").manual_seed(8)
+    q, k, v = (_randn(gen, (1, 1, 300, 512)).requires_grad_(True) for _ in range(3))
+    out = fa.attention(q, k, v)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    q2, k2, v2 = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    fa.attention_plain(q2[0], k2[0], v2[0], sm_scale=512 ** -0.5).float().square().sum().backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        assert (a.grad.float() - b.grad.float()).abs().max() <= 5e-2 * b.grad.float().abs().max()
+    small = _randn(gen, (1, 4, 64, 128)).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="K4/K5"):
+        fa.attention(small, small, small)
+    with torch.no_grad():
+        assert fa.attention(small, small, small).shape == small.shape

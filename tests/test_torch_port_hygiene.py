@@ -6,6 +6,9 @@
 - Every CUDA source names the TPU kernel it replaces and what bounds it on
   the card; the build targets sm_90a.
 - Importing the whole package builds nothing and needs no CUDA toolkit.
+- No function that launches a kernel (`*_cuda`) calls a plain version, and
+  every call of a plain version outside a `*_plain` function sits on the
+  CPU side of an `is_cuda` / device-type test.
 """
 import ast
 import importlib
@@ -68,3 +71,69 @@ def test_cuda_source_names_replaced_kernel_and_bound(path):
 def test_build_targets_sm90a():
     text = (ROOT / "ops" / "kernels" / "_build.py").read_text()
     assert "arch=compute_90a,code=sm_90a" in text
+
+
+def test_scan_covers_training_and_parallel():
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES if p.is_relative_to(ROOT)}
+    assert {"training/vae_step.py", "parallel/grad_accum.py", "models/lpips.py",
+            "models/losses.py", "ops/triplet.py", "ops/metrics.py"} <= scanned
+
+
+def _called_names(node):
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            fn = sub.func
+            name = fn.id if isinstance(fn, ast.Name) else fn.attr if isinstance(fn, ast.Attribute) else None
+            if name:
+                yield name, sub
+
+
+def _mentions_cuda(test: ast.AST) -> bool:
+    return any(isinstance(n, ast.Attribute) and n.attr == "is_cuda" for n in ast.walk(test))
+
+
+def _plain_calls_on_cuda_branches(path: Path):
+    """(function, callee, line) of every `*_plain` call that a CUDA tensor
+    could reach: inside a `*_cuda` function, in the true branch of an
+    `if <...>.is_cuda`, or in a conditional expression `a if x.is_cuda else b`
+    on its CUDA side."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if fn.name.endswith("_cuda"):
+            bad += [(fn.name, name, call.lineno) for name, call in _called_names(fn)
+                    if name.endswith("_plain")]
+        for node in ast.walk(fn):
+            if isinstance(node, ast.If) and _mentions_cuda(node.test):
+                for stmt in node.body:
+                    bad += [(fn.name, name, call.lineno) for name, call in _called_names(stmt)
+                            if name.endswith("_plain")]
+            if isinstance(node, ast.IfExp) and _mentions_cuda(node.test):
+                names = [n.id for n in ast.walk(node.body) if isinstance(n, ast.Name)]
+                bad += [(fn.name, n, node.lineno) for n in names if n.endswith("_plain")]
+    return bad
+
+
+@pytest.mark.parametrize("path", [p for p in SOURCES if p.is_relative_to(ROOT)],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_plain_version_on_a_cuda_branch(path):
+    assert not _plain_calls_on_cuda_branches(path)
+
+
+def test_the_cuda_branch_scan_sees_a_planted_call(tmp_path):
+    planted = tmp_path / "planted.py"
+    planted.write_text(
+        "def f_cuda(x):\n    return g_plain(x)\n\n"
+        "def h(x):\n    if x.is_cuda:\n        return g_plain(x)\n    return g_plain(x)\n\n"
+        "def k(x):\n    fn = g_plain if x.is_cuda else g_cuda\n    return fn(x)\n")
+    found = _plain_calls_on_cuda_branches(planted)
+    assert [(f, n) for f, n, _ in found] == [("f_cuda", "g_plain"), ("h", "g_plain"), ("k", "g_plain")]
+
+
+def test_backward_sources_are_built_with_the_forward():
+    assert {"resnet_block_bwd.cu", "conv_taps.cuh"} <= {p.name for p in (ROOT / "csrc").iterdir()}
+    from ragb_vae_tpu_torch.ops.kernels import _build
+
+    assert {"ragb_resnet_conv3x3_stats_bwd", "ragb_subpixel_upsample_conv3x3_stats_bwd"} <= set(_build._SIGNATURES)
