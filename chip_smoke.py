@@ -21,6 +21,16 @@ final line):
              serves 3 requests through InferenceServer, checks each answer and
              that every kernel launched during that run.
 
+6. lora    - (runs before phase 5, on the serving phase's model) attaches
+             rank-128 LoRA adapters to the full-width FLUX.1-Kontext
+             transformer (frozen bf16 base, fp32 adapters, per-block
+             recompute), writes a small (gt, text_alpha) PNG tree at 512^2 and
+             runs the LoRA stage's own loop through `train_from_config` for 3
+             optimizer steps of 4 pairs in 2 micro-batches, saves, reloads the
+             adapters, checks losses, gradients, what moved and that the
+             attention forward and both backward kernels launched, then holds
+             the adapters' gradient tree through the kernels against the plain
+             attention route at 256^2.
 5. train   - builds the RGBA VAE at full FLUX `ae` width (fp32 parameters, bf16
              compute, fused kernels, remat="half") with a frozen reference and
              an LPIPS term over seeded weights, takes 3 optimizer steps at
@@ -75,6 +85,14 @@ KERNELS = {
     "subpixel_upsample_conv3x3_stats_bwd": {
         "source": "ragb_vae_tpu_torch/csrc/resnet_block_bwd.cu",
         "replaces": "ragb_vae_tpu/ops/pallas/resnet_block.py:2003",
+    },
+    "flash_attention_dq": {
+        "source": "ragb_vae_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "ragb_vae_tpu/ops/pallas/flash_attention.py:198",
+    },
+    "flash_attention_dkv": {
+        "source": "ragb_vae_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "ragb_vae_tpu/ops/pallas/flash_attention.py:237",
     },
 }
 
@@ -135,6 +153,18 @@ BWD_SUM_EXACT_TOL = 2e-3       # da, db, dW, dbias, dws, dwsb vs exact
 # activation's cotangent to bf16 at other places, 2^-8 relative each
 BWD_BF16_PLAIN_TOL = 4e-2
 BWD_SUM_PLAIN_TOL = 2e-2
+# Attention backward (K4 dQ, K5 dK/dV): each output's max abs error relative
+# to max|reference|. The exact reference repeats the kernels' rounding points
+# (P and dS rounded to bf16, fp32 sums, one final rounding), so the outputs
+# differ by one bf16 ulp of the largest value (2^-8 = 3.9e-3) and by the rare
+# P or dS element whose rounding flips on the last bit of exp2f. The plain
+# version rounds the logits and dP to bf16 as well (2^-8 of values up to ~5,
+# inside an exponential). An unmasked key tail adds up to 24 copies of the
+# last key to every dQ row, and a query tile left out drops 64 of S terms
+# from every dK and dV entry (>= 8% of a typical entry at S = 8704): each is
+# far past the exact bound.
+ATTN_BWD_EXACT_TOL = 1e-2
+ATTN_BWD_PLAIN_TOL = 5e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -478,6 +508,80 @@ def check_attention(gen, shape):
     return ok, f"{shape}", err, ms, plain_ms, library_ms, limit
 
 
+def attention_bwd_exact(q, k, v, out, lse, g, scale, heads_per_pass=4):
+    """K4's and K5's arithmetic in fp32 PyTorch with their rounding points: P
+    and dS rounded to bf16 before their products, fp32 sums. A few heads at a
+    time, so the (S, S) blocks of a long sequence stay small."""
+    dq, dk, dv = [], [], []
+    for lo in range(0, q.shape[0], heads_per_pass):
+        sl = slice(lo, lo + heads_per_pass)
+        qf, kf, vf, gf = (x[sl].float() for x in (q, k, v, g))
+        p = torch.exp(torch.matmul(qf, kf.transpose(1, 2)) * scale - lse[sl, :, None])
+        delta = (gf * out[sl].float()).sum(dim=-1, keepdim=True)
+        ds = (p * (torch.matmul(gf, vf.transpose(1, 2)) - delta) * scale).to(torch.bfloat16).float()
+        dq.append(torch.matmul(ds, kf))
+        dk.append(torch.matmul(ds.transpose(1, 2), qf))
+        dv.append(torch.matmul(p.to(torch.bfloat16).float().transpose(1, 2), gf))
+    return torch.cat(dq), torch.cat(dk), torch.cat(dv)
+
+
+def check_attention_bwd(gen, bh, seq_q, seq_k):
+    """K4 and K5 on one set of operands -> {kernel name: result tuple}. The
+    plain version and the library call compute dq, dk and dv in one pass, so
+    their times stand beside both kernels."""
+    d = 128
+    q, g = _randn(gen, (bh, seq_q, d)), _randn(gen, (bh, seq_q, d))
+    k, v = _randn(gen, (bh, seq_k, d)), _randn(gen, (bh, seq_k, d))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fa.flash_attention_cuda(q, k, v, sm_scale=scale)
+    delta = fa.attention_delta(out, g)
+    run_dq = lambda: fa.flash_attention_dq_cuda(q, k, v, g, lse, delta, sm_scale=scale)
+    run_dkv = lambda: fa.flash_attention_dkv_cuda(q, k, v, g, lse, delta, sm_scale=scale)
+    run_p = lambda: fa.attention_bwd_plain(q, k, v, out, lse, g, sm_scale=scale)
+    got = (run_dq(), *run_dkv())
+    plain, exact = run_p(), attention_bwd_exact(q, k, v, out, lse, g, scale)
+    torch.cuda.synchronize()
+    rel_x, rel_p, err_x = [], [], []
+    for a, pl, ex in zip(got, plain, exact):
+        err_x.append((a.float() - ex).abs().max().item())
+        rel_x.append(err_x[-1] / ex.abs().max().item())
+        rel_p.append((a.float() - pl.float()).abs().max().item() / pl.float().abs().max().item())
+    del exact, plain
+    dq_ms, dkv_ms, plain_ms = time_ms(run_dq), time_ms(run_dkv), time_ms(run_p)
+    # the one PyTorch call that computes the same gradients: forward + backward
+    # minus the forward, a yardstick here and called nowhere in the port
+    q4, k4, v4 = (x.reshape(1, bh, -1, d).clone().requires_grad_(True) for x in (q, k, v))
+    g4 = g.reshape(1, bh, seq_q, d)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        torch.autograd.grad(o, (q4, k4, v4), g4)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+    library_ms = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+    io = _nbytes(q, k, v, g, lse, delta)
+    limits = {"flash_attention_dq": bound(6 * bh * seq_q * seq_k * d, io + _nbytes(q)),
+              "flash_attention_dkv": bound(8 * bh * seq_q * seq_k * d, io + _nbytes(k, v))}
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+    results = {}
+    for name, idx, ms in (("flash_attention_dq", (0,), dq_ms), ("flash_attention_dkv", (1, 2), dkv_ms)):
+        ok = finite and all(rel_x[i] <= ATTN_BWD_EXACT_TOL and rel_p[i] <= ATTN_BWD_PLAIN_TOL for i in idx)
+        parts = "; ".join(
+            f"{('dq', 'dk', 'dv')[i]} exact {rel_x[i]:.2g}<={ATTN_BWD_EXACT_TOL} plain {rel_p[i]:.2g}<={ATTN_BWD_PLAIN_TOL}"
+            + ("" if rel_x[i] <= ATTN_BWD_EXACT_TOL and rel_p[i] <= ATTN_BWD_PLAIN_TOL else " FAIL") for i in idx)
+        lim = limits[name]
+        log("kernels", f"{name} ({bh}, {seq_q}, {d}) keys {seq_k}: {parts}; kernel {ms:.3f} ms "
+            f"plain (dq, dk, dv together) {plain_ms:.3f} ms scaled_dot_product_attention backward "
+            f"(all three) {library_ms:.3f} ms bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}) "
+            f"{'ok' if ok else 'FAIL'}")
+        results[name] = (ok, f"({bh}, {seq_q}, {d}) keys {seq_k}", max(err_x[i] for i in idx), ms,
+                         plain_ms, library_ms, lim)
+    return results
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator("cuda").manual_seed(SEED)
     cases = {
@@ -512,10 +616,8 @@ def phase_kernels() -> dict:
             lambda: check_upsample_bwd(gen, (1, 19, 27, 64), 128),
         ],
     }
-    results, all_ok = {}, True
-    for name, fns in cases.items():
-        runs = [fn() for fn in fns]
-        all_ok &= all(r[0] for r in runs)
+
+    def summarise(name, runs):
         first = runs[0]
         results[name] = {
             "shape": first[1],
@@ -525,6 +627,17 @@ def phase_kernels() -> dict:
             "library_ms": first[5],
             **first[6],
         }
+        return all(r[0] for r in runs)
+
+    results, all_ok = {}, True
+    for name, fns in cases.items():
+        all_ok &= summarise(name, [fn() for fn in fns])
+    # K4 and K5 at the shapes a LoRA micro-batch gives them (24 heads x batch 2
+    # at 512^2, batch 1 at 1024^2), ragged lengths, and Sq != Sk
+    bwd_runs = [check_attention_bwd(gen, *shape) for shape in
+                ((48, 2560, 2560), (24, 8704, 8704), (24, 2600, 2600), (24, 300, 300), (24, 333, 777))]
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        all_ok &= summarise(name, [run[name] for run in bwd_runs])
     if not all_ok:
         raise SystemExit("[kernels] a kernel disagrees with its plain version or exact reference")
     return results
@@ -533,7 +646,8 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice at full width
 # ---------------------------------------------------------------------------
-def phase_slice() -> dict:
+def phase_slice():
+    """-> (launch counts, the model, for the LoRA phase to train)."""
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
     from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
     from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
@@ -587,7 +701,7 @@ def phase_slice() -> dict:
     log("slice", f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
     if not all(n > 0 for n in counts.values()):
         raise SystemExit(f"[slice] a kernel of the path never launched: {counts}")
-    return counts
+    return counts, model
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +721,19 @@ def phase_slice() -> dict:
 # size of the gradient itself: relative error ~1, cosine near 0.
 GRAD_REL_TOL = 0.2             # worst leaf's ||g_kernel - g_ref|| / ||g_ref||, each reference
 GRAD_COS_TOL = 0.98            # worst leaf's cosine, each reference
+
+
+def worst_leaf(phase, named, got, want):
+    """Over the leaves of two gradient trees (flattened fp64 vectors): the
+    largest ||a - b|| / ||b|| and the smallest cosine, each with its leaf's name."""
+    rel, cos = (0.0, ""), (1.0, "")
+    for (name, _), a, b in zip(named, got, want):
+        r = ((a - b).norm() / b.norm()).item()
+        c = (torch.dot(a, b) / (a.norm() * b.norm())).item()
+        if not (math.isfinite(r) and math.isfinite(c)):
+            raise SystemExit(f"[{phase}] gradient of {name} is zero or not finite on one route")
+        rel, cos = max(rel, (r, name)), min(cos, (c, name))
+    return rel, cos
 
 
 def train_objects(remat, seed=SEED):
@@ -687,23 +814,13 @@ def _grad_tree_check(model, ref, lpips_fn, loss_cfg, step_cfg) -> None:
         model.set_compute_dtype(torch.bfloat16)
     torch.cuda.synchronize()
 
-    def worst(got, want):
-        rel, cos = (0.0, ""), (1.0, "")
-        for (name, _), a, b in zip(named, got, want):
-            r = ((a - b).norm() / b.norm()).item()
-            c = (torch.dot(a, b) / (a.norm() * b.norm())).item()
-            if not (math.isfinite(r) and math.isfinite(c)):
-                raise SystemExit(f"[train] gradient of {name} is not finite on one route")
-            rel, cos = max(rel, (r, name)), min(cos, (c, name))
-        return rel, cos
-
     ok = True
     log("train", f"gradient tree at 128^2 micro-batch 2, {len(named)} leaves: loss kernels "
         f"{loss_k:.6f}, plain bf16 {loss_p:.6f}, plain fp32 {loss_f:.6f}")
     for label, got, want, held in (("kernels vs plain bf16", g_k, g_p, True),
                                    ("kernels vs plain fp32", g_k, g_f, True),
                                    ("plain bf16 vs plain fp32", g_p, g_f, False)):
-        rel, cos = worst(got, want)
+        rel, cos = worst_leaf("train", named, got, want)
         fine = not held or (rel[0] <= GRAD_REL_TOL and cos[0] >= GRAD_COS_TOL)
         ok &= fine
         bounds = f" (<= {GRAD_REL_TOL}, >= {GRAD_COS_TOL})" if held else " (for information)"
@@ -771,21 +888,239 @@ def phase_train() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the LoRA stage at full width
+# ---------------------------------------------------------------------------
+# The adapters' whole gradient tree through K3 + K4 + K5, held against the
+# same step with the attention forced to its plain route (plain forward under
+# PyTorch autograd), same weights, latents, noise and timestep. Both routes
+# compute in bf16 and differ only inside the attention: the kernels round P and
+# dS once, the plain route rounds the logits, the probabilities and every
+# intermediate cotangent. That difference passes through up to 57 blocks of
+# bf16 residual stream on the way down, so a leaf's gradient carries
+# accumulated rounding noise; a third route (the plain attention computed in
+# fp32 from the same bf16 q, k, v) shows how large that noise is between two
+# plain routes. On an H100 the worst leaf reads 0.009 (cosine 0.99996) on all
+# three comparisons, so the bounds leave that noise five times its size. A
+# wrong cotangent (dQ and dK swapped, a missing scale) moves every leaf below
+# the first attention by the size of the gradient itself: relative error ~1,
+# cosine near 0.
+LORA_GRAD_REL_TOL = 0.05       # worst leaf's ||g_kernel - g_plain|| / ||g_plain||
+LORA_GRAD_COS_TOL = 0.995      # worst leaf's cosine
+LORA_CONFIG = {                # configs/flux_kontext_textalpha_lora.yaml
+    "mixed_precision": "bf16", "learning_rate": 3e-5, "weight_decay": 0.01,
+    "adam_beta1": 0.9, "adam_beta2": 0.95, "rank": 128, "lora_alpha": 192,
+    "max_grad_norm": 1.0, "seed": 1337,
+}
+BLOCKS = 19 + 38               # attention calls per transformer forward
+
+
+def _lora_counts() -> dict:
+    return {
+        "resnet_conv3x3_stats": rb.CONV_LAUNCHES,
+        "flash_attention_fwd": fa.LAUNCHES,
+        "flash_attention_dq": fa.DQ_LAUNCHES,
+        "flash_attention_dkv": fa.DKV_LAUNCHES,
+    }
+
+
+def _write_pair_tree(root: Path, n: int, size: int) -> None:
+    """n (gt, text_alpha) RGBA PNG pairs of size^2 in one bucket, from a seed."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    bucket = root / "train" / f"w{size}-h{size}"
+    for kind in ("gt", "text_alpha"):
+        (bucket / kind).mkdir(parents=True)
+        for i in range(n):
+            # smooth colour fields with a soft alpha: PNGs of noise would not compress
+            low = rng.uniform(size=(8, 8, 4)).astype(np.float32)
+            img = Image.fromarray((low * 255).astype(np.uint8), mode="RGBA").resize((size, size), resample=3)
+            img.save(bucket / kind / f"pair{i:02d}.png")
+
+
+def _lora_grad_tree_check(model) -> None:
+    from ragb_vae_tpu_torch.models import flux_transformer as ft
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
+
+    named = list(lora_parameters(model.transformer).items())
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    lat = (1, 32, 32, model.vae.config.latent_channels)   # 256^2
+    cond, target, noise = (torch.randn(lat, generator=gen, device="cuda") for _ in range(3))
+    u = torch.full((1,), 0.5, device="cuda")
+
+    def plain_route(compute_dtype):
+        def attention(q, k, v):
+            b, h, s, d = q.shape
+            out = fa.attention_plain(*(x.reshape(b * h, s, d).to(compute_dtype) for x in (q, k, v)),
+                                     sm_scale=1.0 / math.sqrt(d))
+            return out.to(q.dtype).reshape(b, h, s, d)
+        return attention
+
+    def grads(attention_fn):
+        ft.attention = attention_fn
+        try:
+            for _, p in named:
+                p.grad = None
+            loss, _ = model.compute_loss_from_latents(cond, target, noise, u)
+            loss.backward()
+        finally:
+            ft.attention = fa.attention
+        return loss.item(), [p.grad.detach().double().flatten() for _, p in named]
+
+    before = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    loss_k, g_k = grads(fa.attention)
+    if (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) != (before[0] + BLOCKS, before[1] + BLOCKS):
+        raise SystemExit("[lora] the kernel route did not launch K4 and K5 once per block")
+    loss_p, g_p = grads(plain_route(torch.bfloat16))
+    if (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) != (before[0] + BLOCKS, before[1] + BLOCKS):
+        raise SystemExit("[lora] the plain route launched a backward kernel")
+    loss_f, g_f = grads(plain_route(torch.float32))
+    torch.cuda.synchronize()
+
+    log("lora", f"adapter gradient tree at 256^2 batch 1, {len(named)} leaves: loss kernels {loss_k:.6f}, "
+        f"plain bf16 attention {loss_p:.6f}, plain fp32 attention {loss_f:.6f}")
+    ok = True
+    for label, got, want, held in (("kernels vs plain bf16 attention", g_k, g_p, True),
+                                   ("kernels vs plain fp32 attention", g_k, g_f, True),
+                                   ("plain bf16 vs plain fp32 attention", g_p, g_f, False)):
+        rel, cos = worst_leaf("lora", named, got, want)
+        fine = not held or (rel[0] <= LORA_GRAD_REL_TOL and cos[0] >= LORA_GRAD_COS_TOL)
+        ok &= fine
+        bounds = f" (<= {LORA_GRAD_REL_TOL}, >= {LORA_GRAD_COS_TOL})" if held else " (for information)"
+        log("lora", f"  {label}: worst relative error {rel[0]:.4f} ({rel[1]}), worst cosine "
+            f"{cos[0]:.5f} ({cos[1]}){bounds} {'ok' if fine else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[lora] the kernels' adapter gradients disagree with the plain route's")
+
+
+def phase_lora(model) -> dict:
+    import tempfile
+
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters, lora_state
+    from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import train_from_config
+
+    t0 = time.perf_counter()
+    model.lora_rank, model.lora_alpha = LORA_CONFIG["rank"], float(LORA_CONFIG["lora_alpha"])
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    model.init_lora(gen)
+    lora = lora_parameters(model.transformer)
+    with torch.no_grad():
+        # B starts at zero in training proper; drawn non-zero here so that A
+        # has a gradient from the first step
+        for name, p in lora.items():
+            if name.endswith("lora_B"):
+                p.normal_(0.0, 0.01, generator=gen)
+    base = [(n, p) for n, p in model.transformer.named_parameters() if not p.requires_grad]
+    if any(p.dtype != torch.float32 for p in lora.values()) or any(p.requires_grad for _, p in base):
+        raise SystemExit("[lora] adapters must be fp32 and the base frozen")
+
+    def checksums(params):
+        return [(p.detach().double().sum().item(), p.detach().double().square().sum().item())
+                for _, p in params]
+
+    base_before = checksums(base)
+    lora_before = {n: p.detach().clone() for n, p in lora.items()}
+    log("lora", f"attached rank-{model.lora_rank} adapters ({sum(p.numel() for p in lora.values()) / 1e6:.1f} M "
+        f"fp32 parameters on {len(lora) // 2} linears) to the frozen bf16 base in "
+        f"{time.perf_counter() - t0:.1f} s; recompute={model.transformer.remat}")
+
+    steps, pairs, n_micro = 3, 4, 2
+    marks, logged = [], []
+
+    def log_fn(step, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        logged.append(metrics)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _write_pair_tree(root / "data", steps * pairs, 512)
+        cfg = {
+            "model": {"pretrained_model_name_or_path": f"random weights, seed {SEED}",
+                      "rgba_vae_path": f"random weights, seed {SEED}"},
+            "data": {"root": str(root / "data"), "batch_size": pairs, "num_workers": 4},
+            "training": {**LORA_CONFIG, "max_train_steps": steps, "grad_accum_steps": n_micro,
+                         "log_every": 1, "ckpt_every_steps": 1000, "val_every_steps": 1000,
+                         "ckpt_dir": str(root / "ckpt")},
+        }
+        torch.cuda.reset_peak_memory_stats()
+        rb.reset_launch_counts()
+        fa.reset_launch_counts()
+        marks.append(time.perf_counter())
+        result = train_from_config(cfg, model=model, log_fn=log_fn)
+        torch.cuda.synchronize()
+        counts = _lora_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        for i, metrics in enumerate(logged):
+            log("lora", f"step {i}: loss={metrics['train/loss']:.6f} grad_norm={metrics['train/grad_norm']:.4f} "
+                f"lr={metrics['lr']:.3g}; {1e3 * (marks[i + 1] - marks[i]):.1f} ms (wall, with data"
+                f"{' and start-up' if i == 0 else ''})")
+        if len(logged) != steps or result["global_step"] != steps:
+            raise SystemExit(f"[lora] {len(logged)} steps logged, {result['global_step']} taken, {steps} asked")
+        if not all(math.isfinite(m["train/loss"]) and m["train/grad_norm"] > 0.0 for m in logged):
+            raise SystemExit(f"[lora] a loss is not finite or a gradient norm is zero: {logged}")
+        bad = [n for n, p in lora.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if bad:
+            raise SystemExit(f"[lora] adapters without a finite gradient: {bad[:5]}")
+        still = [n for n, p in lora.items() if n.endswith("lora_B") and torch.equal(p.detach(), lora_before[n])]
+        moved_base = [n for (n, _), a, b in zip(base, base_before, checksums(base)) if a != b]
+        if still or moved_base:
+            raise SystemExit(f"[lora] lora_B that did not move: {still[:5]}; base parameters that did: {moved_base[:5]}")
+
+        # the final save, read back into zeroed adapters
+        trained = lora_state(model.transformer)
+        with torch.no_grad():
+            for p in lora.values():
+                p.zero_()
+        model.load_lora(root / "ckpt" / "final")
+        reloaded = lora_state(model.transformer)
+        if not all(torch.equal(trained[n], reloaded[n]) for n in trained):
+            raise SystemExit("[lora] the reloaded adapters differ from the trained ones")
+    del lora_before
+
+    micro = steps * n_micro
+    log("lora", f"3 steps of {pairs} pairs at 512^2 in {n_micro} micro-batches; final loss {result['train/loss']:.6f}; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; adapters saved and reloaded bit for bit; "
+        f"{len(base)} base parameters unchanged")
+    if counts["flash_attention_dq"] != BLOCKS * micro or counts["flash_attention_dkv"] != BLOCKS * micro:
+        raise SystemExit(f"[lora] K4 / K5 must launch {BLOCKS} times per micro-batch ({BLOCKS * micro}): {counts}")
+    if counts["flash_attention_fwd"] < 2 * BLOCKS * micro or counts["resnet_conv3x3_stats"] <= 0:
+        raise SystemExit(f"[lora] K3 (forward and recompute) or K1 (the frozen encodes) did not launch: {counts}")
+    _lora_grad_tree_check(model)
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="kernels,slice,train",
-                        help="comma-separated subset of kernels,slice,train (device and build "
-                             "always run); the final ok line is printed only when all ran")
+    parser.add_argument("--phases", default="kernels,slice,lora,train",
+                        help="comma-separated subset of kernels,slice,lora,train (device and build "
+                             "always run; lora needs slice, whose model it trains); the final ok "
+                             "line is printed only when all ran")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
+    if "lora" in phases and "slice" not in phases:
+        parser.error("--phases lora needs slice: it trains the serving phase's model")
     name = phase_device()
     phase_build()
     results = phase_kernels() if "kernels" in phases else {}
-    counts = phase_slice() if "slice" in phases else {}
-    if "train" in phases:
-        for key, n in phase_train().items():
+    counts: dict = {}
+
+    def add(more: dict) -> None:
+        for key, n in more.items():
             counts[key] = counts.get(key, 0) + n
-    if phases != {"kernels", "slice", "train"}:
+
+    if "slice" in phases:
+        served, model = phase_slice()
+        add(served)
+        if "lora" in phases:
+            add(phase_lora(model))
+        del model
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        add(phase_train())
+    if phases != {"kernels", "slice", "lora", "train"}:
         log("done", f"ran only {sorted(phases)}: no summary")
         return 0
     summary = {"kernels": [

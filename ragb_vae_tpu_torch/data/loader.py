@@ -1,0 +1,209 @@
+"""Host-side data loader and the copy to the card.
+
+Counterpart of `ragb_vae_tpu/data/loader.py`. `DataLoader` decodes the items
+of one batch on a thread pool (PIL releases the GIL while it decodes a PNG,
+so threads decode in parallel without forked workers) and keeps a bounded
+queue of finished batches ahead of the consumer. `cuda_prefetch` takes the
+place of the JAX package's `device_prefetch`: it copies each batch into
+pinned host buffers and on to the card on a side stream, one batch ahead, so
+the copy runs under the previous step's compute. Multi-host input sharding
+(`process_shard=`) is not ported yet.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+Item = Dict[str, Any]
+
+
+def default_collate(items: List[Item]) -> Item:
+    """Stack array-valued keys to (B, ...), numbers to a vector, everything
+    else to a list. All items share one key set (a batch is bucket-pure, so
+    its arrays share a shape)."""
+    if not items:
+        return {}
+    out: Item = {}
+    for key, first in items[0].items():
+        values = [item[key] for item in items]
+        if isinstance(first, np.ndarray):
+            out[key] = np.stack(values, axis=0)
+        elif isinstance(first, (int, float, bool, np.number)):
+            out[key] = np.asarray(values)
+        else:
+            out[key] = values
+    return out
+
+
+class DataLoader:
+    """Map-style dataset -> iterator of collated numpy batches.
+
+    Give either `batch_sampler` (an iterable of index lists, re-iterated each
+    epoch) or `batch_size` (with `shuffle` / `drop_last` over
+    range(len(dataset)))."""
+
+    def __init__(
+        self,
+        dataset,
+        *,
+        batch_sampler: Optional[Iterable[Sequence[int]]] = None,
+        batch_size: Optional[int] = None,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        num_workers: int = 0,
+        collate_fn: Optional[Callable[[List[Item]], Item]] = None,
+        prefetch_batches: int = 2,
+        seed: Optional[int] = None,
+        process_shard: Optional[Sequence[int]] = None,
+    ) -> None:
+        if process_shard is not None:
+            raise NotImplementedError("DataLoader: process_shard (multi-host input sharding) is not ported yet")
+        if (batch_sampler is None) == (batch_size is None):
+            raise ValueError("Provide exactly one of batch_sampler or batch_size.")
+        self.dataset = dataset
+        self.batch_sampler = batch_sampler
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = max(0, int(num_workers))
+        self.collate_fn = collate_fn or default_collate
+        self.prefetch_batches = max(0, int(prefetch_batches))
+        self.seed = seed
+        self._epoch = 0
+        self._pool = ThreadPoolExecutor(max_workers=self.num_workers) if self.num_workers else None
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+        if hasattr(self.batch_sampler, "set_epoch"):
+            self.batch_sampler.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        if self.batch_sampler is not None:
+            return len(self.batch_sampler)  # type: ignore[arg-type]
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _index_batches(self) -> Iterator[List[int]]:
+        if self.batch_sampler is not None:
+            for batch in self.batch_sampler:
+                yield list(batch)
+            return
+        indices = np.arange(len(self.dataset))
+        if self.shuffle:
+            entropy = None if self.seed is None else (self.seed, self._epoch)
+            np.random.default_rng(entropy).shuffle(indices)
+        stop = len(indices) - len(indices) % self.batch_size if self.drop_last else len(indices)
+        for start in range(0, stop, self.batch_size):
+            yield indices[start : start + self.batch_size].tolist()
+
+    def _fetch(self, batch_indices: List[int]) -> Item:
+        if self._pool is not None and len(batch_indices) > 1:
+            items = list(self._pool.map(self.dataset.__getitem__, batch_indices))
+        else:
+            items = [self.dataset[i] for i in batch_indices]
+        return self.collate_fn(items)
+
+    def __iter__(self) -> Iterator[Item]:
+        if self.prefetch_batches <= 0:
+            for batch_indices in self._index_batches():
+                yield self._fetch(batch_indices)
+            return
+
+        # a producer thread fills a bounded queue; `done` ends the stream and
+        # carries the producer's exception, if any, to the consumer
+        ready: "queue.Queue" = queue.Queue(maxsize=self.prefetch_batches)
+        done = object()
+        failure: List[BaseException] = []
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    ready.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def produce() -> None:
+            try:
+                for batch_indices in self._index_batches():
+                    if not put(self._fetch(batch_indices)):
+                        return
+            except BaseException as exc:
+                failure.append(exc)
+            finally:
+                put(done)  # blocks until taken: a full queue must not drop it
+
+        thread = threading.Thread(target=produce, daemon=True)
+        thread.start()
+        try:
+            while (item := ready.get()) is not done:
+                yield item
+            if failure:
+                raise failure[0]
+        finally:
+            # a consumer that leaves early must not strand the producer on a
+            # full queue: tell it to stop and drain until it has ended
+            stop.set()
+            while thread.is_alive():
+                try:
+                    ready.get_nowait()
+                except queue.Empty:
+                    pass
+                thread.join(timeout=0.05)
+
+
+def cuda_prefetch(batches: Iterable[Item], device, *, size: int = 2) -> Iterator[Item]:
+    """Move numeric numpy arrays of each batch to `device` ahead of their use.
+
+    On a CUDA device every array is copied into a pinned host buffer and from
+    there to the card on a side stream (`non_blocking`), up to `size` batches
+    ahead; the consumer's stream waits on the copy before it gets the batch,
+    and the tensors are recorded on it so their memory is not reused early.
+    On the CPU the arrays become tensors and nothing else happens. Strings
+    and lists pass through."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    stream = torch.cuda.Stream(device) if on_card else None
+
+    def move(batch: Item):
+        out: Item = {}
+        event = None
+        for key, value in batch.items():
+            if not (isinstance(value, np.ndarray) and value.dtype != object):
+                out[key] = value
+            elif not on_card:
+                out[key] = torch.from_numpy(value)
+            else:
+                pinned = torch.from_numpy(value).pin_memory()
+                with torch.cuda.stream(stream):
+                    out[key] = pinned.to(device, non_blocking=True)
+        if on_card:
+            event = torch.cuda.Event()
+            event.record(stream)
+        return out, event
+
+    def hand_over(moved):
+        batch, event = moved
+        if event is not None:
+            current = torch.cuda.current_stream(device)
+            current.wait_event(event)
+            for value in batch.values():
+                if isinstance(value, torch.Tensor):
+                    value.record_stream(current)
+        return batch
+
+    it = iter(batches)
+    ahead: List = []
+    for batch in it:
+        ahead.append(move(batch))
+        if len(ahead) >= max(1, size):
+            yield hand_over(ahead.pop(0))
+    while ahead:
+        yield hand_over(ahead.pop(0))

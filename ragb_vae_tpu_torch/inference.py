@@ -2,8 +2,9 @@
 
 Counterpart of the single-device branch of `ragb_vae_tpu/inference.py`:
 same flags, seeded sampling, one image or a batch of images grouped by size.
-On a CUDA device the RGBA VAE runs its fused kernels. `--quant int8`,
-`--tp`, `--pp` and `--lora_path` are not ported yet and raise.
+On a CUDA device the RGBA VAE runs its fused kernels. `--lora_path` loads
+peft-format adapters (written by either package's LoRA stage) at `--rank` /
+`--lora_alpha`. `--quant int8`, `--tp` and `--pp` are not ported yet and raise.
 
     python -m ragb_vae_tpu_torch.inference --pretrained_model_name_or_path CKPT \
         --rgba_vae_path VAE --input_image in.png --output_path out.png
@@ -27,7 +28,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pretrained_model_name_or_path", type=str, required=True)
     p.add_argument("--rgba_vae_path", type=str, required=True)
     p.add_argument("--vae_subfolder", type=str, default="ae")
-    p.add_argument("--lora_path", type=str, default=None, help="Not ported yet.")
+    p.add_argument("--lora_path", type=str, default=None,
+                   help="Directory with pytorch_lora_weights.safetensors (or .bin).")
     p.add_argument("--rank", type=int, default=96)
     p.add_argument("--lora_alpha", type=int, default=128)
     p.add_argument("--input_image", type=str, required=True,
@@ -52,8 +54,6 @@ def _check_ported(args: argparse.Namespace) -> None:
         missing.append(f"--tp {args.tp}")
     if args.pp > 1:
         missing.append(f"--pp {args.pp}")
-    if args.lora_path:
-        missing.append("--lora_path")
     if missing:
         raise NotImplementedError(
             f"{', '.join(missing)}: not ported yet to the PyTorch package "
@@ -89,7 +89,11 @@ def run(args: argparse.Namespace) -> None:
         dtype=_DTYPES[args.precision],
         device=device,
         fused=device.type == "cuda",
+        lora_rank=args.rank if args.lora_path else 0,
+        lora_alpha=float(args.lora_alpha) if args.lora_path else 0.0,
     )
+    if args.lora_path:
+        model.load_lora(args.lora_path)
     generator = torch.Generator(device).manual_seed(args.seed if args.seed is not None else 0)
 
     def run_sample(batch: np.ndarray) -> np.ndarray:

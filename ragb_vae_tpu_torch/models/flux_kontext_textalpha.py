@@ -1,45 +1,66 @@
-"""FLUX-Kontext text-alpha model, serving side: transformer + RGBA VAE +
-flow-matching sampler.
+"""FLUX-Kontext text-alpha model: transformer + RGBA VAE + flow matching,
+the sampler and the LoRA training loss.
 
-Counterpart of `ragb_vae_tpu/models/flux_kontext_textalpha.py`
-(construction, `from_pretrained`, `encode_latents`, `_transformer_pred`,
-`sampling_schedule`, `sample_latents_from_noise` and `sample`; the training
-loss and LoRA loading are not ported yet). It keeps the reference's quirks:
+Counterpart of `ragb_vae_tpu/models/flux_kontext_textalpha.py`. The JAX
+package passes parameter trees through every call; here the transformer
+module owns base and adapters, so `init_lora` / `load_lora` change the module
+in place and `compute_loss` takes no parameters. It keeps the reference's
+quirks:
 
 - in-context conditioning by concatenating the packed cond and target token
   streams, with the SAME latent image-id grid repeated for both halves;
 - fresh noise injected at every denoising step
   (`noisy_target = (1-σ)·latents + σ·noise_i`);
-- the guidance tensor (3.5) only when the transformer is guidance-distilled.
+- the guidance tensor (3.5) only when the transformer is guidance-distilled;
+- logit-normal timestep sampling with the index clipped into the schedule,
+  SD3 weighting (identically 1 for "logit_normal").
 
 All randomness comes from an explicit `torch.Generator`, drawn in a fixed
-order: posterior eps, initial latents, then one noise tensor per step.
+order: sampling draws posterior eps, initial latents, then one noise tensor
+per step; the training loss draws the condition's eps, the target's eps, the
+noise and the timestep density.
 """
 from __future__ import annotations
 
+import json
 import math
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformer2D, FluxTransformerConfig
-from ragb_vae_tpu_torch.models.flux_weights import load_flux_transformer_params
+from ragb_vae_tpu_torch.models.flux_transformer import (
+    FluxTransformer2D,
+    FluxTransformerConfig,
+    add_lora,
+    freeze_base_parameters,
+)
+from ragb_vae_tpu_torch.models.flux_weights import (
+    load_flux_transformer_params,
+    load_lora_state,
+    lora_parameters,
+    lora_params_to_peft_state,
+    lora_state,
+    peft_state_to_lora_params,
+)
 from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
 from ragb_vae_tpu_torch.models.scheduler import (
     FlowMatchEulerConfig,
     FlowMatchEulerScheduler,
     calc_mu,
+    compute_density_for_timestep_sampling,
+    compute_loss_weighting_for_sd3,
 )
 from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
-from ragb_vae_tpu_torch.models.weights import load_autoencoder_params
+from ragb_vae_tpu_torch.models.weights import load_autoencoder_params, load_torch_state, save_torch_state
 from ragb_vae_tpu_torch.ops.packing import pack_latents, prepare_latent_image_ids, unpack_latents
 
 Tensor = torch.Tensor
 
 EMPTY_PROMPT_FILE = "empty_prompt_embeds.npz"
+LORA_WEIGHT_FILES = ("pytorch_lora_weights.safetensors", "pytorch_lora_weights.bin")
 
 
 def load_scheduler(model_path: Union[str, Path]) -> FlowMatchEulerScheduler:
@@ -60,6 +81,22 @@ def load_empty_prompt(model_path: Union[str, Path]) -> Tuple[np.ndarray, np.ndar
         )
     data = np.load(path)
     return data["prompt_embeds"], data["pooled_prompt_embeds"], data["text_ids"]
+
+
+def write_lora_metadata(directory: Union[str, Path], *, model_id: str, rank: int,
+                        lora_alpha: float, dtype: str, step: int) -> None:
+    """`metadata.json` beside the adapters, in the JAX package's format."""
+    meta = {"model_id": model_id, "rank": int(rank), "lora_alpha": float(lora_alpha),
+            "dtype": dtype, "step": int(step)}
+    Path(directory).mkdir(parents=True, exist_ok=True)
+    (Path(directory) / "metadata.json").write_text(json.dumps(meta, indent=2))
+
+
+def read_lora_metadata(directory: Union[str, Path]) -> Optional[Dict[str, Any]]:
+    path = Path(directory) / "metadata.json"
+    if not path.exists():
+        return None
+    return json.loads(path.read_text())
 
 
 @torch.no_grad()
@@ -92,9 +129,13 @@ class FluxTextAlphaModel:
         text_ids: Tensor,               # (txt_seq, 3)
         *,
         guidance_scale: float = 3.5,
+        lora_rank: int = 0,
+        lora_alpha: float = 0.0,
         dtype: torch.dtype = torch.float32,
     ):
         self.transformer = transformer
+        self.lora_rank = lora_rank
+        self.lora_alpha = lora_alpha
         self.transformer_config = transformer.config
         self.vae = vae
         self.scheduler = scheduler
@@ -107,6 +148,16 @@ class FluxTextAlphaModel:
         self.vae_scale_factor = vae.config.spatial_scale_factor
         self.scaling_factor = float(vae.config.scaling_factor)
         self.shift_factor = float(vae.config.shift_factor)
+        # train-time schedule: all of num_train_timesteps, with the dynamic
+        # shift's mu taken from the VAE sample size
+        self._train_sched = FlowMatchEulerScheduler(self.scheduler.config)
+        self._train_sched.set_timesteps(
+            self.scheduler.config.num_train_timesteps, mu=self._schedule_mu())
+
+    def _schedule_mu(self) -> Optional[float]:
+        sample = self.vae.config.sample_size or 256
+        h = max(int(sample // self.vae_scale_factor), 1)
+        return calc_mu(self.scheduler.config, h * h)
 
     @property
     def device(self) -> torch.device:
@@ -126,14 +177,20 @@ class FluxTextAlphaModel:
         dtype: torch.dtype = torch.float32,
         fused: bool = False,
         prompt_len: int = 512,
+        lora_rank: int = 0,
+        lora_alpha: float = 0.0,
+        use_gradient_checkpointing: bool = True,
     ) -> "FluxTextAlphaModel":
         """A model with random weights and random prompt embeddings, all
         drawn from `seed` on `device`. Modules are built on the meta device
         and materialised directly on `device` in `dtype`, so a full-size
-        transformer never exists in host memory."""
+        transformer never exists in host memory. With `lora_rank` > 0 fresh
+        adapters are attached after the base is drawn and the base is frozen."""
         device = torch.device(device)
         gen = torch.Generator(device).manual_seed(seed)
-        transformer = FluxTransformer2D(t_config, device="meta", dtype=dtype).to_empty(device=device)
+        transformer = FluxTransformer2D(
+            t_config, remat=use_gradient_checkpointing, device="meta", dtype=dtype,
+        ).to_empty(device=device)
         vae = RgbaVAE(vae_config, dtype=dtype, fused=fused, device="meta")
         vae.module.to_empty(device=device)
         init_random_(transformer, gen)
@@ -141,8 +198,11 @@ class FluxTextAlphaModel:
         prompt = torch.randn((1, prompt_len, t_config.joint_attention_dim), generator=gen, device=device)
         pooled = torch.randn((1, t_config.pooled_projection_dim), generator=gen, device=device)
         text_ids = torch.zeros((prompt_len, 3), device=device)
-        return cls(transformer.eval(), vae, FlowMatchEulerScheduler(), prompt, pooled, text_ids,
-                   dtype=dtype)
+        model = cls(transformer.eval(), vae, FlowMatchEulerScheduler(), prompt, pooled, text_ids,
+                    lora_rank=lora_rank, lora_alpha=lora_alpha, dtype=dtype)
+        if lora_rank > 0:
+            model.init_lora(gen)
+        return model
 
     @classmethod
     def from_pretrained(
@@ -154,16 +214,21 @@ class FluxTextAlphaModel:
         dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device] = "cpu",
         fused: bool = False,
+        lora_rank: int = 0,
+        lora_alpha: float = 0.0,
+        use_gradient_checkpointing: bool = True,
     ) -> "FluxTextAlphaModel":
         """Transformer from `<model_path>/transformer`, scheduler config and
         `empty_prompt_embeds.npz` from `model_path`, RGBA VAE from
-        `<vae_path>/<vae_subfolder>` (or `vae_path` itself)."""
+        `<vae_path>/<vae_subfolder>` (or `vae_path` itself). With `lora_rank`
+        > 0 fresh adapters (seed 0) are attached and the base is frozen."""
         t_config, t_state = load_flux_transformer_params(model_path)
         try:
             v_config, v_state = load_autoencoder_params(vae_path, vae_subfolder, adapt_to_rgba=True)
         except FileNotFoundError:
             v_config, v_state = load_autoencoder_params(vae_path, None, adapt_to_rgba=True)
-        transformer = FluxTransformer2D(t_config, device="meta", dtype=dtype)
+        transformer = FluxTransformer2D(t_config, remat=use_gradient_checkpointing,
+                                        device="meta", dtype=dtype)
         vae = RgbaVAE(v_config, dtype=dtype, fused=fused, device="meta")
         for module, state in ((transformer, t_state), (vae.module, v_state)):
             # each parameter keeps the dtype its module declared (fp32 for the
@@ -174,8 +239,46 @@ class FluxTextAlphaModel:
         transformer.to(device)
         vae.module.to(device)
         prompt, pooled, text_ids = load_empty_prompt(model_path)
-        return cls(transformer.eval(), vae, load_scheduler(model_path), torch.from_numpy(prompt),
-                   torch.from_numpy(pooled), torch.from_numpy(text_ids), dtype=dtype)
+        model = cls(transformer.eval(), vae, load_scheduler(model_path), torch.from_numpy(prompt),
+                    torch.from_numpy(pooled), torch.from_numpy(text_ids),
+                    lora_rank=lora_rank, lora_alpha=lora_alpha, dtype=dtype)
+        if lora_rank > 0:
+            model.init_lora(torch.Generator(model.device).manual_seed(0))
+        return model
+
+    # ------------------------------------------------------------------
+    # LoRA adapters
+    # ------------------------------------------------------------------
+    def init_lora(self, generator: Optional[torch.Generator] = None) -> None:
+        """Attach fresh fp32 adapters of `lora_rank` / `lora_alpha` to the
+        transformer's target linears (A ~ N(0, 1/rank), B = 0) and freeze
+        every other transformer parameter."""
+        if self.lora_rank <= 0:
+            raise ValueError("lora_rank must be > 0 to initialize LoRA.")
+        add_lora(self.transformer, self.lora_rank, self.lora_alpha, generator)
+        freeze_base_parameters(self.transformer)
+
+    def load_lora(self, lora_dir: Union[str, Path]) -> None:
+        """Attach adapters (when the transformer has none yet) and load
+        peft-format weights from `lora_dir` (.safetensors, then .bin)."""
+        lora_dir = Path(lora_dir)
+        for name in LORA_WEIGHT_FILES:
+            if (lora_dir / name).exists():
+                state = load_torch_state(lora_dir / name)
+                break
+        else:
+            raise FileNotFoundError(f"No LoRA weights in {lora_dir}.")
+        if not lora_parameters(self.transformer):
+            self.init_lora()
+        load_lora_state(self.transformer, peft_state_to_lora_params(state))
+
+    def lora_state_dict(self) -> Dict[str, Tensor]:
+        """The adapters in peft's key format (fp32, on the host)."""
+        return lora_params_to_peft_state(lora_state(self.transformer))
+
+    def save_lora_weights(self, output_dir: Union[str, Path]) -> None:
+        """peft / FluxPipeline-compatible safetensors export."""
+        save_torch_state(self.lora_state_dict(), Path(output_dir) / LORA_WEIGHT_FILES[0])
 
     # ------------------------------------------------------------------
     # Core helpers
@@ -211,14 +314,83 @@ class FluxTextAlphaModel:
         )
 
     # ------------------------------------------------------------------
+    # Training loss
+    # ------------------------------------------------------------------
+    def compute_loss(
+        self,
+        gt: Tensor,
+        text_alpha: Tensor,
+        generator: Optional[torch.Generator],
+        weights: Optional[Tensor] = None,
+    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """gt / text_alpha: (B, H, W, 4) RGBA in [0, 1]. `weights` (B,) makes
+        the loss a weighted batch mean (weight 0 marks a padding sample).
+        Four draws from `generator`, in this order: the condition's posterior
+        eps, the target's, the noise, the timestep density. Both encodes run
+        without a gradient (the VAE is frozen)."""
+        gt, text_alpha = gt.to(self.device), text_alpha.to(self.device)
+        bsz = gt.shape[0]
+        lat_shape = (bsz,) + self.latent_shape(gt.shape[1], gt.shape[2])
+        kw = {"generator": generator, "device": self.device, "dtype": torch.float32}
+        eps_cond = torch.randn(lat_shape, **kw)
+        eps_target = torch.randn(lat_shape, **kw)
+        with torch.no_grad():
+            cond_latent = self.encode_latents(gt, eps_cond)
+            target_latent = self.encode_latents(text_alpha, eps_target)
+        noise = torch.randn(lat_shape, **kw)
+        u = compute_density_for_timestep_sampling(
+            generator, bsz, weighting_scheme="logit_normal", device=self.device)
+        return self.compute_loss_from_latents(cond_latent, target_latent, noise, u, weights=weights)
+
+    def compute_loss_from_latents(
+        self,
+        cond_latent: Tensor,
+        target_latent: Tensor,
+        noise: Tensor,
+        u: Tensor,
+        weights: Optional[Tensor] = None,
+    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Deterministic core of the flow-matching loss: the noise and the
+        timestep density are handed in."""
+        bsz, latent_h, latent_w = target_latent.shape[:3]
+        device = target_latent.device
+        sched = self._train_sched
+        n_train = self.scheduler.config.num_train_timesteps
+        max_idx = min(len(sched.timesteps) - 1, len(sched.sigmas) - 1)
+        indices = torch.clamp((u * n_train).long(), 0, max_idx)
+
+        timesteps = torch.as_tensor(sched.timesteps, device=device)[indices]
+        sigmas = torch.as_tensor(sched.sigmas, device=device)[indices].reshape(bsz, 1, 1, 1)
+
+        noisy_target = (1.0 - sigmas) * target_latent + sigmas * noise
+        packed_cond = pack_latents(cond_latent.to(self.dtype))
+        packed = torch.cat([packed_cond, pack_latents(noisy_target.to(self.dtype))], dim=1)
+
+        # the SAME latent image-id grid for both halves
+        ids_single = prepare_latent_image_ids(latent_h // 2, latent_w // 2, device=device)
+        img_ids = torch.cat([ids_single, ids_single], dim=0)
+
+        pred = self._transformer_pred(packed, timesteps / 1000.0, img_ids, bsz)
+        seq_cond = packed_cond.shape[1]
+        pred_target = unpack_latents(pred[:, seq_cond:, :].float(), latent_h, latent_w)
+        loss_target = noise - target_latent
+        weighting = compute_loss_weighting_for_sd3(sigmas, weighting_scheme="logit_normal")
+        per_sample = (weighting * (pred_target - loss_target) ** 2).reshape(bsz, -1).mean(dim=1)
+        if weights is None:
+            loss = per_sample.mean()
+        else:
+            w = weights.float()
+            loss = (per_sample * w).sum() / torch.clamp(w.sum(), min=1e-8)
+        stats = {"timesteps_mean": timesteps.mean(), "sigmas_mean": sigmas.mean()}
+        return loss, stats
+
+    # ------------------------------------------------------------------
     # Sampling
     # ------------------------------------------------------------------
     def sampling_schedule(self, num_inference_steps: int) -> FlowMatchEulerScheduler:
         """Inference schedule, dynamic-shift μ from the VAE sample size."""
         sched = FlowMatchEulerScheduler(self.scheduler.config)
-        sample = self.vae.config.sample_size or 256
-        h = max(int(sample // self.vae_scale_factor), 1)
-        sched.set_timesteps(num_inference_steps, mu=calc_mu(self.scheduler.config, h * h))
+        sched.set_timesteps(num_inference_steps, mu=self._schedule_mu())
         return sched
 
     def sample_latents_from_noise(

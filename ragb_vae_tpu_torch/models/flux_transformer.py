@@ -15,11 +15,12 @@ import dataclasses
 import json
 import math
 from pathlib import Path
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ragb_vae_tpu_torch.ops.kernels.flash_attention import attention
 
@@ -110,23 +111,39 @@ def apply_rotary_emb(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
 class LoraDense(nn.Linear):
     """nn.Linear with an optional rank-r LoRA bypass,
     y = x W^T + b + (alpha/r) (x A^T) B^T (A: (r, in), B: (out, r));
-    with rank 0 it is a plain linear whose keys are diffusers' own."""
+    with rank 0 it is a plain linear whose keys are diffusers' own.
+
+    The adapters are fp32 parameters whatever the base dtype and are cast to
+    the compute dtype at use, as in the JAX package: AdamW then updates fp32
+    adapters under a frozen bf16 base."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  lora_rank: int = 0, lora_alpha: float = 0.0, device=None, dtype=None):
         super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
-        self.lora_rank = lora_rank
-        self.scaling = lora_alpha / lora_rank if lora_rank > 0 else 0.0
+        self.lora_rank = 0
+        self.scaling = 0.0
         if lora_rank > 0:
-            self.lora_A = nn.Parameter(torch.empty(lora_rank, in_features, device=device, dtype=dtype))
-            self.lora_B = nn.Parameter(torch.zeros(out_features, lora_rank, device=device, dtype=dtype))
-            nn.init.normal_(self.lora_A, std=1.0 / lora_rank)
+            self.add_adapter(lora_rank, lora_alpha)
+
+    def add_adapter(self, rank: int, alpha: float,
+                    generator: Optional[torch.Generator] = None) -> None:
+        """Attach (or replace) the adapter on the weight's device:
+        A ~ N(0, 1/rank), B = 0, so the bypass starts at zero (peft's
+        init_lora_weights="gaussian")."""
+        device = self.weight.device
+        self.lora_rank = rank
+        self.scaling = alpha / rank
+        a = torch.empty(rank, self.in_features, device=device, dtype=torch.float32)
+        self.lora_A = nn.Parameter(a.normal_(0.0, 1.0 / rank, generator=generator))
+        self.lora_B = nn.Parameter(
+            torch.zeros(self.out_features, rank, device=device, dtype=torch.float32))
 
     def forward(self, x: Tensor) -> Tensor:
         x = x.to(self.weight.dtype)
         y = F.linear(x, self.weight, self.bias)
         if self.lora_rank > 0:
-            y = y + self.scaling * F.linear(F.linear(x, self.lora_A), self.lora_B)
+            a, b = self.lora_A.to(x.dtype), self.lora_B.to(x.dtype)
+            y = y + self.scaling * F.linear(F.linear(x, a), b)
         return y
 
 
@@ -364,10 +381,14 @@ class FluxTransformer2D(nn.Module):
     pre-packed latent tokens; ids carry no batch dim)."""
 
     def __init__(self, config: FluxTransformerConfig, *, lora_rank: int = 0,
-                 lora_alpha: float = 0.0, device=None, dtype=None):
+                 lora_alpha: float = 0.0, remat: bool = False, device=None, dtype=None):
         super().__init__()
         cfg = config
         self.config = cfg
+        # recompute each block in the backward instead of keeping its
+        # activations (`nn.remat` in the JAX package); off when no gradient
+        # is being recorded
+        self.remat = remat
         nkw = {"device": device, "dtype": dtype}
         kw = {**nkw, "lora_rank": lora_rank, "lora_alpha": lora_alpha}
         dim = cfg.inner_dim
@@ -382,6 +403,11 @@ class FluxTransformer2D(nn.Module):
         )
         self.norm_out = AdaLayerNormContinuous(dim, device=device)
         self.proj_out = LoraDense(dim, cfg.out_channels or cfg.in_channels, **nkw)
+
+    def _run_block(self, block: nn.Module, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def forward(
         self,
@@ -399,10 +425,50 @@ class FluxTransformer2D(nn.Module):
         temb = self.time_text_embed(timestep, guidance, pooled_projections)
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0), cfg.axes_dims_rope)
         for block in self.transformer_blocks:
-            img, txt = block(img, txt, temb, rope)
+            img, txt = self._run_block(block, img, txt, temb, rope)
         x = torch.cat([txt, img], dim=1)  # txt first
         for block in self.single_transformer_blocks:
-            x = block(x, temb, rope)
+            x = self._run_block(block, x, temb, rope)
         x = x[:, txt.shape[1]:]
         x = self.norm_out(x, temb).to(self.proj_out.weight.dtype)
         return self.proj_out(x)
+
+
+# ---------------------------------------------------------------------------
+# LoRA targets
+# ---------------------------------------------------------------------------
+# the linears of a block that carry an adapter (peft target_modules of the
+# reference stage): attention projections and the feed-forward pair
+LORA_TARGET_SUFFIXES = (
+    ".to_q", ".to_k", ".to_v", ".to_out.0",
+    ".add_q_proj", ".add_k_proj", ".add_v_proj", ".to_add_out",
+    ".net.0.proj", ".net.2",
+)
+
+
+def lora_target_modules(transformer: FluxTransformer2D) -> List[Tuple[str, LoraDense]]:
+    """(name, module) of every linear that takes an adapter, in module order."""
+    return [(name, m) for name, m in transformer.named_modules()
+            if isinstance(m, LoraDense) and name.endswith(LORA_TARGET_SUFFIXES)
+            and name.startswith(("transformer_blocks.", "single_transformer_blocks."))]
+
+
+def add_lora(transformer: FluxTransformer2D, rank: int, alpha: float,
+             generator: Optional[torch.Generator] = None) -> None:
+    """Attach fresh adapters to every target linear (peft's add_adapter)."""
+    if rank <= 0:
+        raise ValueError("lora_rank must be > 0 to initialize LoRA.")
+    for _, module in lora_target_modules(transformer):
+        module.add_adapter(rank, alpha, generator)
+
+
+def freeze_base_parameters(module: nn.Module) -> List[nn.Parameter]:
+    """Turn the gradient off for every parameter that is not an adapter and
+    on for the adapters; returns the adapters."""
+    adapters = []
+    for name, p in module.named_parameters():
+        is_adapter = name.rsplit(".", 1)[-1] in ("lora_A", "lora_B")
+        p.requires_grad_(is_adapter)
+        if is_adapter:
+            adapters.append(p)
+    return adapters

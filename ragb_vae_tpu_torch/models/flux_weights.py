@@ -1,12 +1,13 @@
 """FLUX transformer weight interop: diffusers checkpoints and the JAX tree.
 
-Counterpart of `ragb_vae_tpu/models/flux_weights.py` (peft LoRA import and
-export are not ported yet). The port's modules carry the diffusers keys, so
-a `transformer/` checkpoint (single-file or sharded) loads as it is. The key
-map between diffusers names and the JAX package's flax paths is copied from
-the JAX package (which the port must not import); it backs
-`params_from_flax` / `params_to_flax`, which move one set of weights between
-the two packages.
+Counterpart of `ragb_vae_tpu/models/flux_weights.py`. The port's modules
+carry the diffusers keys, so a `transformer/` checkpoint (single-file or
+sharded) loads as it is. The key map between diffusers names and the JAX
+package's flax paths is copied from the JAX package (which the port must not
+import); it backs `params_from_flax` / `params_to_flax`, which move one set
+of weights between the two packages. LoRA adapters live on the module
+(`lora_parameters`, `lora_state`, `load_lora_state`) and travel in peft's
+file format, which both packages read and write.
 """
 from __future__ import annotations
 
@@ -144,7 +145,75 @@ def flux_state_to_params(state: Dict[str, Union[np.ndarray, torch.Tensor]]) -> S
 def params_to_flux_state(state: StateDict) -> StateDict:
     """The port's state dict -> diffusers checkpoint keys (LoRA adapters,
     which peft stores in a separate file, are left out)."""
-    return {k: v for k, v in state.items() if not k.endswith((".lora_A", ".lora_B"))}
+    return {k: v for k, v in state.items() if not is_lora_key(k)}
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters on a module, and peft interop
+# ---------------------------------------------------------------------------
+def is_lora_key(key: str) -> bool:
+    return key.rsplit(".", 1)[-1] in ("lora_A", "lora_B")
+
+
+def lora_parameters(module: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
+    """The module's adapters by name (`<linear>.lora_A` / `.lora_B`), in module
+    order: what the optimizer trains (the lora half of `split_lora_params`)."""
+    return {k: p for k, p in module.named_parameters() if is_lora_key(k)}
+
+
+def lora_state(module: torch.nn.Module) -> StateDict:
+    """Detached fp32 CPU copies of the adapters. Only the adapters are
+    fetched: the frozen base never leaves the device."""
+    return {k: p.detach().to("cpu", torch.float32, copy=True) for k, p in lora_parameters(module).items()}
+
+
+@torch.no_grad()
+def load_lora_state(module: torch.nn.Module, state: StateDict) -> None:
+    """Copy `state` into the module's adapters (the counterpart of
+    `merge_params`); the key sets and shapes must agree."""
+    params = lora_parameters(module)
+    if set(params) != set(state):
+        missing, extra = sorted(set(params) - set(state)), sorted(set(state) - set(params))
+        raise KeyError(f"LoRA state does not fit the module: missing {missing[:3]} "
+                       f"({len(missing)}), unexpected {extra[:3]} ({len(extra)})")
+    for key, p in params.items():
+        if p.shape != state[key].shape:
+            raise ValueError(f"{key}: adapter shape {tuple(state[key].shape)} != {tuple(p.shape)}")
+        p.copy_(state[key])
+
+
+def lora_params_to_peft_state(lora: StateDict) -> StateDict:
+    """Adapters by module name -> peft `transformer.<mod>.lora_A.weight`
+    (r, in) / `lora_B.weight` (out, r), the key format
+    FluxPipeline.save_lora_weights writes (the port's layout already)."""
+    return {f"transformer.{key}.weight": value.detach().float().cpu() for key, value in lora.items()}
+
+
+def peft_state_to_lora_params(state: Dict[str, Union[np.ndarray, torch.Tensor]]) -> StateDict:
+    """A peft LoRA state dict -> adapters by module name. The `transformer.`
+    prefix and peft's nested `.default` adapter names are stripped; keys that
+    are no adapter are skipped."""
+    lora: StateDict = {}
+    for key, value in state.items():
+        for marker, leaf in ((".lora_A.", "lora_A"), (".lora_B.", "lora_B")):
+            if marker in key:
+                name = key.split(marker)[0].replace(".default", "")
+                if name.startswith("transformer."):
+                    name = name[len("transformer."):]
+                lora[f"{name}.{leaf}"] = torch.as_tensor(value).float()
+    return lora
+
+
+def lora_grads_to_flax(module: torch.nn.Module) -> dict:
+    """The adapters' `.grad` in the JAX lora tree's layout (lora_a (in, r),
+    lora_b (r, out), numpy): what `jax.grad` over the lora tree returns."""
+    tree: dict = {}
+    for key, p in lora_parameters(module).items():
+        if p.grad is None:
+            raise ValueError(f"{key} has no gradient")
+        path, _ = torch_key_to_flux_path(key, 2)
+        _set_path(tree, path, np.ascontiguousarray(p.grad.detach().float().cpu().numpy().T))
+    return tree
 
 
 # ---------------------------------------------------------------------------

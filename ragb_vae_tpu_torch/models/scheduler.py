@@ -1,4 +1,5 @@
-"""FlowMatchEulerDiscreteScheduler, inference side.
+"""FlowMatchEulerDiscreteScheduler, with the training-side timestep density
+and loss weighting.
 
 Counterpart of `ragb_vae_tpu/models/scheduler.py` (math copied, the port
 must not import the JAX package): sigma schedule t/N with a static shift
@@ -113,3 +114,42 @@ class FlowMatchEulerScheduler:
         sigma_next = float(self.sigmas[step_index + 1])
         prev = sample.float() + (sigma_next - sigma) * model_output.float()
         return prev.to(sample.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training side (diffusers.training_utils)
+# ---------------------------------------------------------------------------
+def compute_density_for_timestep_sampling(
+    generator: Optional[torch.Generator],
+    batch_size: int,
+    *,
+    weighting_scheme: str = "logit_normal",
+    logit_mean: float = 0.0,
+    logit_std: float = 1.0,
+    mode_scale: float = 1.29,
+    device: Union[str, torch.device, None] = None,
+    draw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """u in (0, 1) per sample. "logit_normal": sigmoid(N(mean, std)); "mode":
+    the SD3 mode-weighted map of a uniform draw; anything else: uniform.
+    One (batch_size,) draw is taken from `generator` (standard normal for
+    "logit_normal", uniform otherwise), or handed in as `draw`."""
+    if draw is None:
+        sample = torch.randn if weighting_scheme == "logit_normal" else torch.rand
+        draw = sample((batch_size,), generator=generator, device=device, dtype=torch.float32)
+    if weighting_scheme == "logit_normal":
+        return torch.sigmoid(draw * logit_std + logit_mean)
+    if weighting_scheme == "mode":
+        return 1.0 - draw - mode_scale * (torch.cos(math.pi * draw / 2.0) ** 2 - 1.0 + draw)
+    return draw
+
+
+def compute_loss_weighting_for_sd3(sigmas: torch.Tensor, *, weighting_scheme: str = "logit_normal") -> torch.Tensor:
+    """SD3 loss weight; any scheme other than sigma_sqrt / cosmap gives ones
+    (so the stage's "logit_normal" weighting is identically 1)."""
+    if weighting_scheme == "sigma_sqrt":
+        return sigmas ** -2.0
+    if weighting_scheme == "cosmap":
+        bot = 1.0 - 2.0 * sigmas + 2.0 * sigmas ** 2
+        return 2.0 / (math.pi * bot)
+    return torch.ones_like(sigmas)

@@ -7,13 +7,14 @@ tensor takes the plain PyTorch version `attention_plain` (exact,
 query-chunked so no S x S matrix is held at once); a CUDA tensor launches
 the hand-written kernel in `csrc/flash_attention.cu` or raises.
 
-Backward, routed by head dim as in the JAX package (`_uses_fused_bwd`): for
-d >= 384 (the VAE mid-block) a query-chunked recompute in plain PyTorch that
-saves only q, k, v and keeps one chunk's logits alive at a time; these
-products sit outside any kernel in the JAX package too. For d < 384 the JAX
-package runs its dQ and dK/dV kernels, which are not ported yet: on CUDA
-such a call raises when a gradient is required instead of returning a
-tensor cut off from the graph.
+Backward, routed by head dim as in the JAX package (`_uses_fused_bwd`):
+- d < 384 (the FLUX blocks): the forward saves q, k, v, out and the
+  log-sum-exp, and the backward is the FlashAttention-2 pair of kernels in
+  `csrc/flash_attention_bwd.cu` on CUDA (dQ, then dK and dV; head dim 128
+  only) and `attention_bwd_plain`, the same arithmetic in PyTorch, on the CPU;
+- d >= 384 (the VAE mid-block): a query-chunked recompute in plain PyTorch
+  that saves only q, k, v and keeps one chunk's logits alive at a time; these
+  products sit outside any kernel in the JAX package too.
 """
 from __future__ import annotations
 
@@ -30,25 +31,40 @@ Tensor = torch.Tensor
 # head dims the CUDA kernel is instantiated for
 KERNEL_HEAD_DIMS = (128, 512)
 
-# launches of the kernel since the last reset (the plain version never counts)
+# the head dim the backward kernels are written for
+BWD_KERNEL_HEAD_DIM = 128
+
+# launches of each kernel since the last reset (the plain versions never
+# count): forward, dQ, dK/dV
 LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES
+    LAUNCHES = DQ_LAUNCHES = DKV_LAUNCHES = 0
 
 
-def attention_plain(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float, chunk: int = 1024) -> Tensor:
+def attention_lse_plain(
+    q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float, chunk: int = 1024
+) -> Tuple[Tensor, Tensor]:
     """(BH, S, D) exact attention, q-chunked; logits and softmax in fp32
-    (counterpart of `chunked_attention_3d`)."""
-    outs = []
+    (counterpart of `chunked_attention_3d`). Returns (out, lse) with lse the
+    (BH, Sq) fp32 log-sum-exp of the scaled logits, as the kernel writes it."""
+    outs, lses = [], []
     for start in range(0, q.shape[1], chunk):
         q_blk = q[:, start : start + chunk]
         logits = torch.matmul(q_blk, k.transpose(1, 2)).float() * sm_scale
         weights = torch.softmax(logits, dim=-1).to(v.dtype)
         outs.append(torch.matmul(weights, v))
-    return torch.cat(outs, dim=1)
+        lses.append(torch.logsumexp(logits, dim=-1))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+
+
+def attention_plain(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float, chunk: int = 1024) -> Tensor:
+    """`attention_lse_plain` without the log-sum-exp."""
+    return attention_lse_plain(q, k, v, sm_scale=sm_scale, chunk=chunk)[0]
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float) -> Tuple[Tensor, Tensor]:
@@ -85,18 +101,130 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float) ->
     return out, lse
 
 
-# head dims below this take the (unported) fused backward kernels in the JAX package
+# head dims below this take the fused FlashAttention-2 backward, as in the JAX package
 FUSED_BWD_MAX_HEAD_DIM = 384
 
 
 def backward_route(device_type: str, head_dim: int) -> str:
-    """Which backward a call that needs a gradient gets: "recompute" (the
-    q-chunked plain PyTorch recompute) or "unported" (the JAX package's fused
-    dQ / dK,dV kernels, K4/K5, have no counterpart yet: the call raises). The
-    CPU has no kernels, so it always recomputes."""
-    if device_type == "cuda" and head_dim < FUSED_BWD_MAX_HEAD_DIM:
-        return "unported"
-    return "recompute"
+    """Which backward a call that needs a gradient gets: "kernels" (the dQ and
+    dK/dV kernels, from the saved output and log-sum-exp), "plain" (the same
+    arithmetic in PyTorch, on the CPU) or "recompute" (the q-chunked plain
+    PyTorch recompute from q, k, v alone, for head dims of 384 and up)."""
+    if head_dim >= FUSED_BWD_MAX_HEAD_DIM:
+        return "recompute"
+    return "kernels" if device_type == "cuda" else "plain"
+
+
+def attention_bwd_plain(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, g: Tensor,
+    *, sm_scale: float, chunk: int = 1024,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) by the FlashAttention-2 arithmetic of the dQ and dK/dV
+    kernels, from the forward's output and log-sum-exp (counterpart of
+    `flash_attention_bwd_3d`): P = exp(scale * Q K^T - lse), dP = dO V^T,
+    dS = P * (dP - delta) * scale with delta = rowsum(dO * O); dQ = dS K,
+    dV = P^T dO, dK = dS^T Q. P and dS are rounded to the input dtype before
+    their products, dK and dV add up over the query chunks in fp32, and no
+    (S, S) block is held at once."""
+    g = g.to(q.dtype)
+    delta = attention_delta(out, g)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    dqs = []
+    for start in range(0, q.shape[1], chunk):
+        rows = slice(start, start + chunk)
+        q_blk, g_blk = q[:, rows], g[:, rows]
+        logits = torch.matmul(q_blk, k.transpose(1, 2)).float() * sm_scale
+        p = torch.exp(logits - lse[:, rows, None])
+        dp = torch.matmul(g_blk, v.transpose(1, 2)).float()
+        ds = (p * (dp - delta[:, rows, None]) * sm_scale).to(q.dtype)
+        dqs.append(torch.matmul(ds, k))
+        dv += torch.matmul(p.to(q.dtype).transpose(1, 2), g_blk)
+        dk += torch.matmul(ds.transpose(1, 2), q_blk)
+    return torch.cat(dqs, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_operands(name: str, q: Tensor, k: Tensor, v: Tensor, g: Tensor, lse: Tensor, delta: Tensor):
+    """Check what the backward kernels take: CUDA, bf16 (BH, S, 128) q, k, v
+    and dO, fp32 (BH, Sq) lse and delta; returns them contiguous."""
+    for key, t in (("q", q), ("k", k), ("v", v), ("g", g)):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {key} must be a CUDA tensor, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {key} must be bfloat16, got {t.dtype}")
+        if t.ndim != 3:
+            raise ValueError(f"{name}: {key} must be (BH, S, D), got {tuple(t.shape)}")
+    bh, seq_q, d = q.shape
+    seq_k = k.shape[1]
+    if d != BWD_KERNEL_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} is not {BWD_KERNEL_HEAD_DIM}")
+    if k.shape != (bh, seq_k, d) or v.shape != k.shape or g.shape != q.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+                         f"g {tuple(g.shape)}")
+    for key, t in (("lse", lse), ("delta", delta)):
+        if not t.is_cuda or t.dtype != torch.float32 or t.shape != (bh, seq_q):
+            raise ValueError(f"{name}: {key} must be a CUDA float32 {(bh, seq_q)}, "
+                             f"got {t.device} {t.dtype} {tuple(t.shape)}")
+    if bh > 65535:
+        raise ValueError(f"{name}: batch*heads {bh} exceeds 65535")
+    return tuple(t.contiguous() for t in (q, k, v, g, lse, delta))
+
+
+def _ptr(t: Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def flash_attention_dq_cuda(
+    q: Tensor, k: Tensor, v: Tensor, g: Tensor, lse: Tensor, delta: Tensor, *, sm_scale: float
+) -> Tensor:
+    """Launch the K4 kernel: dQ (BH, Sq, 128) bf16 from q, k, v, dO, the
+    forward's (BH, Sq) fp32 log-sum-exp and delta = rowsum(dO * O)."""
+    global DQ_LAUNCHES
+    name = "flash_attention_dq"
+    q, k, v, g, lse, delta = _bwd_operands(name, q, k, v, g, lse, delta)
+    dq = torch.empty_like(q)
+    err = _build.library().ragb_flash_attention_dq(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq),
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale),
+        ctypes.c_void_p(_build.stream_ptr(q.device)))
+    _build.check(err, name)
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_attention_dkv_cuda(
+    q: Tensor, k: Tensor, v: Tensor, g: Tensor, lse: Tensor, delta: Tensor, *, sm_scale: float
+) -> Tuple[Tensor, Tensor]:
+    """Launch the K5 kernel: (dK, dV) (BH, Sk, 128) bf16 from the same operands."""
+    global DKV_LAUNCHES
+    name = "flash_attention_dkv"
+    q, k, v, g, lse, delta = _bwd_operands(name, q, k, v, g, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.library().ragb_flash_attention_dkv(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale),
+        ctypes.c_void_p(_build.stream_ptr(q.device)))
+    _build.check(err, name)
+    DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def attention_delta(out: Tensor, g: Tensor) -> Tensor:
+    """delta = rowsum(dO * O) in fp32, (BH, Sq): one elementwise pass outside
+    the kernels, as in the JAX package."""
+    return (g.float() * out.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_cuda(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, g: Tensor, *, sm_scale: float
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) on the card: delta, then the K4 and K5 kernels."""
+    if out.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} != q {tuple(q.shape)}")
+    delta = attention_delta(out, g)
+    dq = flash_attention_dq_cuda(q, k, v, g, lse, delta, sm_scale=sm_scale)
+    dk, dv = flash_attention_dkv_cuda(q, k, v, g, lse, delta, sm_scale=sm_scale)
+    return dq, dk, dv
 
 
 def attention_bwd_recompute(
@@ -124,39 +252,48 @@ def attention_bwd_recompute(
 
 
 class _Attention(torch.autograd.Function):
-    """(BH, S, D) attention; saves q, k, v only (the recompute backward needs
-    neither the output nor the log-sum-exp)."""
+    """(BH, S, D) attention. Head dims below 384 save q, k, v, the output and
+    the log-sum-exp for the fused backward; larger ones save q, k, v only (the
+    recompute backward needs neither)."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
+        fused = q.shape[-1] < FUSED_BWD_MAX_HEAD_DIM
         if q.is_cuda:
-            out, _ = flash_attention_cuda(q, k, v, sm_scale=sm_scale)
+            out, lse = flash_attention_cuda(q, k, v, sm_scale=sm_scale)
         else:
-            out = attention_plain(q, k, v, sm_scale=sm_scale)
-        ctx.save_for_backward(q, k, v)
+            out, lse = attention_lse_plain(q, k, v, sm_scale=sm_scale)
+        if fused:
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            ctx.save_for_backward(q, k, v)
+        ctx.fused = fused
         ctx.sm_scale = sm_scale
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        return attention_bwd_recompute(q, k, v, g, sm_scale=ctx.sm_scale) + (None,)
+        if not ctx.fused:
+            q, k, v = ctx.saved_tensors
+            return attention_bwd_recompute(q, k, v, g, sm_scale=ctx.sm_scale) + (None,)
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:
+            grads = flash_attention_bwd_cuda(q, k, v, out, lse, g.to(q.dtype), sm_scale=ctx.sm_scale)
+        else:
+            grads = attention_bwd_plain(q, k, v, out, lse, g, sm_scale=ctx.sm_scale)
+        return grads + (None,)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: Optional[float] = None) -> Tensor:
     """(B, H, S, D) attention: the flash kernel on CUDA, the plain version on
-    CPU; differentiable as `backward_route` says."""
+    CPU; differentiable as `backward_route` says (on CUDA a gradient at a head
+    dim below 384 other than 128 raises in the backward wrapper)."""
     b, h, s, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: unsupported device {q.device}")
-    needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if needs_grad and backward_route(q.device.type, d) == "unported":
-        raise NotImplementedError(
-            f"attention: backward not ported yet (K4/K5) for head dim {d} < "
-            f"{FUSED_BWD_MAX_HEAD_DIM} on CUDA; run under torch.no_grad() or on the CPU")
     q3 = q.reshape(b * h, s, d)
     k3 = k.reshape(b * h, k.shape[2], d)
     v3 = v.reshape(b * h, v.shape[2], d)

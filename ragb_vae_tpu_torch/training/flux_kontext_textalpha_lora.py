@@ -1,0 +1,527 @@
+"""FLUX-Kontext text-alpha LoRA training stage on one device.
+
+Counterpart of `ragb_vae_tpu/training/flux_kontext_textalpha_lora.py`: the
+same argparse surface and YAML -> args overlay with its synonyms
+(ckpt_every_steps -> save_every, val_every_steps -> val_every,
+val_max_batches -> val_max_samples), AdamW(0.9, 0.95) behind a global-norm
+clip with a cosine schedule over the LoRA adapters only, peft-format saves
+with `metadata.json`, GT|pred pair dumps for validation, and resume.
+
+    python -m ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora \
+        --pretrained_model_name_or_path CKPT --rgba_vae_path VAE --data_root DATA
+
+The JAX package compiles one step that takes the adapter tree and the
+optimizer state and returns new ones. Here the transformer module owns the
+frozen base (bf16 under `mixed_precision: bf16`) and the fp32 adapters, the
+optimizer owns its moments, and a step updates both in place. Each block is
+recomputed in the backward (`use_gradient_checkpointing`), the batch is split
+into `grad_accum_steps` micro-batches weighted by their real-sample count,
+and batches reach the card through pinned buffers on a side stream.
+
+The train state beside the adapters is `train_state.pt` (the optimizer's
+state dict and the generator's state): an optax state serialised by flax
+means nothing to `torch.optim`. It is written last and marks the checkpoint
+complete. The adapters and `metadata.json` interchange with the JAX package
+in both directions.
+
+Not ported yet (each raises, or is left out): `--weight_quant int8`,
+`--shard_base_params`, `--tensor_parallel` and `--sequence_parallel` above 1,
+more than one process, the preemption guard and the metrics logger (`log_fn`
+receives what the logger would).
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ragb_vae_tpu_torch.data.loader import DataLoader, cuda_prefetch
+from ragb_vae_tpu_torch.data.sampler import BucketBatchSampler
+from ragb_vae_tpu_torch.data.text_alpha_dataset import TextAlphaBucketDataset
+from ragb_vae_tpu_torch.models.flux_kontext_textalpha import (
+    LORA_WEIGHT_FILES,
+    FluxTextAlphaModel,
+    read_lora_metadata,
+    write_lora_metadata,
+)
+from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
+from ragb_vae_tpu_torch.parallel.grad_accum import accumulated_grads
+from ragb_vae_tpu_torch.training.vae_step import ClippedAdamW, global_norm
+
+Tensor = torch.Tensor
+TRAIN_STATE_FILE = "train_state.pt"
+
+
+def _resolve_env_token(value: Optional[str]) -> Optional[str]:
+    """`${env:VAR}` indirection for tokens."""
+    if not value:
+        return value
+    if value.startswith("${env:") and value.endswith("}"):
+        return os.environ.get(value[len("${env:"):-1])
+    return value
+
+
+def parse_args(args: Optional[List[str]] = None, *, allow_missing: bool = False) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="FLUX-Kontext LoRA for text_alpha latent prediction (PyTorch)."
+    )
+    required = not allow_missing
+    parser.add_argument("--pretrained_model_name_or_path", type=str, required=required, default=None)
+    parser.add_argument("--hf_token", type=str, default=None)
+    parser.add_argument("--rgba_vae_path", type=str, required=required, default=None)
+    parser.add_argument("--vae_subfolder", type=str, default="ae")
+    parser.add_argument("--data_root", type=str, required=required, default=None)
+    parser.add_argument("--train_split", type=str, default="train")
+    parser.add_argument("--val_split", type=str, default=None)
+    parser.add_argument("--batch_size", type=int, default=2)
+    parser.add_argument("--val_batch_size", type=int, default=1)
+    parser.add_argument("--num_workers", type=int, default=8)
+    parser.add_argument("--learning_rate", type=float, default=1e-4)
+    parser.add_argument("--weight_decay", type=float, default=0.01)
+    parser.add_argument("--adam_beta1", type=float, default=0.9)
+    parser.add_argument("--adam_beta2", type=float, default=0.95)
+    parser.add_argument("--adam_eps", type=float, default=1e-8)
+    parser.add_argument("--max_train_steps", type=int, default=10000)
+    parser.add_argument("--log_every", type=int, default=50)
+    parser.add_argument("--save_every", type=int, default=1000)
+    parser.add_argument("--ckpt_dir", type=str, default="checkpoints/flux_kontext_textalpha_lora")
+    parser.add_argument("--output_dir", type=str, default="outputs/flux_kontext_textalpha_lora")
+    parser.add_argument(
+        "--val_output_dir", type=str, default="outputs/flux_kontext_textalpha_lora/val_samples"
+    )
+    parser.add_argument("--val_every", type=int, default=1000)
+    parser.add_argument("--val_max_samples", type=int, default=100)
+    parser.add_argument("--val_num_inference_steps", type=int, default=20)
+    parser.add_argument("--run_validation_on_start", action="store_true")
+    parser.add_argument("--mixed_precision", type=str, default="bf16")
+    parser.add_argument("--grad_accum_steps", type=int, default=1)
+    parser.add_argument("--seed", type=int, default=1337)
+    parser.add_argument("--rank", type=int, default=96)
+    parser.add_argument("--lora_alpha", type=int, default=128)
+    parser.add_argument("--drop_last", action="store_true")
+    parser.add_argument("--interleave_buckets", action="store_true")
+    parser.add_argument("--max_grad_norm", type=float, default=1.0)
+    parser.add_argument(
+        "--resume_from", type=str, default=None,
+        help="LoRA checkpoint dir to resume from (adapters, optimizer state, step, "
+             "generator state), or 'auto' for the newest complete checkpoint-* under ckpt_dir.",
+    )
+    parser.add_argument("--weight_quant", type=str, default="none", choices=["none", "int8"],
+                        help="int8: not ported yet.")
+    parser.add_argument("--shard_base_params", action="store_true", help="Not ported yet.")
+    parser.add_argument("--tensor_parallel", type=int, default=1, help="Above 1: not ported yet.")
+    parser.add_argument("--sequence_parallel", type=int, default=1, help="Above 1: not ported yet.")
+    return parser.parse_args(args=args)
+
+
+def _check_ported(args: argparse.Namespace) -> None:
+    missing = []
+    if getattr(args, "weight_quant", "none") != "none":
+        missing.append(f"weight_quant={args.weight_quant}")
+    if getattr(args, "shard_base_params", False):
+        missing.append("shard_base_params")
+    for name in ("tensor_parallel", "sequence_parallel"):
+        if int(getattr(args, name, 1) or 1) > 1:
+            missing.append(f"{name}={getattr(args, name)}")
+    if missing:
+        raise NotImplementedError(
+            f"{', '.join(missing)}: not ported yet to the PyTorch package "
+            "(use ragb_vae_tpu.training.flux_kontext_textalpha_lora)."
+        )
+
+
+def latest_complete_lora_checkpoint(root: Path) -> Optional[Path]:
+    """Newest committed checkpoint-N dir under `root`, or None.
+
+    `save_lora` writes the adapters, then the metadata, then the train state,
+    so the train state marks a checkpoint complete: a crash in mid-save
+    leaves a dir without it, which `resume_from: auto` must skip. Resuming
+    warm adapters with a fresh optimizer and step would silently restart the
+    cosine schedule on a half-written checkpoint."""
+    if not root.exists():
+        return None
+    complete = [
+        p for p in root.glob("checkpoint-*")
+        if p.is_dir() and (p / LORA_WEIGHT_FILES[0]).exists() and (p / TRAIN_STATE_FILE).exists()
+    ]
+    return max(complete, key=lambda p: int(p.name.rsplit("-", 1)[1]), default=None)
+
+
+# ---------------------------------------------------------------------------
+# Batch padding and image dumps (the port's copies of the VAE stage's helpers)
+# ---------------------------------------------------------------------------
+def pad_to_multiple(arr: np.ndarray, multiple: int) -> np.ndarray:
+    """Cycle-pad the batch dim so it divides into the micro-batches; the step
+    masks the pad out of the loss through `padding_weights`."""
+    n = arr.shape[0]
+    if multiple <= 1 or n % multiple == 0:
+        return arr
+    pad = multiple - n % multiple
+    extra = np.concatenate([arr] * -(-pad // n), axis=0)[:pad]
+    return np.concatenate([arr, extra], axis=0)
+
+
+def padding_weights(n_real: int, n_total: int) -> np.ndarray:
+    """(n_total,) loss weights: 1 for real samples, 0 for padding."""
+    weights = np.zeros(n_total, dtype=np.float32)
+    weights[:n_real] = 1.0
+    return weights
+
+
+def _to_uint8(img01: np.ndarray) -> np.ndarray:
+    return (np.clip(img01, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+def _save_pair(gt: np.ndarray, pred: np.ndarray, path: Path) -> None:
+    """GT | prediction side by side as one RGBA PNG."""
+    from PIL import Image
+
+    gt_img = Image.fromarray(_to_uint8(gt), mode="RGBA")
+    pred_img = Image.fromarray(_to_uint8(pred), mode="RGBA")
+    w, h = gt_img.size
+    canvas = Image.new("RGBA", (w * 2, h))
+    canvas.paste(gt_img, (0, 0))
+    canvas.paste(pred_img, (w, 0))
+    canvas.save(path)
+
+
+# ---------------------------------------------------------------------------
+# Optimizer and step
+# ---------------------------------------------------------------------------
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
+    """`optax.cosine_decay_schedule`: init * 0.5 * (1 + cos(pi * min(step, T) / T))."""
+    def schedule(step: int) -> float:
+        frac = min(max(step, 0), decay_steps) / max(decay_steps, 1)
+        return init_value * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+    return schedule
+
+
+def make_lora_optimizer(
+    params: Sequence[Tensor],
+    learning_rate: float,
+    *,
+    betas: Tuple[float, float] = (0.9, 0.95),
+    eps: float = 1e-8,
+    weight_decay: float = 0.01,
+    max_grad_norm: Optional[float] = 1.0,
+) -> ClippedAdamW:
+    """Global-norm clip (optax's: max / max(norm, max)), then AdamW, as the
+    JAX stage's optax chain. The learning rate is set per step by the train
+    step from its schedule."""
+    return ClippedAdamW(params, learning_rate, betas=betas, eps=eps,
+                        weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+
+
+def make_lora_train_step(
+    model: FluxTextAlphaModel,
+    optimizer: ClippedAdamW,
+    n_micro: int,
+    lr_schedule: Optional[Callable[[int], float]] = None,
+):
+    """Build `step(batch, generator, step_index) -> (loss, stats, grad_norm)`.
+
+    `batch`: "gt" and "text_alpha" (B, H, W, 4) in [0, 1] and optionally
+    "weights" (B,). The loss and its backward run over `n_micro`
+    micro-batches, each weighted by the sum of its weights (so padding rows
+    change neither the loss nor the gradients wherever they fall); then the
+    clip and the AdamW update of the adapters, at `lr_schedule(step_index)`
+    with `step_index` the number of updates made before this one."""
+    params = list(lora_parameters(model.transformer).values())
+
+    def step(batch: Dict[str, Tensor], generator: Optional[torch.Generator], step_index: int = 0):
+        def loss_fn(micro: Dict[str, Tensor], index: int):
+            return model.compute_loss(micro["gt"], micro["text_alpha"], generator,
+                                      weights=micro.get("weights"))
+
+        loss, stats = accumulated_grads(
+            loss_fn, params, batch, n_micro,
+            micro_weight_fn=(lambda mb: mb["weights"].sum()) if "weights" in batch else None,
+        )
+        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+        if lr_schedule is not None:
+            for group in optimizer.param_groups:
+                group["lr"] = lr_schedule(step_index)
+        optimizer.clipped_step(grad_norm)
+        return loss, stats, grad_norm
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The stage
+# ---------------------------------------------------------------------------
+def _padded_batches(loader: DataLoader, n_micro: int) -> Iterator[Dict[str, Any]]:
+    for batch in loader:
+        gt = np.asarray(batch["gt"], np.float32)
+        n_real = gt.shape[0]
+        gt = pad_to_multiple(gt, n_micro)
+        yield {
+            "gt": gt,
+            "text_alpha": pad_to_multiple(np.asarray(batch["text_alpha"], np.float32), n_micro),
+            "weights": padding_weights(n_real, gt.shape[0]),
+        }
+
+
+def train(
+    args: argparse.Namespace,
+    *,
+    model: Optional[FluxTextAlphaModel] = None,
+    device: Union[str, torch.device, None] = None,
+    log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+) -> Dict[str, float]:
+    """Run the stage. `device` defaults to the card when there is one.
+    `model` stands in for `from_pretrained` (a model built elsewhere, for
+    example with random weights); adapters of `args.rank` are attached when
+    it has none. `log_fn(step, metrics)` is called at every `log_every`-th
+    step with the loss, the gradient norm before the clip and the learning
+    rate."""
+    _check_ported(args)
+    device = torch.device(device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu"))
+    dtype = torch.bfloat16 if args.mixed_precision in ("bf16", "fp16") else torch.float32
+
+    if model is None:
+        model = FluxTextAlphaModel.from_pretrained(
+            args.pretrained_model_name_or_path,
+            vae_path=args.rgba_vae_path,
+            vae_subfolder=args.vae_subfolder,
+            dtype=dtype,
+            device=device,
+            fused=device.type == "cuda",
+            lora_rank=args.rank,
+            lora_alpha=float(args.lora_alpha),
+        )
+    elif not lora_parameters(model.transformer):
+        model.lora_rank, model.lora_alpha = args.rank, float(args.lora_alpha)
+        model.init_lora(torch.Generator(model.device).manual_seed(0))
+    device = model.device
+    model.vae.module.requires_grad_(False)
+    lora = lora_parameters(model.transformer)
+
+    train_ds = TextAlphaBucketDataset(Path(args.data_root), split=args.train_split)
+    val_ds = TextAlphaBucketDataset(Path(args.data_root), split=args.val_split) if args.val_split else None
+    train_dl = DataLoader(
+        train_ds,
+        batch_sampler=BucketBatchSampler(
+            train_ds.bucket_to_indices, batch_size=args.batch_size, shuffle=True,
+            drop_last=args.drop_last, interleave=args.interleave_buckets, seed=args.seed,
+        ),
+        num_workers=args.num_workers,
+    )
+    val_dl = None
+    if val_ds is not None:
+        # bucket-pure batches: plain range batching would stack samples of
+        # different resolutions once val_batch_size > 1
+        val_dl = DataLoader(
+            val_ds,
+            batch_sampler=BucketBatchSampler(
+                val_ds.bucket_to_indices, batch_size=args.val_batch_size, shuffle=True, seed=args.seed),
+            num_workers=min(4, args.num_workers),
+        )
+
+    lr_schedule = cosine_decay_schedule(args.learning_rate, args.max_train_steps)
+    optimizer = make_lora_optimizer(
+        list(lora.values()), args.learning_rate,
+        betas=(args.adam_beta1, args.adam_beta2), eps=args.adam_eps,
+        weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
+    )
+    n_micro = max(1, args.grad_accum_steps)
+    train_step = make_lora_train_step(model, optimizer, n_micro, lr_schedule)
+
+    print(f"[Batch] effective_per_step={args.batch_size} (grad_accum={n_micro} -> "
+          f"{args.batch_size / n_micro:g} rows per micro-batch) device={device}")
+    print(f"[Train] {len(train_ds)} samples across {len(train_ds.bucket_to_indices)} buckets.")
+    print(f"[Val]   {len(val_ds)} samples." if val_ds is not None
+          else "[Val]   (disabled: no val_split provided)")
+    print(f"[Params] trainable LoRA parameters: {sum(p.numel() for p in lora.values()):,}")
+
+    generator = torch.Generator(device).manual_seed(args.seed)
+
+    def run_validation(step_label: str) -> None:
+        if val_dl is None:
+            return
+        out_dir = Path(args.val_output_dir) / f"step-{step_label}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        saved = 0
+        for batch in val_dl:
+            if saved >= args.val_max_samples:
+                break
+            gt_np = np.asarray(batch["gt"], np.float32)
+            decoded = model.sample(torch.from_numpy(gt_np),
+                                   num_inference_steps=args.val_num_inference_steps,
+                                   generator=generator).float().cpu().numpy()
+            names = batch.get("sample_name", ["val"])
+            for i in range(min(decoded.shape[0], args.val_max_samples - saved)):
+                name = names[i] if i < len(names) else f"val_{saved}"
+                _save_pair(gt_np[i], decoded[i], out_dir / f"{name}_pair.png")
+                saved += 1
+        print(f"[val-{step_label}] saved {saved} GT|pred pairs to {out_dir}")
+
+    def save_lora(step: int, subdir: str) -> None:
+        save_dir = Path(args.ckpt_dir) / subdir
+        model.save_lora_weights(save_dir)
+        write_lora_metadata(
+            save_dir, model_id=str(args.pretrained_model_name_or_path), rank=args.rank,
+            lora_alpha=float(args.lora_alpha),
+            dtype="bfloat16" if dtype == torch.bfloat16 else "float32", step=step,
+        )
+        # written last: this file marks the checkpoint complete for `auto`
+        torch.save({"optimizer": optimizer.state_dict(), "generator": generator.get_state()},
+                   save_dir / TRAIN_STATE_FILE)
+        print(f"[ckpt] saved LoRA weights to {save_dir}")
+
+    total_steps = 0
+    resume_dir = getattr(args, "resume_from", None)
+    if resume_dir == "auto":
+        resume_dir = latest_complete_lora_checkpoint(Path(args.ckpt_dir))
+        if resume_dir is None:
+            print("[resume] resume_from: auto - no complete checkpoint found, starting fresh")
+    if resume_dir:
+        resume_dir = Path(resume_dir)
+        model.load_lora(resume_dir)
+        state_file = resume_dir / TRAIN_STATE_FILE
+        if state_file.exists():
+            state = torch.load(state_file, map_location="cpu", weights_only=True)
+            optimizer.load_state_dict(state["optimizer"])
+            generator.set_state(state["generator"])
+        total_steps = int((read_lora_metadata(resume_dir) or {}).get("step", 0))
+        print(f"[resume] resumed LoRA training from {resume_dir} at step {total_steps}")
+
+    if args.run_validation_on_start:
+        run_validation("start")
+
+    if len(train_dl) == 0:
+        # an empty index stream (a split typo, a batch_size above every bucket
+        # with drop_last) would spin the loop below through epochs without a step
+        raise ValueError(
+            f"training dataloader yields no batches: {len(train_ds)} samples in "
+            f"'{args.train_split}' with batch_size={args.batch_size}, drop_last={args.drop_last}"
+        )
+
+    last_loss = float("nan")
+    loss = None
+    t0 = time.time()
+    start_steps = total_steps
+    epoch = 0
+    while total_steps < args.max_train_steps:
+        train_dl.set_epoch(epoch)
+        for batch in cuda_prefetch(_padded_batches(train_dl, n_micro), device):
+            loss, _, grad_norm = train_step(batch, generator, total_steps)
+            total_steps += 1
+
+            if total_steps % args.log_every == 0:
+                last_loss = float(loss)
+                if not math.isfinite(last_loss):
+                    raise FloatingPointError(f"Non-finite loss at step {total_steps}.")
+                lr_now = lr_schedule(total_steps)
+                rate = (total_steps - start_steps) / max(time.time() - t0, 1e-9)
+                print(f"[step {total_steps}] loss={last_loss:.4f} lr={lr_now:.6f} "
+                      f"({rate:.2f} steps/s)", flush=True)
+                if log_fn is not None:
+                    log_fn(total_steps, {"train/loss": last_loss, "lr": lr_now,
+                                         "train/grad_norm": float(grad_norm)})
+            if args.save_every and total_steps % args.save_every == 0:
+                save_lora(total_steps, f"checkpoint-{total_steps}")
+            if args.val_every and total_steps % args.val_every == 0:
+                run_validation(str(total_steps))
+            if total_steps >= args.max_train_steps:
+                break
+        epoch += 1
+
+    save_lora(args.max_train_steps, "final")
+    print("Done.")
+    if not math.isfinite(last_loss) and loss is not None:
+        last_loss = float(loss)
+    return {"train/loss": last_loss, "global_step": float(total_steps)}
+
+
+def build_args_from_cfg(cfg: Dict[str, Any]) -> argparse.Namespace:
+    """YAML {model, data, training} -> argparse namespace, with the synonyms."""
+    model_cfg = cfg.get("model", {})
+    data_cfg = cfg.get("data", {})
+    train_cfg = cfg.get("training", {})
+    args = argparse.Namespace(**vars(parse_args(args=[], allow_missing=True)))
+
+    if model_cfg.get("pretrained_model_name_or_path"):
+        args.pretrained_model_name_or_path = model_cfg["pretrained_model_name_or_path"]
+    if model_cfg.get("hf_token"):
+        args.hf_token = _resolve_env_token(model_cfg.get("hf_token"))
+    if model_cfg.get("rgba_vae_path"):
+        args.rgba_vae_path = model_cfg["rgba_vae_path"]
+    if model_cfg.get("vae_subfolder") is not None:
+        args.vae_subfolder = model_cfg["vae_subfolder"]
+
+    if data_cfg.get("root"):
+        args.data_root = data_cfg["root"]
+    data_keys = {"train_split": str, "val_split": str, "batch_size": int, "val_batch_size": int,
+                 "num_workers": int, "drop_last": bool, "interleave_buckets": bool}
+    for key, cast in data_keys.items():
+        if data_cfg.get(key) is not None:
+            setattr(args, key, cast(data_cfg[key]))
+
+    # (config key, args attribute, type); a synonym after its canonical key wins
+    train_keys = (
+        ("mixed_precision", "mixed_precision", str),
+        ("grad_accum_steps", "grad_accum_steps", int),
+        ("learning_rate", "learning_rate", float),
+        ("weight_decay", "weight_decay", float),
+        ("adam_beta1", "adam_beta1", float),
+        ("adam_beta2", "adam_beta2", float),
+        ("adam_eps", "adam_eps", float),
+        ("max_train_steps", "max_train_steps", int),
+        ("log_every", "log_every", int),
+        ("save_every", "save_every", int),
+        ("ckpt_every_steps", "save_every", int),
+        ("ckpt_dir", "ckpt_dir", str),
+        ("output_dir", "output_dir", str),
+        ("val_output_dir", "val_output_dir", str),
+        ("val_every", "val_every", int),
+        ("val_every_steps", "val_every", int),
+        ("val_max_samples", "val_max_samples", int),
+        ("val_num_inference_steps", "val_num_inference_steps", int),
+        ("run_validation_on_start", "run_validation_on_start", bool),
+        ("rank", "rank", int),
+        ("lora_alpha", "lora_alpha", int),
+        ("max_grad_norm", "max_grad_norm", float),
+        ("resume_from", "resume_from", str),
+        ("shard_base_params", "shard_base_params", bool),
+        ("tensor_parallel", "tensor_parallel", int),
+        ("sequence_parallel", "sequence_parallel", int),
+        ("weight_quant", "weight_quant", str),
+        ("seed", "seed", int),
+    )
+    for src, dst, cast in train_keys:
+        if train_cfg.get(src) is not None:
+            setattr(args, dst, cast(train_cfg[src]))
+    if train_cfg.get("val_max_batches") is not None:
+        args.val_max_samples = int(train_cfg["val_max_batches"]) * args.val_batch_size
+
+    missing = []
+    if not args.pretrained_model_name_or_path:
+        missing.append("model.pretrained_model_name_or_path")
+    if not args.rgba_vae_path:
+        missing.append("model.rgba_vae_path")
+    if not args.data_root:
+        missing.append("data.root")
+    if missing:
+        raise ValueError(f"Missing required config fields: {', '.join(missing)}")
+    return args
+
+
+def train_from_config(cfg: Dict[str, Any], **kwargs) -> Dict[str, float]:
+    """`train` on a {model, data, training} config; keyword arguments go to `train`."""
+    return train(build_args_from_cfg(cfg), **kwargs)
+
+
+def main() -> None:
+    train(parse_args())
+
+
+if __name__ == "__main__":
+    main()

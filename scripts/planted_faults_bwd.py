@@ -1,4 +1,4 @@
-"""Show that `chip_smoke.py`'s bounds on the backward kernels (K6, K7) bite.
+"""Show that `chip_smoke.py`'s bounds on the backward kernels (K4-K7) bite.
 
     python3 scripts/planted_faults_bwd.py
 
@@ -29,7 +29,12 @@ FAULTS = [
      "if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C && !(EPI == EPI_BWD_ACT && r == 0)) {"),
     ("statistics cotangent's sum-of-squares term left out of dye", "resnet_block_bwd.cu",
      "ds1[j] = 2.0f * ds[", "ds1[j] = 0.0f * ds["),
+    ("key-tail mask left out of the dQ kernel", "flash_attention_bwd.cu",
+     "const bool valid = k0 + (c * 2 + h) * 8 + t * 2 + e < Sk;", "const bool valid = true;"),
+    ("last query tile left out of the dK/dV kernel's loop", "flash_attention_bwd.cu",
+     "const int n_tiles = (Sq + BQ - 1) / BQ;", "const int n_tiles = (Sq + BQ - 1) / BQ - 1;"),
 ]
+BACKWARD_KERNELS = ("_bwd", "flash_attention_dq", "flash_attention_dkv")
 
 
 def run_fault(label: str, source: str, old: str, new: str) -> bool:
@@ -45,7 +50,8 @@ def run_fault(label: str, source: str, old: str, new: str) -> bool:
         path.write_text(text.replace(old, new))
         proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "kernels"], cwd=work,
                               capture_output=True, text=True)
-    failing = [line for line in proc.stdout.splitlines() if "FAIL" in line and "_bwd" in line]
+    failing = [line for line in proc.stdout.splitlines()
+               if "FAIL" in line and any(name in line for name in BACKWARD_KERNELS)]
     caught = proc.returncode != 0 and bool(failing)
     print(f"[fault] {label}: exit {proc.returncode}, {len(failing)} backward cases fail, "
           f"{'caught' if caught else 'NOT caught'}", flush=True)

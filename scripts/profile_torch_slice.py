@@ -1,7 +1,8 @@
 """Per-phase times, peak memory and a device-time breakdown of the PyTorch
-port's serving path and of its RGBA-VAE training step on one NVIDIA GPU.
+port's serving path, of its RGBA-VAE training step and of its LoRA training
+step on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_slice.py [--what serve,train] [--out FILE]
+    python3 scripts/profile_torch_slice.py [--what serve,train,lora] [--out FILE]
 
 The model is the one `chip_smoke.py` serves: FLUX.1-Kontext transformer
 (`FluxTransformerConfig()` defaults) and the FLUX `ae` VAE widened to RGBA,
@@ -21,6 +22,14 @@ configs/flux_vae.yaml): 4 images of 512x512 per step in one micro-batch,
 for `remat` all / half / none, one warm-up step and three timed steps each
 (CUDA events around the step), peak memory per cell, then one remat="half"
 step under `torch.profiler`.
+
+The LoRA cells train the serving model: rank-128 adapters (alpha 192, fp32)
+on the frozen bf16 FLUX.1-Kontext transformer, per-block recompute, the
+optimizer of configs/flux_kontext_textalpha_lora.yaml, one micro-batch per
+step; 2 pairs at 512x512 and 1 pair at 1024x1024, one warm-up step and three
+timed steps each (CUDA events around the step, the two frozen VAE encodes
+included), peak memory per cell, then one b2 512x512 step under
+`torch.profiler`.
 """
 from __future__ import annotations
 
@@ -47,6 +56,8 @@ REPEATS = 3
 CELLS = [(1, 512, 512), (2, 512, 512), (1, 1024, 1024)]
 PROFILE_CELL = (1, 512, 512)
 TRAIN_CELL = (4, 512)           # images per step (one micro-batch), image size
+LORA_CELLS = [(2, 512), (1, 1024)]   # (gt, text_alpha) pairs per step, image size
+LORA_RANK, LORA_ALPHA, LORA_LR = 128, 192.0, 3e-5
 
 # kernel classes of the device-time breakdown, first match wins
 def _conv_taps(mode: int, epilogue: int):
@@ -63,6 +74,8 @@ KERNEL_CLASSES = [
     ("K6/K7 dye pass and partial reduces", re.compile(r"dye_kernel|reduce_rows_kernel")),
     ("K1/K2/K6 stats reduce", re.compile(r"stats_reduce_kernel")),
     ("K3 flash attention", re.compile(r"flash_fwd")),
+    ("K4 attention dQ", re.compile(r"flash_dq_kernel")),
+    ("K5 attention dK/dV", re.compile(r"flash_dkv_kernel")),
     ("cuDNN conv", re.compile(r"fprop|dgrad|wgrad|cudnn|convolve|winograd", re.I)),
     ("cuBLAS GEMM/GEMV", re.compile(r"gemm|gemv|xmma|cutlass|nvjet|cublas", re.I)),
     ("PyTorch elementwise/copy/reduce", re.compile(r".")),
@@ -175,7 +188,7 @@ def profile_request(model, steps, gen, out_dir):
     return profile_call(f"b{bsz} {h}x{w}", lambda: run_request(model, x, steps, gen), out_dir)
 
 
-def measure_serving(out_dir):
+def build_model():
     vae_cfg = AutoencoderConfig.flux()
     vae_cfg.in_channels = vae_cfg.out_channels = 4
     t0 = time.perf_counter()
@@ -183,11 +196,59 @@ def measure_serving(out_dir):
                                       dtype=torch.bfloat16, fused=True)
     torch.cuda.synchronize()
     print(f"[build] model ready in {time.perf_counter() - t0} s", flush=True)
+    return model
+
+
+def measure_serving(model, out_dir):
     gen = torch.Generator("cuda").manual_seed(SEED)
     with torch.inference_mode():
         cells = [measure_cell(model, cell, STEPS, REPEATS, gen) for cell in CELLS]
         breakdown = profile_request(model, STEPS, gen, out_dir)
     return {"steps": STEPS, "cells": cells, "profile": breakdown}
+
+
+def measure_lora(model, out_dir):
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
+    from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import (
+        cosine_decay_schedule, make_lora_optimizer, make_lora_train_step)
+
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    model.lora_rank, model.lora_alpha = LORA_RANK, LORA_ALPHA
+    model.init_lora(gen)
+    lora = lora_parameters(model.transformer)
+    with torch.no_grad():
+        for name, p in lora.items():      # B = 0 would leave A without a gradient
+            if name.endswith("lora_B"):
+                p.normal_(0.0, 0.01, generator=gen)
+    optimizer = make_lora_optimizer(list(lora.values()), LORA_LR)
+    step = make_lora_train_step(model, optimizer, 1, cosine_decay_schedule(LORA_LR, 100000))
+    cells, breakdown = [], None
+    for bsz, size in LORA_CELLS:
+        batch = {k: torch.rand((bsz, size, size, 4), generator=gen, device="cuda") for k in ("gt", "text_alpha")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch, gen, 0)  # warm-up: cuBLAS plans, allocator, optimizer state
+        times = []
+        for i in range(REPEATS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, _, grad_norm = step(batch, gen, 1 + i)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        if not (torch.isfinite(loss) and torch.isfinite(grad_norm)):
+            raise SystemExit(f"[profile] non-finite LoRA loss {loss} or gradient norm {grad_norm}")
+        peak = torch.cuda.max_memory_allocated()
+        median = statistics.median(times)
+        cells.append({"cell": f"lora b{bsz} {size}x{size} rank={LORA_RANK} recompute", "step_ms": times,
+                      "median_step_ms": median, "pairs_per_s": bsz / median * 1e3, "peak_memory_bytes": peak})
+        print(f"[cell] {cells[-1]['cell']}: median {median} ms/step over {REPEATS} steps "
+              f"({min(times)}..{max(times)} ms), {bsz / median * 1e3} pairs/s; peak {peak / 2**30} GiB",
+              flush=True)
+        if (bsz, size) == LORA_CELLS[0]:
+            breakdown = profile_call(f"lora b{bsz} {size}x{size}", lambda: step(batch, gen, 10), out_dir)
+    return {"rank": LORA_RANK, "lora_alpha": LORA_ALPHA,
+            "adapter_parameters": sum(p.numel() for p in lora.values()), "cells": cells, "profile": breakdown}
 
 
 def _train_step_for(remat):
@@ -240,7 +301,7 @@ def measure_training(out_dir):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile_slice.json")
-    ap.add_argument("--what", default="serve,train", help="comma-separated subset of serve,train")
+    ap.add_argument("--what", default="serve,train,lora", help="comma-separated subset of serve,train,lora")
     args = ap.parse_args()
     what = set(args.what.split(","))
     if not torch.cuda.is_available():
@@ -254,8 +315,14 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
 
     result = {"device": smi, "torch": torch.__version__, "repeats": REPEATS}
-    if "serve" in what:
-        result["serving"] = measure_serving(out.parent)
+    if what & {"serve", "lora"}:
+        model = build_model()
+        if "serve" in what:
+            result["serving"] = measure_serving(model, out.parent)
+        if "lora" in what:
+            result["lora"] = measure_lora(model, out.parent)
+        del model
+        torch.cuda.empty_cache()
     if "train" in what:
         result["training"] = measure_training(out.parent)
     out.write_text(json.dumps(result, indent=1))

@@ -3,8 +3,10 @@ run in interpret mode, and of its gradient against the JAX package's.
 
 fp32 inputs on both sides: the Pallas kernel's online softmax and the plain
 version's one-pass softmax differ only in summation order and in the
-exp(m_old - m_new) rescaling, so 1e-4 holds; the recompute backward sums the
-same products chunk by chunk, so 1e-4 holds for the gradients too.
+exp(m_old - m_new) rescaling, so 1e-4 holds; the recompute backward (d >= 384)
+and the FlashAttention-2 plain backward (d < 384) sum the same products chunk
+by chunk, so 1e-4 holds for the gradients too. The fused backward against the
+Pallas dQ / dK,dV kernels is in `tests/test_torch_flash_attention_bwd.py`.
 """
 import math
 
@@ -73,8 +75,9 @@ def _port_grads(q, k, v, g, **kw):
 @pytest.mark.parametrize("d,seq", [(512, 200), (64, 150)])
 def test_attention_backward_matches_jax_chunked_recompute(d, seq):
     """d = 512 is the VAE mid-block's head: the JAX package differentiates the
-    rematerialised `chunked_attention_3d` there. On the CPU the port takes the
-    same recompute for every head dim."""
+    rematerialised `chunked_attention_3d` there, and so does the port. At
+    d = 64 the port's CPU route is the FlashAttention-2 plain backward, which
+    must give the same gradient."""
     q, k, v = _qkv((1, 1, seq, d), seed=10 + d)
     g = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
     scale = 1.0 / math.sqrt(d)
@@ -101,19 +104,22 @@ def test_attention_recompute_backward_matches_native_autograd_across_chunks():
 
 
 def test_attention_function_saves_only_q_k_v():
-    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv((1, 1, 40, 16), seed=6))
+    """On the recompute route (head dim 384 and up) neither the output nor
+    the log-sum-exp is kept."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv((1, 1, 40, 384), seed=6))
     out = tfa.attention(q, k, v)
     saved = out.grad_fn.next_functions[0][0].saved_tensors
-    assert len(saved) == 3 and all(t.shape[-1] == 16 for t in saved)
+    assert len(saved) == 3 and all(t.shape[-1] == 384 for t in saved)
 
 
 @pytest.mark.parametrize("device,d,route", [
-    ("cuda", 64, "unported"), ("cuda", 128, "unported"), ("cuda", 383, "unported"),
+    ("cuda", 64, "kernels"), ("cuda", 128, "kernels"), ("cuda", 383, "kernels"),
     ("cuda", 384, "recompute"), ("cuda", 512, "recompute"),
-    ("cpu", 64, "recompute"), ("cpu", 512, "recompute"),
+    ("cpu", 64, "plain"), ("cpu", 128, "plain"), ("cpu", 384, "recompute"), ("cpu", 512, "recompute"),
 ])
 def test_backward_route_follows_the_jax_head_dim_split(device, d, route):
-    """The predicate behind "d < 384 with a gradient required raises on CUDA"
-    (the raise itself needs a card; `tests/test_torch_kernels_cuda.py` hits it)."""
+    """Below 384 the fused FlashAttention-2 backward (the dQ and dK/dV kernels
+    on CUDA, their plain version on the CPU), from 384 up the recompute: the
+    same split as the JAX package's `_uses_fused_bwd`. No route is unported."""
     assert tfa.backward_route(device, d) == route
-    assert (route == "unported") == (device == "cuda" and jfa._uses_fused_bwd(d))
+    assert (route != "recompute") == jfa._uses_fused_bwd(d)

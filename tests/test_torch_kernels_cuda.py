@@ -9,7 +9,9 @@ bf16 in and out. Tolerances: conv outputs round to bf16 once in the kernel
 and twice in the plain version (2^-8 relative each), so 3e-2 of the largest
 value; statistics normalised by H*W*mean(y^2) to 1e-2; attention to 2e-2
 absolute (probabilities rounded to bf16 before vs after normalisation), and
-its LSE to 1e-4 of the fp32 logsumexp. Backward kernels (K6, K7): every
+its LSE to 1e-4 of the fp32 logsumexp; the attention backward (K4 dQ, K5
+dK/dV) to 5e-2 of the plain backward's largest entry (the plain version rounds
+the logits and dP to bf16 as well). Backward kernels (K6, K7): every
 cotangent against the plain backward (autograd through the plain forward,
 which rounds dye's terms, dA and the activation's cotangent to bf16 at other
 places): 4e-2 of the largest reference value for the bf16 outputs, 2e-2 for
@@ -250,20 +252,68 @@ def test_functions_carry_the_graph_and_differentiate_like_the_plain_route():
 
 
 def test_attention_with_a_gradient_on_the_card():
-    """d = 512 (the VAE mid-block) differentiates through the recompute;
-    d < 384 needs the unported dQ / dK,dV kernels and raises instead of
-    returning a tensor cut off from the graph."""
+    """A gradient flows on every route: d = 512 (the VAE mid-block) through the
+    recompute, d = 128 (the FLUX blocks) through K3 forward and K4 + K5
+    backward, one launch each; the results agree with native autograd through
+    the plain version."""
     gen = torch.Generator("cuda").manual_seed(8)
-    q, k, v = (_randn(gen, (1, 1, 300, 512)).requires_grad_(True) for _ in range(3))
-    out = fa.attention(q, k, v)
-    assert out.grad_fn is not None
-    out.float().square().sum().backward()
-    q2, k2, v2 = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    fa.attention_plain(q2[0], k2[0], v2[0], sm_scale=512 ** -0.5).float().square().sum().backward()
-    for a, b in ((q, q2), (k, k2), (v, v2)):
-        assert (a.grad.float() - b.grad.float()).abs().max() <= 5e-2 * b.grad.float().abs().max()
-    small = _randn(gen, (1, 4, 64, 128)).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        fa.attention(small, small, small)
-    with torch.no_grad():
-        assert fa.attention(small, small, small).shape == small.shape
+    for d, seq in ((512, 300), (128, 333)):
+        q, k, v = (_randn(gen, (1, 2, seq, d)).requires_grad_(True) for _ in range(3))
+        before = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        out = fa.attention(q, k, v)
+        assert out.grad_fn is not None
+        out.float().square().sum().backward()
+        fused = int(d == 128)
+        assert (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 1, before[1] + fused, before[2] + fused)
+        q2, k2, v2 = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        fa.attention_plain(q2[0], k2[0], v2[0], sm_scale=d ** -0.5).float().square().sum().backward()
+        for a, b in ((q, q2), (k, k2), (v, v2)):
+            assert (a.grad.float() - b.grad.float()).abs().max() <= 5e-2 * b.grad.float().abs().max()
+
+
+def _bwd_case(gen, bh, sq, sk):
+    q, g = _randn(gen, (bh, sq, 128)), _randn(gen, (bh, sq, 128))
+    k, v = _randn(gen, (bh, sk, 128)), _randn(gen, (bh, sk, 128))
+    out, lse = fa.flash_attention_cuda(q, k, v, sm_scale=128 ** -0.5)
+    return q, k, v, out, lse, g
+
+
+@pytest.mark.parametrize("bh,sq,sk", [(4, 77, 200), (4, 200, 77), (6, 300, 300), (24, 1111, 1111), (2, 5, 3)])
+def test_flash_attention_bwd_kernels(bh, sq, sk):
+    """K4 and K5 at ragged lengths and Sq != Sk against the plain version."""
+    gen = torch.Generator("cuda").manual_seed(9)
+    q, k, v, out, lse, g = _bwd_case(gen, bh, sq, sk)
+    before = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, sm_scale=128 ** -0.5)
+    assert (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = fa.attention_bwd_plain(q, k, v, out, lse, g, sm_scale=128 ** -0.5)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16 and bool(torch.isfinite(a.float()).all())
+        assert (a.float() - b.float()).abs().max() <= 5e-2 * b.float().abs().max()
+
+
+def test_flash_attention_bwd_kernels_are_deterministic():
+    """Every accumulator has one owner (no float atomics): two runs agree bit for bit."""
+    gen = torch.Generator("cuda").manual_seed(10)
+    case = _bwd_case(gen, 24, 2600, 2600)
+    first = fa.flash_attention_bwd_cuda(*case, sm_scale=128 ** -0.5)
+    second = fa.flash_attention_bwd_cuda(*case, sm_scale=128 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_bwd_refuses_other_head_dims_and_types():
+    gen = torch.Generator("cuda").manual_seed(11)
+    q = _randn(gen, (1, 2, 64, 64)).requires_grad_(True)   # head dim 64: no forward kernel either
+    with pytest.raises(ValueError, match="head dim"):
+        fa.attention(q, q, q)
+    t64 = _randn(gen, (2, 64, 64))
+    lse = torch.zeros((2, 64), device="cuda")
+    with pytest.raises(ValueError, match="head dim 64"):
+        fa.flash_attention_dq_cuda(t64, t64, t64, t64, lse, lse, sm_scale=1.0)
+    with pytest.raises(ValueError, match="head dim 64"):
+        fa.flash_attention_dkv_cuda(t64, t64, t64, t64, lse, lse, sm_scale=1.0)
+    t128 = _randn(gen, (2, 64, 128))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_dq_cuda(t128.float(), t128, t128, t128, lse, lse, sm_scale=1.0)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_dkv_cuda(t128, t128, t128, t128, lse[:, :10], lse, sm_scale=1.0)

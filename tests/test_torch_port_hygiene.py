@@ -79,6 +79,12 @@ def test_scan_covers_training_and_parallel():
             "models/losses.py", "ops/triplet.py", "ops/metrics.py"} <= scanned
 
 
+def test_scan_covers_data_and_the_lora_stage():
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES if p.is_relative_to(ROOT)}
+    assert {"data/buckets.py", "data/sampler.py", "data/text_alpha_dataset.py", "data/loader.py",
+            "data/image_io.py", "training/flux_kontext_textalpha_lora.py"} <= scanned
+
+
 def _called_names(node):
     for sub in ast.walk(node):
         if isinstance(sub, ast.Call):
@@ -137,3 +143,17 @@ def test_backward_sources_are_built_with_the_forward():
     from ragb_vae_tpu_torch.ops.kernels import _build
 
     assert {"ragb_resnet_conv3x3_stats_bwd", "ragb_subpixel_upsample_conv3x3_stats_bwd"} <= set(_build._SIGNATURES)
+
+
+def test_attention_backward_source_is_built_and_names_both_kernels():
+    from ragb_vae_tpu_torch.ops.kernels import _build
+
+    assert {"flash_attention_bwd.cu", "mma.cuh"} <= {p.name for p in _build._sources()}
+    assert {"ragb_flash_attention_dq", "ragb_flash_attention_dkv"} <= set(_build._SIGNATURES)
+    text = (ROOT / "csrc" / "flash_attention_bwd.cu").read_text()
+    assert "`_dq_kernel`" in text and "`_dkv_kernel`" in text
+    assert "What bounds it on the H100" in text
+    for name in ("ragb_flash_attention_dq", "ragb_flash_attention_dkv"):
+        assert f'extern "C" int {name}(' in text
+    # every accumulator has one owner: no float atomics, no library product
+    assert "atomic" not in text.replace("no float atomic", "") and "cublas" not in text.lower()

@@ -150,7 +150,8 @@ def test_inference_run_on_a_jax_written_checkpoint(tmp_path):
     np.testing.assert_array_equal(load_rgba(tmp_path / "again.png"), first)
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--tp", "2"], ["--pp", "2"], ["--lora_path", "x"]])
+@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--tp", "2"], ["--pp", "2"],
+                                  ["--lora_path", "x", "--quant", "int8"]])
 def test_inference_unported_options_raise(flag):
     args = inference.parse_args(
         ["--pretrained_model_name_or_path", "m", "--rgba_vae_path", "v",
