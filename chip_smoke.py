@@ -4,8 +4,8 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (each prints its own line; any failure exits non-zero without the
-final line):
+Phases (each prints its own lines and, as `[time]`, what it took on the wall
+clock; any failure exits non-zero without the final line):
 
 1. device  - a CUDA device must exist; prints the card's name and power limit
              and turns TF32 off.
@@ -20,20 +20,33 @@ final line):
              transformer, FLUX `ae` RGBA VAE) with random weights from a seed,
              serves 3 requests through InferenceServer, checks each answer and
              that every kernel launched during that run.
-
 6. lora    - (runs before phase 5, on the serving phase's model) attaches
              rank-128 LoRA adapters to the full-width FLUX.1-Kontext
              transformer (frozen bf16 base, fp32 adapters, per-block
              recompute), writes a small (gt, text_alpha) PNG tree at 512^2 and
-             runs the LoRA stage's own loop through `train_from_config` for 3
+             runs the LoRA stage's own loop through `train_from_config` for 2
              optimizer steps of 4 pairs in 2 micro-batches, saves, reloads the
              adapters, checks losses, gradients, what moved and that the
              attention forward and both backward kernels launched, then holds
              the adapters' gradient tree through the kernels against the plain
              attention route at 256^2.
+8. int8    - (on the same model, after the LoRA phase) quantises every linear
+             of the transformer to weight-only int8 on the card, holds one
+             forward against the bf16 one from the same weights, serves 3
+             requests through InferenceServer with every linear going through
+             the int8 matmul kernel, takes 2 QLoRA optimizer steps through
+             `train_from_config` with `weight_quant: int8` (fp32 adapters over
+             the frozen int8 base, the LoRA phase's PNG tree), checks the
+             probe loss, the gradients, the unchanged base and the launch
+             counts, then holds the adapters' gradient tree through the int8
+             matmul kernel against its plain version at 256^2.
+7. convs   - the three stand-alone VAE convs through their entry points
+             (`Downsample(fused=True)` feeding a fused resnet block,
+             `Conv3x3`, `fused_gn_silu_conv3x3_batched`) at the FLUX `ae`
+             widths, each against its unfused counterpart.
 5. train   - builds the RGBA VAE at full FLUX `ae` width (fp32 parameters, bf16
              compute, fused kernels, remat="half") with a frozen reference and
-             an LPIPS term over seeded weights, takes 3 optimizer steps at
+             an LPIPS term over seeded weights, takes 2 optimizer steps at
              512^2 (8 images in 2 micro-batches of 4) and one eval step, checks
              losses, gradients, parameter movement and that the forward and
              backward kernels launched, then holds the whole gradient tree
@@ -50,6 +63,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -60,7 +74,10 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from ragb_vae_tpu_torch.ops.kernels import _build  # noqa: E402
+from ragb_vae_tpu_torch.ops.kernels import conv3x3 as c3  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from ragb_vae_tpu_torch.ops.kernels import fused_gn_silu_conv as fgc  # noqa: E402
+from ragb_vae_tpu_torch.ops.kernels import int8_matmul as i8  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import resnet_block as rb  # noqa: E402
 
 SEED = 0
@@ -94,18 +111,35 @@ KERNELS = {
         "source": "ragb_vae_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ragb_vae_tpu/ops/pallas/flash_attention.py:237",
     },
+    "downsample_conv3x3_stats": {
+        "source": "ragb_vae_tpu_torch/csrc/conv_kernels.cu",
+        "replaces": "ragb_vae_tpu/ops/pallas/resnet_block.py:1622",
+    },
+    "int8_matmul": {
+        "source": "ragb_vae_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "ragb_vae_tpu/ops/pallas/int8_matmul.py:65",
+    },
+    "conv3x3_same": {
+        "source": "ragb_vae_tpu_torch/csrc/conv_kernels.cu",
+        "replaces": "ragb_vae_tpu/ops/pallas/conv3x3.py:39",
+    },
+    "fused_gn_silu_conv3x3": {
+        "source": "ragb_vae_tpu_torch/csrc/conv_kernels.cu",
+        "replaces": "ragb_vae_tpu/ops/pallas/fused_gn_silu_conv.py:45",
+    },
 }
 
-# Published peaks of one H100 SXM (dense bf16 tensor-core rate, HBM3 rate):
-# a kernel's bound is the larger of its operations over the first and the
-# bytes it must move (each input read once, each output written once) over
-# the second.
+# Published peaks of one H100 SXM (dense bf16 tensor-core rate, fp32 rate
+# outside the tensor cores, HBM3 rate): a kernel's bound is the larger of its
+# operations over the peak for their type and the bytes it must move (each
+# input read once, each output written once) over the memory rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -165,6 +199,37 @@ BWD_SUM_PLAIN_TOL = 2e-2
 # far past the exact bound.
 ATTN_BWD_EXACT_TOL = 1e-2
 ATTN_BWD_PLAIN_TOL = 5e-2
+
+
+# Weight-only int8 matmul (K10): max abs error relative to max|reference|. The
+# exact reference is the kernel's own arithmetic in fp32 (the integers cast
+# exactly, fp32 sums, scale and bias once, one rounding to x's dtype): with
+# bf16 x the results differ by one bf16 ulp of the largest value, with fp32 x
+# by the order of an fp32 sum over K <= 15360 terms. The plain version rounds
+# the unscaled product to bf16 before it scales it and rounds again. A K tile
+# of 64 left out moves every output by ~sqrt(64 / K) of its size (>= 6e-2 at
+# K = 15360), and a scale left out of a tile multiplies it by ~1 / scale
+# (> 1000): each is far past the exact bound.
+INT8_BF16_EXACT_TOL = 1e-2
+INT8_FP32_EXACT_TOL = 1e-4
+INT8_PLAIN_TOL = 3e-2
+# The int8 transformer against the bf16 one it was quantised from, one forward
+# at 512^2 on the same inputs: the whole output's ||int8 - bf16|| / ||bf16||
+# and cosine. Per-output-channel int8 of a lecun-normal weight carries ~1% of
+# noise per linear ((4.5 sigma / 127) / sqrt(12)), which adds up over 57 blocks
+# beside the bf16 rounding both models share; a linear whose scale or layout
+# is wrong decorrelates the output (relative error ~1.4, cosine ~0). On an
+# H100 the run reads 0.051 and 0.9987: the bounds leave three times that.
+INT8_TRACK_REL_TOL = 0.15
+INT8_TRACK_COS_TOL = 0.99
+
+
+SERVE_STEPS = 4                # sampler steps of a served request
+
+
+def reset_all_counts() -> None:
+    for module in (rb, fa, i8, c3, fgc):
+        module.reset_launch_counts()
 
 
 def log(phase: str, msg: str) -> None:
@@ -333,31 +398,44 @@ def attention_exact(q, k, v, scale):
 
 def _conv_errors(y, stats, y_ref, stats_ref):
     """(max abs y error, its share of max|y_ref|, max abs stats error, that
-    error normalised by H*W*mean(y_ref^2))."""
+    error normalised by H*W*mean(y_ref^2)); zeros for a kernel without
+    statistics."""
     rf = y_ref.float()
     err_y = (y.float() - rf).abs().max().item()
+    if stats is None:
+        return err_y, err_y / rf.abs().max().item(), 0.0, 0.0
     err_s = (stats - stats_ref).abs().max().item()
     norm = y.shape[1] * y.shape[2] * rf.square().mean().item()
     return err_y, err_y / rf.abs().max().item(), err_s, err_s / norm
 
 
-def _check_conv(label, run_k, run_p, run_x, flops, nbytes):
-    y, st = run_k()
-    y_p, st_p = run_p()
-    y_x, st_x = run_x()
+def _with_stats(out):
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def _check_conv(label, run_k, run_p, run_x, flops, nbytes, run_lib=None, lib_name=""):
+    """A conv kernel (y, or y and statistics) against its plain version and
+    its exact reference; `run_lib`: the one PyTorch call that computes the
+    same y, timed as a yardstick."""
+    y, st = _with_stats(run_k())
+    y_p, st_p = _with_stats(run_p())
+    y_x, st_x = _with_stats(run_x())
     torch.cuda.synchronize()
     err_y, rel_p, abs_s, s_p = _conv_errors(y, st, y_p, st_p)
     _, rel_x, _, s_x = _conv_errors(y, st, y_x, st_x)
     s_px = _conv_errors(y_p, st_p, y_x, st_x)[3]
     ms, plain_ms = time_ms(run_k), time_ms(run_p)
+    library_ms = None if run_lib is None else time_ms(run_lib)
     ok = (rel_p <= CONV_Y_REL_TOL and s_p <= CONV_STATS_PLAIN_TOL and rel_x <= CONV_Y_EXACT_TOL
-          and s_x <= CONV_STATS_EXACT_TOL and bool(torch.isfinite(y.float()).all()))
+          and s_x <= CONV_STATS_EXACT_TOL and bool(torch.isfinite(y.float()).all())
+          and y.shape == y_x.shape)
     log("kernels", f"{label}: vs plain y max_abs_err={err_y:.4g} (rel {rel_p:.3g} <= {CONV_Y_REL_TOL}) "
         f"stats max_abs_err={abs_s:.4g} (normalised {s_p:.3g} <= {CONV_STATS_PLAIN_TOL}); "
         f"vs exact y rel {rel_x:.3g} (<= {CONV_Y_EXACT_TOL}) stats {s_x:.3g} (<= {CONV_STATS_EXACT_TOL}); "
         f"plain vs exact stats {s_px:.3g}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-        f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms ({bound(flops, nbytes)['bound_by']}) {'ok' if ok else 'FAIL'}")
-    return ok, label, err_y, ms, plain_ms, None, bound(flops, nbytes)
+        + (f"{lib_name} {library_ms:.3f} ms " if run_lib is not None else "")
+        + f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms ({bound(flops, nbytes)['bound_by']}) {'ok' if ok else 'FAIL'}")
+    return ok, label, err_y, ms, plain_ms, library_ms, bound(flops, nbytes)
 
 
 def _conv_inputs(gen, shape, n_out, skip):
@@ -407,6 +485,103 @@ def check_upsample(gen, shape, n_out):
         lambda: rb.upsample_conv3x3_stats_plain(x, wt, bias),
         lambda: upsample_conv3x3_stats_exact(x, wt, bias), flops, nbytes,
     )
+
+
+def _oihw(w):
+    """HWIO -> OIHW in channels-last memory, as a caller of F.conv2d over NHWC data keeps it."""
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def check_downsample(gen, shape, n_out):
+    """K9: conv3x3 stride 2, bottom row and right column zero-padded, + bias, with statistics."""
+    bsz, h, w, c = shape
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, c, n_out), 1.0 / math.sqrt(9 * c))
+    bias = 0.1 * torch.randn((n_out,), generator=gen, device="cuda")
+
+    def exact():
+        xp = F.pad(x.float().permute(0, 3, 1, 2), (0, 1, 0, 1))
+        y = F.conv2d(xp, wt.float().permute(3, 2, 0, 1), stride=2).permute(0, 2, 3, 1) + bias
+        y = y.to(torch.bfloat16)
+        return y, rb.tensor_stats(y)
+
+    w_lib, b_lib, x_lib = _oihw(wt), bias.to(torch.bfloat16), x.permute(0, 3, 1, 2)
+    h_out, w_out = h // 2, w // 2
+    flops = 2 * 9 * c * bsz * h_out * w_out * n_out
+    nbytes = _nbytes(x, wt, bias) + 2 * bsz * h_out * w_out * n_out + 4 * bsz * 2 * n_out
+    return _check_conv(
+        f"downsample_conv3x3_stats {shape}->{n_out}",
+        lambda: rb.downsample_conv3x3_stats_cuda(x, wt, bias),
+        lambda: rb.downsample_conv3x3_stats_plain(x, wt, bias), exact, flops, nbytes,
+        # y only (no statistics): the pad is a second call, there is no asymmetric padding in conv2d
+        lambda: F.conv2d(F.pad(x_lib, (0, 1, 0, 1)), w_lib, b_lib, stride=2), "F.pad + F.conv2d (y only)")
+
+
+def check_conv_same(gen, shape, n_out):
+    """K11: bare conv3x3 SAME, no bias, no statistics."""
+    bsz, h, w, c = shape
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, c, n_out), 1.0 / math.sqrt(9 * c))
+    exact = lambda: F.conv2d(x.float().permute(0, 3, 1, 2), wt.float().permute(3, 2, 0, 1),
+                             padding=1).permute(0, 2, 3, 1).to(torch.bfloat16)
+    w_lib, x_lib = _oihw(wt), x.permute(0, 3, 1, 2)
+    flops = 2 * 9 * c * bsz * h * w * n_out
+    nbytes = _nbytes(x, wt) + 2 * bsz * h * w * n_out
+    return _check_conv(
+        f"conv3x3_same {shape}->{n_out}",
+        lambda: c3.conv3x3_same_cuda(x, wt), lambda: c3.conv3x3_same_plain(x, wt), exact, flops, nbytes,
+        lambda: F.conv2d(x_lib, w_lib, padding=1), "F.conv2d")
+
+
+def check_fused_gn_silu_conv(gen, shape, n_out):
+    """K12: silu(x*a + b) -> conv3x3 SAME -> + bias, no statistics; no one
+    PyTorch call computes it."""
+    bsz, h, w, c = shape
+    x, a, b, wt, bias, *_ = _conv_inputs(gen, shape, n_out, None)
+    flops = 2 * 9 * c * bsz * h * w * n_out
+    nbytes = _nbytes(x, a, b, wt, bias) + 2 * bsz * h * w * n_out
+    return _check_conv(
+        f"fused_gn_silu_conv3x3 {shape}->{n_out}",
+        lambda: fgc.fused_gn_silu_conv3x3_cuda(x, a, b, wt, bias),
+        lambda: fgc.fused_gn_silu_conv3x3_plain(x, a, b, wt, bias),
+        lambda: conv3x3_stats_exact(x, a, b, wt, bias, None, None, None, "silu")[0], flops, nbytes)
+
+
+def check_int8_matmul(gen, m, k, n, dtype=torch.bfloat16, with_bias=True):
+    """K10 at x (m, k) @ int8 (n, k)^T: against the plain version and the
+    exact fp32 restatement; beside its time, F.linear over a resident bf16
+    weight of the same shape (not the same function: twice the weight bytes)."""
+    x = _randn(gen, (m, k), dtype=dtype)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    scale = (3.0 / math.sqrt(k) / 127.0) * (0.5 + torch.rand((n,), generator=gen, device="cuda"))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda") if with_bias else None
+    run_k = lambda: i8.int8_matmul_cuda(x, wq, scale, bias)
+    run_p = lambda: i8.int8_matmul_plain(x, wq, scale, bias)
+    out, plain = run_k(), run_p()
+    exact = x.float() @ wq.float().t() * scale + (0.0 if bias is None else bias)
+    exact = exact.to(dtype).float()
+    torch.cuda.synchronize()
+    top = exact.abs().max().item()
+    err_x = (out.float() - exact).abs().max().item()
+    rel_x, rel_p = err_x / top, (out.float() - plain.float()).abs().max().item() / top
+    tol_x = INT8_BF16_EXACT_TOL if dtype == torch.bfloat16 else INT8_FP32_EXACT_TOL
+    ms, plain_ms = time_ms(run_k), time_ms(run_p)
+    w_bf16 = (wq.float() * scale[:, None]).to(torch.bfloat16)
+    x_bf16 = x.to(torch.bfloat16)
+    b_bf16 = None if bias is None else bias.to(torch.bfloat16)
+    linear_ms = time_ms(lambda: F.linear(x_bf16, w_bf16, b_bf16))
+    del w_bf16
+    fp32 = dtype == torch.float32
+    limit = bound(2 * m * n * k, _nbytes(x, wq, scale, bias, out), PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    ok = (out.shape == (m, n) and out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+          and rel_x <= tol_x and rel_p <= INT8_PLAIN_TOL)
+    label = f"({m}, {k}) x ({k}, {n}) {'fp32' if fp32 else 'bf16'}{'' if with_bias else ' no bias'}"
+    log("kernels", f"int8_matmul {label}: vs exact max_abs_err={err_x:.4g} (rel {rel_x:.3g} <= {tol_x}); "
+        f"vs plain rel {rel_p:.3g} (<= {INT8_PLAIN_TOL}); kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+        f"bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}) {'ok' if ok else 'FAIL'}")
+    log("kernels", f"int8_matmul {label}: F.linear over a resident bf16 weight (not the same function: "
+        f"twice the weight bytes; what an unquantised layer pays) {linear_ms:.3f} ms")
+    return ok, label, err_x, ms, plain_ms, None, limit
 
 
 BWD_NAMES_K6 = ("dx", "da", "db", "dW", "dbias", "dskip", "dws", "dwsb")
@@ -615,6 +790,37 @@ def phase_kernels() -> dict:
             lambda: check_upsample_bwd(gen, (4, 256, 256, 256), 256),
             lambda: check_upsample_bwd(gen, (1, 19, 27, 64), 128),
         ],
+        # the encoder's first and last downsamplers at 512^2, and a ragged one
+        # (odd height, N not a multiple of the 64-channel tile)
+        "downsample_conv3x3_stats": [
+            lambda: check_downsample(gen, (4, 512, 512, 128), 128),
+            lambda: check_downsample(gen, (2, 128, 128, 512), 512),
+            lambda: check_downsample(gen, (2, 37, 50, 64), 96),
+        ],
+        # the token streams of a 512^2 request (text 512 + 2 x 1024 image
+        # tokens) and of a 1024^2 one, the fp32 AdaLN modulation at batch 1,
+        # and the ragged ends of the path: x_embedder (K = 64) and proj_out
+        # (N = 64, M = batch)
+        "int8_matmul": [
+            lambda: check_int8_matmul(gen, 2560, 3072, 12288),
+            lambda: check_int8_matmul(gen, 2560, 15360, 3072),
+            lambda: check_int8_matmul(gen, 8704, 3072, 9216, with_bias=False),
+            lambda: check_int8_matmul(gen, 1, 3072, 18432, dtype=torch.float32),
+            lambda: check_int8_matmul(gen, 300, 64, 3072),
+            lambda: check_int8_matmul(gen, 2, 3072, 64, with_bias=False),
+            lambda: check_int8_matmul(gen, 2, 3072, 64),
+            lambda: check_int8_matmul(gen, 1001, 80, 136),      # every tile edge ragged
+        ],
+        "conv3x3_same": [
+            lambda: check_conv_same(gen, (1, 128, 128, 512), 512),
+            lambda: check_conv_same(gen, (2, 512, 512, 128), 128),
+            lambda: check_conv_same(gen, (1, 19, 27, 64), 40),
+        ],
+        "fused_gn_silu_conv3x3": [
+            lambda: check_fused_gn_silu_conv(gen, (1, 128, 128, 512), 512),
+            lambda: check_fused_gn_silu_conv(gen, (2, 512, 512, 128), 128),
+            lambda: check_fused_gn_silu_conv(gen, (2, 19, 27, 64), 40),
+        ],
     }
 
     def summarise(name, runs):
@@ -646,12 +852,47 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice at full width
 # ---------------------------------------------------------------------------
+def _serve_three(phase: str, model, counters: dict, sizes=((512, 512), (512, 512), (600, 400))):
+    """Three requests of `sizes` through an InferenceServer of 4 sampler
+    steps; `counters` maps a kernel's name to a function that reads its launch
+    count. -> (counts, peak bytes, batches)."""
+    from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
+
+    rng = np.random.default_rng(SEED)
+    images = [rng.uniform(size=(*size, 4)).astype(np.float32) for size in sizes]
+    server = InferenceServer(model, ServeConfig(max_batch=2, steps=SERVE_STEPS, auto_batch=False))
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    with server:
+        t_submit = time.perf_counter()
+        futures = [server.submit(img, seed=i) for i, img in enumerate(images)]
+        outs, lat = [], []
+        for fut in futures:
+            outs.append(fut.result(timeout=900))
+            lat.append(time.perf_counter() - t_submit)
+        drained = server.drain(timeout=60)
+    counts = {name: read() for name, read in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for img, out, t in zip(images, outs, lat):
+        if out.shape != img.shape:
+            raise SystemExit(f"[{phase}] output shape {out.shape} != request shape {img.shape}")
+        if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
+            raise SystemExit(f"[{phase}] output not finite or outside [0, 1]")
+        log(phase, f"request {img.shape[0]}x{img.shape[1]}: latency {t:.3f} s, "
+            f"out range [{out.min():.3f}, {out.max():.3f}] mean {out.mean():.4f}")
+    log(phase, f"server stats {server.stats} drained={drained}")
+    log(phase, f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+    if not all(n > 0 for n in counts.values()):
+        raise SystemExit(f"[{phase}] a kernel of the path never launched: {counts}")
+    return counts, peak, server.stats["batches"]
+
+
 def phase_slice():
-    """-> (launch counts, the model, for the LoRA phase to train)."""
+    """-> (launch counts, the model, for the later phases to train and to
+    quantise, its peak memory)."""
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
     from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
     from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
-    from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
 
     vae_cfg = AutoencoderConfig.flux()
     vae_cfg.in_channels = vae_cfg.out_channels = 4
@@ -666,42 +907,12 @@ def phase_slice():
         f"RGBA VAE in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
-    rng = np.random.default_rng(SEED)
-    images = [
-        rng.uniform(size=(512, 512, 4)).astype(np.float32),
-        rng.uniform(size=(512, 512, 4)).astype(np.float32),
-        rng.uniform(size=(600, 400, 4)).astype(np.float32),
-    ]
-    server = InferenceServer(model, ServeConfig(max_batch=2, steps=4, auto_batch=False))
-    torch.cuda.reset_peak_memory_stats()
-    rb.reset_launch_counts()
-    fa.reset_launch_counts()
-    with server:
-        t_submit = time.perf_counter()
-        futures = [server.submit(img, seed=i) for i, img in enumerate(images)]
-        outs, lat = [], []
-        for fut in futures:
-            outs.append(fut.result(timeout=900))
-            lat.append(time.perf_counter() - t_submit)
-        drained = server.drain(timeout=60)
-    counts = {
-        "resnet_conv3x3_stats": rb.CONV_LAUNCHES,
-        "subpixel_upsample_conv3x3_stats": rb.UPSAMPLE_LAUNCHES,
-        "flash_attention_fwd": fa.LAUNCHES,
-    }
-    peak = torch.cuda.max_memory_allocated()
-    for img, out, t in zip(images, outs, lat):
-        if out.shape != img.shape:
-            raise SystemExit(f"[slice] output shape {out.shape} != request shape {img.shape}")
-        if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
-            raise SystemExit("[slice] output not finite or outside [0, 1]")
-        log("slice", f"request {img.shape[0]}x{img.shape[1]}: latency {t:.3f} s, "
-            f"out range [{out.min():.3f}, {out.max():.3f}] mean {out.mean():.4f}")
-    log("slice", f"server stats {server.stats} drained={drained}")
-    log("slice", f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
-    if not all(n > 0 for n in counts.values()):
-        raise SystemExit(f"[slice] a kernel of the path never launched: {counts}")
-    return counts, model
+    counts, peak, _ = _serve_three("slice", model, {
+        "resnet_conv3x3_stats": lambda: rb.CONV_LAUNCHES,
+        "subpixel_upsample_conv3x3_stats": lambda: rb.UPSAMPLE_LAUNCHES,
+        "flash_attention_fwd": lambda: fa.LAUNCHES,
+    })
+    return counts, model, peak
 
 
 # ---------------------------------------------------------------------------
@@ -849,9 +1060,8 @@ def phase_train() -> dict:
     gen = torch.Generator("cuda").manual_seed(SEED)
     before = [p.detach().clone() for p in params]
     torch.cuda.reset_peak_memory_stats()
-    rb.reset_launch_counts()
-    fa.reset_launch_counts()
-    for i in range(3):
+    reset_all_counts()
+    for i in range(TRAIN_STEPS):
         batch = {"images": torch.rand((8, 512, 512, 4), generator=gen, device="cuda")}
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -880,7 +1090,7 @@ def phase_train() -> dict:
     log("train", f"eval: " + " ".join(f"{k}={v:.4f}" for k, v in ev.items())
         + f"; peak memory {peak / 2**30:.2f} GiB; launches {counts}")
     if unchanged:
-        raise SystemExit(f"[train] {unchanged} of {len(params)} parameters did not change in 3 steps")
+        raise SystemExit(f"[train] {unchanged} of {len(params)} parameters did not change in {TRAIN_STEPS} steps")
     if not all(n > 0 for n in counts.values()):
         raise SystemExit(f"[train] a kernel of the path never launched: {counts}")
     del before, optimizer, train_step
@@ -913,6 +1123,9 @@ LORA_CONFIG = {                # configs/flux_kontext_textalpha_lora.yaml
     "max_grad_norm": 1.0, "seed": 1337,
 }
 BLOCKS = 19 + 38               # attention calls per transformer forward
+TRAIN_STEPS = 2                # optimizer steps of the VAE phase
+STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO = 2, 4, 2     # of the LoRA and the QLoRA phase: steps, pairs per step, micro-batches
+ALL_PHASES = ("kernels", "slice", "lora", "int8", "convs", "train")
 
 
 def _lora_counts() -> dict:
@@ -939,16 +1152,52 @@ def _write_pair_tree(root: Path, n: int, size: int) -> None:
             img.save(bucket / kind / f"pair{i:02d}.png")
 
 
-def _lora_grad_tree_check(model) -> None:
+def _adapter_grad_routes(model, attr: str, routes, seed: int, after_route=None):
+    """The adapters' gradient tree of one loss at 256^2, batch 1, once per
+    route: each `fn` of `routes` ((label, fn) pairs) stands in for
+    `flux_transformer.<attr>` while its route runs; same weights, latents,
+    noise and timestep. -> (named adapter leaves, {label: (loss, gradients)})."""
     from ragb_vae_tpu_torch.models import flux_transformer as ft
     from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
 
     named = list(lora_parameters(model.transformer).items())
-    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    gen = torch.Generator("cuda").manual_seed(seed)
     lat = (1, 32, 32, model.vae.config.latent_channels)   # 256^2
     cond, target, noise = (torch.randn(lat, generator=gen, device="cuda") for _ in range(3))
     u = torch.full((1,), 0.5, device="cuda")
+    original = getattr(ft, attr)
+    out = {}
+    for label, fn in routes:
+        setattr(ft, attr, fn)
+        try:
+            for _, p in named:
+                p.grad = None
+            loss, _ = model.compute_loss_from_latents(cond, target, noise, u)
+            loss.backward()
+        finally:
+            setattr(ft, attr, original)
+        out[label] = (loss.item(), [p.grad.detach().double().flatten() for _, p in named])
+        if after_route is not None:
+            after_route(label)
+    torch.cuda.synchronize()
+    return named, out
 
+
+def _hold_grad_routes(phase, named, out, comparisons, rel_tol, cos_tol) -> bool:
+    """Log the worst leaf of each (got, want, held) comparison between routes;
+    -> whether every held one is inside the bounds."""
+    ok = True
+    for got, want, held in comparisons:
+        rel, cos = worst_leaf(phase, named, out[got][1], out[want][1])
+        fine = not held or (rel[0] <= rel_tol and cos[0] >= cos_tol)
+        ok &= fine
+        bounds = f" (<= {rel_tol}, >= {cos_tol})" if held else " (for information)"
+        log(phase, f"  {got} vs {want}: worst relative error {rel[0]:.4f} ({rel[1]}), worst cosine "
+            f"{cos[0]:.5f} ({cos[1]}){bounds} {'ok' if fine else 'FAIL'}")
+    return ok
+
+
+def _lora_grad_tree_check(model) -> None:
     def plain_route(compute_dtype):
         def attention(q, k, v):
             b, h, s, d = q.shape
@@ -957,46 +1206,40 @@ def _lora_grad_tree_check(model) -> None:
             return out.to(q.dtype).reshape(b, h, s, d)
         return attention
 
-    def grads(attention_fn):
-        ft.attention = attention_fn
-        try:
-            for _, p in named:
-                p.grad = None
-            loss, _ = model.compute_loss_from_latents(cond, target, noise, u)
-            loss.backward()
-        finally:
-            ft.attention = fa.attention
-        return loss.item(), [p.grad.detach().double().flatten() for _, p in named]
-
     before = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
-    loss_k, g_k = grads(fa.attention)
-    if (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) != (before[0] + BLOCKS, before[1] + BLOCKS):
-        raise SystemExit("[lora] the kernel route did not launch K4 and K5 once per block")
-    loss_p, g_p = grads(plain_route(torch.bfloat16))
-    if (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) != (before[0] + BLOCKS, before[1] + BLOCKS):
-        raise SystemExit("[lora] the plain route launched a backward kernel")
-    loss_f, g_f = grads(plain_route(torch.float32))
-    torch.cuda.synchronize()
 
-    log("lora", f"adapter gradient tree at 256^2 batch 1, {len(named)} leaves: loss kernels {loss_k:.6f}, "
-        f"plain bf16 attention {loss_p:.6f}, plain fp32 attention {loss_f:.6f}")
-    ok = True
-    for label, got, want, held in (("kernels vs plain bf16 attention", g_k, g_p, True),
-                                   ("kernels vs plain fp32 attention", g_k, g_f, True),
-                                   ("plain bf16 vs plain fp32 attention", g_p, g_f, False)):
-        rel, cos = worst_leaf("lora", named, got, want)
-        fine = not held or (rel[0] <= LORA_GRAD_REL_TOL and cos[0] >= LORA_GRAD_COS_TOL)
-        ok &= fine
-        bounds = f" (<= {LORA_GRAD_REL_TOL}, >= {LORA_GRAD_COS_TOL})" if held else " (for information)"
-        log("lora", f"  {label}: worst relative error {rel[0]:.4f} ({rel[1]}), worst cosine "
-            f"{cos[0]:.5f} ({cos[1]}){bounds} {'ok' if fine else 'FAIL'}")
-    if not ok:
+    def after_route(label):
+        # the kernel route runs first: K4 and K5 once per block there, never on a plain route
+        if (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) != (before[0] + BLOCKS, before[1] + BLOCKS):
+            raise SystemExit(f"[lora] after the route {label!r}: K4 and K5 must have launched once per block "
+                             "on the kernel route and never on a plain one")
+
+    named, out = _adapter_grad_routes(
+        model, "attention",
+        [("kernels", fa.attention), ("plain bf16 attention", plain_route(torch.bfloat16)),
+         ("plain fp32 attention", plain_route(torch.float32))], SEED + 2, after_route)
+    log("lora", f"adapter gradient tree at 256^2 batch 1, {len(named)} leaves: "
+        + ", ".join(f"loss {label} {loss:.6f}" for label, (loss, _) in out.items()))
+    if not _hold_grad_routes("lora", named, out, (("kernels", "plain bf16 attention", True),
+                                                  ("kernels", "plain fp32 attention", True),
+                                                  ("plain bf16 attention", "plain fp32 attention", False)),
+                             LORA_GRAD_REL_TOL, LORA_GRAD_COS_TOL):
         raise SystemExit("[lora] the kernels' adapter gradients disagree with the plain route's")
 
 
-def phase_lora(model) -> dict:
-    import tempfile
+def _stage_config(data_root: Path, ckpt_dir: Path, **training) -> dict:
+    """The LoRA stage's configuration for `train_from_config` over the PNG tree at `data_root`."""
+    return {
+        "model": {"pretrained_model_name_or_path": f"random weights, seed {SEED}",
+                  "rgba_vae_path": f"random weights, seed {SEED}"},
+        "data": {"root": str(data_root), "batch_size": STAGE_PAIRS, "num_workers": 4},
+        "training": {**LORA_CONFIG, **training, "max_train_steps": STAGE_STEPS, "grad_accum_steps": STAGE_MICRO,
+                     "log_every": 1, "ckpt_every_steps": 1000, "val_every_steps": 1000, "ckpt_dir": str(ckpt_dir)},
+    }
 
+
+def phase_lora(model, work: Path) -> dict:
+    """`work` holds the PNG tree (`data`) and takes this phase's checkpoints."""
     from ragb_vae_tpu_torch.models.flux_weights import lora_parameters, lora_state
     from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import train_from_config
 
@@ -1025,7 +1268,7 @@ def phase_lora(model) -> dict:
         f"fp32 parameters on {len(lora) // 2} linears) to the frozen bf16 base in "
         f"{time.perf_counter() - t0:.1f} s; recompute={model.transformer.remat}")
 
-    steps, pairs, n_micro = 3, 4, 2
+    steps, pairs, n_micro = STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO
     marks, logged = [], []
 
     def log_fn(step, metrics):
@@ -1033,55 +1276,44 @@ def phase_lora(model) -> dict:
         marks.append(time.perf_counter())
         logged.append(metrics)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        _write_pair_tree(root / "data", steps * pairs, 512)
-        cfg = {
-            "model": {"pretrained_model_name_or_path": f"random weights, seed {SEED}",
-                      "rgba_vae_path": f"random weights, seed {SEED}"},
-            "data": {"root": str(root / "data"), "batch_size": pairs, "num_workers": 4},
-            "training": {**LORA_CONFIG, "max_train_steps": steps, "grad_accum_steps": n_micro,
-                         "log_every": 1, "ckpt_every_steps": 1000, "val_every_steps": 1000,
-                         "ckpt_dir": str(root / "ckpt")},
-        }
-        torch.cuda.reset_peak_memory_stats()
-        rb.reset_launch_counts()
-        fa.reset_launch_counts()
-        marks.append(time.perf_counter())
-        result = train_from_config(cfg, model=model, log_fn=log_fn)
-        torch.cuda.synchronize()
-        counts = _lora_counts()
-        peak = torch.cuda.max_memory_allocated()
+    ckpt = work / "ckpt_lora"
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    marks.append(time.perf_counter())
+    result = train_from_config(_stage_config(work / "data", ckpt), model=model, log_fn=log_fn)
+    torch.cuda.synchronize()
+    counts = _lora_counts()
+    peak = torch.cuda.max_memory_allocated()
 
-        for i, metrics in enumerate(logged):
-            log("lora", f"step {i}: loss={metrics['train/loss']:.6f} grad_norm={metrics['train/grad_norm']:.4f} "
-                f"lr={metrics['lr']:.3g}; {1e3 * (marks[i + 1] - marks[i]):.1f} ms (wall, with data"
-                f"{' and start-up' if i == 0 else ''})")
-        if len(logged) != steps or result["global_step"] != steps:
-            raise SystemExit(f"[lora] {len(logged)} steps logged, {result['global_step']} taken, {steps} asked")
-        if not all(math.isfinite(m["train/loss"]) and m["train/grad_norm"] > 0.0 for m in logged):
-            raise SystemExit(f"[lora] a loss is not finite or a gradient norm is zero: {logged}")
-        bad = [n for n, p in lora.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
-        if bad:
-            raise SystemExit(f"[lora] adapters without a finite gradient: {bad[:5]}")
-        still = [n for n, p in lora.items() if n.endswith("lora_B") and torch.equal(p.detach(), lora_before[n])]
-        moved_base = [n for (n, _), a, b in zip(base, base_before, checksums(base)) if a != b]
-        if still or moved_base:
-            raise SystemExit(f"[lora] lora_B that did not move: {still[:5]}; base parameters that did: {moved_base[:5]}")
+    for i, metrics in enumerate(logged):
+        log("lora", f"step {i}: loss={metrics['train/loss']:.6f} grad_norm={metrics['train/grad_norm']:.4f} "
+            f"lr={metrics['lr']:.3g}; {1e3 * (marks[i + 1] - marks[i]):.1f} ms (wall, with data"
+            f"{' and start-up' if i == 0 else ''})")
+    if len(logged) != steps or result["global_step"] != steps:
+        raise SystemExit(f"[lora] {len(logged)} steps logged, {result['global_step']} taken, {steps} asked")
+    if not all(math.isfinite(m["train/loss"]) and m["train/grad_norm"] > 0.0 for m in logged):
+        raise SystemExit(f"[lora] a loss is not finite or a gradient norm is zero: {logged}")
+    bad = [n for n, p in lora.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad:
+        raise SystemExit(f"[lora] adapters without a finite gradient: {bad[:5]}")
+    still = [n for n, p in lora.items() if n.endswith("lora_B") and torch.equal(p.detach(), lora_before[n])]
+    moved_base = [n for (n, _), a, b in zip(base, base_before, checksums(base)) if a != b]
+    if still or moved_base:
+        raise SystemExit(f"[lora] lora_B that did not move: {still[:5]}; base parameters that did: {moved_base[:5]}")
 
-        # the final save, read back into zeroed adapters
-        trained = lora_state(model.transformer)
-        with torch.no_grad():
-            for p in lora.values():
-                p.zero_()
-        model.load_lora(root / "ckpt" / "final")
-        reloaded = lora_state(model.transformer)
-        if not all(torch.equal(trained[n], reloaded[n]) for n in trained):
-            raise SystemExit("[lora] the reloaded adapters differ from the trained ones")
+    # the final save, read back into zeroed adapters
+    trained = lora_state(model.transformer)
+    with torch.no_grad():
+        for p in lora.values():
+            p.zero_()
+    model.load_lora(ckpt / "final")
+    reloaded = lora_state(model.transformer)
+    if not all(torch.equal(trained[n], reloaded[n]) for n in trained):
+        raise SystemExit("[lora] the reloaded adapters differ from the trained ones")
     del lora_before
 
     micro = steps * n_micro
-    log("lora", f"3 steps of {pairs} pairs at 512^2 in {n_micro} micro-batches; final loss {result['train/loss']:.6f}; "
+    log("lora", f"{steps} steps of {pairs} pairs at 512^2 in {n_micro} micro-batches; final loss {result['train/loss']:.6f}; "
         f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; adapters saved and reloaded bit for bit; "
         f"{len(base)} base parameters unchanged")
     if counts["flash_attention_dq"] != BLOCKS * micro or counts["flash_attention_dkv"] != BLOCKS * micro:
@@ -1092,35 +1324,314 @@ def phase_lora(model) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the stand-alone VAE convs through their modules
+# ---------------------------------------------------------------------------
+def phase_convs() -> dict:
+    """K9, K11 and K12 through the entry points a user calls, at the widths
+    and sizes the FLUX `ae` encoder and decoder give a conv at 512^2: the
+    three `Downsample(fused=True)` of the encoder chained with a fused resnet
+    block after each (which takes the kernel's statistics), the `Conv3x3`
+    module, and `fused_gn_silu_conv3x3_batched` over `group_norm_coeffs`. Each
+    is held against the unfused module or the plain composition on the same
+    weights."""
+    from ragb_vae_tpu_torch.models import vae as vae_module
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    kw = {"device": "cuda", "dtype": torch.bfloat16}
+    torch.manual_seed(SEED + 3)
+    reset_all_counts()
+    ok = True
+    with torch.no_grad():
+        # the encoder's three downsamplers at a 512^2 batch of 4
+        for c_in, c_out, size in ((128, 256, 512), (256, 512, 256), (512, 512, 128)):
+            down = vae_module.Downsample(c_in, fused=True, **kw)
+            block = vae_module.ResnetBlock(c_in, c_out, 32, fused=True, **kw)
+            x = _randn(gen, (4, size, size, c_in))
+            y, stats = down(x)
+            down.fused = False
+            y_ref, _ = down(x)
+            out, _ = block(y, stats)
+            out_ref, _ = block(y)                     # statistics recomputed from y
+            rel_y = ((y.float() - y_ref.float()).abs().max() / y_ref.float().abs().max()).item()
+            rel_o = ((out.float() - out_ref.float()).abs().max() / out_ref.float().abs().max()).item()
+            fine = (y.shape == (4, size // 2, size // 2, c_in) and rel_y <= CONV_Y_REL_TOL
+                    and rel_o <= CONV_Y_REL_TOL and bool(torch.isfinite(out.float()).all()))
+            ok &= fine
+            log("convs", f"Downsample(fused=True) {tuple(x.shape)} -> {tuple(y.shape)} then a fused ResnetBlock "
+                f"-> {c_out} on its statistics: y vs the unfused module rel {rel_y:.3g}, block output vs the one "
+                f"on recomputed statistics rel {rel_o:.3g} (<= {CONV_Y_REL_TOL}) {'ok' if fine else 'FAIL'}")
+            del down, block, x, y, y_ref, out, out_ref
+        # Conv3x3 at the decoder's mid width and at its last level
+        for c_in, c_out, shape in ((512, 512, (1, 128, 128)), (128, 128, (2, 512, 512))):
+            conv = vae_module.Conv3x3(c_in, c_out, **kw)
+            x = _randn(gen, (*shape, c_in))
+            y = conv(x)
+            y_ref = vae_module.conv_nhwc(conv.conv, x)
+            rel = ((y.float() - y_ref.float()).abs().max() / y_ref.float().abs().max()).item()
+            fine = y.shape == (*shape, c_out) and rel <= CONV_Y_REL_TOL
+            ok &= fine
+            log("convs", f"Conv3x3 {tuple(x.shape)} -> {c_out}: vs nn.Conv2d on the same weights rel {rel:.3g} "
+                f"(<= {CONV_Y_REL_TOL}) {'ok' if fine else 'FAIL'}")
+            del conv, x, y, y_ref
+        # GroupNorm -> SiLU -> conv3x3 in one launch, per-sample coefficients
+        for c_in, c_out, shape in ((512, 512, (2, 128, 128)), (128, 128, (2, 512, 512))):
+            norm = vae_module.FastGroupNorm(32, c_in, **kw)
+            conv = torch.nn.Conv2d(c_in, c_out, 3, padding=1, **kw)
+            norm.weight.normal_(1.0, 0.1, generator=gen)
+            norm.bias.normal_(0.0, 0.1, generator=gen)
+            x = _randn(gen, (*shape, c_in))
+            a, b = fgc.group_norm_coeffs(x, norm.weight, norm.bias, 32)
+            y = fgc.fused_gn_silu_conv3x3_batched(x, a, b, conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias)
+            y_ref = vae_module.conv_nhwc(conv, F.silu(norm(x)).to(torch.bfloat16))
+            rel = ((y.float() - y_ref.float()).abs().max() / y_ref.float().abs().max()).item()
+            fine = y.shape == (*shape, c_out) and rel <= CONV_Y_REL_TOL
+            ok &= fine
+            log("convs", f"fused_gn_silu_conv3x3_batched {tuple(x.shape)} -> {c_out}: vs FastGroupNorm + SiLU + "
+                f"nn.Conv2d rel {rel:.3g} (<= {CONV_Y_REL_TOL}) {'ok' if fine else 'FAIL'}")
+            del norm, conv, x, y, y_ref
+    torch.cuda.synchronize()
+    counts = {"downsample_conv3x3_stats": rb.DOWNSAMPLE_LAUNCHES, "conv3x3_same": c3.LAUNCHES,
+              "fused_gn_silu_conv3x3": fgc.LAUNCHES}
+    log("convs", f"launches {counts}")
+    if not ok:
+        raise SystemExit("[convs] a fused module disagrees with its unfused counterpart")
+    if counts != {"downsample_conv3x3_stats": 3, "conv3x3_same": 2, "fused_gn_silu_conv3x3": 2}:
+        raise SystemExit(f"[convs] each module must launch its kernel once per call: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: weight-only int8 serving and QLoRA at full width
+# ---------------------------------------------------------------------------
+def _probe_forward(model, gen_seed: int):
+    """One transformer forward at 512^2, batch 1, on seeded inputs."""
+    from ragb_vae_tpu_torch.ops.packing import prepare_latent_image_ids
+
+    gen = torch.Generator("cuda").manual_seed(gen_seed)
+    packed = torch.randn((1, 2048, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    ids = prepare_latent_image_ids(32, 32, device="cuda")
+    with torch.no_grad():
+        return model._transformer_pred(packed, torch.full((1,), 0.5, device="cuda"),
+                                       torch.cat([ids, ids], dim=0), 1).float()
+
+
+# The adapters' gradient tree through K10 (every base linear of the forward and
+# of the per-block recompute; its backward is `torch.matmul` on every route),
+# held against the same step with every int8 linear forced to the plain
+# version under PyTorch autograd: same weights, latents, noise and timestep.
+# The plain version rounds the unscaled product to bf16 before it scales it and
+# rounds again, the kernel rounds once, and that difference passes through up
+# to 57 blocks of bf16 residual stream in both directions; a third route (the
+# product, scale and bias in fp32 from the same bf16 x, one rounding: the
+# kernel's own arithmetic) shows how large that noise is between two plain
+# routes. On an H100 the worst leaf reads 0.0095 (cosine 0.99996) for K10
+# against the fp32 route and 0.048 (0.9990) against the plain bf16 route, which
+# is itself 0.047 (0.9990) from the fp32 one: the double rounding is the plain
+# version's, not the kernel's. The bounds leave each reading two to three times
+# its size. A K10 fault that only shows through the depth of the stack (a wrong
+# tile at one shape of the path, a scale off in one layer) moves the leaves
+# below it by the size of the gradient itself.
+QLORA_GRAD_PLAIN_TOL = (0.1, 0.99)      # vs the plain version: worst leaf's relative error, worst cosine
+QLORA_GRAD_EXACT_TOL = (0.03, 0.999)    # vs the fp32 route
+
+
+def _qlora_grad_tree_check(model, n_linears: int, in_blocks: int) -> None:
+    def exact_route(x, weight_q, scale, bias=None):
+        y = torch.matmul(x.float(), weight_q.float().t()) * scale
+        return (y if bias is None else y + bias).to(x.dtype)
+
+    before = i8.LAUNCHES
+
+    def after_route(label):
+        # the kernel route runs first: once per linear, the blocks' twice (recompute); never on a plain route
+        if i8.LAUNCHES != before + n_linears + in_blocks:
+            raise SystemExit(f"[int8] after the route {label!r}: K10 must have launched {n_linears + in_blocks} "
+                             f"times on the kernel route and never on a plain one, counted {i8.LAUNCHES - before}")
+
+    named, out = _adapter_grad_routes(
+        model, "int8_matmul",
+        [("K10", i8.int8_matmul), ("plain bf16 matmul", i8.int8_matmul_plain), ("plain fp32 matmul", exact_route)],
+        SEED + 6, after_route)
+    log("int8", f"adapter gradient tree over the int8 base at 256^2 batch 1, {len(named)} leaves: "
+        + ", ".join(f"loss {label} {loss:.6f}" for label, (loss, _) in out.items()))
+    ok = _hold_grad_routes("int8", named, out, (("K10", "plain bf16 matmul", True),
+                                                ("plain bf16 matmul", "plain fp32 matmul", False)),
+                           *QLORA_GRAD_PLAIN_TOL)
+    ok &= _hold_grad_routes("int8", named, out, (("K10", "plain fp32 matmul", True),), *QLORA_GRAD_EXACT_TOL)
+    if not ok:
+        raise SystemExit("[int8] the adapter gradients through K10 disagree with the plain route's")
+
+
+def phase_int8(model, bf16_peak: int, work: Path) -> dict:
+    """Quantises the serving phase's transformer where it lives, holds one
+    forward against the bf16 one from the same weights, serves 3 requests
+    through InferenceServer, takes 2 QLoRA optimizer steps through
+    `train_from_config` with `weight_quant: int8` on the PNG tree in `work`,
+    then holds the adapters' gradient tree through K10 against the plain
+    route."""
+    from ragb_vae_tpu_torch.models.flux_transformer import QLinear
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
+    from ragb_vae_tpu_torch.models.quantize import quantize_module_
+    from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import train_from_config
+
+    for p in model.transformer.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = _probe_forward(model, SEED + 4)
+    before = torch.cuda.memory_allocated()
+    quantize_module_(model.transformer)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    linears = [m for m in model.transformer.modules() if isinstance(m, QLinear)]
+    in_blocks = sum(1 for n, m in model.transformer.named_modules() if isinstance(m, QLinear)
+                    and n.startswith(("transformer_blocks.", "single_transformer_blocks.")))
+    if not all(m.weight_quant == "int8" and m.weight_q.dtype == torch.int8 for m in linears):
+        raise SystemExit("[int8] a linear was left unquantised")
+    log("int8", f"quantised {len(linears)} linears ({sum(m.weight_q.numel() for m in linears) / 1e9:.2f} B weights) "
+        f"on the card in {time.perf_counter() - t0:.1f} s: {before / 2**30:.2f} -> "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    reset_all_counts()
+    out = _probe_forward(model, SEED + 4)
+    torch.cuda.synchronize()
+    per_forward = i8.LAUNCHES
+    rel = ((out - ref).norm() / ref.norm()).item()
+    cos = (torch.dot(out.flatten(), ref.flatten()) / (out.norm() * ref.norm())).item()
+    fine = (bool(torch.isfinite(out).all()) and rel <= INT8_TRACK_REL_TOL and cos >= INT8_TRACK_COS_TOL
+            and per_forward == len(linears))
+    log("int8", f"one forward at 512^2: {per_forward} K10 launches for {len(linears)} linears; int8 vs bf16 output "
+        f"relative error {rel:.4f} (<= {INT8_TRACK_REL_TOL}) cosine {cos:.5f} (>= {INT8_TRACK_COS_TOL}) "
+        f"{'ok' if fine else 'FAIL'}")
+    if not fine:
+        raise SystemExit("[int8] the int8 transformer does not track the bf16 one, or a linear missed the kernel")
+    del ref, out
+
+    counts, peak, batches = _serve_three("int8", model, {
+        "int8_matmul": lambda: i8.LAUNCHES,
+        "resnet_conv3x3_stats": lambda: rb.CONV_LAUNCHES,
+        "subpixel_upsample_conv3x3_stats": lambda: rb.UPSAMPLE_LAUNCHES,
+        "flash_attention_fwd": lambda: fa.LAUNCHES,
+    }, sizes=((512, 512),) * 3)       # the resize of a 600x400 request is the bf16 phase's to drive
+    log("int8", f"serving peak memory {peak / 2**30:.2f} GiB (bf16 serving phase: {bf16_peak / 2**30:.2f} GiB)")
+    if counts["int8_matmul"] != len(linears) * SERVE_STEPS * batches:
+        raise SystemExit(f"[int8] K10 must launch once per linear, step and batch "
+                         f"({len(linears)} x {SERVE_STEPS} x {batches}): {counts}")
+
+    # QLoRA: the adapters (attached here when the LoRA phase did not run) over the int8 base
+    steps, pairs, n_micro = STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO
+    if not lora_parameters(model.transformer):
+        model.lora_rank, model.lora_alpha = LORA_CONFIG["rank"], float(LORA_CONFIG["lora_alpha"])
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        model.init_lora(gen)
+        with torch.no_grad():
+            for name, p in lora_parameters(model.transformer).items():
+                if name.endswith("lora_B"):
+                    p.normal_(0.0, 0.01, generator=gen)
+    lora = lora_parameters(model.transformer)
+    base = {k: v for k, v in model.transformer.state_dict().items() if k not in lora}
+    checks = lambda: [(v.double().sum().item(), v.double().square().sum().item()) for v in base.values()]
+    base_before = checks()
+    probe_gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    lat = (2, 64, 64, model.vae.config.latent_channels)
+    probe = [torch.randn(lat, generator=probe_gen, device="cuda") for _ in range(3)]
+    probe_u = torch.tensor([0.3, 0.7], device="cuda")
+
+    def probe_loss():
+        with torch.no_grad():
+            return model.compute_loss_from_latents(*probe, probe_u)[0].item()
+
+    # the probe draws nothing and the kernels are bitwise reproducible: run twice
+    # it gives the same number, so whatever it moves by is the adapters' doing
+    loss_before, loss_again = probe_loss(), probe_loss()
+    logged = []
+    ckpt = work / "ckpt_qlora"
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    result = train_from_config(_stage_config(work / "data", ckpt, weight_quant="int8"), model=model,
+                               log_fn=lambda step, m: logged.append(m))
+    torch.cuda.synchronize()
+    q_counts = {"int8_matmul": i8.LAUNCHES, **_lora_counts()}
+    q_peak = torch.cuda.max_memory_allocated()
+    if not (ckpt / "final" / "pytorch_lora_weights.safetensors").exists():
+        raise SystemExit("[int8] the QLoRA stage saved no adapters")
+    loss_after = probe_loss()
+    for i, m in enumerate(logged):
+        log("int8", f"QLoRA step {i}: loss={m['train/loss']:.6f} grad_norm={m['train/grad_norm']:.4f} lr={m['lr']:.3g}")
+    bad = [n for n, p in lora.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    moved = [k for k, a, b in zip(base, base_before, checks()) if a != b]
+    micro = steps * n_micro
+    want_k10 = (2 * in_blocks + len(linears) - in_blocks) * micro    # the blocks run again in the backward
+    fine = (len(logged) == steps and result["global_step"] == steps and not bad and not moved
+            and all(math.isfinite(m["train/loss"]) and m["train/grad_norm"] > 0.0 for m in logged)
+            and math.isfinite(loss_after) and loss_again == loss_before and loss_after < loss_before)
+    log("int8", f"{steps} QLoRA steps of {pairs} pairs at 512^2 in {n_micro} micro-batches over the int8 base: "
+        f"probe loss {loss_before:.6f} (run again: {loss_again:.6f}) -> {loss_after:.6f}; {len(lora)} adapter leaves, {len(bad)} without a finite "
+        f"gradient; {len(base)} base tensors, {len(moved)} changed; peak memory {q_peak / 2**30:.2f} GiB; "
+        f"launches {q_counts} {'ok' if fine else 'FAIL'}")
+    if not fine:
+        raise SystemExit("[int8] QLoRA: a loss is not finite or did not fall, the probe does not repeat, "
+                         "an adapter has no gradient, or the base changed")
+    if (q_counts["int8_matmul"] != want_k10 or q_counts["flash_attention_dq"] != BLOCKS * micro
+            or q_counts["flash_attention_dkv"] != BLOCKS * micro
+            or q_counts["flash_attention_fwd"] < 2 * BLOCKS * micro):
+        raise SystemExit(f"[int8] QLoRA launch counts: K10 must be {want_k10}, K4 / K5 {BLOCKS * micro}, "
+                         f"K3 at least {2 * BLOCKS * micro}: {q_counts}")
+    for key, n in q_counts.items():
+        counts[key] = counts.get(key, 0) + n
+    _qlora_grad_tree_check(model, len(linears), in_blocks)
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="kernels,slice,lora,train",
-                        help="comma-separated subset of kernels,slice,lora,train (device and build "
-                             "always run; lora needs slice, whose model it trains); the final ok "
-                             "line is printed only when all ran")
+    parser.add_argument("--phases", default=",".join(ALL_PHASES),
+                        help=f"comma-separated subset of {','.join(ALL_PHASES)} (device and build always "
+                             "run; lora and int8 need slice, whose model they train and quantise); the "
+                             "final ok line is printed only when all ran")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
-    if "lora" in phases and "slice" not in phases:
-        parser.error("--phases lora needs slice: it trains the serving phase's model")
-    name = phase_device()
-    phase_build()
-    results = phase_kernels() if "kernels" in phases else {}
+    if phases - set(ALL_PHASES):
+        parser.error(f"unknown phases {sorted(phases - set(ALL_PHASES))}")
+    if phases & {"lora", "int8"} and "slice" not in phases:
+        parser.error("--phases lora and int8 need slice: they work on the serving phase's model")
+    t_start = time.perf_counter()
     counts: dict = {}
 
-    def add(more: dict) -> None:
-        for key, n in more.items():
-            counts[key] = counts.get(key, 0) + n
+    def run(phase: str, fn, *args):
+        """Run one phase, add its launch counts (a dict, or the first of a
+        tuple) to the totals and log what it took on the wall clock."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        first = out[0] if isinstance(out, tuple) else out
+        if phase not in ("device", "build", "kernels"):
+            for key, n in first.items():
+                counts[key] = counts.get(key, 0) + n
+        log("time", f"{phase}: {time.perf_counter() - t0:.1f} s ({time.perf_counter() - t_start:.1f} s since start)")
+        return out
 
+    name = run("device", phase_device)
+    run("build", phase_build)
+    results = run("kernels", phase_kernels) if "kernels" in phases else {}
     if "slice" in phases:
-        served, model = phase_slice()
-        add(served)
-        if "lora" in phases:
-            add(phase_lora(model))
+        _, model, bf16_peak = run("slice", phase_slice)
+        with tempfile.TemporaryDirectory() as tmp:
+            if phases & {"lora", "int8"}:
+                # one (gt, text_alpha) PNG tree for both stages
+                _write_pair_tree(Path(tmp) / "data", STAGE_STEPS * STAGE_PAIRS, 512)
+            if "lora" in phases:
+                run("lora", phase_lora, model, Path(tmp))
+            if "int8" in phases:
+                run("int8", phase_int8, model, bf16_peak, Path(tmp))
         del model
         torch.cuda.empty_cache()
+    if "convs" in phases:
+        run("convs", phase_convs)
     if "train" in phases:
-        add(phase_train())
-    if phases != {"kernels", "slice", "lora", "train"}:
+        run("train", phase_train)
+    if phases != set(ALL_PHASES):
         log("done", f"ran only {sorted(phases)}: no summary")
         return 0
     summary = {"kernels": [

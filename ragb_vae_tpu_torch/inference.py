@@ -4,7 +4,11 @@ Counterpart of the single-device branch of `ragb_vae_tpu/inference.py`:
 same flags, seeded sampling, one image or a batch of images grouped by size.
 On a CUDA device the RGBA VAE runs its fused kernels. `--lora_path` loads
 peft-format adapters (written by either package's LoRA stage) at `--rank` /
-`--lora_alpha`. `--quant int8`, `--tp` and `--pp` are not ported yet and raise.
+`--lora_alpha`. `--quant int8` serves the transformer in weight-only int8: a
+quantised checkpoint directory (`scripts/quantize_flux_checkpoint_torch.py`)
+loads as it is, a plain one is quantised at load. `--device` names where it
+runs (default `cuda`; a missing card raises, nothing falls back to the CPU).
+`--tp` and `--pp` are not ported yet and raise.
 
     python -m ragb_vae_tpu_torch.inference --pretrained_model_name_or_path CKPT \
         --rgba_vae_path VAE --input_image in.png --output_path out.png
@@ -17,6 +21,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ragb_vae_tpu_torch.device import resolve_device
 
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.bfloat16, "fp32": torch.float32}
 
@@ -40,7 +46,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=20, help="Number of flow steps during sampling.")
     p.add_argument("--seed", type=int, default=None, help="Optional seed for deterministic sampling.")
     p.add_argument("--precision", type=str, default="bf16", choices=sorted(_DTYPES))
-    p.add_argument("--quant", type=str, default="none", choices=["none", "int8"], help="int8: not ported yet.")
+    p.add_argument("--quant", type=str, default="none", choices=["none", "int8"],
+                   help="Weight-only int8 transformer storage. Loads a quantised checkpoint "
+                        "(scripts/quantize_flux_checkpoint_torch.py) directly, or quantises a "
+                        "plain checkpoint at load.")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="Device to run on. 'cuda' without a CUDA device is an error.")
     p.add_argument("--pp", type=int, default=1, help="Pipeline parallelism: not ported yet.")
     p.add_argument("--tp", type=int, default=1, help="Tensor parallelism: not ported yet.")
     return p.parse_args(argv)
@@ -48,8 +59,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def _check_ported(args: argparse.Namespace) -> None:
     missing = []
-    if args.quant != "none":
-        missing.append(f"--quant {args.quant}")
     if args.tp > 1:
         missing.append(f"--tp {args.tp}")
     if args.pp > 1:
@@ -81,7 +90,7 @@ def run(args: argparse.Namespace) -> None:
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
 
     _check_ported(args)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     model = FluxTextAlphaModel.from_pretrained(
         args.pretrained_model_name_or_path,
         vae_path=args.rgba_vae_path,
@@ -91,6 +100,7 @@ def run(args: argparse.Namespace) -> None:
         fused=device.type == "cuda",
         lora_rank=args.rank if args.lora_path else 0,
         lora_alpha=float(args.lora_alpha) if args.lora_path else 0.0,
+        weight_quant=args.quant,
     )
     if args.lora_path:
         model.load_lora(args.lora_path)

@@ -31,19 +31,29 @@ import numpy as np
 import torch
 from torch import nn
 
+from ragb_vae_tpu_torch.device import resolve_device
 from ragb_vae_tpu_torch.models.flux_transformer import (
+    WEIGHT_QUANT_MODES,
     FluxTransformer2D,
     FluxTransformerConfig,
+    QLinear,
     add_lora,
     freeze_base_parameters,
 )
 from ragb_vae_tpu_torch.models.flux_weights import (
+    StateDict,
     load_flux_transformer_params,
     load_lora_state,
     lora_parameters,
     lora_params_to_peft_state,
     lora_state,
+    params_from_flax,
     peft_state_to_lora_params,
+)
+from ragb_vae_tpu_torch.models.quantize import (
+    is_quantized_checkpoint,
+    load_quantized_transformer,
+    quantize_module_,
 )
 from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
 from ragb_vae_tpu_torch.models.scheduler import (
@@ -61,6 +71,19 @@ Tensor = torch.Tensor
 
 EMPTY_PROMPT_FILE = "empty_prompt_embeds.npz"
 LORA_WEIGHT_FILES = ("pytorch_lora_weights.safetensors", "pytorch_lora_weights.bin")
+
+
+def load_transformer(
+    model_path: Union[str, Path], *, subfolder: Optional[str] = "transformer"
+) -> Tuple[FluxTransformerConfig, StateDict, bool]:
+    """(config, the port's state dict, whether it is weight-only int8). A
+    directory with the quantisation marker is read as the quantised tree it
+    holds (written by either package); any other as a diffusers checkpoint."""
+    directory = Path(model_path) / subfolder if subfolder else Path(model_path)
+    if is_quantized_checkpoint(directory):
+        config, tree = load_quantized_transformer(directory)
+        return config, params_from_flax(tree), True
+    return (*load_flux_transformer_params(model_path, subfolder), False)
 
 
 def load_scheduler(model_path: Union[str, Path]) -> FlowMatchEulerScheduler:
@@ -103,7 +126,17 @@ def read_lora_metadata(directory: Union[str, Path]) -> Optional[Dict[str, Any]]:
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise parameters in place at lecun-normal scale, as the JAX
     initializers do: weights ~ N(0, 1/fan_in), biases 0, norm scales 1,
-    LoRA B 0. Draws follow `named_parameters` order, so a seed fixes them."""
+    LoRA B 0. Draws follow `named_parameters` order, so a seed fixes them.
+    An int8 linear draws its integers uniformly with the scale
+    3 / sqrt(in) / 127 (the JAX package's `random_quantized_params_like`):
+    about what a quantised lecun-normal layer carries, so activations stay
+    O(1) in a model too large to build in bf16 first."""
+    for m in module.modules():
+        if isinstance(m, QLinear) and m.weight_quant == "int8":
+            m.weight_q.random_(-127, 128, generator=generator)
+            m.weight_scale.fill_(3.0 / math.sqrt(m.in_features) / 127.0)
+            if m.bias is not None:
+                m.bias.zero_()
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "lora_B" or leaf == "bias":
@@ -161,7 +194,7 @@ class FluxTextAlphaModel:
 
     @property
     def device(self) -> torch.device:
-        return self.transformer.x_embedder.weight.device
+        return self.transformer.x_embedder.base_weight.device
 
     # ------------------------------------------------------------------
     # Construction
@@ -173,23 +206,27 @@ class FluxTextAlphaModel:
         vae_config: AutoencoderConfig,
         *,
         seed: int = 0,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         dtype: torch.dtype = torch.float32,
         fused: bool = False,
         prompt_len: int = 512,
         lora_rank: int = 0,
         lora_alpha: float = 0.0,
         use_gradient_checkpointing: bool = True,
+        weight_quant: str = "none",
     ) -> "FluxTextAlphaModel":
         """A model with random weights and random prompt embeddings, all
-        drawn from `seed` on `device`. Modules are built on the meta device
+        drawn from `seed` on `device` (the card unless the caller names the
+        CPU; a missing card raises). Modules are built on the meta device
         and materialised directly on `device` in `dtype`, so a full-size
         transformer never exists in host memory. With `lora_rank` > 0 fresh
-        adapters are attached after the base is drawn and the base is frozen."""
-        device = torch.device(device)
+        adapters are attached after the base is drawn and the base is frozen.
+        `weight_quant="int8"` draws the transformer's linears as int8."""
+        device = resolve_device(device)
         gen = torch.Generator(device).manual_seed(seed)
         transformer = FluxTransformer2D(
-            t_config, remat=use_gradient_checkpointing, device="meta", dtype=dtype,
+            t_config, remat=use_gradient_checkpointing, weight_quant=weight_quant,
+            device="meta", dtype=dtype,
         ).to_empty(device=device)
         vae = RgbaVAE(vae_config, dtype=dtype, fused=fused, device="meta")
         vae.module.to_empty(device=device)
@@ -212,30 +249,54 @@ class FluxTextAlphaModel:
         vae_path: Union[str, Path],
         vae_subfolder: str = "ae",
         dtype: torch.dtype = torch.float32,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         fused: bool = False,
         lora_rank: int = 0,
         lora_alpha: float = 0.0,
         use_gradient_checkpointing: bool = True,
+        weight_quant: str = "none",
     ) -> "FluxTextAlphaModel":
         """Transformer from `<model_path>/transformer`, scheduler config and
         `empty_prompt_embeds.npz` from `model_path`, RGBA VAE from
         `<vae_path>/<vae_subfolder>` (or `vae_path` itself). With `lora_rank`
-        > 0 fresh adapters (seed 0) are attached and the base is frozen."""
-        t_config, t_state = load_flux_transformer_params(model_path)
+        > 0 fresh adapters (seed 0) are attached and the base is frozen.
+
+        `weight_quant="int8"` serves the transformer in weight-only int8: a
+        quantised checkpoint directory loads as it is; a plain one is
+        quantised at load from its fp32 values, one linear at a time on
+        `device`, so the result is the JAX package's bit for bit and no more
+        than one float weight is on the device at once.
+
+        `device` is the card unless the caller names the CPU; a missing card
+        raises."""
+        device = resolve_device(device)
+        if weight_quant not in WEIGHT_QUANT_MODES:
+            raise ValueError(f"Unknown weight_quant mode {weight_quant!r}.")
+        t_config, t_state, quantized = load_transformer(model_path)
+        if quantized and weight_quant != "int8":
+            raise ValueError(
+                f"{model_path} holds a weight-only int8 transformer: load it with weight_quant='int8'.")
         try:
             v_config, v_state = load_autoencoder_params(vae_path, vae_subfolder, adapt_to_rgba=True)
         except FileNotFoundError:
             v_config, v_state = load_autoencoder_params(vae_path, None, adapt_to_rgba=True)
-        transformer = FluxTransformer2D(t_config, remat=use_gradient_checkpointing,
-                                        device="meta", dtype=dtype)
+        quantize_here = weight_quant == "int8" and not quantized
+        transformer = FluxTransformer2D(
+            t_config, remat=use_gradient_checkpointing,
+            weight_quant="int8" if quantized else "none",
+            device="meta", dtype=torch.float32 if quantize_here else dtype)
         vae = RgbaVAE(v_config, dtype=dtype, fused=fused, device="meta")
         for module, state in ((transformer, t_state), (vae.module, v_state)):
-            # each parameter keeps the dtype its module declared (fp32 for the
-            # AdaLN modulation, `dtype` elsewhere)
+            # each tensor keeps the dtype its module declared (fp32 for the
+            # AdaLN modulation, int8 and fp32 for a quantised linear, `dtype`
+            # elsewhere)
             want = {k: p.dtype for k, p in module.state_dict().items()}
             module.load_state_dict({k: v.to(want.get(k, dtype)) for k, v in state.items()},
                                    strict=True, assign=True)
+        if quantize_here:
+            quantize_module_(transformer, device=device, dtype=dtype)
+            for p in transformer.parameters():      # what is left: the RMSNorm weights
+                p.data = p.data.to(dtype)
         transformer.to(device)
         vae.module.to(device)
         prompt, pooled, text_ids = load_empty_prompt(model_path)

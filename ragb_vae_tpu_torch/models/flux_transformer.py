@@ -1,13 +1,19 @@
 """FluxTransformer2DModel-compatible DiT in PyTorch.
 
-Counterpart of `ragb_vae_tpu/models/flux_transformer.py` (weight mode
-"none"; int8 storage is not ported yet). Module and parameter names are the
-diffusers state-dict keys. Packed latent tokens and text tokens are (B, S, C).
+Counterpart of `ragb_vae_tpu/models/flux_transformer.py`. Module and
+parameter names are the diffusers state-dict keys. Packed latent tokens and
+text tokens are (B, S, C).
 
 Precision follows the JAX package: linears run in the compute dtype; the
 AdaLN modulation, LayerNorm, RMSNorm statistics, RoPE and timestep
 embeddings run in fp32. Attention goes through the flash kernel
 (`ops/kernels/flash_attention.py`) on CUDA.
+
+`weight_quant="int8"` stores every linear the JAX package builds from
+`QDense` as int8 weights with one fp32 scale per output channel (buffers
+`weight_q` (out, in), `weight_scale`, fp32 `bias`; none of them a parameter)
+and multiplies through `ops/kernels/int8_matmul.py`, so no weight is ever
+dequantised. LoRA adapters stay fp32 parameters beside an int8 base.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ragb_vae_tpu_torch.ops.kernels.flash_attention import attention
+from ragb_vae_tpu_torch.ops.kernels.int8_matmul import int8_matmul
 
 Tensor = torch.Tensor
 Rope = Tuple[Tensor, Tensor]
@@ -108,18 +115,98 @@ def apply_rotary_emb(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     return (xf * cos + rot * sin).to(x.dtype)
 
 
-class LoraDense(nn.Linear):
-    """nn.Linear with an optional rank-r LoRA bypass,
+WEIGHT_QUANT_MODES = ("none", "int8")
+
+
+class QLinear(nn.Module):
+    """Linear layer with optional weight-only int8 storage (the JAX
+    package's `QDense`).
+
+    weight_quant="none": `weight` (out, in) and `bias` parameters in `dtype`,
+    initialised as nn.Linear initialises them, computed with F.linear.
+    weight_quant="int8": buffers `weight_q` (out, in) int8, `weight_scale`
+    (out,) fp32 and `bias` (out,) fp32; y = (x @ weight_q^T) * scale + bias
+    with fp32 accumulation and one rounding to `dtype`.
+
+    The compute dtype of an int8 layer is fixed when it is built or
+    quantised (`dtype=`): no float weight is left to read it from, so
+    `module.to(dtype)` does not change it (and would round the fp32 scale
+    and bias). Build the model in the dtype it is to run in."""
+
+    def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
+                 weight_quant: str = "none", device=None, dtype=None):
+        super().__init__()
+        if weight_quant not in WEIGHT_QUANT_MODES:
+            raise ValueError(f"Unknown weight_quant mode {weight_quant!r}.")
+        self.in_features, self.out_features = in_features, out_features
+        self.weight_quant = weight_quant
+        self._dtype = dtype or torch.get_default_dtype()
+        if weight_quant == "int8":
+            self.register_buffer("weight_q", torch.zeros((out_features, in_features), dtype=torch.int8, device=device))
+            self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32, device=device))
+            self.register_buffer("bias", torch.zeros(out_features, dtype=torch.float32, device=device) if bias else None)
+            return
+        self.weight = nn.Parameter(torch.empty((out_features, in_features), device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(out_features, device=device, dtype=dtype)) if bias else None
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+        if bias:
+            bound = 1.0 / math.sqrt(in_features) if in_features > 0 else 0.0
+            nn.init.uniform_(self.bias, -bound, bound)
+
+    @property
+    def base_weight(self) -> Tensor:
+        """The tensor that holds the base weights, whatever the mode."""
+        return self.weight_q if self.weight_quant == "int8" else self.weight
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self._dtype if self.weight_quant == "int8" else self.weight.dtype
+
+    @torch.no_grad()
+    def quantize_(self, device=None, dtype: Optional[torch.dtype] = None) -> None:
+        """Replace the float weight by its int8 form, made where the weight
+        lives or on `device`; the layer then computes in `dtype` (default: the
+        weight's own)."""
+        from ragb_vae_tpu_torch.models.quantize import quantize_kernel
+
+        if self.weight_quant == "int8":
+            return
+        self._dtype = dtype or self.weight.dtype
+        qk = quantize_kernel(self.weight.detach().to(device).t())
+        bias = None if self.bias is None else self.bias.detach().to(device, torch.float32)
+        del self.weight, self.bias
+        self.register_buffer("weight_q", qk["kernel_q"].t().contiguous())
+        self.register_buffer("weight_scale", qk["kernel_scale"])
+        self.register_buffer("bias", bias)
+        self.weight_quant = "int8"
+
+    def base(self, x: Tensor) -> Tensor:
+        """The base linear on x, already in the compute dtype."""
+        if self.weight_quant == "int8":
+            return int8_matmul(x, self.weight_q, self.weight_scale, self.bias)
+        return F.linear(x, self.weight, self.bias)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.base(x.to(self.compute_dtype))
+
+    def extra_repr(self) -> str:
+        return f"in_features={self.in_features}, out_features={self.out_features}, weight_quant={self.weight_quant}"
+
+
+class LoraDense(QLinear):
+    """QLinear with an optional rank-r LoRA bypass,
     y = x W^T + b + (alpha/r) (x A^T) B^T (A: (r, in), B: (out, r));
     with rank 0 it is a plain linear whose keys are diffusers' own.
 
     The adapters are fp32 parameters whatever the base dtype and are cast to
     the compute dtype at use, as in the JAX package: AdamW then updates fp32
-    adapters under a frozen bf16 base."""
+    adapters under a frozen bf16 or int8 base."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
-                 lora_rank: int = 0, lora_alpha: float = 0.0, device=None, dtype=None):
-        super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
+                 lora_rank: int = 0, lora_alpha: float = 0.0, weight_quant: str = "none",
+                 device=None, dtype=None):
+        super().__init__(in_features, out_features, bias=bias, weight_quant=weight_quant,
+                         device=device, dtype=dtype)
         self.lora_rank = 0
         self.scaling = 0.0
         if lora_rank > 0:
@@ -130,7 +217,7 @@ class LoraDense(nn.Linear):
         """Attach (or replace) the adapter on the weight's device:
         A ~ N(0, 1/rank), B = 0, so the bypass starts at zero (peft's
         init_lora_weights="gaussian")."""
-        device = self.weight.device
+        device = self.base_weight.device
         self.lora_rank = rank
         self.scaling = alpha / rank
         a = torch.empty(rank, self.in_features, device=device, dtype=torch.float32)
@@ -139,26 +226,28 @@ class LoraDense(nn.Linear):
             torch.zeros(self.out_features, rank, device=device, dtype=torch.float32))
 
     def forward(self, x: Tensor) -> Tensor:
-        x = x.to(self.weight.dtype)
-        y = F.linear(x, self.weight, self.bias)
+        x = x.to(self.compute_dtype)
+        y = self.base(x)
         if self.lora_rank > 0:
             a, b = self.lora_A.to(x.dtype), self.lora_B.to(x.dtype)
             y = y + self.scaling * F.linear(F.linear(x, a), b)
         return y
 
 
-class Fp32Linear(nn.Linear):
+class Fp32Linear(QLinear):
     """Linear with fp32 parameters and fp32 math whatever the model dtype: the
     AdaLN modulation, which the JAX package runs as `QDense(dtype=float32)`
     over fp32 parameters. Storing them in fp32 (3.2 B of FLUX.1's 11.9 B
     parameters) costs 6.4 GB of device memory and saves an fp32 copy of every
-    modulation weight at every call."""
+    modulation weight at every call. Under weight_quant="int8" they are int8
+    like every other linear and multiply an fp32 activation."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
-        super().__init__(in_features, out_features, device=device, dtype=torch.float32)
+    def __init__(self, in_features: int, out_features: int, *, weight_quant: str = "none", device=None):
+        super().__init__(in_features, out_features, weight_quant=weight_quant, device=device,
+                         dtype=torch.float32)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.linear(x.float(), self.weight, self.bias)
+        return self.base(x.float())
 
 
 class MLPEmbedder(nn.Module):
@@ -184,7 +273,7 @@ class CombinedTimestepEmbeddings(nn.Module):
         self.text_embedder = MLPEmbedder(cfg.pooled_projection_dim, dim, **kw)
 
     def forward(self, timestep: Tensor, guidance: Optional[Tensor], pooled: Tensor) -> Tensor:
-        dtype = self.text_embedder.linear_1.weight.dtype
+        dtype = self.text_embedder.linear_1.compute_dtype
         temb = self.timestep_embedder(timestep_embedding(timestep).to(dtype))
         if self.guidance_embedder is not None:
             if guidance is None:
@@ -303,10 +392,10 @@ class AdaLayerNormZero(nn.Module):
     """silu(temb) -> fp32 Linear(n*dim); affine-free LayerNorm modulated by the
     first (shift, scale); the remaining chunks come back as gates."""
 
-    def __init__(self, dim: int, n_chunks: int = 6, device=None):
+    def __init__(self, dim: int, n_chunks: int = 6, *, weight_quant: str = "none", device=None):
         super().__init__()
         self.n_chunks = n_chunks
-        self.linear = Fp32Linear(dim, n_chunks * dim, device=device)
+        self.linear = Fp32Linear(dim, n_chunks * dim, weight_quant=weight_quant, device=device)
 
     def forward(self, x: Tensor, temb: Tensor):
         emb = self.linear(F.silu(temb.float()))[:, None, :]
@@ -322,8 +411,9 @@ class AdaLayerNormZero(nn.Module):
 class FluxTransformerBlock(nn.Module):
     def __init__(self, cfg: FluxTransformerConfig, **kw):
         super().__init__()
-        self.norm1 = AdaLayerNormZero(cfg.inner_dim, device=kw["device"])
-        self.norm1_context = AdaLayerNormZero(cfg.inner_dim, device=kw["device"])
+        akw = {"device": kw["device"], "weight_quant": kw.get("weight_quant", "none")}
+        self.norm1 = AdaLayerNormZero(cfg.inner_dim, **akw)
+        self.norm1_context = AdaLayerNormZero(cfg.inner_dim, **akw)
         self.attn = JointAttention(cfg, **kw)
         self.ff = FeedForward(cfg.inner_dim, **kw)
         self.ff_context = FeedForward(cfg.inner_dim, **kw)
@@ -346,9 +436,11 @@ class FluxTransformerBlock(nn.Module):
 class FluxSingleTransformerBlock(nn.Module):
     def __init__(self, cfg: FluxTransformerConfig, **kw):
         super().__init__()
-        nkw = {k: v for k, v in kw.items() if k in ("device", "dtype")}
+        # proj_mlp and proj_out carry no adapter
+        nkw = {k: v for k, v in kw.items() if k in ("device", "dtype", "weight_quant")}
         dim = cfg.inner_dim
-        self.norm = AdaLayerNormZero(dim, n_chunks=3, device=nkw["device"])
+        self.norm = AdaLayerNormZero(dim, n_chunks=3, device=nkw["device"],
+                                     weight_quant=nkw.get("weight_quant", "none"))
         self.proj_mlp = LoraDense(dim, 4 * dim, **nkw)
         self.attn = SingleAttention(cfg, **kw)
         self.proj_out = LoraDense(5 * dim, dim, **nkw)
@@ -363,9 +455,9 @@ class FluxSingleTransformerBlock(nn.Module):
 class AdaLayerNormContinuous(nn.Module):
     """silu(temb) -> fp32 Linear(2*dim) -> (scale, shift) over an affine-free LayerNorm."""
 
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, *, weight_quant: str = "none", device=None):
         super().__init__()
-        self.linear = Fp32Linear(dim, 2 * dim, device=device)
+        self.linear = Fp32Linear(dim, 2 * dim, weight_quant=weight_quant, device=device)
 
     def forward(self, x: Tensor, temb: Tensor) -> Tensor:
         emb = self.linear(F.silu(temb.float()))[:, None, :]
@@ -381,15 +473,19 @@ class FluxTransformer2D(nn.Module):
     pre-packed latent tokens; ids carry no batch dim)."""
 
     def __init__(self, config: FluxTransformerConfig, *, lora_rank: int = 0,
-                 lora_alpha: float = 0.0, remat: bool = False, device=None, dtype=None):
+                 lora_alpha: float = 0.0, weight_quant: str = "none", remat: bool = False,
+                 device=None, dtype=None):
         super().__init__()
+        if weight_quant not in WEIGHT_QUANT_MODES:
+            raise ValueError(f"Unknown weight_quant mode {weight_quant!r}.")
         cfg = config
         self.config = cfg
+        self.weight_quant = weight_quant
         # recompute each block in the backward instead of keeping its
         # activations (`nn.remat` in the JAX package); off when no gradient
         # is being recorded
         self.remat = remat
-        nkw = {"device": device, "dtype": dtype}
+        nkw = {"device": device, "dtype": dtype, "weight_quant": weight_quant}
         kw = {**nkw, "lora_rank": lora_rank, "lora_alpha": lora_alpha}
         dim = cfg.inner_dim
         self.x_embedder = LoraDense(cfg.in_channels, dim, **nkw)
@@ -401,7 +497,7 @@ class FluxTransformer2D(nn.Module):
         self.single_transformer_blocks = nn.ModuleList(
             [FluxSingleTransformerBlock(cfg, **kw) for _ in range(cfg.num_single_layers)]
         )
-        self.norm_out = AdaLayerNormContinuous(dim, device=device)
+        self.norm_out = AdaLayerNormContinuous(dim, weight_quant=weight_quant, device=device)
         self.proj_out = LoraDense(dim, cfg.out_channels or cfg.in_channels, **nkw)
 
     def _run_block(self, block: nn.Module, *args):
@@ -430,7 +526,7 @@ class FluxTransformer2D(nn.Module):
         for block in self.single_transformer_blocks:
             x = self._run_block(block, x, temb, rope)
         x = x[:, txt.shape[1]:]
-        x = self.norm_out(x, temb).to(self.proj_out.weight.dtype)
+        x = self.norm_out(x, temb).to(self.proj_out.compute_dtype)
         return self.proj_out(x)
 
 

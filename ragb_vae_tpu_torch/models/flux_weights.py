@@ -5,7 +5,9 @@ carry the diffusers keys, so a `transformer/` checkpoint (single-file or
 sharded) loads as it is. The key map between diffusers names and the JAX
 package's flax paths is copied from the JAX package (which the port must not
 import); it backs `params_from_flax` / `params_to_flax`, which move one set
-of weights between the two packages. LoRA adapters live on the module
+of weights between the two packages, an int8 tree's `kernel_q` /
+`kernel_scale` included (`weight_q` / `weight_scale` on the port's modules,
+`weight_q` transposed to (out, in)). LoRA adapters live on the module
 (`lora_parameters`, `lora_state`, `load_lora_state`) and travel in peft's
 file format, which both packages read and write.
 """
@@ -62,6 +64,10 @@ def torch_key_to_flux_path(key: str, ndim: int) -> Tuple[Tuple[str, ...], bool]:
         if ndim == 2:
             return tuple(module + ["kernel"]), True
         return tuple(module + ["weight"]), False
+    if leaf == "weight_q":
+        return tuple(module + ["kernel_q"]), True
+    if leaf == "weight_scale":
+        return tuple(module + ["kernel_scale"]), False
     if leaf == "bias":
         return tuple(module + ["bias"]), False
     return (), False
@@ -75,6 +81,10 @@ def flux_path_to_torch_key(path: Tuple[str, ...]) -> Tuple[Optional[str], bool]:
         module = module[:-1]
     if leaf == "kernel":
         torch_leaf, transpose = "weight", True
+    elif leaf == "kernel_q":
+        torch_leaf, transpose = "weight_q", True
+    elif leaf == "kernel_scale":
+        torch_leaf, transpose = "weight_scale", False
     elif leaf in ("weight", "bias"):
         torch_leaf, transpose = leaf, False
     elif leaf in _LORA_LEAVES:
@@ -91,10 +101,10 @@ def flux_path_to_torch_key(path: Tuple[str, ...]) -> Tuple[Optional[str], bool]:
     return f"{name}.{torch_leaf}", transpose
 
 
-def _iter_leaves(tree: dict, prefix: Tuple[str, ...] = ()):
+def iter_leaves(tree: dict, prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
         if isinstance(v, dict):
-            yield from _iter_leaves(v, prefix + (k,))
+            yield from iter_leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
@@ -107,24 +117,30 @@ def _set_path(tree: dict, path: Tuple[str, ...], value) -> None:
 
 
 def params_from_flax(tree: dict) -> StateDict:
-    """The JAX package's FluxTransformer2D tree (nested dicts of arrays) ->
-    the port's state dict (fp32 CPU tensors; Dense kernels (in, out) ->
-    (out, in)). Loads with `strict=True`."""
+    """The JAX package's FluxTransformer2D tree (nested dicts of arrays or
+    tensors) -> the port's state dict (fp32 tensors, int8 for `kernel_q`;
+    Dense kernels (in, out) -> (out, in); a tensor stays on its device).
+    Loads with `strict=True` into a transformer of the tree's weight mode."""
     state: StateDict = {}
-    for path, value in _iter_leaves(tree):
+    for path, value in iter_leaves(tree):
         key, transpose = flux_path_to_torch_key(path)
         if key is None:
             continue
-        arr = np.asarray(value, dtype=np.float32)
-        state[key] = torch.from_numpy(np.ascontiguousarray(arr.T if transpose else arr))
+        if isinstance(value, torch.Tensor):
+            t = value.to(torch.int8 if path[-1] == "kernel_q" else torch.float32)
+        else:
+            t = torch.from_numpy(np.asarray(value, dtype=np.int8 if path[-1] == "kernel_q" else np.float32))
+        state[key] = (t.t() if transpose else t).contiguous()
     return state
 
 
 def params_to_flax(state: StateDict) -> dict:
-    """Inverse of `params_from_flax`: port state dict -> the JAX tree (numpy)."""
+    """Inverse of `params_from_flax`: port state dict -> the JAX tree (numpy;
+    fp32, int8 for `kernel_q`)."""
     tree: dict = {}
     for key, value in state.items():
-        arr = value.detach().float().cpu().numpy()
+        value = value.detach().cpu()
+        arr = (value if value.dtype == torch.int8 else value.float()).numpy()
         path, transpose = torch_key_to_flux_path(key, arr.ndim)
         if path:
             _set_path(tree, path, np.ascontiguousarray(arr.T if transpose else arr))

@@ -32,9 +32,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
 from ragb_vae_tpu_torch.ops.gaussian import DiagonalGaussian
+from ragb_vae_tpu_torch.ops.kernels.conv3x3 import conv3x3_same_batched
 from ragb_vae_tpu_torch.ops.kernels.flash_attention import attention
 from ragb_vae_tpu_torch.ops.kernels.resnet_block import (
     fold_subpixel_weights,
+    fused_downsample_conv3x3_stats,
     fused_resnet_block,
     fused_upsample_conv3x3_stats,
     stats_to_coeffs,
@@ -106,6 +108,23 @@ def _apply_coeffs(x: Tensor, a: Tensor, b: Tensor, dtype: torch.dtype) -> Tensor
     return x.to(dtype) * a.reshape(bsz, 1, 1, c).to(dtype) + b.reshape(bsz, 1, 1, c).to(dtype)
 
 
+class Conv3x3(nn.Module):
+    """3x3 stride-1 SAME conv through the bare conv kernel
+    (`ops/kernels/conv3x3.py`), with nn.Conv2d's parameters (`conv.weight`
+    OIHW, `conv.bias`). Not wired into the model, as in the JAX package: the
+    whole-block kernel fuses the same conv with its norm, activation and
+    epilogue."""
+
+    def __init__(self, in_channels: int, out_channels: int, **kw):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1, **kw)
+
+    def forward(self, x: Tensor) -> Tensor:
+        dtype = compute_dtype_of(self, self.conv.weight)
+        out = conv3x3_same_batched(x.to(dtype), _hwio(self.conv.weight).to(dtype))
+        return out + self.conv.bias.to(dtype)
+
+
 class FastGroupNorm(nn.GroupNorm):
     """GroupNorm with fp32 statistics and compute-dtype application.
 
@@ -169,13 +188,21 @@ class ResnetBlock(_KernelWeights):
 
 class Downsample(nn.Module):
     """Asymmetric (0,1)x(0,1) pad then a stride-2 conv (diffusers Downsample2D).
-    Plain PyTorch on both paths, as on the JAX fused path."""
+    fused=True runs the stride-2 conv kernel and returns the statistics of
+    its output, so the next level's first fused block needs no statistics
+    pass. The Encoder builds it unfused even on its fused path, as the JAX
+    package's does."""
 
-    def __init__(self, channels: int, **kw):
+    def __init__(self, channels: int, fused: bool = False, **kw):
         super().__init__()
+        self.fused = fused
         self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0, **kw)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Stats]:
+        if self.fused:
+            dtype = compute_dtype_of(self, self.conv.weight)
+            return fused_downsample_conv3x3_stats(
+                x.to(dtype), _hwio(self.conv.weight).to(dtype), self.conv.bias)
         return conv_nhwc(self.conv, F.pad(x, (0, 0, 0, 1, 0, 1))), None
 
 

@@ -1,6 +1,6 @@
 """Whole-resnet-block kernels: GN-apply + SiLU + conv3x3 with a fused
-stats / skip epilogue, the decoder's sub-pixel upsample conv, and the
-backward of both.
+stats / skip epilogue, the decoder's sub-pixel upsample conv, the backward of
+both, and the encoder's stride-2 downsample conv with the same stats epilogue.
 
 Counterpart of `ragb_vae_tpu/ops/pallas/resnet_block.py`. Tensors are NHWC.
 A ResnetBlock becomes two launches of `gn_silu_conv3x3_stats` with only
@@ -15,6 +15,9 @@ Dispatch: a CPU tensor takes the plain PyTorch version beside each kernel
 counterparts); a CUDA tensor launches the hand-written kernels in
 `csrc/resnet_block.cu` (forward) and `csrc/resnet_block_bwd.cu` (backward) or
 raises. There is no fallback from one to the other, and no route by size.
+The downsample conv (`fused_downsample_conv3x3_stats`, kernel in
+`csrc/conv_kernels.cu`) has a forward kernel only: its backward differentiates
+its plain version, as the JAX package differentiates its XLA reference.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ CONV_LAUNCHES = 0
 UPSAMPLE_LAUNCHES = 0
 CONV_BWD_LAUNCHES = 0
 UPSAMPLE_BWD_LAUNCHES = 0
+DOWNSAMPLE_LAUNCHES = 0
 
 # The weight gradient is a split-K GEMM: the image rows are cut into at most
 # this many slices, each with an fp32 partial that a second pass adds in order.
@@ -43,10 +47,12 @@ _WGRAD_TARGET_BLOCKS = 4 * 132
 
 def reset_launch_counts() -> None:
     global CONV_LAUNCHES, UPSAMPLE_LAUNCHES, CONV_BWD_LAUNCHES, UPSAMPLE_BWD_LAUNCHES
+    global DOWNSAMPLE_LAUNCHES
     CONV_LAUNCHES = 0
     UPSAMPLE_LAUNCHES = 0
     CONV_BWD_LAUNCHES = 0
     UPSAMPLE_BWD_LAUNCHES = 0
+    DOWNSAMPLE_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -603,6 +609,96 @@ class _UpsampleConvStats(torch.autograd.Function):
             gstats = torch.zeros((y.shape[0], 2, y.shape[3]), dtype=torch.float32, device=y.device)
         bwd = upsample_conv3x3_stats_bwd_cuda if x.is_cuda else upsample_conv3x3_stats_bwd_plain
         return _to_dtypes(bwd(x, w, bias, y, gy, gstats), ctx.dtypes) + (None,)
+
+
+# ---------------------------------------------------------------------------
+# K9: conv3x3 stride 2, pad ((0, 1), (0, 1)) + bias with stats
+# ---------------------------------------------------------------------------
+def downsample_conv3x3_stats_plain(x: Tensor, w: Tensor, bias: Tensor) -> Tuple[Tensor, Tensor]:
+    """Plain version of the K9 kernel: the literal stride-2 conv over the
+    input padded by one row below and one column on the right (counterpart
+    of `_xla_downsample_conv`)."""
+    xp = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1))
+    y = F.conv2d(xp, w.to(x.dtype).permute(3, 2, 0, 1), stride=2).permute(0, 2, 3, 1)
+    y = (y.float() + bias.float()).to(x.dtype)
+    return y, tensor_stats(y)
+
+
+def downsample_conv3x3_stats_cuda(x: Tensor, w: Tensor, bias: Tensor) -> Tuple[Tensor, Tensor]:
+    """Launch the K9 kernel (`ragb_downsample_conv3x3_stats`)."""
+    global DOWNSAMPLE_LAUNCHES
+    name = "downsample_conv3x3_stats"
+    if x.ndim != 4 or w.shape[:3] != (3, 3, x.shape[3]):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} do not match")
+    bsz, height, width, c_in = x.shape
+    n_out = w.shape[3]
+    if height < 2 or width < 2:
+        raise ValueError(f"{name}: the image must be at least 2 x 2, got {height} x {width}")
+    x = x.contiguous()
+    w = w.to(x.dtype).contiguous()
+    bias = bias.float().contiguous()
+    _check_cuda(name, x=x, w=w, bias=bias)
+    _check_dtype(name, torch.bfloat16, x=x, w=w)
+    if bias.shape != (n_out,):
+        raise ValueError(f"{name}: bias must be ({n_out},)")
+    if c_in % 8 or n_out % 8:
+        raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out}")
+    h_out, w_out = height // 2, width // 2
+    th, tw = _tile_shape()
+    tiles = -(-h_out // th) * -(-w_out // tw)
+    y = torch.empty((bsz, h_out, w_out, n_out), dtype=x.dtype, device=x.device)
+    partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)
+    stats = torch.empty((bsz, 2, n_out), dtype=torch.float32, device=x.device)
+    err = _build.library().ragb_downsample_conv3x3_stats(
+        _ptr(x), _ptr(w), _ptr(bias), _ptr(y), _ptr(partial), _ptr(stats),
+        tiles, bsz, height, width, c_in, n_out,
+        ctypes.c_void_p(_build.stream_ptr(x.device)),
+    )
+    _build.check(err, name)
+    DOWNSAMPLE_LAUNCHES += 1
+    return y, stats
+
+
+def plain_vjp(plain_fn, operands, cotangents):
+    """The cotangents of `plain_fn(*operands)`'s outputs pulled back through
+    it by autograd: the backward of a forward-only kernel. An absent
+    cotangent counts as zero; each result is in its operand's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in operands]
+        outs = plain_fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, cotangents) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs])
+    return tuple(g.to(t.dtype) for g, t in zip(grads, operands))
+
+
+class _DownsampleConvStats(torch.autograd.Function):
+    """K9 forward; the backward differentiates the plain version, the
+    statistics' cotangent included."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        if x.is_cuda:
+            y, stats = downsample_conv3x3_stats_cuda(x, w, bias)
+        else:
+            y, stats = downsample_conv3x3_stats_plain(x, w, bias)
+        ctx.save_for_backward(x, w, bias)
+        ctx.set_materialize_grads(False)
+        return y, stats
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy, gstats):
+        return plain_vjp(downsample_conv3x3_stats_plain, ctx.saved_tensors, (gy, gstats))
+
+
+def fused_downsample_conv3x3_stats(x: Tensor, w: Tensor, bias: Tensor) -> Tuple[Tensor, Tensor]:
+    """conv3x3 stride 2, pad ((0, 1), (0, 1)) (w: (3, 3, C, N) HWIO) + bias,
+    with the stats epilogue (diffusers Downsample2D numerics): (y (B, H // 2,
+    W // 2, N), stats (B, 2, N) of the rounded y)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_downsample_conv3x3_stats: unsupported device {x.device}")
+    return _DownsampleConvStats.apply(x, w, bias)
 
 
 # ---------------------------------------------------------------------------

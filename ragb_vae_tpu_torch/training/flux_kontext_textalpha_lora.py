@@ -12,8 +12,10 @@ with `metadata.json`, GT|pred pair dumps for validation, and resume.
 
 The JAX package compiles one step that takes the adapter tree and the
 optimizer state and returns new ones. Here the transformer module owns the
-frozen base (bf16 under `mixed_precision: bf16`) and the fp32 adapters, the
-optimizer owns its moments, and a step updates both in place. Each block is
+frozen base (bf16 under `mixed_precision: bf16`, weight-only int8 under
+`--weight_quant int8`: QLoRA, where the gradients flow through the frozen
+int8 linears to the fp32 adapters) and the fp32 adapters, the optimizer owns
+its moments, and a step updates both in place. Each block is
 recomputed in the backward (`use_gradient_checkpointing`), the batch is split
 into `grad_accum_steps` micro-batches weighted by their real-sample count,
 and batches reach the card through pinned buffers on a side stream.
@@ -24,8 +26,10 @@ means nothing to `torch.optim`. It is written last and marks the checkpoint
 complete. The adapters and `metadata.json` interchange with the JAX package
 in both directions.
 
-Not ported yet (each raises, or is left out): `--weight_quant int8`,
-`--shard_base_params`, `--tensor_parallel` and `--sequence_parallel` above 1,
+`--device` names where the stage runs (default `cuda`; a missing card raises).
+
+Not ported yet (each raises, or is left out): `--shard_base_params`,
+`--tensor_parallel` and `--sequence_parallel` above 1,
 more than one process, the preemption guard and the metrics logger (`log_fn`
 receives what the logger would).
 """
@@ -44,6 +48,7 @@ import torch
 from ragb_vae_tpu_torch.data.loader import DataLoader, cuda_prefetch
 from ragb_vae_tpu_torch.data.sampler import BucketBatchSampler
 from ragb_vae_tpu_torch.data.text_alpha_dataset import TextAlphaBucketDataset
+from ragb_vae_tpu_torch.device import resolve_device
 from ragb_vae_tpu_torch.models.flux_kontext_textalpha import (
     LORA_WEIGHT_FILES,
     FluxTextAlphaModel,
@@ -113,7 +118,11 @@ def parse_args(args: Optional[List[str]] = None, *, allow_missing: bool = False)
              "generator state), or 'auto' for the newest complete checkpoint-* under ckpt_dir.",
     )
     parser.add_argument("--weight_quant", type=str, default="none", choices=["none", "int8"],
-                        help="int8: not ported yet.")
+                        help="int8: QLoRA. The frozen base transformer is stored in weight-only "
+                             "int8 (a quantised checkpoint loads as it is, a plain one is "
+                             "quantised at load); gradients flow only to the fp32 adapters.")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Device to train on. 'cuda' without a CUDA device is an error.")
     parser.add_argument("--shard_base_params", action="store_true", help="Not ported yet.")
     parser.add_argument("--tensor_parallel", type=int, default=1, help="Above 1: not ported yet.")
     parser.add_argument("--sequence_parallel", type=int, default=1, help="Above 1: not ported yet.")
@@ -122,8 +131,6 @@ def parse_args(args: Optional[List[str]] = None, *, allow_missing: bool = False)
 
 def _check_ported(args: argparse.Namespace) -> None:
     missing = []
-    if getattr(args, "weight_quant", "none") != "none":
-        missing.append(f"weight_quant={args.weight_quant}")
     if getattr(args, "shard_base_params", False):
         missing.append("shard_base_params")
     for name in ("tensor_parallel", "sequence_parallel"):
@@ -276,14 +283,16 @@ def train(
     device: Union[str, torch.device, None] = None,
     log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
 ) -> Dict[str, float]:
-    """Run the stage. `device` defaults to the card when there is one.
+    """Run the stage on `device` (default: `args.device`, the card unless the
+    caller names another; a card that is asked for and absent raises).
     `model` stands in for `from_pretrained` (a model built elsewhere, for
     example with random weights); adapters of `args.rank` are attached when
     it has none. `log_fn(step, metrics)` is called at every `log_every`-th
     step with the loss, the gradient norm before the clip and the learning
     rate."""
     _check_ported(args)
-    device = torch.device(device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device if device is not None else getattr(args, "device", "cuda"))
+    weight_quant = getattr(args, "weight_quant", "none")
     dtype = torch.bfloat16 if args.mixed_precision in ("bf16", "fp16") else torch.float32
 
     if model is None:
@@ -296,7 +305,11 @@ def train(
             fused=device.type == "cuda",
             lora_rank=args.rank,
             lora_alpha=float(args.lora_alpha),
+            weight_quant=weight_quant,
         )
+    elif model.transformer.weight_quant != weight_quant:
+        raise ValueError(f"weight_quant={weight_quant!r} but the model given stores its transformer "
+                         f"as {model.transformer.weight_quant!r}")
     elif not lora_parameters(model.transformer):
         model.lora_rank, model.lora_alpha = args.rank, float(args.lora_alpha)
         model.init_lora(torch.Generator(model.device).manual_seed(0))

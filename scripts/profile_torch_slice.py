@@ -2,7 +2,7 @@
 port's serving path, of its RGBA-VAE training step and of its LoRA training
 step on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_slice.py [--what serve,train,lora] [--out FILE]
+    python3 scripts/profile_torch_slice.py [--what serve,train,lora] [--quant none|int8] [--out FILE]
 
 The model is the one `chip_smoke.py` serves: FLUX.1-Kontext transformer
 (`FluxTransformerConfig()` defaults) and the FLUX `ae` VAE widened to RGBA,
@@ -30,6 +30,12 @@ step; 2 pairs at 512x512 and 1 pair at 1024x1024, one warm-up step and three
 timed steps each (CUDA events around the step, the two frozen VAE encodes
 included), peak memory per cell, then one b2 512x512 step under
 `torch.profiler`.
+
+`--quant int8` runs the serving and LoRA cells over the same model with every
+linear of the transformer quantised to weight-only int8 on the card
+(`quantize_module_`), so the linears go through the int8 matmul kernel: int8
+serving and QLoRA beside the bf16 numbers. The VAE-training cells have no
+int8 form.
 """
 from __future__ import annotations
 
@@ -76,6 +82,8 @@ KERNEL_CLASSES = [
     ("K3 flash attention", re.compile(r"flash_fwd")),
     ("K4 attention dQ", re.compile(r"flash_dq_kernel")),
     ("K5 attention dK/dV", re.compile(r"flash_dkv_kernel")),
+    ("K10 int8 matmul (tensor-core tiles)", re.compile(r"int8_mma_kernel")),
+    ("K10 int8 matmul (skinny)", re.compile(r"int8_skinny_kernel")),
     ("cuDNN conv", re.compile(r"fprop|dgrad|wgrad|cudnn|convolve|winograd", re.I)),
     ("cuBLAS GEMM/GEMV", re.compile(r"gemm|gemv|xmma|cutlass|nvjet|cublas", re.I)),
     ("PyTorch elementwise/copy/reduce", re.compile(r".")),
@@ -188,14 +196,20 @@ def profile_request(model, steps, gen, out_dir):
     return profile_call(f"b{bsz} {h}x{w}", lambda: run_request(model, x, steps, gen), out_dir)
 
 
-def build_model():
+def build_model(quant: str):
     vae_cfg = AutoencoderConfig.flux()
     vae_cfg.in_channels = vae_cfg.out_channels = 4
     t0 = time.perf_counter()
     model = FluxTextAlphaModel.random(FluxTransformerConfig(), vae_cfg, seed=SEED, device="cuda",
                                       dtype=torch.bfloat16, fused=True)
+    if quant == "int8":
+        from ragb_vae_tpu_torch.models.quantize import quantize_module_
+
+        quantize_module_(model.transformer)
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    print(f"[build] model ready in {time.perf_counter() - t0} s", flush=True)
+    print(f"[build] model ready in {time.perf_counter() - t0} s (quant={quant}, "
+          f"{torch.cuda.memory_allocated() / 2**30} GiB allocated)", flush=True)
     return model
 
 
@@ -302,8 +316,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile_slice.json")
     ap.add_argument("--what", default="serve,train,lora", help="comma-separated subset of serve,train,lora")
+    ap.add_argument("--quant", default="none", choices=["none", "int8"],
+                    help="int8: the serving and lora cells over the weight-only int8 transformer")
     args = ap.parse_args()
     what = set(args.what.split(","))
+    if args.quant == "int8" and "train" in what:
+        ap.error("--quant int8 has no VAE-training cells: pass --what serve,lora")
     if not torch.cuda.is_available():
         raise SystemExit("[profile] no CUDA device: this script runs only on a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -314,9 +332,9 @@ def main() -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
 
-    result = {"device": smi, "torch": torch.__version__, "repeats": REPEATS}
+    result = {"device": smi, "torch": torch.__version__, "repeats": REPEATS, "quant": args.quant}
     if what & {"serve", "lora"}:
-        model = build_model()
+        model = build_model(args.quant)
         if "serve" in what:
             result["serving"] = measure_serving(model, out.parent)
         if "lora" in what:

@@ -317,3 +317,133 @@ def test_flash_attention_bwd_refuses_other_head_dims_and_types():
         fa.flash_attention_dq_cuda(t128.float(), t128, t128, t128, lse, lse, sm_scale=1.0)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_dkv_cuda(t128, t128, t128, t128, lse[:, :10], lse, sm_scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# K9, K10, K11, K12: ragged shapes, refusals, bitwise reproducibility
+# ---------------------------------------------------------------------------
+def _int8_case(gen, m, k, n, dtype):
+    x = (torch.randn((m, k), generator=gen, device="cuda")).to(dtype)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    scale = (3.0 / math.sqrt(k) / 127.0) * (0.5 + torch.rand((n,), generator=gen, device="cuda"))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    return x, wq, scale, bias
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (300, 64, 3072, torch.bfloat16),        # x_embedder's K, a ragged M tile
+    (1001, 80, 136, torch.bfloat16),        # every tile edge ragged
+    (9, 3072, 64, torch.bfloat16),          # proj_out's N, just above the skinny kernel's rows
+    (8, 256, 3072, torch.bfloat16),         # the skinny kernel in bf16
+    (3, 3072, 1024, torch.float32),         # the fp32 modulation
+    (13, 48, 24, torch.float32),            # fp32 past the skinny kernel's row block
+])
+def test_int8_matmul_kernel(m, k, n, dtype):
+    from ragb_vae_tpu_torch.ops.kernels import int8_matmul as i8
+
+    gen = torch.Generator("cuda").manual_seed(20)
+    x, wq, scale, bias = _int8_case(gen, m, k, n, dtype)
+    before = i8.LAUNCHES
+    out = i8.int8_matmul(x[None], wq, scale, bias)[0]      # a leading dim folds into M
+    assert i8.LAUNCHES == before + 1 and out.shape == (m, n) and out.dtype == dtype
+    exact = (x.float() @ wq.float().t() * scale + bias).to(dtype).float()
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4      # one bf16 ulp / an fp32 sum's order
+    assert (out.float() - exact).abs().max() <= tol * exact.abs().max()
+    no_bias = i8.int8_matmul(x, wq, scale, None)
+    exact = (x.float() @ wq.float().t() * scale).to(dtype).float()
+    assert (no_bias.float() - exact).abs().max() <= tol * exact.abs().max()
+    again = i8.int8_matmul(x, wq, scale, None)
+    assert torch.equal(no_bias, again)                    # one block per output tile, no atomics
+
+
+def test_int8_matmul_gradient_reaches_x_on_the_card():
+    from ragb_vae_tpu_torch.ops.kernels import int8_matmul as i8
+
+    gen = torch.Generator("cuda").manual_seed(21)
+    x, wq, scale, bias = _int8_case(gen, 40, 64, 48, torch.bfloat16)
+    x.requires_grad_(True)
+    g = torch.randn((40, 48), generator=gen, device="cuda").to(torch.bfloat16)
+    i8.int8_matmul(x, wq, scale, bias).backward(g)
+    want = (g.float() * scale) @ wq.float()
+    assert (x.grad.float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_int8_matmul_refuses_what_the_kernel_does_not_take():
+    from ragb_vae_tpu_torch.ops.kernels import int8_matmul as i8
+
+    ok = torch.zeros((4, 32), device="cuda", dtype=torch.bfloat16)
+    wq = torch.zeros((16, 32), device="cuda", dtype=torch.int8)
+    scale = torch.ones(16, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        i8.int8_matmul(ok[:, :24], wq[:, :24].contiguous(), scale, None)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        i8.int8_matmul(ok, wq[:12], scale[:12], None)       # N % 8
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        i8.int8_matmul(ok.half(), wq, scale, None)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        i8.int8_matmul(ok, wq, scale.cpu(), None)
+
+
+@pytest.mark.parametrize("shape,n", [((2, 37, 50, 64), 96), ((1, 64, 48, 128), 128), ((3, 18, 14, 16), 24)])
+def test_downsample_kernel(shape, n):
+    gen = torch.Generator("cuda").manual_seed(22)
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, shape[3], n), 1.0 / math.sqrt(9 * shape[3]))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    before = rb.DOWNSAMPLE_LAUNCHES
+    y, s = rb.fused_downsample_conv3x3_stats(x, wt, bias)
+    assert rb.DOWNSAMPLE_LAUNCHES == before + 1
+    assert y.shape == (shape[0], shape[1] // 2, shape[2] // 2, n)
+    _check_conv(y, s, *rb.downsample_conv3x3_stats_plain(x, wt, bias))
+    y2, s2 = rb.fused_downsample_conv3x3_stats(x, wt, bias)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    # the backward differentiates the plain version, the statistics' cotangent included
+    x.requires_grad_(True)
+    y, s = rb.fused_downsample_conv3x3_stats(x, wt, bias)
+    (y.float().sum() + 0.1 * s.sum()).backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad.float()).all())
+
+
+@pytest.mark.parametrize("shape,n", [((1, 19, 27, 64), 40), ((2, 36, 24, 128), 128)])
+def test_conv3x3_same_and_fused_gn_silu_conv_kernels(shape, n):
+    from ragb_vae_tpu_torch.ops.kernels import conv3x3 as c3
+    from ragb_vae_tpu_torch.ops.kernels import fused_gn_silu_conv as fgc
+
+    gen = torch.Generator("cuda").manual_seed(23)
+    bsz, _, _, c = shape
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, c, n), 1.0 / math.sqrt(9 * c))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    a = 1.0 + 0.1 * torch.randn((bsz, c), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((bsz, c), generator=gen, device="cuda")
+    counts = (c3.LAUNCHES, fgc.LAUNCHES)
+    y = c3.conv3x3_same_batched(x, wt)
+    ref = c3.conv3x3_same_plain(x, wt).float()
+    assert (y.float() - ref).abs().max() <= 3e-2 * ref.abs().max()
+    assert torch.equal(y, c3.conv3x3_same_batched(x, wt))
+    assert torch.equal(y[0], c3.conv3x3_same(x[0], wt))                   # the unbatched entry point
+    z = fgc.fused_gn_silu_conv3x3_batched(x, a, b, wt, bias)
+    ref = fgc.fused_gn_silu_conv3x3_plain(x, a, b, wt, bias).float()
+    assert (z.float() - ref).abs().max() <= 3e-2 * ref.abs().max()
+    assert torch.equal(z, fgc.fused_gn_silu_conv3x3_batched(x, a, b, wt, bias))
+    assert (c3.LAUNCHES, fgc.LAUNCHES) == (counts[0] + 3, counts[1] + 2)
+
+
+def test_new_conv_wrappers_refuse_what_the_kernels_do_not_take():
+    from ragb_vae_tpu_torch.ops.kernels import conv3x3 as c3
+    from ragb_vae_tpu_torch.ops.kernels import fused_gn_silu_conv as fgc
+
+    x = torch.zeros((1, 8, 8, 12), device="cuda", dtype=torch.bfloat16)  # C % 8 != 0
+    w = torch.zeros((3, 3, 12, 16), device="cuda", dtype=torch.bfloat16)
+    ones, bias = torch.ones((1, 12), device="cuda"), torch.zeros(16, device="cuda")
+    for call in (lambda: c3.conv3x3_same_batched(x, w),
+                 lambda: fgc.fused_gn_silu_conv3x3_batched(x, ones, ones, w, bias),
+                 lambda: rb.fused_downsample_conv3x3_stats(x, w, bias)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            call()
+    x32 = torch.zeros((1, 8, 8, 16), device="cuda")                        # fp32
+    w32 = torch.zeros((3, 3, 16, 16), device="cuda")
+    with pytest.raises(ValueError, match="must be torch.bfloat16"):
+        c3.conv3x3_same_batched(x32, w32)
+    with pytest.raises(ValueError, match="at least 2 x 2"):
+        rb.fused_downsample_conv3x3_stats(x[:, :1, :, :8].contiguous(), w[:, :, :8].contiguous(), bias)

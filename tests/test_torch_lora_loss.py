@@ -302,7 +302,7 @@ def test_init_lora_attaches_adapters_to_a_plain_model_and_needs_a_rank(pair):
     cfg = FluxTransformerConfig.tiny()
     vcfg = AutoencoderConfig.tiny()
     vcfg.in_channels = vcfg.out_channels = 4
-    model = FluxTextAlphaModel.random(cfg, vcfg, seed=0, prompt_len=4)
+    model = FluxTextAlphaModel.random(cfg, vcfg, seed=0, device="cpu", prompt_len=4)
     assert not tfw.lora_parameters(model.transformer)
     with pytest.raises(ValueError, match="lora_rank"):
         model.init_lora()
@@ -311,7 +311,7 @@ def test_init_lora_attaches_adapters_to_a_plain_model_and_needs_a_rank(pair):
     lora = tfw.lora_parameters(model.transformer)
     assert len(lora) == 2 * len(lora_target_modules(model.transformer))
     assert model.transformer.transformer_blocks[0].attn.to_q.scaling == 2.0
-    with_rank = FluxTextAlphaModel.random(cfg, vcfg, seed=0, prompt_len=4, lora_rank=2, lora_alpha=4.0,
+    with_rank = FluxTextAlphaModel.random(cfg, vcfg, seed=0, device="cpu", prompt_len=4, lora_rank=2, lora_alpha=4.0,
                                           use_gradient_checkpointing=False)
     assert set(tfw.lora_parameters(with_rank.transformer)) == set(lora)
     assert with_rank.transformer.remat is False and model.transformer.remat is True

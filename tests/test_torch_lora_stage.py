@@ -39,6 +39,16 @@ from tests.test_torch_serving import _write_jax_checkpoint
 LR, T = 1e-3, 4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one thread computes them as fast as many, and
+    a test run with several worker processes does not oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("step", [0, 1, 2, 4, 9])
 def test_cosine_schedule_matches_optax(step):
     want = optax.cosine_decay_schedule(3e-5, 4)(step)
@@ -113,6 +123,7 @@ def test_adapters_after_two_clipped_adamw_steps_match_optax(pair, monkeypatch, n
 def test_build_args_from_the_repo_config_matches_the_jax_stage():
     cfg = yaml.safe_load(open("configs/flux_kontext_textalpha_lora.yaml"))
     want, got = vars(jstage.build_args_from_cfg(cfg)), vars(tstage.build_args_from_cfg(cfg))
+    assert got.pop("device") == "cuda"                                     # the port's own flag
     assert set(got) == set(want)
     assert got == want
     assert got["save_every"] == 1000 and got["val_every"] == 1000          # the synonyms
@@ -130,7 +141,7 @@ def test_build_args_synonyms_and_env_token(monkeypatch):
     assert (args.save_every, args.val_every, args.val_max_samples) == (7, 9, 6)
     assert args.hf_token == "secret" and args.vae_subfolder == "" and args.drop_last is True
     assert args.resume_from == "auto" and args.grad_accum_steps == 2
-    assert vars(args) == vars(jstage.build_args_from_cfg(cfg))
+    assert {k: v for k, v in vars(args).items() if k != "device"} == vars(jstage.build_args_from_cfg(cfg))
     assert tstage._resolve_env_token("plain") == "plain" and tstage._resolve_env_token(None) is None
 
 
@@ -141,7 +152,7 @@ def test_build_args_names_the_missing_fields():
         tstage.build_args_from_cfg({"model": {"pretrained_model_name_or_path": "m", "rgba_vae_path": "v"}})
 
 
-@pytest.mark.parametrize("flag", [{"weight_quant": "int8"}, {"shard_base_params": True},
+@pytest.mark.parametrize("flag", [{"weight_quant": "int8", "shard_base_params": True}, {"shard_base_params": True},
                                   {"tensor_parallel": 2}, {"sequence_parallel": 2}])
 def test_unported_options_raise(flag):
     cfg = {"model": {"pretrained_model_name_or_path": "m", "rgba_vae_path": "v"}, "data": {"root": "d"},
@@ -178,7 +189,7 @@ def test_latest_complete_checkpoint_skips_a_dir_without_the_commit_marker(tmp_pa
 def _tiny_model():
     vcfg = AutoencoderConfig.tiny()
     vcfg.in_channels = vcfg.out_channels = 4
-    return FluxTextAlphaModel.random(FluxTransformerConfig.tiny(), vcfg, seed=0, prompt_len=4)
+    return FluxTextAlphaModel.random(FluxTransformerConfig.tiny(), vcfg, seed=0, device="cpu", prompt_len=4)
 
 
 def _cfg(root, **training):
@@ -220,7 +231,8 @@ def test_train_from_config_takes_two_steps_saves_and_serves_the_adapters(tmp_pat
     src = tmp_path / "in.png"
     save_rgba(np.random.default_rng(3).uniform(size=(32, 32, 4)), src)
     argv = ["--pretrained_model_name_or_path", str(tmp_path / "flux"), "--rgba_vae_path", str(tmp_path / "vae"),
-            "--input_image", str(src), "--steps", "2", "--seed", "0", "--precision", "fp32"]
+            "--input_image", str(src), "--steps", "2", "--seed", "0", "--precision", "fp32",
+            "--device", "cpu"]
     inference.main(argv + ["--output_path", str(tmp_path / "base.png")])
     inference.main(argv + ["--output_path", str(tmp_path / "lora.png"), "--lora_path", str(tmp_path / "ckpt" / "final"),
                            "--rank", "4", "--lora_alpha", "8"])

@@ -1,7 +1,7 @@
 """Structural rules of the PyTorch port, checked from its sources.
 
-- No module of `ragb_vae_tpu_torch` (nor `chip_smoke.py`) imports jax, flax
-  or the JAX package. This is an AST scan: `sys.modules` cannot tell, since
+- No module of `ragb_vae_tpu_torch` (nor `chip_smoke.py`, nor the port's
+  scripts) imports jax, flax or the JAX package. This is an AST scan: `sys.modules` cannot tell, since
   the test environment preloads jax at interpreter start.
 - Every CUDA source names the TPU kernel it replaces and what bounds it on
   the card; the build targets sm_90a.
@@ -9,6 +9,13 @@
 - No function that launches a kernel (`*_cuda`) calls a plain version, and
   every call of a plain version outside a `*_plain` function sits on the
   CPU side of an `is_cuda` / device-type test.
+  `plain_vjp`, which takes a plain version as an argument and differentiates
+  it on whatever device its operands lie, is called only from `backward`
+  methods (the JAX package differentiates its XLA references the same way).
+- No source picks its device with `"cuda" if torch.cuda.is_available() else
+  "cpu"`, and no function of the port defaults its `device` argument to the
+  CPU: an entry point runs on the card unless the caller names the CPU, and a
+  missing card is an error.
 """
 import ast
 import importlib
@@ -22,7 +29,9 @@ import ragb_vae_tpu_torch
 
 ROOT = Path(ragb_vae_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragb_vae_tpu")
-SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"]
+PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
+    "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py")]
+SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
 def _imported_modules(path: Path):
@@ -157,3 +166,96 @@ def test_attention_backward_source_is_built_and_names_both_kernels():
         assert f'extern "C" int {name}(' in text
     # every accumulator has one owner: no float atomics, no library product
     assert "atomic" not in text.replace("no float atomic", "") and "cublas" not in text.lower()
+
+
+def test_scan_covers_the_int8_path_and_the_stand_alone_convs():
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES if p.is_relative_to(ROOT)}
+    assert {"ops/kernels/int8_matmul.py", "ops/kernels/conv3x3.py", "ops/kernels/fused_gn_silu_conv.py",
+            "models/quantize.py", "inference.py", "serving.py"} <= scanned
+    assert all(p.exists() for p in PORT_SCRIPTS)
+
+
+def test_int8_and_conv_sources_are_built_and_name_their_kernels():
+    from ragb_vae_tpu_torch.ops.kernels import _build
+
+    assert {"int8_matmul.cu", "conv_kernels.cu"} <= {p.name for p in _build._sources()}
+    assert {"ragb_int8_matmul", "ragb_conv3x3_same", "ragb_fused_gn_silu_conv3x3",
+            "ragb_downsample_conv3x3_stats"} <= set(_build._SIGNATURES)
+    convs = (ROOT / "csrc" / "conv_kernels.cu").read_text()
+    assert all(name in convs for name in ("`_downsample_kernel`", "`_conv_kernel`", "`_kernel`"))
+    int8 = (ROOT / "csrc" / "int8_matmul.cu").read_text()
+    assert 'extern "C" int ragb_int8_matmul(' in int8
+    # one block owns an output tile and loops over K itself; the product is the kernel's own
+    for text in (convs, int8):
+        assert "atomicAdd" not in text and "cublas" not in text.lower() and "cudnn" not in text.lower()
+
+
+SILENT_CPU = re.compile(r"is_available\(\)\s*else\s*[\"']cpu[\"']")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT.parent)))
+def test_no_silent_fallback_to_the_cpu(path):
+    assert not SILENT_CPU.search(path.read_text()), f"{path} picks the CPU when no card is found"
+
+
+def test_the_silent_fallback_scan_sees_a_planted_line():
+    assert SILENT_CPU.search('device = "cuda" if torch.cuda.is_available() else "cpu"')
+    assert SILENT_CPU.search("torch.device('cuda' if torch.cuda.is_available()  else 'cpu')")
+    assert not SILENT_CPU.search('if not torch.cuda.is_available():\n    raise SystemExit("no card")')
+
+
+def _cpu_device_defaults(path: Path):
+    """(function, line) of every function whose `device` argument defaults to the CPU."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        positional = fn.args.posonlyargs + fn.args.args
+        pairs = list(zip(positional[len(positional) - len(fn.args.defaults):], fn.args.defaults))
+        pairs += [(a, d) for a, d in zip(fn.args.kwonlyargs, fn.args.kw_defaults) if d is not None]
+        for arg, default in pairs:
+            names = [n.value for n in ast.walk(default) if isinstance(n, ast.Constant)]
+            if arg.arg == "device" and "cpu" in names:
+                bad.append((fn.name, fn.lineno))
+    return bad
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT.parent)))
+def test_no_device_argument_defaults_to_the_cpu(path):
+    assert not _cpu_device_defaults(path)
+
+
+def test_the_device_default_scan_sees_planted_signatures(tmp_path):
+    planted = tmp_path / "planted.py"
+    planted.write_text(
+        'def f(x, device="cpu"):\n    return x\n\n'
+        'def g(x, *, seed=0, device=torch.device("cpu")):\n    return x\n\n'
+        'def h(x, device="cuda", kind="cpu"):\n    return x\n\n'
+        'def k(x, device=None):\n    return x\n')
+    assert [name for name, _ in _cpu_device_defaults(planted)] == ["f", "g"]
+    # the two constructors a user calls and the tree-level draw default to the card
+    import inspect
+
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+    from ragb_vae_tpu_torch.models.quantize import random_quantized_params_like
+
+    for fn in (FluxTextAlphaModel.random, FluxTextAlphaModel.from_pretrained, random_quantized_params_like):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def _plain_vjp_callers(path: Path):
+    """Names of the functions that call `plain_vjp`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return [fn.name for fn in ast.walk(tree) if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+            for name, _ in _called_names(fn) if name == "plain_vjp"]
+
+
+def test_plain_vjp_is_called_only_from_backward_methods(tmp_path):
+    callers = {str(p.relative_to(ROOT)): _plain_vjp_callers(p) for p in SOURCES if p.is_relative_to(ROOT)}
+    callers = {k: v for k, v in callers.items() if v}
+    assert callers == {"ops/kernels/resnet_block.py": ["backward"], "ops/kernels/conv3x3.py": ["backward"],
+                       "ops/kernels/fused_gn_silu_conv.py": ["backward"]}
+    planted = tmp_path / "planted.py"
+    planted.write_text("def forward(ctx, x):\n    return plain_vjp(f_plain, (x,), (x,))\n")
+    assert _plain_vjp_callers(planted) == ["forward"]

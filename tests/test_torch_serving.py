@@ -34,7 +34,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def model():
     return FluxTextAlphaModel.random(
-        FluxTransformerConfig.tiny(), _vae_config(), seed=0, fused=True, prompt_len=4
+        FluxTransformerConfig.tiny(), _vae_config(), seed=0, device="cpu", fused=True, prompt_len=4
     )
 
 
@@ -141,7 +141,7 @@ def test_inference_run_on_a_jax_written_checkpoint(tmp_path):
         "--pretrained_model_name_or_path", str(tmp_path / "flux"),
         "--rgba_vae_path", str(tmp_path / "vae"),
         "--input_image", str(src), "--output_path", str(tmp_path / "out.png"),
-        "--steps", "2", "--seed", "0", "--precision", "fp32",
+        "--steps", "2", "--seed", "0", "--precision", "fp32", "--device", "cpu",
     ]
     inference.main(argv)
     first = load_rgba(tmp_path / "out.png")
@@ -150,8 +150,8 @@ def test_inference_run_on_a_jax_written_checkpoint(tmp_path):
     np.testing.assert_array_equal(load_rgba(tmp_path / "again.png"), first)
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--tp", "2"], ["--pp", "2"],
-                                  ["--lora_path", "x", "--quant", "int8"]])
+@pytest.mark.parametrize("flag", [["--tp", "2", "--quant", "int8"], ["--tp", "2"], ["--pp", "2"],
+                                  ["--lora_path", "x", "--pp", "2", "--device", "cpu"]])
 def test_inference_unported_options_raise(flag):
     args = inference.parse_args(
         ["--pretrained_model_name_or_path", "m", "--rgba_vae_path", "v",
@@ -159,3 +159,20 @@ def test_inference_unported_options_raise(flag):
     )
     with pytest.raises(NotImplementedError, match="not ported yet"):
         inference.run(args)
+
+
+def test_inference_refuses_a_missing_card(monkeypatch):
+    """`--device` defaults to the card; without one the entry point raises
+    instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = inference.parse_args(
+        ["--pretrained_model_name_or_path", "m", "--rgba_vae_path", "v", "--input_image", "i", "--output_path", "o"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="is_available.. is False"):
+        inference.run(args)
+    assert inference.resolve_device("cpu") == torch.device("cpu")
+    # the library's constructors too: the card is their default, and they raise before they build or read
+    with pytest.raises(RuntimeError, match="is_available.. is False"):
+        FluxTextAlphaModel.random(FluxTransformerConfig.tiny(), _vae_config(), prompt_len=4)
+    with pytest.raises(RuntimeError, match="is_available.. is False"):
+        FluxTextAlphaModel.from_pretrained("no such directory", vae_path="nor this one")
