@@ -40,6 +40,22 @@ def default_collate(items: List[Item]) -> Item:
     return out
 
 
+def pad_collate(items: List[Item]) -> Item:
+    """Zero-pad every array key at the bottom and right to the batch's largest
+    (H, W), then stack; other keys are dropped."""
+    out: Item = {}
+    for key, first in items[0].items():
+        if not isinstance(first, np.ndarray):
+            continue
+        max_h = max(item[key].shape[0] for item in items)
+        max_w = max(item[key].shape[1] for item in items)
+        out[key] = np.stack([
+            np.pad(item[key], ((0, max_h - item[key].shape[0]), (0, max_w - item[key].shape[1]), (0, 0)))
+            for item in items
+        ], axis=0)
+    return out
+
+
 class DataLoader:
     """Map-style dataset -> iterator of collated numpy batches.
 

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "ragb_error_string": [_I],
     "ragb_conv_tile_shape": [_P, _P],
     "ragb_resnet_conv3x3_stats": [_P] * 11 + [_I] * 9 + [_P],
+    "ragb_wino_tile_shape": [_P, _P],
+    "ragb_resnet_conv3x3_stats_wino": [_P] * 11 + [_I] * 9 + [_P],
     "ragb_subpixel_upsample_conv3x3_stats": [_P] * 6 + [_I] * 6 + [_P],
     "ragb_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "ragb_resnet_conv3x3_stats_bwd": [_P] * 20 + [_I] * 11 + [_P],

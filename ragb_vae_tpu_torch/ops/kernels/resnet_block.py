@@ -15,6 +15,12 @@ Dispatch: a CPU tensor takes the plain PyTorch version beside each kernel
 counterparts); a CUDA tensor launches the hand-written kernels in
 `csrc/resnet_block.cu` (forward) and `csrc/resnet_block_bwd.cu` (backward) or
 raises. There is no fallback from one to the other, and no route by size.
+`gn_silu_conv3x3_stats` has two forward routes, as in the JAX package: the
+direct conv (K1) and Winograd F(2x2, 3x3) (K8, `csrc/resnet_block_wino.cu`,
+plain version `wino_conv3x3_stats_plain`), picked per call by `algo=` or by
+the module default `CONV_ALGO`; Winograd takes only the shapes of the JAX
+package's predicate (`wino_aligned`), everything else stays direct. Both
+routes share K6 as their backward: the function is the same.
 The downsample conv (`fused_downsample_conv3x3_stats`, kernel in
 `csrc/conv_kernels.cu`) has a forward kernel only: its backward differentiates
 its plain version, as the JAX package differentiates its XLA reference.
@@ -37,6 +43,11 @@ UPSAMPLE_LAUNCHES = 0
 CONV_BWD_LAUNCHES = 0
 UPSAMPLE_BWD_LAUNCHES = 0
 DOWNSAMPLE_LAUNCHES = 0
+WINO_LAUNCHES = 0
+
+# The forward route of `gn_silu_conv3x3_stats` when a call names none:
+# "direct" (K1) or "winograd" (K8, on the shapes `wino_aligned` accepts).
+CONV_ALGO = "direct"
 
 # The weight gradient is a split-K GEMM: the image rows are cut into at most
 # this many slices, each with an fp32 partial that a second pass adds in order.
@@ -47,12 +58,13 @@ _WGRAD_TARGET_BLOCKS = 4 * 132
 
 def reset_launch_counts() -> None:
     global CONV_LAUNCHES, UPSAMPLE_LAUNCHES, CONV_BWD_LAUNCHES, UPSAMPLE_BWD_LAUNCHES
-    global DOWNSAMPLE_LAUNCHES
+    global DOWNSAMPLE_LAUNCHES, WINO_LAUNCHES
     CONV_LAUNCHES = 0
     UPSAMPLE_LAUNCHES = 0
     CONV_BWD_LAUNCHES = 0
     UPSAMPLE_BWD_LAUNCHES = 0
     DOWNSAMPLE_LAUNCHES = 0
+    WINO_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -151,20 +163,9 @@ def _tile_shape() -> Tuple[int, int]:
     return _TILE_SHAPE
 
 
-def conv3x3_stats_cuda(
-    x: Tensor,
-    a: Tensor,
-    b: Tensor,
-    w: Tensor,
-    bias: Tensor,
-    skip: Optional[Tensor] = None,
-    ws: Optional[Tensor] = None,
-    wsb: Optional[Tensor] = None,
-    activation: str = "silu",
-) -> Tuple[Tensor, Tensor]:
-    """Launch the K1 kernel (`ragb_resnet_conv3x3_stats`)."""
-    global CONV_LAUNCHES
-    name = "resnet_conv3x3_stats"
+def _conv_operands(name, x, a, b, w, bias, skip, ws, wsb, activation):
+    """Check and lay out the operands of a K1 / K8 launch -> (x, a, b, w,
+    bias, skip, ws, wsb, skip_mode, c_skip)."""
     if activation not in ("silu", "identity"):
         raise ValueError(f"{name}: unknown activation {activation!r}")
     if x.ndim != 4 or w.shape[:3] != (3, 3, x.shape[3]):
@@ -195,6 +196,27 @@ def conv3x3_stats_cuda(
         raise ValueError(f"{name}: coefficient or bias shapes do not match")
     if c_in % 8 or n_out % 8 or c_skip % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out} Cs={c_skip}")
+    return x, a, b, w, bias, skip, ws, wsb, skip_mode, c_skip
+
+
+def conv3x3_stats_cuda(
+    x: Tensor,
+    a: Tensor,
+    b: Tensor,
+    w: Tensor,
+    bias: Tensor,
+    skip: Optional[Tensor] = None,
+    ws: Optional[Tensor] = None,
+    wsb: Optional[Tensor] = None,
+    activation: str = "silu",
+) -> Tuple[Tensor, Tensor]:
+    """Launch the K1 kernel (`ragb_resnet_conv3x3_stats`)."""
+    global CONV_LAUNCHES
+    name = "resnet_conv3x3_stats"
+    x, a, b, w, bias, skip, ws, wsb, skip_mode, c_skip = _conv_operands(
+        name, x, a, b, w, bias, skip, ws, wsb, activation)
+    bsz, height, width, c_in = x.shape
+    n_out = w.shape[3]
     th, tw = _tile_shape()
     tiles = -(-height // th) * -(-width // tw)
     y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
@@ -212,6 +234,149 @@ def conv3x3_stats_cuda(
     return y, stats
 
 
+# ---------------------------------------------------------------------------
+# K8: K1's function by Winograd F(2x2, 3x3)
+# ---------------------------------------------------------------------------
+# G of F(2x2, 3x3): U = G w G^T maps a 3x3 filter to its 4x4 transform
+_WINO_G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
+# G on each device it was asked for: made once, since copying it from the host
+# on every call would make every K8 launch wait for the card to drain
+_WINO_G_ON: dict = {}
+
+
+def wino_weights(w: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
+    """(3, 3, C, N) -> U = G w G^T as (4, 4, C, N) [mu, nu]: folded in fp32
+    (G's halves are exact there; a fold in bf16 would add its own rounding),
+    then cast once to `dtype` (default: w's). The JAX package's `_wino_weights`
+    also folds A^T's rows into the contraction ((2, 4, 3C, N)); the port's
+    kernel keeps the 16 variants apart."""
+    g = _WINO_G_ON.get(w.device)
+    if g is None:
+        g = _WINO_G_ON[w.device] = torch.tensor(_WINO_G, dtype=torch.float32, device=w.device)
+    u = torch.einsum("xu,yv,uvcn->xycn", g, g, w.float())
+    return u.to(dtype or w.dtype)
+
+
+def wino_aligned(height: int, width: int, c_in: int, n_out: int, c_skip: Optional[int] = None) -> bool:
+    """The JAX package's Winograd predicate: H even, W % 16, C, N and C_skip
+    multiples of 128. Other shapes take the direct route."""
+    return (height % 2 == 0 and width % 16 == 0 and c_in % 128 == 0 and n_out % 128 == 0
+            and (c_skip is None or c_skip % 128 == 0))
+
+
+def wino_conv3x3_stats_plain(
+    x: Tensor,
+    a: Tensor,
+    b: Tensor,
+    w: Tensor,
+    bias: Tensor,
+    skip: Optional[Tensor] = None,
+    ws: Optional[Tensor] = None,
+    wsb: Optional[Tensor] = None,
+    activation: str = "silu",
+) -> Tuple[Tensor, Tensor]:
+    """Plain version of the K8 kernel, step by step: the activation rounded to
+    x's dtype and zero-padded; per 2x2 output tile the 4x4 patch's input
+    transform B^T d B in fp32, columns first, rounded to x's dtype (V); one
+    fp32 product per variant over the channels against U = `wino_weights(w)`
+    in x's dtype; the output transform A^T M A in fp32, rows first; bias,
+    then the projection (fp32) and its bias, or the skip; one rounding of y.
+    Those are the JAX kernel's rounding points."""
+    bsz, height, width, c_in = x.shape
+    n_out = w.shape[3]
+    if height % 2 or width % 2:
+        raise ValueError(f"wino_conv3x3_stats: H and W must be even, got {height} x {width}")
+    u = wino_weights(w, x.dtype).float().reshape(16, c_in, n_out)
+    t = x.float() * a[:, None, None, :].float() + b[:, None, None, :].float()
+    if activation == "silu":
+        t = F.silu(t)
+    t = F.pad(t.to(x.dtype).float(), (0, 0, 1, 1, 1, 1))
+    d = t.unfold(1, 4, 2).unfold(2, 4, 2)                 # (B, H/2, W/2, C, row, col)
+    d0, d1, d2, d3 = d.unbind(-1)                          # columns
+    cv = torch.stack([d0 - d2, d1 + d2, d2 - d1, d1 - d3], dim=-1)      # (..., row, nu)
+    r0, r1, r2, r3 = cv.unbind(-2)                         # rows
+    v = torch.stack([r0 - r2, r1 + r2, r2 - r1, r1 - r3], dim=-2)       # (..., mu, nu)
+    v = v.to(x.dtype).float().permute(4, 5, 0, 1, 2, 3).reshape(16, -1, c_in)
+    m = torch.bmm(v, u).reshape(4, 4, bsz, height // 2, width // 2, n_out)   # [mu, nu]
+    z = (m[0] + m[1] + m[2], m[1] - m[2] - m[3])           # rows p, each [nu]
+    y = torch.stack([torch.stack([zp[0] + zp[1] + zp[2], zp[1] - zp[2] - zp[3]], dim=3) for zp in z],
+                    dim=2).reshape(bsz, height, width, n_out)
+    y = y + bias.float()
+    if skip is not None and ws is not None:
+        y = y + skip.float() @ ws.to(x.dtype).float() + wsb.float()
+    elif skip is not None:
+        y = y + skip.float()
+    y = y.to(x.dtype)
+    return y, tensor_stats(y)
+
+
+_WINO_TILE_SHAPE: Optional[Tuple[int, int]] = None
+
+
+def _wino_tile_shape() -> Tuple[int, int]:
+    """K8's output tile (rows, cols), read from the library once."""
+    global _WINO_TILE_SHAPE
+    if _WINO_TILE_SHAPE is None:
+        th, tw = ctypes.c_int(), ctypes.c_int()
+        _build.library().ragb_wino_tile_shape(ctypes.byref(th), ctypes.byref(tw))
+        _WINO_TILE_SHAPE = (th.value, tw.value)
+    return _WINO_TILE_SHAPE
+
+
+def wino_conv3x3_stats_cuda(
+    x: Tensor,
+    a: Tensor,
+    b: Tensor,
+    w: Tensor,
+    bias: Tensor,
+    skip: Optional[Tensor] = None,
+    ws: Optional[Tensor] = None,
+    wsb: Optional[Tensor] = None,
+    activation: str = "silu",
+) -> Tuple[Tensor, Tensor]:
+    """Launch the K8 kernel (`ragb_resnet_conv3x3_stats_wino`) over
+    U = `wino_weights(w, x.dtype)`, folded here on every call. The kernel
+    needs H and W even; C, N and C_skip multiples of 8."""
+    global WINO_LAUNCHES
+    name = "resnet_conv3x3_stats_wino"
+    x, a, b, w, bias, skip, ws, wsb, skip_mode, c_skip = _conv_operands(
+        name, x, a, b, w, bias, skip, ws, wsb, activation)
+    bsz, height, width, c_in = x.shape
+    n_out = w.shape[3]
+    if height % 2 or width % 2:
+        raise ValueError(f"{name}: H and W must be even, got {height} x {width}")
+    u = wino_weights(w, x.dtype).contiguous()
+    th, tw = _wino_tile_shape()
+    tiles = -(-height // th) * -(-width // tw)
+    y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
+    partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)
+    stats = torch.empty((bsz, 2, n_out), dtype=torch.float32, device=x.device)
+    err = _build.library().ragb_resnet_conv3x3_stats_wino(
+        _ptr(x), _ptr(a), _ptr(b), _ptr(u), _ptr(bias), _ptr(skip), _ptr(ws), _ptr(wsb),
+        _ptr(y), _ptr(partial), _ptr(stats),
+        tiles, bsz, height, width, c_in, n_out, c_skip,
+        1 if activation == "silu" else 0, skip_mode,
+        ctypes.c_void_p(_build.stream_ptr(x.device)),
+    )
+    _build.check(err, name)
+    WINO_LAUNCHES += 1
+    return y, stats
+
+
+def conv_route(x: Tensor, w: Tensor, skip: Optional[Tensor], ws: Optional[Tensor],
+               algo: Optional[str] = None) -> str:
+    """"winograd" when `algo` (else `CONV_ALGO`) asks for it and the shape is
+    aligned, else "direct"."""
+    chosen = algo or CONV_ALGO
+    if chosen not in ("direct", "winograd"):
+        raise ValueError(f"unknown conv algo {chosen!r}: 'direct' or 'winograd'")
+    _, height, width, c_in = x.shape
+    c_skip = skip.shape[3] if ws is not None else None
+    if chosen == "winograd" and wino_aligned(height, width, c_in, w.shape[3], c_skip):
+        return "winograd"
+    return "direct"
+
+
 def gn_silu_conv3x3_stats(
     x: Tensor,
     a: Tensor,
@@ -222,18 +387,21 @@ def gn_silu_conv3x3_stats(
     *,
     proj: Optional[Tuple[Tensor, Tensor]] = None,
     activation: str = "silu",
+    algo: Optional[str] = None,
 ) -> Tuple[Tensor, Tensor]:
     """y = conv3x3(act(x*a + b)) + bias [+ skip or 1x1(skip)], and the
     per-channel (sum, sumsq) of y as (B, 2, N) fp32.
 
     x: (B, H, W, C); a, b: (B, C) fp32 folded GroupNorm coefficients;
     w: (3, 3, C, N) HWIO; `proj=(ws, wsb)` runs the 1x1 conv_shortcut on
-    `skip` inside the kernel (ws: (C_skip, N)).
+    `skip` inside the kernel (ws: (C_skip, N)). `algo` ("direct" or
+    "winograd"; default `CONV_ALGO`) picks the forward route (`conv_route`).
     """
     ws, wsb = proj if proj is not None else (None, None)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gn_silu_conv3x3_stats: unsupported device {x.device}")
-    return _ConvStats.apply(x, a, b, w, bias, skip, ws, wsb, activation)
+    route = conv_route(x, w, skip, ws, algo)
+    return _ConvStats.apply(x, a, b, w, bias, skip, ws, wsb, activation, route)
 
 
 # ---------------------------------------------------------------------------
@@ -375,21 +543,22 @@ def _to_dtypes(grads, dtypes):
 
 
 class _ConvStats(torch.autograd.Function):
-    """K1 forward with K6 as its backward. Saves the operands (on CUDA the
-    weights in the compute dtype the kernel read them in) and its own output
-    y, nothing else: the backward recomputes the activation from x. Weight
-    cotangents return in the dtype the weights came in, so an fp32 parameter
-    receives the fp32 accumulator unrounded."""
+    """K1 or K8 forward (by `route`) with K6 as its backward. Saves the
+    operands (on CUDA the weights in the compute dtype the kernel read them
+    in) and its own output y, nothing else: the backward recomputes the
+    activation from x. Weight cotangents return in the dtype the weights came
+    in, so an fp32 parameter receives the fp32 accumulator unrounded."""
 
     @staticmethod
-    def forward(ctx, x, a, b, w, bias, skip, ws, wsb, activation):
+    def forward(ctx, x, a, b, w, bias, skip, ws, wsb, activation, route):
         ctx.dtypes = tuple(None if t is None else t.dtype for t in (x, a, b, w, bias, skip, ws, wsb))
         if x.is_cuda:
             w = w.to(x.dtype)
             ws = None if ws is None else ws.to(x.dtype)
-            y, stats = conv3x3_stats_cuda(x, a, b, w, bias, skip, ws, wsb, activation)
+            fwd = wino_conv3x3_stats_cuda if route == "winograd" else conv3x3_stats_cuda
         else:
-            y, stats = conv3x3_stats_plain(x, a, b, w, bias, skip, ws, wsb, activation)
+            fwd = wino_conv3x3_stats_plain if route == "winograd" else conv3x3_stats_plain
+        y, stats = fwd(x, a, b, w, bias, skip, ws, wsb, activation)
         ctx.save_for_backward(x, a, b, w, bias, skip, ws, wsb, y)
         ctx.activation = activation
         ctx.set_materialize_grads(False)
@@ -405,7 +574,7 @@ class _ConvStats(torch.autograd.Function):
             gstats = torch.zeros((y.shape[0], 2, y.shape[3]), dtype=torch.float32, device=y.device)
         bwd = conv3x3_stats_bwd_cuda if x.is_cuda else conv3x3_stats_bwd_plain
         grads = bwd(x, a, b, w, bias, skip, ws, wsb, y, gy, gstats, ctx.activation)
-        return _to_dtypes(grads, ctx.dtypes) + (None,)
+        return _to_dtypes(grads, ctx.dtypes) + (None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ from ragb_vae_tpu_torch.models.flux_kontext_textalpha import (
 )
 from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
 from ragb_vae_tpu_torch.parallel.grad_accum import accumulated_grads
+from ragb_vae_tpu_torch.training.rgba_vae_stage import _to_uint8, pad_to_multiple, padding_weights
 from ragb_vae_tpu_torch.training.vae_step import ClippedAdamW, global_norm
 
 Tensor = torch.Tensor
@@ -161,30 +162,8 @@ def latest_complete_lora_checkpoint(root: Path) -> Optional[Path]:
 
 
 # ---------------------------------------------------------------------------
-# Batch padding and image dumps (the port's copies of the VAE stage's helpers)
+# Image dumps
 # ---------------------------------------------------------------------------
-def pad_to_multiple(arr: np.ndarray, multiple: int) -> np.ndarray:
-    """Cycle-pad the batch dim so it divides into the micro-batches; the step
-    masks the pad out of the loss through `padding_weights`."""
-    n = arr.shape[0]
-    if multiple <= 1 or n % multiple == 0:
-        return arr
-    pad = multiple - n % multiple
-    extra = np.concatenate([arr] * -(-pad // n), axis=0)[:pad]
-    return np.concatenate([arr, extra], axis=0)
-
-
-def padding_weights(n_real: int, n_total: int) -> np.ndarray:
-    """(n_total,) loss weights: 1 for real samples, 0 for padding."""
-    weights = np.zeros(n_total, dtype=np.float32)
-    weights[:n_real] = 1.0
-    return weights
-
-
-def _to_uint8(img01: np.ndarray) -> np.ndarray:
-    return (np.clip(img01, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-
-
 def _save_pair(gt: np.ndarray, pred: np.ndarray, path: Path) -> None:
     """GT | prediction side by side as one RGBA PNG."""
     from PIL import Image

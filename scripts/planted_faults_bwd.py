@@ -1,19 +1,27 @@
-"""Show that `chip_smoke.py`'s bounds on the backward kernels (K4-K7) and on
-the int8 matmul and the downsample conv (K10, K9) bite.
+"""Show that `chip_smoke.py`'s bounds on the backward kernels (K4-K7), on
+the int8 matmul and the downsample conv (K10, K9) and on the Winograd conv
+(K8) bite.
 
     python3 scripts/planted_faults_bwd.py
 
-For each fault below, the package and `chip_smoke.py` are copied into a
-temporary directory, one line of a CUDA source in the COPY is replaced, and
-`python3 chip_smoke.py --phases kernels` runs there (it rebuilds the kernels
-from the copy). A fault counts as caught when that run exits non-zero with a
-FAIL on a line of the kernel the fault was planted in. The tree itself is
-never touched. Exits 0 only when every fault was caught; needs an NVIDIA GPU
-and nvcc.
+    python3 scripts/planted_faults_bwd.py --only winograd    # the faults whose label holds it
+
+For each fault below, the package, `chip_smoke.py` and `configs/` are copied
+into a temporary directory, one line of a CUDA source in the COPY is
+replaced, and `python3 chip_smoke.py --phases P` runs there (it rebuilds the
+kernels from the copy) for each phase P the fault names, then for each phase
+it names only to read (run and printed; it may pass). A fault counts as
+caught when every run of a phase it names exits non-zero with a FAIL on a line of the
+kernel the fault was planted in (phase `kernels`) or of the phase itself
+(phase `stage1`, whose route check holds the whole VAE's Winograd forward
+against the direct and the fp32 route). For the Winograd faults the route
+check's readings are printed in either case, caught or not. The tree itself
+is never touched. Exits 0 only when every fault was caught; needs an NVIDIA
+GPU and nvcc.
 """
 from __future__ import annotations
 
-import re
+import argparse
 import shutil
 import subprocess
 import sys
@@ -24,7 +32,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 BACKWARD_KERNELS = ("_bwd", "flash_attention_dq", "flash_attention_dkv")
 
-# (label, source file, the line to replace, its replacement, the kernels whose lines must FAIL)
+# (label, source file, the line to replace, its replacement, the kernels whose lines must FAIL
+# [, the phases that must fail: `kernels` when not given[, phases only read, which may pass]])
 FAULTS = [
     ("one weight-gradient partial left out of the reduce", "resnet_block_bwd.cu",
      "return launch_reduce_rows(p.partial, dw, p.S,",
@@ -49,40 +58,71 @@ FAULTS = [
      "const int hh = PS * h0 - G::LO + r, ww = PS * w0 - G::LO + c;",
      "const int hh0 = PS * h0 - G::LO + r, ww = PS * w0 - G::LO + c; "
      "const int hh = (MODE == MODE_DOWN3 && hh0 == Hin) ? Hin - 1 : hh0;", ("downsample_conv3x3_stats",)),
+    ("winograd conv: a sign flipped in the input transform", "resnet_block_wino.cu",
+     "cv[r][0] = d0 - d2;", "cv[r][0] = d0 + d2;", ("resnet_conv3x3_stats_wino",), ("kernels", "stage1")),
+    ("winograd conv: one variant's product left out", "resnet_block_wino.cu",
+     "mma_16816(acc[j][mt][nt], af[mt],", "if (v != 5) mma_16816(acc[j][mt][nt], af[mt],",
+     ("resnet_conv3x3_stats_wino",), ("kernels", "stage1")),
+    # one more rounding than the JAX kernel makes: the fp32 products rounded to
+    # bf16 before the output transform. Less than an ulp of the largest y, so
+    # only phase 3's error over the whole tensor sees it; the stage-1 route
+    # check, where every conv's bf16 rounding adds up, is only read
+    ("winograd conv: the products rounded to bf16 before the output transform", "resnet_block_wino.cu",
+     "float* row = mbuf + ((warp * 2 + j) * WTILES + mt * 16 + g) * M_LD + nt * 8 + t2;",
+     "for (int e = 0; e < 4; ++e) acc[j][mt][nt][e] = __bfloat162float(__float2bfloat16(acc[j][mt][nt][e])); "
+     "float* row = mbuf + ((warp * 2 + j) * WTILES + mt * 16 + g) * M_LD + nt * 8 + t2;",
+     ("resnet_conv3x3_stats_wino",), ("kernels",), ("stage1",)),
 ]
 
 
-def run_fault(label: str, source: str, old: str, new: str, kernels) -> bool:
+def _run_phase(work: Path, phase: str, kernels) -> tuple:
+    """chip_smoke's `phase` in `work` -> (exit code, its FAIL lines, the stage-1 route readings, output)."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phase], cwd=work,
+                          capture_output=True, text=True)
+    lines = proc.stdout.splitlines()
+    marks = kernels if phase == "kernels" else (f"[{phase}]",)
+    failing = [line for line in lines if "FAIL" in line and any(mark in line for mark in marks)]
+    readings = [line for line in lines if line.startswith("[stage1] decoder output")]
+    return proc.returncode, failing, readings, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+def run_fault(label: str, source: str, old: str, new: str, kernels, phases=("kernels",), read=()) -> bool:
+    caught = True
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         shutil.copytree(ROOT / "ragb_vae_tpu_torch", work / "ragb_vae_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copytree(ROOT / "configs", work / "configs")
         shutil.copy(ROOT / "chip_smoke.py", work / "chip_smoke.py")
         path = work / "ragb_vae_tpu_torch" / "csrc" / source
         text = path.read_text()
         if text.count(old) != 1:
             raise SystemExit(f"[fault] {label}: the line to replace occurs {text.count(old)} times in {source}")
         path.write_text(text.replace(old, new))
-        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "kernels"], cwd=work,
-                              capture_output=True, text=True)
-    failing = [line for line in proc.stdout.splitlines()
-               if "FAIL" in line and any(name in line for name in kernels)]
-    caught = proc.returncode != 0 and bool(failing)
-    print(f"[fault] {label}: exit {proc.returncode}, {len(failing)} cases of {'/'.join(kernels)} fail, "
-          f"{'caught' if caught else 'NOT caught'}", flush=True)
-    for line in failing:
-        parts = [p.strip() for p in re.split(r"[:;]", line) if "FAIL" in p]
-        print(f"[fault]   {line.split(':')[0]}: " + "; ".join(parts), flush=True)
-    if not caught:
-        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        for phase in phases + read:
+            rc, failing, readings, tail = _run_phase(work, phase, kernels)
+            hit = rc != 0 and bool(failing)
+            if phase in phases:
+                caught &= hit
+            print(f"[fault] {label}: phase {phase} exit {rc}, {len(failing)} FAIL lines, "
+                  f"{'caught' if hit else 'NOT caught'}{'' if phase in phases else ' (read only)'}", flush=True)
+            for line in failing:
+                print(f"[fault]   {line}", flush=True)
+            for line in readings:
+                print(f"[fault]   {line}", flush=True)
+            if not hit and phase in phases:
+                print(tail, flush=True)
     return caught
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", default="", help="run only the faults whose label contains this")
+    args = parser.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    results = [run_fault(*fault) for fault in FAULTS]
+    results = [run_fault(*fault) for fault in FAULTS if args.only in fault[0]]
     print(f"[fault] {sum(results)} of {len(results)} planted faults caught", flush=True)
     return 0 if all(results) else 1
 

@@ -447,3 +447,66 @@ def test_new_conv_wrappers_refuse_what_the_kernels_do_not_take():
         c3.conv3x3_same_batched(x32, w32)
     with pytest.raises(ValueError, match="at least 2 x 2"):
         rb.fused_downsample_conv3x3_stats(x[:, :1, :, :8].contiguous(), w[:, :, :8].contiguous(), bias)
+
+
+# K8: the Winograd conv against its plain version, which rounds V, U and y
+# where the kernel does (one bf16 ulp of the largest y, fp32 sum order in the
+# statistics), at ragged tiles and odd channel counts the kernel takes (H and W
+# even, C and N multiples of 8) besides the aligned shapes the route sends it
+@pytest.mark.parametrize("shape,n,skip,act", [
+    ((1, 36, 24, 128), 128, None, "silu"),           # ragged 8 x 16 tiles
+    ((2, 18, 48, 256), 128, "proj", "silu"),
+    ((1, 10, 14, 64), 40, "identity", "identity"),
+    ((2, 16, 32, 128), 256, "proj", "identity"),
+])
+def test_wino_conv3x3_stats_kernel(shape, n, skip, act):
+    gen = torch.Generator("cuda").manual_seed(0)
+    bsz, h, w, c = shape
+    x = _randn(gen, shape)
+    a = 1.0 + 0.1 * torch.randn((bsz, c), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((bsz, c), generator=gen, device="cuda")
+    wt = _randn(gen, (3, 3, c, n), 1.0 / math.sqrt(9 * c))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    sk = ws = wsb = None
+    if skip == "identity":
+        sk = _randn(gen, (bsz, h, w, n))
+    elif skip == "proj":
+        sk, ws, wsb = x, _randn(gen, (c, n), 1.0 / math.sqrt(c)), 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    args = (x, a, b, wt, bias, sk, ws, wsb, act)
+    rb.reset_launch_counts()
+    y, s = rb.wino_conv3x3_stats_cuda(*args)
+    y_p, s_p = rb.wino_conv3x3_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert rb.WINO_LAUNCHES == 1 and rb.CONV_LAUNCHES == 0
+    rf = y_p.float()
+    assert (y.float() - rf).abs().max() <= 1e-2 * rf.abs().max()
+    assert (s - s_p).abs().max() <= 1e-4 * h * w * rf.square().mean()
+    y2, s2 = rb.wino_conv3x3_stats_cuda(*args)
+    assert torch.equal(y, y2) and torch.equal(s, s2)     # bitwise reproducible
+
+
+def test_winograd_route_launches_k8_and_differentiates_through_k6(monkeypatch):
+    monkeypatch.setattr(rb, "CONV_ALGO", "winograd")
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = _randn(gen, (2, 8, 32, 128)).requires_grad_(True)
+    a, b = torch.ones((2, 128), device="cuda"), torch.zeros((2, 128), device="cuda")
+    wt = (torch.randn((3, 3, 128, 128), generator=gen, device="cuda") / 34.0).requires_grad_(True)
+    bias = torch.zeros(128, device="cuda", requires_grad=True)
+    rb.reset_launch_counts()
+    y, s = rb.gn_silu_conv3x3_stats(x, a, b, wt, bias)
+    (y.float().square().sum() + s.sum()).backward()
+    torch.cuda.synchronize()
+    assert (rb.WINO_LAUNCHES, rb.CONV_LAUNCHES, rb.CONV_BWD_LAUNCHES) == (1, 0, 1)
+    assert torch.isfinite(x.grad.float()).all() and wt.grad.dtype == torch.float32
+    rb.gn_silu_conv3x3_stats(x[:, :, :24], a, b, wt, bias)    # W % 16 != 0: the direct route
+    assert (rb.WINO_LAUNCHES, rb.CONV_LAUNCHES) == (1, 1)
+
+
+def test_wino_wrapper_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros((1, 5, 16, 128), dtype=torch.bfloat16, device="cuda")
+    a, b = torch.ones((1, 128), device="cuda"), torch.zeros((1, 128), device="cuda")
+    wt, bias = torch.zeros((3, 3, 128, 128), dtype=torch.bfloat16, device="cuda"), torch.zeros(128, device="cuda")
+    with pytest.raises(ValueError, match="even"):
+        rb.wino_conv3x3_stats_cuda(x, a, b, wt, bias)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        rb.wino_conv3x3_stats_cuda(x[:, :4, :, :124], a[:, :124], b[:, :124], wt[:, :, :124], bias)

@@ -15,7 +15,8 @@
 - No source picks its device with `"cuda" if torch.cuda.is_available() else
   "cpu"`, and no function of the port defaults its `device` argument to the
   CPU: an entry point runs on the card unless the caller names the CPU, and a
-  missing card is an error.
+  missing card is an error. A loader classmethod (`from_*`) does not default
+  `device` to None either: that left its model wherever it was built, the host.
 """
 import ast
 import importlib
@@ -30,7 +31,7 @@ import ragb_vae_tpu_torch
 ROOT = Path(ragb_vae_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragb_vae_tpu")
 PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
-    "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py")]
+    "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py")]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -92,6 +93,26 @@ def test_scan_covers_data_and_the_lora_stage():
     scanned = {str(p.relative_to(ROOT)) for p in SOURCES if p.is_relative_to(ROOT)}
     assert {"data/buckets.py", "data/sampler.py", "data/text_alpha_dataset.py", "data/loader.py",
             "data/image_io.py", "training/flux_kontext_textalpha_lora.py"} <= scanned
+
+
+def test_scan_covers_the_stage1_loop():
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES if p.is_relative_to(ROOT)}
+    assert {"config.py", "data/transforms.py", "data/manifest.py", "data/bucket_dataset.py",
+            "data/component_dataset.py", "data/multilayer_dataset.py", "models/vae_tiling.py",
+            "training/checkpoint.py", "training/rgba_vae_stage.py", "training/__init__.py",
+            "utils/metrics_logger.py", "utils/preemption.py", "utils/profiling.py"} <= scanned
+
+
+def test_winograd_source_is_built_and_names_its_kernel():
+    from ragb_vae_tpu_torch.ops.kernels import _build
+
+    assert "resnet_block_wino.cu" in {p.name for p in _build._sources()}
+    assert {"ragb_resnet_conv3x3_stats_wino", "ragb_wino_tile_shape"} <= set(_build._SIGNATURES)
+    text = (ROOT / "csrc" / "resnet_block_wino.cu").read_text()
+    assert "`_wino_kernel`" in text and "mma_16816" in text
+    assert 'int ragb_resnet_conv3x3_stats_wino(' in text
+    # one block owns its output tile; the product is the kernel's own
+    assert "atomicAdd" not in text and "cublas" not in text.lower() and "cudnn" not in text.lower()
 
 
 def _called_names(node):
@@ -242,6 +263,44 @@ def test_the_device_default_scan_sees_planted_signatures(tmp_path):
 
     for fn in (FluxTextAlphaModel.random, FluxTextAlphaModel.from_pretrained, random_quantized_params_like):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def _host_loader_defaults(path: Path):
+    """(function, line) of every `from_*` classmethod whose `device`
+    argument defaults to None."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) or not fn.name.startswith("from_"):
+            continue
+        if not any(getattr(d, "id", None) == "classmethod" for d in fn.decorator_list):
+            continue
+        positional = fn.args.posonlyargs + fn.args.args
+        pairs = list(zip(positional[len(positional) - len(fn.args.defaults):], fn.args.defaults))
+        pairs += [(a, d) for a, d in zip(fn.args.kwonlyargs, fn.args.kw_defaults) if d is not None]
+        if any(a.arg == "device" and isinstance(d, ast.Constant) and d.value is None for a, d in pairs):
+            bad.append((fn.name, fn.lineno))
+    return bad
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT.parent)))
+def test_no_loader_leaves_its_model_on_the_host(path):
+    assert not _host_loader_defaults(path)
+
+
+def test_the_loader_scan_sees_planted_classmethods(tmp_path):
+    planted = tmp_path / "planted.py"
+    planted.write_text(
+        "class M:\n"
+        "    @classmethod\n    def from_pretrained_rgb(cls, path, *, device=None):\n        return cls()\n\n"
+        "    @classmethod\n    def from_dir(cls, path, device='cuda'):\n        return cls()\n\n"
+        "    def from_other(self, device=None):\n        return self\n")
+    assert [name for name, _ in _host_loader_defaults(planted)] == ["from_pretrained_rgb"]
+    import inspect
+
+    from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
+
+    assert inspect.signature(RgbaVAE.from_pretrained_rgb).parameters["device"].default == "cuda"
 
 
 def _plain_vjp_callers(path: Path):

@@ -136,7 +136,7 @@ def test_checkpoint_saved_by_jax_loads_into_port(tmp_path, models):
 
     jcfg, params, port = models
     save_autoencoder_params(jcfg, params, tmp_path / "ae")
-    loaded = RgbaVAE.from_pretrained_rgb(tmp_path, "ae")
+    loaded = RgbaVAE.from_pretrained_rgb(tmp_path, "ae", device="cpu")
     assert loaded.config.in_channels == 4
     for key, value in port.module.state_dict().items():
         torch.testing.assert_close(loaded.module.state_dict()[key], value, rtol=0, atol=0)
@@ -152,7 +152,7 @@ def test_rgb_checkpoint_is_widened_with_zero_alpha(tmp_path, models):
     rgb_params["decoder"]["conv_out"]["kernel"] = rgb_params["decoder"]["conv_out"]["kernel"][..., :3]
     rgb_params["decoder"]["conv_out"]["bias"] = rgb_params["decoder"]["conv_out"]["bias"][:3]
     save_autoencoder_params(rgb_cfg, rgb_params, tmp_path / "vae")
-    model = RgbaVAE.from_pretrained_rgb(tmp_path, "vae", alpha_bias_init=0.5)
+    model = RgbaVAE.from_pretrained_rgb(tmp_path, "vae", alpha_bias_init=0.5, device="cpu")
     sd = model.module.state_dict()
     assert model.config.in_channels == model.config.out_channels == 4
     assert torch.all(sd["encoder.conv_in.weight"][:, 3] == 0)
