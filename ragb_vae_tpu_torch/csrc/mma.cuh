@@ -1,5 +1,6 @@
 // Warp-level tensor-core helpers shared by the attention kernels:
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix and cp.async.
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix and cp.async
+// (bf16 packing and shared-memory addresses are in common.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -11,15 +12,6 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8

@@ -11,6 +11,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ragb_vae_tpu_torch.device import constant
 from ragb_vae_tpu_torch.ops.gaussian import DiagonalGaussian
 
 Tensor = torch.Tensor
@@ -62,8 +63,8 @@ def alphavae_reconstruction_loss(
     pred_alpha = (pred[..., 3:] + 1.0) * 0.5
     rgba_diff = target[..., :3] * target_alpha - pred[..., :3] * pred_alpha
     alpha_diff = target_alpha - pred_alpha
-    eb_t = torch.tensor(eb, dtype=torch.float32, device=pred.device)
-    eb2_t = torch.tensor(eb2, dtype=torch.float32, device=pred.device)
+    eb_t = constant(eb, torch.float32, pred.device)
+    eb2_t = constant(eb2, torch.float32, pred.device)
     loss = rgba_diff**2 - 2.0 * eb_t * rgba_diff * alpha_diff + eb2_t * alpha_diff**2
     return reduce_loss(loss, reduce_mean=reduce_mean, weights=weights)
 

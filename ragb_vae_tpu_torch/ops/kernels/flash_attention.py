@@ -5,7 +5,10 @@ Counterpart of `ragb_vae_tpu/ops/pallas/flash_attention.py`. The FLUX blocks
 `attention`, a `torch.autograd.Function` on every device. Forward: a CPU
 tensor takes the plain PyTorch version `attention_plain` (exact,
 query-chunked so no S x S matrix is held at once); a CUDA tensor launches
-the hand-written kernel in `csrc/flash_attention.cu` or raises.
+the hand-written kernel in `csrc/flash_attention.cu` or raises. At head dim
+512 the kernel may split the keys into ranges (`key_splits`) and merge the
+ranges' partial results in a second kernel; `attention_partials_plain` and
+`merge_partials_plain` restate that arithmetic in PyTorch.
 
 Backward, routed by head dim as in the JAX package (`_uses_fused_bwd`):
 - d < 384 (the FLUX blocks): the forward saves q, k, v, out and the
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -67,8 +70,71 @@ def attention_plain(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float, chunk: 
     return attention_lse_plain(q, k, v, sm_scale=sm_scale, chunk=chunk)[0]
 
 
+# the d = 512 kernel's query rows per block and keys per tile; a key range
+# of a split holds at least MIN_TILES_PER_SPLIT tiles
+SPLIT_BLOCK_Q = 64
+SPLIT_BLOCK_K = 32
+MIN_TILES_PER_SPLIT = 8
+
+
+def key_splits(bh: int, seq_q: int, seq_k: int, head_dim: int, sm_count: int = 132) -> int:
+    """How many key ranges the forward kernel splits (BH, Sq, Sk, head_dim)
+    into. Only head dim 512 splits: one block per 64 query rows per head,
+    and while those blocks leave SMs idle, each gets sm_count // blocks key
+    ranges of at least MIN_TILES_PER_SPLIT tiles of 32 keys. One head of 4096
+    tokens (64 blocks) takes 2 on 132 SMs; 16384 tokens or 4 heads take 1."""
+    if head_dim != 512:
+        return 1
+    blocks = bh * -(-seq_q // SPLIT_BLOCK_Q)
+    if blocks >= sm_count:
+        return 1
+    tiles = -(-seq_k // SPLIT_BLOCK_K)
+    return max(1, min(sm_count // blocks, tiles // MIN_TILES_PER_SPLIT))
+
+
+def split_ranges(seq_k: int, splits: int, block_k: int = SPLIT_BLOCK_K) -> List[Tuple[int, int]]:
+    """The key ranges [start, end) of `splits` splits, as the kernel cuts
+    them: whole tiles of `block_k`, split s taking tiles s*n//splits up to
+    (s+1)*n//splits of the n = ceil(seq_k / block_k); only the last range
+    is ragged."""
+    n = -(-seq_k // block_k)
+    if not 1 <= splits <= n:
+        raise ValueError(f"splits {splits} must be in [1, {n}] for {seq_k} keys")
+    return [(s * n // splits * block_k, min(seq_k, (s + 1) * n // splits * block_k)) for s in range(splits)]
+
+
+def attention_partials_plain(
+    q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float, start: int, end: int
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """One key range's partial result, as a split of the kernel writes it:
+    (O unnormalised (BH, Sq, D), m (BH, Sq) the row max of the scaled logits,
+    l (BH, Sq) the sum of exp(logit - m)), all fp32; P is rounded to the
+    input dtype before P V, as in the kernel."""
+    logits = torch.matmul(q, k[:, start:end].transpose(1, 2)).float() * sm_scale
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    o = torch.matmul(p.to(v.dtype).float(), v[:, start:end].float())
+    return o, m, p.sum(dim=-1)
+
+
+def merge_partials_plain(o: Tensor, m: Tensor, l: Tensor, dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """Merge the splits' partials (stacked on a leading split axis) as the
+    merge kernel does: w_s = exp(m_s - M) with M = max_s m_s, out = sum_s w_s
+    O_s / sum_s w_s l_s rounded to `dtype` once, lse = M + log(sum_s w_s l_s)."""
+    mx = m.amax(dim=0)
+    wgt = torch.exp(m - mx)
+    total = (wgt * l).sum(dim=0)
+    out = (wgt[..., None] * o).sum(dim=0) / total[..., None]
+    return out.to(dtype), mx + torch.log(total)
+
+
+def _ptr(t: Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float) -> Tuple[Tensor, Tensor]:
-    """Launch the K3 kernel on (BH, S, D) bf16 -> (out (BH, Sq, D), lse (BH, Sq) fp32)."""
+    """Launch the K3 kernel on (BH, S, D) bf16 -> (out (BH, Sq, D), lse (BH, Sq)
+    fp32), split over `key_splits` key ranges and merged when that is > 1."""
     global LAUNCHES
     name = "flash_attention_fwd"
     for key, t in (("q", q), ("k", k), ("v", v)):
@@ -86,14 +152,19 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float) ->
         raise ValueError(f"{name}: head dim {d} not in {KERNEL_HEAD_DIMS}")
     if bh > 65535:
         raise ValueError(f"{name}: batch*heads {bh} exceeds 65535")
+    splits = key_splits(bh, seq_q, seq_k, d, torch.cuda.get_device_properties(q.device).multi_processor_count)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((bh, seq_q), dtype=torch.float32, device=q.device)
+    parts = [None, None, None]
+    if splits > 1:
+        parts = [torch.empty((splits, bh, seq_q, d), dtype=torch.float32, device=q.device),
+                 torch.empty((splits, bh, seq_q), dtype=torch.float32, device=q.device),
+                 torch.empty((splits, bh, seq_q), dtype=torch.float32, device=q.device)]
     err = _build.library().ragb_flash_attention_fwd(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(lse.data_ptr()),
-        bh, seq_q, seq_k, d, float(sm_scale),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse),
+        *(ctypes.c_void_p(None if t is None else t.data_ptr()) for t in parts),
+        bh, seq_q, seq_k, d, splits, float(sm_scale),
         ctypes.c_void_p(_build.stream_ptr(q.device)),
     )
     _build.check(err, name)
@@ -168,10 +239,6 @@ def _bwd_operands(name: str, q: Tensor, k: Tensor, v: Tensor, g: Tensor, lse: Te
     if bh > 65535:
         raise ValueError(f"{name}: batch*heads {bh} exceeds 65535")
     return tuple(t.contiguous() for t in (q, k, v, g, lse, delta))
-
-
-def _ptr(t: Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def flash_attention_dq_cuda(

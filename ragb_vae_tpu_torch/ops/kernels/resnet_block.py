@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ragb_vae_tpu_torch.device import constant
 from ragb_vae_tpu_torch.ops.kernels import _build
 
 Tensor = torch.Tensor
@@ -239,9 +240,6 @@ def conv3x3_stats_cuda(
 # ---------------------------------------------------------------------------
 # G of F(2x2, 3x3): U = G w G^T maps a 3x3 filter to its 4x4 transform
 _WINO_G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
-# G on each device it was asked for: made once, since copying it from the host
-# on every call would make every K8 launch wait for the card to drain
-_WINO_G_ON: dict = {}
 
 
 def wino_weights(w: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
@@ -250,9 +248,7 @@ def wino_weights(w: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
     then cast once to `dtype` (default: w's). The JAX package's `_wino_weights`
     also folds A^T's rows into the contraction ((2, 4, 3C, N)); the port's
     kernel keeps the 16 variants apart."""
-    g = _WINO_G_ON.get(w.device)
-    if g is None:
-        g = _WINO_G_ON[w.device] = torch.tensor(_WINO_G, dtype=torch.float32, device=w.device)
+    g = constant(_WINO_G, torch.float32, w.device)   # kept per device: no host copy per call
     u = torch.einsum("xu,yv,uvcn->xycn", g, g, w.float())
     return u.to(dtype or w.dtype)
 

@@ -10,6 +10,8 @@ from typing import Sequence, Union
 
 import torch
 
+from ragb_vae_tpu_torch.device import constant
+
 Tensor = torch.Tensor
 Background = Union[float, int, Sequence[float], Tensor]
 
@@ -42,7 +44,7 @@ def _normalize_background(background: Background, reference: Tensor) -> Tensor:
     if isinstance(background, (list, tuple)):
         if len(background) != 3:
             raise ValueError("Background color sequence must contain exactly three values.")
-        color = torch.tensor(background, dtype=reference.dtype, device=reference.device)
+        color = constant(background, reference.dtype, reference.device)
         return color.reshape((1,) * (reference.ndim - 1) + (3,)).expand_as(reference)
     bg = torch.as_tensor(background, dtype=reference.dtype, device=reference.device)
     if bg.ndim == reference.ndim and bg.shape[-1] == 1:

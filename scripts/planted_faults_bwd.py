@@ -1,10 +1,11 @@
-"""Show that `chip_smoke.py`'s bounds on the backward kernels (K4-K7), on
-the int8 matmul and the downsample conv (K10, K9) and on the Winograd conv
-(K8) bite.
+"""Show that `chip_smoke.py`'s bounds on the attention forward (K3), on the
+backward kernels (K4-K7), on the int8 matmul and the downsample conv (K10,
+K9) and on the Winograd conv (K8) bite.
 
     python3 scripts/planted_faults_bwd.py
 
     python3 scripts/planted_faults_bwd.py --only winograd    # the faults whose label holds it
+    python3 scripts/planted_faults_bwd.py --only 'attention forward'
 
 For each fault below, the package, `chip_smoke.py` and `configs/` are copied
 into a temporary directory, one line of a CUDA source in the COPY is
@@ -31,6 +32,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 BACKWARD_KERNELS = ("_bwd", "flash_attention_dq", "flash_attention_dkv")
+FORWARD_KERNELS = ("flash_attention_fwd",)
 
 # (label, source file, the line to replace, its replacement, the kernels whose lines must FAIL
 # [, the phases that must fail: `kernels` when not given[, phases only read, which may pass]])
@@ -48,6 +50,14 @@ FAULTS = [
      "const bool valid = k0 + (c * 2 + h) * 8 + t * 2 + e < Sk;", "const bool valid = true;", BACKWARD_KERNELS),
     ("last query tile left out of the dK/dV kernel's loop", "flash_attention_bwd.cu",
      "const int n_tiles = (Sq + BQ - 1) / BQ;", "const int n_tiles = (Sq + BQ - 1) / BQ - 1;", BACKWARD_KERNELS),
+    ("attention forward: key-tail mask left out", "flash_attention.cu",
+     "const bool valid = k0 + nt * 8 + t * 2 + e < Sk;", "const bool valid = true;", FORWARD_KERNELS),
+    ("attention forward: the running-max rescale of O forced to 1", "flash_attention.cu",
+     "for (int i = 0; i < NO / 4; ++i) {", "for (int i = 0; i < 0; ++i) {", FORWARD_KERNELS),
+    ("attention forward: the last key split dropped from the merge", "flash_attention.cu",
+     "for (int s = 0; s < splits; ++s) {", "for (int s = 0; s < splits - 1; ++s) {", FORWARD_KERNELS),
+    ("attention forward, d = 512: the other warpgroup's half of S left out", "flash_attention.cu",
+     "sc[i] += xb[", "sc[i] += 0.0f * xb[", FORWARD_KERNELS),
     ("int8 matmul: last K tile left out of the loop", "int8_matmul.cu",
      "const int nk = (K + BK - 1) / BK;", "const int nk = (K + BK - 1) / BK - 1;", ("int8_matmul",)),
     ("int8 matmul: scale left out of the last N tile", "int8_matmul.cu",

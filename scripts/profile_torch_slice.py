@@ -2,7 +2,8 @@
 port's serving path, of its RGBA-VAE training step and of its LoRA training
 step on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_slice.py [--what serve,train,lora] [--quant none|int8] [--out FILE]
+    python3 scripts/profile_torch_slice.py [--what serve,train,lora] [--quant none|int8]
+        [--conv-algo direct,winograd] [--out FILE]
 
 The model is the one `chip_smoke.py` serves: FLUX.1-Kontext transformer
 (`FluxTransformerConfig()` defaults) and the FLUX `ae` VAE widened to RGBA,
@@ -21,7 +22,9 @@ reference, LPIPS over seeded weights, the loss scales of
 configs/flux_vae.yaml): 4 images of 512x512 per step in one micro-batch,
 for `remat` all / half / none, one warm-up step and three timed steps each
 (CUDA events around the step), peak memory per cell, then one remat="half"
-step under `torch.profiler`.
+step under `torch.profiler`; all of it once per resnet-conv route named in
+`--conv-algo` (`ops.kernels.resnet_block.CONV_ALGO`: "direct" is K1 and its
+backward K6, "winograd" puts the forward convs on K8).
 
 The LoRA cells train the serving model: rank-128 adapters (alpha 192, fp32)
 on the frozen bf16 FLUX.1-Kontext transformer, per-block recompute, the
@@ -79,7 +82,9 @@ KERNEL_CLASSES = [
     ("K6/K7 weight gradient (wgrad_kernel)", re.compile(r"wgrad_kernel")),
     ("K6/K7 dye pass and partial reduces", re.compile(r"dye_kernel|reduce_rows_kernel")),
     ("K1/K2/K6 stats reduce", re.compile(r"stats_reduce_kernel")),
-    ("K3 flash attention", re.compile(r"flash_fwd")),
+    ("K8 Winograd conv (wino_conv_kernel)", re.compile(r"wino_conv_kernel")),
+    ("K3 flash attention (flash_fwd_wgmma_kernel)", re.compile(r"flash_fwd")),
+    ("K3 key-split merge (flash_merge_kernel)", re.compile(r"flash_merge_kernel")),
     ("K4 attention dQ", re.compile(r"flash_dq_kernel")),
     ("K5 attention dK/dV", re.compile(r"flash_dkv_kernel")),
     ("K10 int8 matmul (tensor-core tiles)", re.compile(r"int8_mma_kernel")),
@@ -277,10 +282,13 @@ def _train_step_for(remat):
     return make_train_step(model, optimizer, loss_cfg, step_cfg, ref_model=ref, lpips_fn=lpips_fn)
 
 
-def measure_training(out_dir):
+def measure_training(out_dir, conv_algo):
+    from ragb_vae_tpu_torch.ops.kernels import resnet_block
+
     bsz, size = TRAIN_CELL
     gen = torch.Generator("cuda").manual_seed(SEED)
     batch = {"images": torch.rand((bsz, size, size, 4), generator=gen, device="cuda")}
+    resnet_block.CONV_ALGO = conv_algo
     cells, breakdown = [], None
     for remat in ("all", "half", "none"):
         step = _train_step_for(remat)
@@ -299,17 +307,18 @@ def measure_training(out_dir):
             raise SystemExit(f"[profile] non-finite training metrics {metrics}")
         peak = torch.cuda.max_memory_allocated()
         median = statistics.median(times)
-        cells.append({"cell": f"train b{bsz} {size}x{size} remat={remat}", "step_ms": times,
+        cells.append({"cell": f"train b{bsz} {size}x{size} remat={remat} conv={conv_algo}", "step_ms": times,
                       "median_step_ms": median, "images_per_s": bsz / median * 1e3,
                       "peak_memory_bytes": peak})
         print(f"[cell] {cells[-1]['cell']}: median {median} ms/step over {REPEATS} steps "
               f"({min(times)}..{max(times)} ms), {bsz / median * 1e3} img/s; peak {peak / 2**30} GiB",
               flush=True)
         if remat == "half":
-            breakdown = profile_call(f"train b{bsz} {size}x{size} remat=half",
+            breakdown = profile_call(f"train b{bsz} {size}x{size} remat=half conv={conv_algo}",
                                      lambda: step(batch, generator=gen), out_dir)
         del step
-    return {"cells": cells, "profile": breakdown}
+    resnet_block.CONV_ALGO = "direct"
+    return {"conv_algo": conv_algo, "cells": cells, "profile": breakdown}
 
 
 def main() -> int:
@@ -318,8 +327,13 @@ def main() -> int:
     ap.add_argument("--what", default="serve,train,lora", help="comma-separated subset of serve,train,lora")
     ap.add_argument("--quant", default="none", choices=["none", "int8"],
                     help="int8: the serving and lora cells over the weight-only int8 transformer")
+    ap.add_argument("--conv-algo", default="direct",
+                    help="comma-separated resnet-conv routes of the training cells: direct, winograd")
     args = ap.parse_args()
     what = set(args.what.split(","))
+    algos = args.conv_algo.split(",")
+    if set(algos) - {"direct", "winograd"}:
+        ap.error(f"--conv-algo takes direct and winograd, got {args.conv_algo}")
     if args.quant == "int8" and "train" in what:
         ap.error("--quant int8 has no VAE-training cells: pass --what serve,lora")
     if not torch.cuda.is_available():
@@ -342,7 +356,7 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
     if "train" in what:
-        result["training"] = measure_training(out.parent)
+        result["training"] = [measure_training(out.parent, algo) for algo in algos]
     out.write_text(json.dumps(result, indent=1))
     print(f"[done] wrote {out}", flush=True)
     return 0

@@ -95,7 +95,17 @@ def test_upsample_kernel(shape, n):
     _check_conv(y, s, *rb.upsample_conv3x3_stats_plain(x, wt, bias))
 
 
-@pytest.mark.parametrize("bh,sq,sk,d", [(4, 77, 200, 128), (48, 2240, 2240, 128), (1, 3456, 3456, 512)])
+@pytest.mark.parametrize("bh,sq,sk,d", [
+    (4, 77, 200, 128), (48, 2240, 2240, 128), (1, 3456, 3456, 512),
+    # TMA and split edges: a key tail of 1 (tiles of 128 keys at d = 128, 32
+    # at d = 512), Sq off the 64- and 128-row tiles, Sq != Sk, three heads of
+    # ragged length (a tile past one head's end must read zeros, not the next
+    # head's rows), the 1024^2 VAE mid-block, and key splits at d = 512: 2
+    # ranges at (3, 1000, 1000), 8 of 19 or 20 tiles at (1, 1000, 5000)
+    (2, 100, 129, 128), (2, 100, 33, 512), (3, 333, 1001, 128),
+    (3, 1000, 1000, 512), (3, 257, 65, 512), (1, 1000, 5000, 512),
+    (1, 16384, 16384, 512),
+])
 def test_flash_attention_kernel(bh, sq, sk, d):
     gen = torch.Generator("cuda").manual_seed(3)
     q, k, v = _randn(gen, (bh, sq, d)), _randn(gen, (bh, sk, d)), _randn(gen, (bh, sk, d))

@@ -1,0 +1,44 @@
+"""`scripts/profile_torch_slice.py`'s device-time breakdown sorts each
+kernel of the port into its own class (K8 and K3's merge included), and its
+`--conv-algo` switch names the resnet-conv routes. CPU only: the script's
+measurements need the card, its classifier does not."""
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "profile_torch_slice.py"
+
+
+@pytest.fixture(scope="module")
+def profile():
+    spec = importlib.util.spec_from_file_location("profile_torch_slice", SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("kernel,cls", [
+    ("void (anonymous namespace)::wino_conv_kernel(ConvArgs)", "K8 Winograd conv"),
+    ("void (anonymous namespace)::flash_fwd_wgmma_kernel<128>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float*, float*, float*, float*, int, int, float, int)", "K3 flash attention"),
+    ("void (anonymous namespace)::flash_fwd_wgmma_kernel<512>(CUtensorMap_st)", "K3 flash attention"),
+    ("void (anonymous namespace)::flash_merge_kernel<512>(float const*, float const*, float const*, "
+     "__nv_bfloat16*, float*, int, int)", "K3 key-split merge"),
+    ("void (anonymous namespace)::conv_taps_kernel<0, 0>(ConvArgs)", "K1 resnet conv"),
+    ("void (anonymous namespace)::flash_dq_kernel<128>(...)", "K4 attention dQ"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32", "cuBLAS GEMM/GEMV"),
+    ("void at::native::vectorized_elementwise_kernel<4>(...)", "PyTorch elementwise/copy/reduce"),
+])
+def test_breakdown_puts_each_kernel_in_its_class(profile, kernel, cls):
+    result = profile.kernel_breakdown([{"name": kernel, "ts": 0.0, "dur": 5.0}])
+    hit = [c for c in result["classes"] if c["launches"]]
+    assert len(hit) == 1 and hit[0]["class"].startswith(cls)
+    assert result["idle_share"] == 0.0
+
+
+def test_conv_algo_switch_refuses_unknown_routes(profile, monkeypatch, capsys):
+    monkeypatch.setattr("sys.argv", ["profile_torch_slice.py", "--what", "train", "--conv-algo", "direct,fft"])
+    with pytest.raises(SystemExit):
+        profile.main()
+    assert "--conv-algo" in capsys.readouterr().err
