@@ -17,356 +17,432 @@
 //
 // The TPU grid runs in order and carries dQ (or dK, dV) in scratch across its
 // innermost axis. Here blocks run in no order, so every accumulator has one
-// owner and no float atomic is needed (the backward is bitwise reproducible):
-// - dQ kernel: one block per 128-row Q tile; it loops over the K/V tiles.
-//   Each warp owns 16 query rows; Q and dO fragments and the fp32 dQ
-//   accumulator live in registers in the mma.sync m16n8k16 layouts, exactly
-//   as the forward keeps Q and O. S and dP are formed 16 keys at a time, the
-//   dS registers of two adjacent 8-key tiles are the A operand of dS K, and
-//   K is read back (transposed ldmatrix) as its B operand.
-// - dK/dV kernel: one block per 128-row K/V tile; it loops over the Q tiles.
-//   Each warp owns 16 key rows and forms the TRANSPOSED scores S^T = K Q^T
-//   and dP^T = V dO^T directly (K, V as the A operand, the Q and dO tiles as
-//   B), so P^T and dS^T come out of the accumulators already laid out as the
-//   A operand of P^T dO and dS^T Q: no transpose through shared memory. lse
-//   and delta belong to the columns here and are staged in shared memory.
-// K/V tiles (dQ) and Q/dO tiles (dK/dV) are double-buffered with cp.async.
-// Ragged ends: the dQ kernel re-reads the last key for rows past the end and
-// masks them before the exp (P = 0); the dK/dV kernel zero-fills query rows
-// past the end and gives them lse = +1e30 (P = 0), and never reads lse or
-// delta past Sq. Not yet done (later work): wgmma, TMA, warp specialisation.
+// owner and no float atomic is needed (the backward is bitwise reproducible);
+// dQ and dK/dV are two kernels for that reason.
+//
+// Both kernels have K3's shape (csrc/flash_attention.cu): 384 threads, two
+// consumer warpgroups that each own 64 rows of the block's output tile and one
+// producer warp that feeds them by TMA (3-D tensor maps over (D, S, BH), boxes
+// of {64 columns, 64 rows}, 128-byte swizzle, zero fill past the end of the
+// head) through a ring of full and empty mbarriers; setmaxnreg hands the
+// producer warpgroup's registers to the consumers. Every product is a wgmma
+// with fp32 accumulators in registers; the softmax terms are formed on those
+// registers and packed to bf16 as the register A operand of the next product,
+// as K3 packs P.
+// - flash_dq_kernel: one block per 128 query rows; Q and dO are loaded once,
+//   lse and delta of the thread's two rows live in registers. K and V come
+//   through a 4-stage ring in tiles of 64 keys. Per tile S = Q K^T and
+//   dP = dO V^T (m64n64, both operands K-major in shared memory), then the
+//   key-tail mask (a zero-filled K row gives S = 0, not P = 0) and dS, then
+//   dQ += dS K (m64n128, K as the MN-major B operand: the transpose bit, LBO
+//   the distance between its 64-column boxes).
+// - flash_dkv_kernel: one block per 128 key rows; K and V are loaded once and
+//   Q, dO tiles of 64 queries stream through a 4-stage ring, with the tile's
+//   lse and delta written into the same stage by the producer warp (fp32 rows
+//   of any length: no tensor map, bounds-checked loads; rows past Sq get
+//   lse = +1e30, delta = 0, so P = 0 and nothing past Sq is inf or NaN). Each
+//   warpgroup forms the TRANSPOSED scores S^T = K Q^T and dP^T = V dO^T
+//   (m64n64, K-major), so P^T and dS^T come out of the accumulators already
+//   laid out as the A operand of dV += P^T dO and dK += dS^T Q (m64n128, dO
+//   and Q MN-major): no transpose through shared memory. lse and delta belong
+//   to the columns here; each thread reads its accumulator columns' values
+//   from the stage.
+// Epilogues round once to bf16, stage the tile in the warpgroup's own rows of
+// a buffer nobody reads any more (Q for dQ, K and V for dK and dV) and
+// TMA-store it; the store writes no row past the end.
 
-#include "common.cuh"
-#include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LSE_PAD = 1e30f;   // lse of a query row past Sq: P = exp2(S - 1e30) = 0
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int D = 128;
-constexpr int LD = D + 8;  // row stride (elements) of every staged tile
+constexpr int BOX_ROWS = 64;       // rows of every TMA box
+constexpr int CONSUMERS = 256;     // two consumer warpgroups
+constexpr int THREADS = 384;       // and one producer warpgroup
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 
 // ---------------------------------------------------------------------------
 // dQ
 // ---------------------------------------------------------------------------
-struct DqTile {
-  static constexpr int BQ = 128;  // 8 warps x 16 query rows
-  static constexpr int BK = 64;
-  static constexpr int NT = 256;
-  static constexpr int TILE = BK * LD;
-  static constexpr size_t bytes = ((size_t)BQ * LD + 4 * (size_t)TILE) * 2;
+struct DqLayout {
+  static constexpr int BQ = 128, BK = 64, STAGES = 4;
+  static constexpr int QBOX = BQ * 128;          // one {64, BQ} column box of Q or dO
+  static constexpr int KBOX = BK * 128;          // one {64, BK} column box of K or V
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;    // one K or V tile
+  static constexpr int q_off = 0;
+  static constexpr int do_off = q_off + Q_BYTES;
+  static constexpr int k_off = do_off + Q_BYTES;
+  static constexpr int v_off = k_off + STAGES * KV_BYTES;
+  static constexpr int bar_off = v_off + STAGES * KV_BYTES;
+  static constexpr int bytes = bar_off + 256 + 1024;   // + alignment slack
+  static_assert(bytes <= 232448, "shared memory");
 };
 
-__global__ void __launch_bounds__(DqTile::NT)
-    flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int Sq, int Sk, float scale) {
-  using L = DqTile;
-  constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // Q, then dO
-  bf16* Ks = Qs + BQ * LD;                        // [2][BK][LD]
-  bf16* Vs = Ks + 2 * L::TILE;                    // [2][BK][LD]
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+                    const __grid_constant__ CUtensorMap dqmap, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int Sq, int Sk, float scale) {
+  using L = DqLayout;
+  constexpr int BK = L::BK, ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t qsm = base + L::q_off, dosm = base + L::do_off;
+  const uint32_t ksm = base + L::k_off, vsm = base + L::v_off;
+  const uint32_t bars = base + L::bar_off;
+  // barriers: Q and dO, then per stage full K, full V, empty K, empty V
+  const uint32_t qbar = bars;
+  auto full_k = [&](int s) { return bars + 8 * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8 * (1 + ST + s); };
+  auto empty_k = [&](int s) { return bars + 8 * (1 + 2 * ST + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (1 + 3 * ST + s); };
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lrow = lane & 7, lsel = lane >> 3;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const bf16* kb = k + (size_t)bh * Sk * D;
-  const bf16* vb = v + (size_t)bh * Sk * D;
+  const int q0 = blockIdx.x * L::BQ;
   const int n_tiles = (Sk + BK - 1) / BK;
-  const float scale_log2 = scale * LOG2E;
 
-  // rows past the end re-read the last key; the mask below gives them P = 0
-  auto load_kv = [&](int tile, int buf) {
-    const int k0 = tile * BK;
-    for (int i = tid; i < BK * (D / 8); i += NT) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const size_t off = (size_t)min(k0 + r, Sk - 1) * D + c;
-      cp_async16(Ks + buf * L::TILE + r * LD + c, kb + off, 16);
-      cp_async16(Vs + buf * L::TILE + r * LD + c, vb + off, 16);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), CONSUMERS);
+      mbar_init(empty_v(s), CONSUMERS);
     }
-    cp_async_commit();
-  };
-  // a (BQ, D) tile of q or dO as A fragments, rows past Sq zero
-  auto load_rows = [&](const bf16* src, uint32_t (&frag)[D / 16][4]) {
-    const bf16* base = src + (size_t)bh * Sq * D;
-    for (int i = tid; i < BQ * (D / 8); i += NT) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      uint4 val = zero_vec();
-      if (q0 + r < Sq) val = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * D + c);
-      *reinterpret_cast<uint4*>(Qs + r * LD + c) = val;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      ldmatrix_x4(frag[kc], Qs + (warp * 16 + lrow + (lsel & 1) * 8) * LD + kc * 16 + (lsel >> 1) * 8);
-    __syncthreads();
-  };
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_kv(0, 0);
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_rows(q, qf);
-  load_rows(dout, dof);
-
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const size_t rbase = (size_t)bh * Sq;
-  const float lse0 = row0 < Sq ? lse[rbase + row0] * LOG2E : 0.0f;
-  const float lse1 = row1 < Sq ? lse[rbase + row1] * LOG2E : 0.0f;
-  const float dl0 = row0 < Sq ? delta[rbase + row0] : 0.0f;
-  const float dl1 = row1 < Sq ? delta[rbase + row1] : 0.0f;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    if (it + 1 < n_tiles) {
-      load_kv(it + 1, (it + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + (it & 1) * L::TILE;
-    const bf16* Vt = Vs + (it & 1) * L::TILE;
-
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      // S and dP for 16 keys: two 8-key tiles
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.0f;
-        dp[h][0] = dp[h][1] = dp[h][2] = dp[h][3] = 0.0f;
-        const int key_row = (c * 2 + h) * 8 + lrow;
-#pragma unroll
-        for (int kc = 0; kc < D / 16; kc += 2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, Kt + key_row * LD + kc * 16 + lsel * 8);
-          mma_16816(s[h], qf[kc], b[0], b[1]);
-          mma_16816(s[h], qf[kc + 1], b[2], b[3]);
-          ldmatrix_x4(b, Vt + key_row * LD + kc * 16 + lsel * 8);
-          mma_16816(dp[h], dof[kc], b[0], b[1]);
-          mma_16816(dp[h], dof[kc + 1], b[2], b[3]);
+  if (threadIdx.x >= CONSUMERS) {
+    // ---------------- producer warpgroup: one thread issues every load
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      mbar_arrive_expect_tx(qbar, 2 * L::Q_BYTES);
+      for (int b = 0; b < D / 64; ++b)
+        for (int h = 0; h < L::BQ / BOX_ROWS; ++h) {
+          const uint32_t off = b * L::QBOX + h * BOX_ROWS * 128;
+          tma_load_3d(qsm + off, &qmap, 64 * b, q0 + BOX_ROWS * h, bh, qbar);
+          tma_load_3d(dosm + off, &domap, 64 * b, q0 + BOX_ROWS * h, bh, qbar);
         }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        const uint32_t free_parity = ((j / ST) & 1) ^ 1;
+        mbar_wait(empty_k(s), free_parity);
+        mbar_arrive_expect_tx(full_k(s), L::KV_BYTES);
+        for (int b = 0; b < D / 64; ++b)
+          tma_load_3d(ksm + s * L::KV_BYTES + b * L::KBOX, &kmap, 64 * b, j * BK, bh, full_k(s));
+        mbar_wait(empty_v(s), free_parity);
+        mbar_arrive_expect_tx(full_v(s), L::KV_BYTES);
+        for (int b = 0; b < D / 64; ++b)
+          tma_load_3d(vsm + s * L::KV_BYTES + b * L::KBOX, &vmap, 64 * b, j * BK, bh, full_v(s));
       }
-      // dS = P (dP - delta) scale, rounded to bf16 as the A operand of dS K
-      uint32_t dsf[4];
+    }
+  } else {
+    // ---------------- consumer warpgroups: warpgroup w owns query rows 64w..64w+63
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int w = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int row0 = 64 * w + warp * 16 + g;   // the thread's accumulator rows: row0, row0 + 8
+    const float scale_log2 = scale * LOG2E;
+    const size_t rbase = (size_t)bh * Sq + q0;
+    const bool in0 = q0 + row0 < Sq, in1 = q0 + row0 + 8 < Sq;
+    const float lse0 = in0 ? lse[rbase + row0] * LOG2E : LSE_PAD;
+    const float lse1 = in1 ? lse[rbase + row0 + 8] * LOG2E : LSE_PAD;
+    const float dl0 = in0 ? delta[rbase + row0] : 0.0f;
+    const float dl1 = in1 ? delta[rbase + row0 + 8] : 0.0f;
+
+    float dq[D / 2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float ds0[2], ds1[2];
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+    float sc[BK / 2], dp[BK / 2];
+    uint32_t dsf[BK / 16][4];
+
+    mbar_wait(qbar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST;
+      const uint32_t parity = (j / ST) & 1;
+      // S = Q K^T and dP = dO V^T over the warpgroup's 64 rows, one commit group
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = dp[i] = 0.0f;
+      mbar_wait(full_k(s), parity);
+      mbar_wait(full_v(s), parity);
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const uint32_t a_off = (kc / 4) * L::QBOX + 64 * w * 128 + (kc % 4) * 32;
+        const uint32_t b_off = s * L::KV_BYTES + (kc / 4) * L::KBOX + (kc % 4) * 32;
+        wgmma_ss<BK>(sc, wgmma_desc(qsm + a_off, 16, 1024), wgmma_desc(ksm + b_off, 16, 1024), kc > 0);
+      }
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const uint32_t a_off = (kc / 4) * L::QBOX + 64 * w * 128 + (kc % 4) * 32;
+        const uint32_t b_off = s * L::KV_BYTES + (kc / 4) * L::KBOX + (kc % 4) * 32;
+        wgmma_ss<BK>(dp, wgmma_desc(dosm + a_off, 16, 1024), wgmma_desc(vsm + b_off, 16, 1024), kc > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(empty_v(s));
+      // dS = P (dP - delta) scale with P = exp(S - lse), keys past Sk masked,
+      // rounded to bf16 in the A-operand layout (two 8-key column tiles of
+      // the accumulator are one 16-key fragment)
+      const int k0 = j * BK;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        float d0[2], d1[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool valid = k0 + (c * 2 + h) * 8 + t * 2 + e < Sk;
-          const float s0 = valid ? s[h][e] * scale_log2 : NEG_INF;
-          const float s1 = valid ? s[h][2 + e] * scale_log2 : NEG_INF;
-          ds0[e] = exp2f(s0 - lse0) * (dp[h][e] - dl0) * scale;
-          ds1[e] = exp2f(s1 - lse1) * (dp[h][2 + e] - dl1) * scale;
+          const bool valid = k0 + nt * 8 + t * 2 + e < Sk;
+          const float s0 = valid ? sc[nt * 4 + e] * scale_log2 : NEG_INF;
+          const float s1 = valid ? sc[nt * 4 + 2 + e] * scale_log2 : NEG_INF;
+          d0[e] = exp2f(s0 - lse0) * (dp[nt * 4 + e] - dl0) * scale;
+          d1[e] = exp2f(s1 - lse1) * (dp[nt * 4 + 2 + e] - dl1) * scale;
         }
-        dsf[h * 2 + 0] = pack_bf16x2(ds0[0], ds0[1]);
-        dsf[h * 2 + 1] = pack_bf16x2(ds1[0], ds1[1]);
+        dsf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(d0[0], d0[1]);
+        dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(d1[0], d1[1]);
       }
-      // dQ += dS K: transposed ldmatrix of (keys 0-7 | 8-15) x (d | d+8)
+      // dQ += dS K: K as loaded (keys x d, d contiguous) is the MN-major B operand
+      fence_regs(dq);
+      fence_regs(dsf);
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < D / 8; nt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Kt + (c * 16 + lrow + (lsel & 1) * 8) * LD + nt * 8 + (lsel >> 1) * 8);
-        mma_16816(acc[nt], dsf, b[0], b[1]);
-        mma_16816(acc[nt + 1], dsf, b[2], b[3]);
-      }
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_tb<D>(dq, dsf[kk], wgmma_desc(ksm + s * L::KV_BYTES + kk * 2048, L::KBOX, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsf);
+      mbar_arrive(empty_k(s));
     }
-    __syncthreads();  // this buffer is refilled by the load two tiles on
-  }
 
-  bf16* ob = dq + (size_t)bh * Sq * D;
+    // epilogue: dQ in bf16 through the warpgroup's own rows of the Q tile
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int d = nt * 8 + t * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * D + d) = pack_bf16x2(acc[nt][0], acc[nt][1]);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * D + d) = pack_bf16x2(acc[nt][2], acc[nt][3]);
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const int col = nt * 8 + t * 2;
+      const uint32_t box = L::q_off + (col / 64) * L::QBOX;
+      *reinterpret_cast<uint32_t*>(sm + box + sw128_offset(row0, col % 64)) = pack_bf16x2(dq[4 * nt], dq[4 * nt + 1]);
+      *reinterpret_cast<uint32_t*>(sm + box + sw128_offset(row0 + 8, col % 64)) =
+          pack_bf16x2(dq[4 * nt + 2], dq[4 * nt + 3]);
+    }
+    fence_proxy_async();
+    named_barrier_sync(2 + w, 128);
+    if (tid == 0) {
+      for (int b = 0; b < D / 64; ++b)
+        tma_store_3d(&dqmap, qsm + b * L::QBOX + 64 * w * 128, 64 * b, q0 + 64 * w, bh);
+      tma_store_commit_and_wait();
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // dK, dV
 // ---------------------------------------------------------------------------
-struct DkvTile {
-  static constexpr int BKV = 128;  // 8 warps x 16 key rows
-  static constexpr int BQ = 64;
-  static constexpr int NT = 256;
-  static constexpr int QTILE = BQ * LD;
-  static constexpr size_t row_off = (2 * (size_t)BKV * LD + 4 * (size_t)QTILE) * 2;
-  static constexpr size_t bytes = row_off + 4 * (size_t)BQ * sizeof(float);
+struct DkvLayout {
+  static constexpr int BKV = 128, BQ = 64, STAGES = 4;
+  static constexpr int KBOX = BKV * 128;         // one {64, BKV} column box of K or V
+  static constexpr int QBOX = BQ * 128;          // one {64, BQ} column box of a Q or dO tile
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;     // one Q or dO tile
+  static constexpr int k_off = 0;
+  static constexpr int v_off = k_off + KV_BYTES;
+  static constexpr int q_off = v_off + KV_BYTES;
+  static constexpr int do_off = q_off + STAGES * Q_BYTES;
+  // [STAGES][2][BQ] fp32: per stage the tile's lse (times log2 e), then its delta
+  static constexpr int rows_off = do_off + STAGES * Q_BYTES;
+  static constexpr int bar_off = rows_off + STAGES * 2 * BQ * 4;
+  static constexpr int bytes = bar_off + 256 + 1024;          // + alignment slack
+  static_assert(bytes <= 232448, "shared memory");
 };
 
-__global__ void __launch_bounds__(DkvTile::NT)
-    flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, float scale) {
-  using L = DkvTile;
-  constexpr int BKV = L::BKV, BQ = L::BQ, NT = L::NT;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BKV][LD]
-  bf16* Vs = Ks + BKV * LD;                       // [BKV][LD]
-  bf16* Qs = Vs + BKV * LD;                       // [2][BQ][LD]
-  bf16* Os = Qs + 2 * L::QTILE;                   // [2][BQ][LD], the dO tiles
-  float* lse_s = reinterpret_cast<float*>(smem_raw + L::row_off);  // [2][BQ], times log2 e
-  float* dl_s = lse_s + 2 * BQ;                                    // [2][BQ]
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+                     const __grid_constant__ CUtensorMap dkmap, const __grid_constant__ CUtensorMap dvmap,
+                     const float* __restrict__ lse, const float* __restrict__ delta, int Sq, int Sk,
+                     float scale) {
+  using L = DkvLayout;
+  constexpr int BQ = L::BQ, ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t ksm = base + L::k_off, vsm = base + L::v_off;
+  const uint32_t qsm = base + L::q_off, dosm = base + L::do_off;
+  float* rows = reinterpret_cast<float*>(sm + L::rows_off);
+  const uint32_t bars = base + L::bar_off;
+  // barriers: K and V, then per stage full (Q, dO, lse, delta) and empty
+  const uint32_t kvbar = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lrow = lane & 7, lsel = lane >> 3;
   const int bh = blockIdx.y;
-  const int kv0 = blockIdx.x * BKV;
-  const bf16* qb = q + (size_t)bh * Sq * D;
-  const bf16* ob = dout + (size_t)bh * Sq * D;
-  const bf16* kb = k + (size_t)bh * Sk * D;
-  const bf16* vb = v + (size_t)bh * Sk * D;
-  const size_t rbase = (size_t)bh * Sq;
+  const int kv0 = blockIdx.x * L::BKV;
   const int n_tiles = (Sq + BQ - 1) / BQ;
-  const float scale_log2 = scale * LOG2E;
 
-  // query rows past the end: q and dO zero, lse = +1e30 so that P = 0; lse
-  // and delta are not defined there and are not read
-  auto load_q = [&](int tile, int buf) {
-    const int r0 = tile * BQ;
-    for (int i = tid; i < BQ * (D / 8); i += NT) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const bool ok = r0 + r < Sq;
-      const size_t off = (size_t)(ok ? r0 + r : 0) * D + c;
-      cp_async16(Qs + buf * L::QTILE + r * LD + c, qb + off, ok ? 16 : 0);
-      cp_async16(Os + buf * L::QTILE + r * LD + c, ob + off, ok ? 16 : 0);
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 32);   // the producer warp's lanes, each after its lse and delta writes
+      mbar_init(empty(s), CONSUMERS);
     }
-    if (tid < BQ) {
-      const bool ok = r0 + tid < Sq;
-      lse_s[buf * BQ + tid] = ok ? lse[rbase + r0 + tid] * LOG2E : 1e30f;
-      dl_s[buf * BQ + tid] = ok ? delta[rbase + r0 + tid] : 0.0f;
-    }
-    cp_async_commit();
-  };
-
-  // this block's K and V rows (zero past the end; those rows are never stored)
-  for (int i = tid; i < BKV * (D / 8); i += NT) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const bool ok = kv0 + r < Sk;
-    const size_t off = (size_t)(ok ? kv0 + r : 0) * D + c;
-    cp_async16(Ks + r * LD + c, kb + off, ok ? 16 : 0);
-    cp_async16(Vs + r * LD + c, vb + off, ok ? 16 : 0);
+    mbar_fence_init();
   }
-  load_q(0, 0);  // commits the K, V copies with the first Q tile
-  cp_async_wait<0>();
   __syncthreads();
 
-  // K as A fragments stay in registers; V fragments are re-read per use
-  const bf16* a_row = Ks + (warp * 16 + lrow + (lsel & 1) * 8) * LD + (lsel >> 1) * 8;
-  const bf16* v_row = Vs + (warp * 16 + lrow + (lsel & 1) * 8) * LD + (lsel >> 1) * 8;
-  uint32_t kf[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) ldmatrix_x4(kf[kc], a_row + kc * 16);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    dk_acc[nt][0] = dk_acc[nt][1] = dk_acc[nt][2] = dk_acc[nt][3] = 0.0f;
-    dv_acc[nt][0] = dv_acc[nt][1] = dv_acc[nt][2] = dv_acc[nt][3] = 0.0f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      load_q(it + 1, (it + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + (it & 1) * L::QTILE;
-    const bf16* Ot = Os + (it & 1) * L::QTILE;
-    const float* lse_t = lse_s + (it & 1) * BQ;
-    const float* dl_t = dl_s + (it & 1) * BQ;
-
-#pragma unroll
-    for (int c = 0; c < BQ / 16; ++c) {
-      // S^T = K Q^T and dP^T = V dO^T for 16 queries: rows are keys here
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.0f;
-        dp[h][0] = dp[h][1] = dp[h][2] = dp[h][3] = 0.0f;
+  if (threadIdx.x >= CONSUMERS) {
+    // ---------------- producer warpgroup: its first warp issues every load
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < CONSUMERS + 32) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kvbar, 2 * L::KV_BYTES);
+        for (int b = 0; b < D / 64; ++b)
+          for (int h = 0; h < L::BKV / BOX_ROWS; ++h) {
+            const uint32_t off = b * L::KBOX + h * BOX_ROWS * 128;
+            tma_load_3d(ksm + off, &kmap, 64 * b, kv0 + BOX_ROWS * h, bh, kvbar);
+            tma_load_3d(vsm + off, &vmap, 64 * b, kv0 + BOX_ROWS * h, bh, kvbar);
+          }
       }
+      const float* lse_bh = lse + (size_t)bh * Sq;
+      const float* dl_bh = delta + (size_t)bh * Sq;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        // the tile's lse and delta, read before the wait so the load overlaps it
+        float lv[BQ / 32], dlv[BQ / 32];
 #pragma unroll
-      for (int kc = 0; kc < D / 16; kc += 2) {
-        uint32_t va[2][4];
-        ldmatrix_x4(va[0], v_row + kc * 16);
-        ldmatrix_x4(va[1], v_row + (kc + 1) * 16);
+        for (int i = 0; i < BQ / 32; ++i) {
+          const int r = j * BQ + 32 * i + lane;
+          lv[i] = r < Sq ? lse_bh[r] * LOG2E : LSE_PAD;
+          dlv[i] = r < Sq ? dl_bh[r] : 0.0f;
+        }
+        mbar_wait(empty(s), ((j / ST) & 1) ^ 1);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q_row = (c * 2 + h) * 8 + lrow;
-          uint32_t b[4];
-          ldmatrix_x4(b, Qt + q_row * LD + kc * 16 + lsel * 8);
-          mma_16816(s[h], kf[kc], b[0], b[1]);
-          mma_16816(s[h], kf[kc + 1], b[2], b[3]);
-          ldmatrix_x4(b, Ot + q_row * LD + kc * 16 + lsel * 8);
-          mma_16816(dp[h], va[0], b[0], b[1]);
-          mma_16816(dp[h], va[1], b[2], b[3]);
+        for (int i = 0; i < BQ / 32; ++i) {
+          rows[s * 2 * BQ + 32 * i + lane] = lv[i];
+          rows[s * 2 * BQ + BQ + 32 * i + lane] = dlv[i];
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full(s), 2 * L::Q_BYTES);
+          for (int b = 0; b < D / 64; ++b) {
+            tma_load_3d(qsm + s * L::Q_BYTES + b * L::QBOX, &qmap, 64 * b, j * BQ, bh, full(s));
+            tma_load_3d(dosm + s * L::Q_BYTES + b * L::QBOX, &domap, 64 * b, j * BQ, bh, full(s));
+          }
+        } else {
+          mbar_arrive(full(s));
         }
       }
-      // P^T and dS^T, rounded to bf16 as A operands (lse, delta per column)
-      uint32_t pf[4], dsf[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float p0[2], p1[2], ds0[2], ds1[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qi = (c * 2 + h) * 8 + t * 2 + e;
-          const float l = lse_t[qi], dl = dl_t[qi];
-          p0[e] = exp2f(s[h][e] * scale_log2 - l);
-          p1[e] = exp2f(s[h][2 + e] * scale_log2 - l);
-          ds0[e] = p0[e] * (dp[h][e] - dl) * scale;
-          ds1[e] = p1[e] * (dp[h][2 + e] - dl) * scale;
-        }
-        pf[h * 2 + 0] = pack_bf16x2(p0[0], p0[1]);
-        pf[h * 2 + 1] = pack_bf16x2(p1[0], p1[1]);
-        dsf[h * 2 + 0] = pack_bf16x2(ds0[0], ds0[1]);
-        dsf[h * 2 + 1] = pack_bf16x2(ds1[0], ds1[1]);
-      }
-      // dV += P^T dO, dK += dS^T Q over these 16 queries
-#pragma unroll
-      for (int nt = 0; nt < D / 8; nt += 2) {
-        const int off = (c * 16 + lrow + (lsel & 1) * 8) * LD + nt * 8 + (lsel >> 1) * 8;
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Ot + off);
-        mma_16816(dv_acc[nt], pf, b[0], b[1]);
-        mma_16816(dv_acc[nt + 1], pf, b[2], b[3]);
-        ldmatrix_x4_trans(b, Qt + off);
-        mma_16816(dk_acc[nt], dsf, b[0], b[1]);
-        mma_16816(dk_acc[nt + 1], dsf, b[2], b[3]);
-      }
     }
-    __syncthreads();  // this buffer is refilled by the load two tiles on
-  }
+  } else {
+    // ---------------- consumer warpgroups: warpgroup w owns key rows 64w..64w+63
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int w = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int row0 = 64 * w + warp * 16 + g;   // the thread's accumulator rows (keys): row0, row0 + 8
+    const float scale_log2 = scale * LOG2E;
 
-  const int row0 = kv0 + warp * 16 + g, row1 = row0 + 8;
-  bf16* dkb = dk + (size_t)bh * Sk * D;
-  bf16* dvb = dv + (size_t)bh * Sk * D;
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int d = nt * 8 + t * 2;
-    if (row0 < Sk) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)row0 * D + d) = pack_bf16x2(dk_acc[nt][0], dk_acc[nt][1]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)row0 * D + d) = pack_bf16x2(dv_acc[nt][0], dv_acc[nt][1]);
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+    float st[BQ / 2], dpt[BQ / 2];
+    uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+
+    mbar_wait(kvbar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST;
+      // S^T = K Q^T and dP^T = V dO^T over the warpgroup's 64 keys and the
+      // tile's 64 queries, one commit group
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.0f;
+      mbar_wait(full(s), (j / ST) & 1);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const uint32_t a_off = (kc / 4) * L::KBOX + 64 * w * 128 + (kc % 4) * 32;
+        const uint32_t b_off = s * L::Q_BYTES + (kc / 4) * L::QBOX + (kc % 4) * 32;
+        wgmma_ss<BQ>(st, wgmma_desc(ksm + a_off, 16, 1024), wgmma_desc(qsm + b_off, 16, 1024), kc > 0);
+      }
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const uint32_t a_off = (kc / 4) * L::KBOX + 64 * w * 128 + (kc % 4) * 32;
+        const uint32_t b_off = s * L::Q_BYTES + (kc / 4) * L::QBOX + (kc % 4) * 32;
+        wgmma_ss<BQ>(dpt, wgmma_desc(vsm + a_off, 16, 1024), wgmma_desc(dosm + b_off, 16, 1024), kc > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      // P^T and dS^T (lse and delta per column, i.e. per query), rounded to
+      // bf16 in the A-operand layout
+      const float* terms = rows + s * 2 * BQ;   // this stage's lse, then its delta
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        const float2 l = *reinterpret_cast<const float2*>(terms + nt * 8 + t * 2);
+        const float2 dl = *reinterpret_cast<const float2*>(terms + BQ + nt * 8 + t * 2);
+        const float p0 = exp2f(st[nt * 4 + 0] * scale_log2 - l.x);
+        const float p1 = exp2f(st[nt * 4 + 1] * scale_log2 - l.y);
+        const float p2 = exp2f(st[nt * 4 + 2] * scale_log2 - l.x);
+        const float p3 = exp2f(st[nt * 4 + 3] * scale_log2 - l.y);
+        pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(p0, p1);
+        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(p2, p3);
+        dsf[nt / 2][(nt % 2) * 2 + 0] =
+            pack_bf16x2(p0 * (dpt[nt * 4 + 0] - dl.x) * scale, p1 * (dpt[nt * 4 + 1] - dl.y) * scale);
+        dsf[nt / 2][(nt % 2) * 2 + 1] =
+            pack_bf16x2(p2 * (dpt[nt * 4 + 2] - dl.x) * scale, p3 * (dpt[nt * 4 + 3] - dl.y) * scale);
+      }
+      // dV += P^T dO and dK += dS^T Q: the dO and Q tiles as loaded (queries x
+      // d, d contiguous) are the MN-major B operands
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pf);
+      fence_regs(dsf);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs_tb<D>(dv, pf[kk], wgmma_desc(dosm + s * L::Q_BYTES + kk * 2048, L::QBOX, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs_tb<D>(dk, dsf[kk], wgmma_desc(qsm + s * L::Q_BYTES + kk * 2048, L::QBOX, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pf);
+      fence_regs(dsf);
+      mbar_arrive(empty(s));
     }
-    if (row1 < Sk) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)row1 * D + d) = pack_bf16x2(dk_acc[nt][2], dk_acc[nt][3]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)row1 * D + d) = pack_bf16x2(dv_acc[nt][2], dv_acc[nt][3]);
+
+    // epilogue: dK and dV in bf16 through the warpgroup's own rows of the K
+    // and V buffers
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const int col = nt * 8 + t * 2;
+      const uint32_t kbox = L::k_off + (col / 64) * L::KBOX, vbox = L::v_off + (col / 64) * L::KBOX;
+      const uint32_t o0 = sw128_offset(row0, col % 64), o1 = sw128_offset(row0 + 8, col % 64);
+      *reinterpret_cast<uint32_t*>(sm + kbox + o0) = pack_bf16x2(dk[4 * nt], dk[4 * nt + 1]);
+      *reinterpret_cast<uint32_t*>(sm + kbox + o1) = pack_bf16x2(dk[4 * nt + 2], dk[4 * nt + 3]);
+      *reinterpret_cast<uint32_t*>(sm + vbox + o0) = pack_bf16x2(dv[4 * nt], dv[4 * nt + 1]);
+      *reinterpret_cast<uint32_t*>(sm + vbox + o1) = pack_bf16x2(dv[4 * nt + 2], dv[4 * nt + 3]);
+    }
+    fence_proxy_async();
+    named_barrier_sync(2 + w, 128);
+    if (tid == 0) {
+      for (int b = 0; b < D / 64; ++b) {
+        tma_store_3d(&dkmap, ksm + b * L::KBOX + 64 * w * 128, 64 * b, kv0 + 64 * w, bh);
+        tma_store_3d(&dvmap, vsm + b * L::KBOX + 64 * w * 128, 64 * b, kv0 + 64 * w, bh);
+      }
+      tma_store_commit_and_wait();
     }
   }
 }
@@ -375,35 +451,75 @@ bool bad_shape(int BH, int Sq, int Sk, int d) {
   return BH <= 0 || Sq <= 0 || Sk <= 0 || BH > 65535 || d != D;
 }
 
-}  // namespace
+// Tensor maps over the operands and outputs; every box is {64, 64}.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, dq, dk, dv;
+};
 
-extern "C" int ragb_flash_attention_dq(const void* q, const void* k, const void* v,
-                                       const void* dout, const float* lse, const float* delta,
-                                       void* dq, int BH, int Sq, int Sk, int d, float scale,
-                                       void* stream) {
-  if (bad_shape(BH, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
+int encode_maps(BwdMaps& m, const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+                void* dv, int BH, int Sq, int Sk) {
+  int e;
+  if ((e = encode_tensor_map_3d(&m.q, q, D, Sq, BH, BOX_ROWS))) return e;
+  if ((e = encode_tensor_map_3d(&m.k, k, D, Sk, BH, BOX_ROWS))) return e;
+  if ((e = encode_tensor_map_3d(&m.v, v, D, Sk, BH, BOX_ROWS))) return e;
+  if ((e = encode_tensor_map_3d(&m.dout, dout, D, Sq, BH, BOX_ROWS))) return e;
+  if (dq != nullptr && (e = encode_tensor_map_3d(&m.dq, dq, D, Sq, BH, BOX_ROWS))) return e;
+  if (dk != nullptr && (e = encode_tensor_map_3d(&m.dk, dk, D, Sk, BH, BOX_ROWS))) return e;
+  if (dv != nullptr && (e = encode_tensor_map_3d(&m.dv, dv, D, Sk, BH, BOX_ROWS))) return e;
+  return 0;
+}
+
+int launch_dq(const BwdMaps& m, const float* lse, const float* delta, int BH, int Sq, int Sk, float scale,
+              cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)DqTile::bytes);
+                                       DqLayout::bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + DqTile::BQ - 1) / DqTile::BQ, BH);
-  flash_dq_kernel<<<grid, DqTile::NT, DqTile::bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), Sq, Sk, scale);
+  dim3 grid((Sq + DqLayout::BQ - 1) / DqLayout::BQ, BH);
+  flash_dq_kernel<<<grid, THREADS, DqLayout::bytes, stream>>>(m.q, m.k, m.v, m.dout, m.dq, lse, delta, Sq, Sk,
+                                                              scale);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ragb_flash_attention_dkv(const void* q, const void* k, const void* v,
-                                        const void* dout, const float* lse, const float* delta,
-                                        void* dk, void* dv, int BH, int Sq, int Sk, int d,
-                                        float scale, void* stream) {
-  if (bad_shape(BH, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
+int launch_dkv(const BwdMaps& m, const float* lse, const float* delta, int BH, int Sq, int Sk, float scale,
+               cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)DkvTile::bytes);
+                                       DkvLayout::bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sk + DkvTile::BKV - 1) / DkvTile::BKV, BH);
-  flash_dkv_kernel<<<grid, DkvTile::NT, DkvTile::bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      Sq, Sk, scale);
+  dim3 grid((Sk + DkvLayout::BKV - 1) / DkvLayout::BKV, BH);
+  flash_dkv_kernel<<<grid, THREADS, DkvLayout::bytes, stream>>>(m.q, m.k, m.v, m.dout, m.dk, m.dv, lse, delta,
+                                                                Sq, Sk, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ragb_flash_attention_dq(const void* q, const void* k, const void* v, const void* dout,
+                                       const float* lse, const float* delta, void* dq, int BH, int Sq, int Sk,
+                                       int d, float scale, void* stream) {
+  if (bad_shape(BH, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
+  BwdMaps m;
+  int e = encode_maps(m, q, k, v, dout, dq, nullptr, nullptr, BH, Sq, Sk);
+  return e ? e : launch_dq(m, lse, delta, BH, Sq, Sk, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ragb_flash_attention_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                        const float* lse, const float* delta, void* dk, void* dv, int BH, int Sq,
+                                        int Sk, int d, float scale, void* stream) {
+  if (bad_shape(BH, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
+  BwdMaps m;
+  int e = encode_maps(m, q, k, v, dout, nullptr, dk, dv, BH, Sq, Sk);
+  return e ? e : launch_dkv(m, lse, delta, BH, Sq, Sk, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Both kernels on one set of tensor maps: K4 (dQ), then K5 (dK, dV), on `stream`.
+extern "C" int ragb_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                        const float* lse, const float* delta, void* dq, void* dk, void* dv, int BH,
+                                        int Sq, int Sk, int d, float scale, void* stream) {
+  if (bad_shape(BH, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdMaps m;
+  int e = encode_maps(m, q, k, v, dout, dq, dk, dv, BH, Sq, Sk);
+  if (e) return e;
+  e = launch_dq(m, lse, delta, BH, Sq, Sk, scale, s);
+  return e ? e : launch_dkv(m, lse, delta, BH, Sq, Sk, scale, s);
 }

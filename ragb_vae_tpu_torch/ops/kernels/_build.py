@@ -48,6 +48,7 @@ _SIGNATURES = {
     "ragb_subpixel_upsample_conv3x3_stats_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "ragb_flash_attention_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
     "ragb_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "ragb_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "ragb_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "ragb_conv3x3_same": [_P] * 3 + [_I] * 5 + [_P],
     "ragb_fused_gn_silu_conv3x3": [_P] * 6 + [_I] * 5 + [_P],

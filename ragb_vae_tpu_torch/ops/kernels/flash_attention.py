@@ -285,12 +285,23 @@ def attention_delta(out: Tensor, g: Tensor) -> Tensor:
 def flash_attention_bwd_cuda(
     q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, g: Tensor, *, sm_scale: float
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """(dq, dk, dv) on the card: delta, then the K4 and K5 kernels."""
+    """(dq, dk, dv) on the card: delta, then one call that encodes the tensor
+    maps once and launches K4 and K5 on the current stream (one launch count
+    each)."""
+    global DQ_LAUNCHES, DKV_LAUNCHES
+    name = "flash_attention_bwd"
     if out.shape != q.shape:
-        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} != q {tuple(q.shape)}")
+        raise ValueError(f"{name}: out {tuple(out.shape)} != q {tuple(q.shape)}")
     delta = attention_delta(out, g)
-    dq = flash_attention_dq_cuda(q, k, v, g, lse, delta, sm_scale=sm_scale)
-    dk, dv = flash_attention_dkv_cuda(q, k, v, g, lse, delta, sm_scale=sm_scale)
+    q, k, v, g, lse, delta = _bwd_operands(name, q, k, v, g, lse, delta)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _build.library().ragb_flash_attention_bwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale),
+        ctypes.c_void_p(_build.stream_ptr(q.device)))
+    _build.check(err, name)
+    DQ_LAUNCHES += 1
+    DKV_LAUNCHES += 1
     return dq, dk, dv
 
 

@@ -34,7 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 BACKWARD_KERNELS = ("_bwd", "flash_attention_dq", "flash_attention_dkv")
 FORWARD_KERNELS = ("flash_attention_fwd",)
 
-# (label, source file, the line to replace, its replacement, the kernels whose lines must FAIL
+# (label, source file, the text to replace (once in the file), its replacement, the kernels whose lines must FAIL
 # [, the phases that must fail: `kernels` when not given[, phases only read, which may pass]])
 FAULTS = [
     ("one weight-gradient partial left out of the reduce", "resnet_block_bwd.cu",
@@ -46,10 +46,25 @@ FAULTS = [
      BACKWARD_KERNELS),
     ("statistics cotangent's sum-of-squares term left out of dye", "resnet_block_bwd.cu",
      "ds1[j] = 2.0f * ds[", "ds1[j] = 0.0f * ds[", BACKWARD_KERNELS),
-    ("key-tail mask left out of the dQ kernel", "flash_attention_bwd.cu",
-     "const bool valid = k0 + (c * 2 + h) * 8 + t * 2 + e < Sk;", "const bool valid = true;", BACKWARD_KERNELS),
+    # The dQ kernel's key-tail mask cut one key short: the last real key's
+    # dS K term is lost from every dQ row. (Leaving the mask out altogether
+    # changes no output: TMA zero-fills the K rows past Sk, so their dS K
+    # terms are 0 whatever dS is; the mask only keeps an inf from exp2 off
+    # those zero rows.)
+    ("key-tail mask of the dQ kernel one key short", "flash_attention_bwd.cu",
+     "const bool valid = k0 + nt * 8 + t * 2 + e < Sk;", "const bool valid = k0 + nt * 8 + t * 2 + e < Sk - 1;",
+     BACKWARD_KERNELS),
     ("last query tile left out of the dK/dV kernel's loop", "flash_attention_bwd.cu",
      "const int n_tiles = (Sq + BQ - 1) / BQ;", "const int n_tiles = (Sq + BQ - 1) / BQ - 1;", BACKWARD_KERNELS),
+    # the MN-major B operand of dV += P^T dO: its LBO (the distance between
+    # the dO tile's two 64-column boxes) halved, so columns 64..127 read rows
+    # 32..63 of the first box
+    ("dK/dV kernel: the dO tile's MN-major descriptor LBO set wrong", "flash_attention_bwd.cu",
+     "wgmma_desc(dosm + s * L::Q_BYTES + kk * 2048, L::QBOX, 1024)",
+     "wgmma_desc(dosm + s * L::Q_BYTES + kk * 2048, L::QBOX / 2, 1024)", BACKWARD_KERNELS),
+    ("dK/dV kernel: lse and delta read from the neighbouring ring stage", "flash_attention_bwd.cu",
+     "const float* terms = rows + s * 2 * BQ;", "const float* terms = rows + ((s + 1) % ST) * 2 * BQ;",
+     BACKWARD_KERNELS),
     ("attention forward: key-tail mask left out", "flash_attention.cu",
      "const bool valid = k0 + nt * 8 + t * 2 + e < Sk;", "const bool valid = true;", FORWARD_KERNELS),
     ("attention forward: the running-max rescale of O forced to 1", "flash_attention.cu",

@@ -288,7 +288,12 @@ def _bwd_case(gen, bh, sq, sk):
     return q, k, v, out, lse, g
 
 
-@pytest.mark.parametrize("bh,sq,sk", [(4, 77, 200), (4, 200, 77), (6, 300, 300), (24, 1111, 1111), (2, 5, 3)])
+@pytest.mark.parametrize("bh,sq,sk", [
+    (4, 77, 200), (4, 200, 77), (6, 300, 300), (24, 1111, 1111), (2, 5, 3),
+    (3, 1, 200),        # one query: K5's only query tile and K4's second warpgroup are past Sq
+    (2, 129, 257),      # a tail of one row in both: K4's second query block, K5's third key block
+    (1, 4099, 4097),    # long and ragged: 65 K4 key tiles and 65 K5 query tiles wrap the 4-stage rings
+])
 def test_flash_attention_bwd_kernels(bh, sq, sk):
     """K4 and K5 at ragged lengths and Sq != Sk against the plain version."""
     gen = torch.Generator("cuda").manual_seed(9)
@@ -302,10 +307,29 @@ def test_flash_attention_bwd_kernels(bh, sq, sk):
         assert (a.float() - b.float()).abs().max() <= 5e-2 * b.float().abs().max()
 
 
-def test_flash_attention_bwd_kernels_are_deterministic():
-    """Every accumulator has one owner (no float atomics): two runs agree bit for bit."""
+def test_flash_attention_bwd_kernels_with_one_key():
+    """Sk = 1: K4's only key tile and K5's second warpgroup lie past Sk. The
+    softmax over one key is 1 whatever its logit, so dQ and dK are exactly 0
+    (dP = dO . v_0 = delta): the plain version's dQ and dK are its bf16
+    rounding of dP - delta (~1e-2), not a reference. The kernels' dQ and dK
+    must be 0 up to fp32 summation order, far below that rounding, and dV
+    (the sum of dO over the queries) must match the plain version."""
+    gen = torch.Generator("cuda").manual_seed(9)
+    q, k, v, out, lse, g = _bwd_case(gen, 3, 200, 1)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, sm_scale=128 ** -0.5)
+    want = fa.attention_bwd_plain(q, k, v, out, lse, g, sm_scale=128 ** -0.5)[2].float()
+    assert all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv))
+    assert (dv.float() - want).abs().max() <= 5e-2 * want.abs().max()
+    assert dq.float().abs().max() <= 2e-4 * want.abs().max()
+    assert dk.float().abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("bh,seq", [(24, 2600), (48, 2560)])
+def test_flash_attention_bwd_kernels_are_deterministic(bh, seq):
+    """Every accumulator has one owner (no float atomics): two runs agree bit
+    for bit, at a ragged length and at the 512^2 LoRA micro-batch's shape."""
     gen = torch.Generator("cuda").manual_seed(10)
-    case = _bwd_case(gen, 24, 2600, 2600)
+    case = _bwd_case(gen, bh, seq, seq)
     first = fa.flash_attention_bwd_cuda(*case, sm_scale=128 ** -0.5)
     second = fa.flash_attention_bwd_cuda(*case, sm_scale=128 ** -0.5)
     assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -179,14 +179,38 @@ def test_attention_backward_source_is_built_and_names_both_kernels():
     from ragb_vae_tpu_torch.ops.kernels import _build
 
     assert {"flash_attention_bwd.cu", "mma.cuh"} <= {p.name for p in _build._sources()}
-    assert {"ragb_flash_attention_dq", "ragb_flash_attention_dkv"} <= set(_build._SIGNATURES)
+    names = ("ragb_flash_attention_dq", "ragb_flash_attention_dkv", "ragb_flash_attention_bwd")
+    assert set(names) <= set(_build._SIGNATURES)
     text = (ROOT / "csrc" / "flash_attention_bwd.cu").read_text()
     assert "`_dq_kernel`" in text and "`_dkv_kernel`" in text
     assert "What bounds it on the H100" in text
-    for name in ("ragb_flash_attention_dq", "ragb_flash_attention_dkv"):
+    for name in names:
         assert f'extern "C" int {name}(' in text
     # every accumulator has one owner: no float atomics, no library product
     assert "atomic" not in text.replace("no float atomic", "") and "cublas" not in text.lower()
+
+
+def _code(path: Path) -> str:
+    """A CUDA source without its comments."""
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", path.read_text(), flags=re.S)
+
+
+@pytest.mark.parametrize("token", ["mma_16816", "ldmatrix", "cp_async16", "mma.sync", "cp.async.ca",
+                                   "cp.async.cg", '#include "mma.cuh"'])
+def test_attention_backward_has_no_legacy_tensor_core_path(token):
+    """K4 and K5 are TMA-fed wgmma kernels: no mma.sync fragment, ldmatrix
+    or cp.async staging is left in their source."""
+    assert token not in _code(ROOT / "csrc" / "flash_attention_bwd.cu")
+
+
+@pytest.mark.parametrize("token", ["wgmma_ss<", "wgmma_rs_tb<", "tma_load_3d(", "tma_store_3d(",
+                                   "mbar_wait(", "setmaxnreg_dec<", "setmaxnreg_inc<",
+                                   "flash_dq_kernel(", "flash_dkv_kernel("])
+def test_attention_backward_uses_the_hopper_primitives(token):
+    """Both kernels are built on csrc/sm90.cuh: TMA loads into an mbarrier
+    ring, a producer warp and consumer warpgroups, wgmma products."""
+    code = _code(ROOT / "csrc" / "flash_attention_bwd.cu")
+    assert '#include "sm90.cuh"' in code and token in code
 
 
 def test_scan_covers_the_int8_path_and_the_stand_alone_convs():

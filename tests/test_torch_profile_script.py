@@ -27,6 +27,11 @@ def profile():
      "__nv_bfloat16*, float*, int, int)", "K3 key-split merge"),
     ("void (anonymous namespace)::conv_taps_kernel<0, 0>(ConvArgs)", "K1 resnet conv"),
     ("void (anonymous namespace)::flash_dq_kernel<128>(...)", "K4 attention dQ"),
+    ("void (anonymous namespace)::flash_dq_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, int, int, float)", "K4 attention dQ"),
+    ("void (anonymous namespace)::flash_dkv_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, int, int, float)",
+     "K5 attention dK/dV"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "cuBLAS GEMM/GEMV"),
     ("void at::native::vectorized_elementwise_kernel<4>(...)", "PyTorch elementwise/copy/reduce"),
 ])
