@@ -1,0 +1,352 @@
+// The Hopper (sm_90a) implicit-GEMM conv engine: a 3x3 conv over NHWC bf16,
+// fed by TMA through an mbarrier ring and computed by wgmma, with one
+// producer warp and two consumer warpgroups per block.
+//
+// Replaces two TPU kernels (the entry points are in conv_kernels.cu):
+//   K11 `_conv_kernel` of ragb_vae_tpu/ops/pallas/conv3x3.py:39 (entry
+//       `conv3x3_same`): y = conv3x3_same(x, w), stride 1, no bias, no
+//       statistics. The TPU version pads the input in a pass of its own.
+//   K9  `_downsample_kernel` of ragb_vae_tpu/ops/pallas/resnet_block.py:1622
+//       (entry `fused_downsample_conv3x3_stats`): y = conv3x3(pad(x, bottom
+//       1, right 1), w, stride 2) + bias, and the per-channel (sum, sum of
+//       squares) of the ROUNDED y. The TPU version views column pairs as 2C
+//       channels and pads each row tap to a dense K = 4C GEMM.
+// Both accumulate in fp32 and round y to bf16 once.
+//
+// What bounds it on the H100: a conv3x3 does 2*9*C operations per output
+// element. K11 at (1,128,128,512)->512 does 77 GFLOP against 38 MB: tensor-
+// core operations bound it (0.078 ms at 989 TFLOP/s). K9 at C = 512, e.g.
+// (2,128,128,512)->512, also (0.039 ms). K9 at (4,512,512,128)->128 reads a
+// 268 MB input and writes 67 MB for 77 GFLOP, 230 FLOP per byte, below the
+// bf16 ridge (~295): bytes bound it (0.100 ms at 3.35 TB/s).
+//
+// What the design does about it:
+// - Implicit GEMM: M = a tile of TH x TW = 4 x 64 output pixels (one output
+//   row is one m64 block), N = 128 output channels, K = 9 taps x C in chunks
+//   of 64 channels. Each consumer warpgroup owns two output rows and issues
+//   wgmma m64n128k16 for each with fp32 accumulators in registers (128 a
+//   thread); setmaxnreg moves the producer warpgroup's registers to the
+//   consumers.
+// - K11's A (the input) is ONE halo'd slab per chunk, a TMA box {64, TW + 2,
+//   TH + 2, 1} of a 4-D tensor map over x as (C, W, H, B) started at (c0,
+//   w0 - 1, h0 - 1, b): it lands as (TH + 2) x (TW + 2) rows of 128 bytes in
+//   128-byte swizzle, and the window of tap (dy, dx) for output row i is the
+//   64 consecutive rows from (i + dy)(TW + 2) + dx: a K-major A operand as it
+//   stands, its descriptor only offset (the swizzle follows the address
+//   bits). So each input element comes from L2 about 1.5 times per chunk
+//   instead of 9 (a box per tap, the first design, moved ~9.5 TB/s from L2
+//   on an H100 SXM: about all L2 delivers). TMA's zero fill outside the tensor, negative coordinates
+//   included, IS the SAME padding: no pad pass, no edge test.
+// - K9's A is one box per (tap, chunk), {64, 2 TW, 2 TH, 1} read with
+//   traversal strides {1, 2, 2, 1} from (c0, 2 w0 + dx, 2 h0 + dy, b): every
+//   other pixel, so the TH x TW rows are the tap's window as they land, and
+//   the zero fill past Hin and Win IS the (0, 1) padding. (A stride-2 window
+//   is not a run of consecutive slab rows; slabs of the even and odd columns
+//   per (chunk, dy) moved a third fewer bytes but measured 5-11% slower.)
+//   Channels past C read as zeros in both. Halo re-reads come from L2: the
+//   grid walks the N tiles of a pixel tile together and the pixel tiles in
+//   raster order.
+// - B (the weights) straight from HWIO as the MN-major operand (N
+//   contiguous): boxes {64 N, 64 C} of tap t from a 3-D map over w as (N, C,
+//   9); LBO is one box's bytes. No transpose of the weights.
+// - Two rings on full and empty mbarriers: A (K11: 2 slab stages, one per
+//   chunk; K9: 4 stages, one per tap) and B (4 stages, one per tap). One
+//   producer thread keeps the loads in flight; the consumers keep one wgmma
+//   group in flight and release a stage when the group that read it last
+//   has completed.
+// - Epilogue: (+ bias), one rounding to bf16, staged in the drained ring in
+//   the swizzled box layout and written by a TMA store per warpgroup, which
+//   writes no element outside the tensor (ragged H, W, N need no masks). K9
+//   takes the statistics of the rounded y per channel over the tile's pixels
+//   inside the image: a fixed shuffle tree over a warp's rows, then the 8
+//   warps in order into one (B, T, 2, N) partial row per block, which
+//   `stats_reduce_kernel` (conv_taps.cuh, K1's) sums in a fixed order. No
+//   float atomics: bit-for-bit reproducible.
+// One block per tile. Persistent blocks, whose producer runs on into the
+// next tile, measured 8-14% slower storing y from the accumulators, and with
+// the TMA store and 3-stage rings 3-15% slower for K9 (7% faster for K11 at
+// C = 128). K9 at C = 128 runs 18 k-steps a tile and pays a fixed ~8 us a
+// tile, most of it the epilogue (a quarter of its time), which this design
+// does not hide. (H100 SXM, scripts/time_conv_engine.py.)
+// Every barrier wait traps after 2^22 polls, so a barrier that can never
+// complete fails the launch instead of hanging the card.
+// C and N must be multiples of 8 (16-byte global strides for TMA).
+#pragma once
+
+#include "conv_taps.cuh"   // stats_reduce_kernel
+#include "sm90.cuh"
+
+namespace {
+
+template <bool DOWN>
+struct ConvSm90 {
+  static constexpr int TH = 4, TW = 64;            // output tile: TH rows x TW columns
+  static constexpr int MB = TH / 2;                // output rows (m64 blocks) of a consumer warpgroup
+  static constexpr int BN = 128;                   // output channels of a block
+  static constexpr int BK = 64;                    // input channels of a K chunk: one 128-byte row
+  static constexpr int TAPS = 9;
+  static constexpr int SW = TW + 2;                // K11 slab row: the tile's columns and their halo
+  static constexpr int A_ROWS = DOWN ? TH * TW : (TH + 2) * SW;
+  static constexpr int A_BYTES = A_ROWS * 128;     // one A box
+  static constexpr int A_STAGE = (A_BYTES + 1023) / 1024 * 1024;
+  static constexpr int A_STAGES = DOWN ? 4 : 2;
+  static constexpr int B_BOX = BK * 128;           // one {64 N, 64 C} box of a tap's weights
+  static constexpr int B_BYTES = (BN / 64) * B_BOX;
+  static constexpr int B_STAGES = 4;
+  static constexpr int Y_BOX = MB * TW * 128;      // a warpgroup's rows x 64 output channels
+  static constexpr int a_off = 0;
+  static constexpr int b_off = a_off + A_STAGES * A_STAGE;
+  static constexpr int red_off = b_off + B_STAGES * B_BYTES;   // [2][8 warps][BN] fp32 statistics
+  static constexpr int bar_off = red_off + 2 * 8 * BN * 4;
+  static constexpr int bytes = bar_off + 2 * (A_STAGES + B_STAGES) * 8 + 1024;   // + alignment slack
+  static constexpr int CONSUMERS = 256, THREADS = 384;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static_assert(bytes <= 232448, "shared memory");
+  static_assert(2 * (BN / 64) * Y_BOX <= red_off, "the output tile is staged in the drained rings");
+};
+
+// DOWN = false: K11 (stride 1, SAME, no bias, no statistics); DOWN = true: K9.
+// Grid (N tiles, pixel tiles of one image, batch).
+template <bool DOWN>
+__global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
+    conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap ymap, const float* __restrict__ bias,
+                     float* __restrict__ partial, int H, int W, int C, int N, int tiles_w) {
+  using L = ConvSm90<DOWN>;
+  constexpr int AST = L::A_STAGES, BST = L::B_STAGES, BN = L::BN, MB = L::MB;
+  extern __shared__ __align__(1024) unsigned char conv_sm90_smem[];
+  const uint32_t raw = smem_addr(conv_sm90_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = conv_sm90_smem + (base - raw);
+  const uint32_t bars = base + L::bar_off;
+  auto a_full = [&](int s) { return bars + 8 * s; };
+  auto a_empty = [&](int s) { return bars + 8 * (AST + s); };
+  auto b_full = [&](int s) { return bars + 8 * (2 * AST + s); };
+  auto b_empty = [&](int s) { return bars + 8 * (2 * AST + BST + s); };
+  auto a_stage = [&](int s) { return base + L::a_off + s * L::A_STAGE; };
+  auto b_stage = [&](int s) { return base + L::b_off + s * L::B_BYTES; };
+
+  const int n0 = blockIdx.x * BN;
+  const int tile = blockIdx.y, b = blockIdx.z;
+  const int h0 = (tile / tiles_w) * L::TH, w0 = (tile % tiles_w) * L::TW;
+  const int chunks = (C + L::BK - 1) / L::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < AST; ++s) {
+      mbar_init(a_full(s), 1);
+      mbar_init(a_empty(s), 8);                    // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < BST; ++s) {
+      mbar_init(b_full(s), 1);
+      mbar_init(b_empty(s), 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= L::CONSUMERS) {
+    // ---------------- producer warpgroup: one thread issues every load
+    setmaxnreg_dec<L::PRODUCER_REGS>();
+    if (threadIdx.x == L::CONSUMERS) {
+      int it = 0;                                  // (chunk, tap) steps, tap inside
+      for (int chunk = 0; chunk < chunks; ++chunk) {
+        const int c0 = chunk * L::BK;
+        if (!DOWN) {
+          const int as = chunk % AST;
+          mbar_wait_or_trap(a_empty(as), ((chunk / AST) & 1) ^ 1);
+          mbar_arrive_expect_tx(a_full(as), L::A_BYTES);
+          tma_load_4d(a_stage(as), &xmap, c0, w0 - 1, h0 - 1, b, a_full(as));
+        }
+        for (int tap = 0; tap < L::TAPS; ++tap, ++it) {
+          if (DOWN) {
+            const int as = it % AST;
+            mbar_wait_or_trap(a_empty(as), ((it / AST) & 1) ^ 1);
+            mbar_arrive_expect_tx(a_full(as), L::A_BYTES);
+            tma_load_4d(a_stage(as), &xmap, c0, 2 * w0 + tap % 3, 2 * h0 + tap / 3, b, a_full(as));
+          }
+          const int bs = it % BST;
+          mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1);
+          mbar_arrive_expect_tx(b_full(bs), L::B_BYTES);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_3d(b_stage(bs) + j * L::B_BOX, &wmap, n0 + 64 * j, c0, tap, b_full(bs));
+        }
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups: warpgroup w owns output rows MB w .. MB w + MB - 1
+    setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int w = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+    float acc[MB][BN / 2];
+#pragma unroll
+    for (int m = 0; m < MB; ++m)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[m][i] = 0.0f;
+    int it = 0;
+    for (int chunk = 0; chunk < chunks; ++chunk) {
+      if (!DOWN) mbar_wait_or_trap(a_full(chunk % AST), (chunk / AST) & 1);
+      for (int tap = 0; tap < L::TAPS; ++tap, ++it) {
+        const int as = DOWN ? it % AST : chunk % AST;
+        if (DOWN) mbar_wait_or_trap(a_full(as), (it / AST) & 1);
+        const int bs = it % BST;
+        mbar_wait_or_trap(b_full(bs), (it / BST) & 1);
+        // the first A row of output row MB w + m under this tap
+        const uint32_t a_row = DOWN ? MB * w * L::TW : (MB * w + tap / 3) * L::SW + tap % 3;
+#pragma unroll
+        for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+#pragma unroll
+          for (int kk = 0; kk < L::BK / 16; ++kk)
+            wgmma_ss_tb<BN>(acc[m],
+                            wgmma_desc(a_stage(as) + (a_row + m * (DOWN ? L::TW : L::SW)) * 128 + kk * 32, 16, 1024),
+                            wgmma_desc(b_stage(bs) + kk * 2048, L::B_BOX, 1024), 1);
+        wgmma_commit();
+        // one group stays in flight; the previous one has read its stages
+        wgmma_wait<1>();
+#pragma unroll
+        for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+        if (it > 0 && lane == 0) {
+          mbar_arrive(b_empty((it - 1) % BST));
+          if (DOWN)
+            mbar_arrive(a_empty((it - 1) % AST));
+          else if (tap == 0)                       // the previous chunk's last tap read its slab last
+            mbar_arrive(a_empty((chunk - 1) % AST));
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+    // both warpgroups' products are complete and every load has landed: the
+    // rings are free for the output tile
+    named_barrier_sync(1, L::CONSUMERS);
+
+    // epilogue: the thread's accumulator rows are columns r and r + 8 of output rows MB w + m
+    const int r = 16 * warp + g;
+    bool in[MB][2];
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      const bool row_in = h0 + MB * w + m < H;
+      in[m][0] = row_in && w0 + r < W;
+      in[m][1] = row_in && w0 + r + 8 < W;
+    }
+    float* red = reinterpret_cast<float*>(sm + L::red_off);
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      float b0 = 0.0f, b1 = 0.0f;
+      if (DOWN && n0 + col < N) {                  // N % 8 == 0: col + 1 is inside too
+        b0 = bias[n0 + col];
+        b1 = bias[n0 + col + 1];
+      }
+      unsigned char* box = sm + L::a_off + (w * (BN / 64) + col / 64) * L::Y_BOX;
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};       // sum, sum, sumsq, sumsq of columns col, col + 1
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat162 yv =
+              __floats2bfloat162_rn(acc[m][4 * nt + 2 * h] + b0, acc[m][4 * nt + 2 * h + 1] + b1);
+          *reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(m * L::TW + r + 8 * h, col % 64)) = yv;
+          if (DOWN && in[m][h]) {                  // statistics of the rounded y inside the image
+            const float2 f = __bfloat1622float2(yv);
+            v[0] += f.x;
+            v[1] += f.y;
+            v[2] += f.x * f.x;
+            v[3] += f.y * f.y;
+          }
+        }
+      }
+      if (DOWN) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+        if (g == 0) {
+          const int wi = 4 * w + warp;
+          red[wi * BN + col] = v[0];
+          red[wi * BN + col + 1] = v[1];
+          red[(8 + wi) * BN + col] = v[2];
+          red[(8 + wi) * BN + col + 1] = v[3];
+        }
+      }
+    }
+    fence_proxy_async();
+    named_barrier_sync(2 + w, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        if (n0 + 64 * j < N)
+          tma_store_4d(&ymap, base + L::a_off + (w * (BN / 64) + j) * L::Y_BOX, n0 + 64 * j, w0, h0 + MB * w, b);
+      tma_store_commit_and_wait();
+    }
+    if (DOWN) {
+      named_barrier_sync(1, L::CONSUMERS);
+      const int n = n0 + (int)threadIdx.x;
+      if ((int)threadIdx.x < BN && n < N) {
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s0 += red[i * BN + threadIdx.x];
+          s1 += red[(8 + i) * BN + threadIdx.x];
+        }
+        const size_t row = ((size_t)b * gridDim.y + tile) * 2;
+        partial[row * N + n] = s0;
+        partial[(row + 1) * N + n] = s1;
+      }
+    }
+  }
+}
+
+// Launches the conv over x (B, Hin, Win, C) and w (3, 3, C, N) into y (B, H,
+// W, N): H, W = Hin, Win (K11) or Hin / 2, Win / 2 (K9). K9 also writes the
+// per-tile partials (B, T, 2, N), T = the tiles of one image, and their
+// fixed-order sum `stats` (B, 2, N).
+template <bool DOWN>
+int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, float* partial, float* stats, int T,
+                     int B, int Hin, int Win, int C, int N, cudaStream_t stream) {
+  using L = ConvSm90<DOWN>;
+  const int H = DOWN ? Hin / 2 : Hin, W = DOWN ? Win / 2 : Win;
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 8 || N < 8 || C % 8 || N % 8)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(y)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int tiles_w = (W + L::TW - 1) / L::TW, tiles_h = (H + L::TH - 1) / L::TH;
+  if ((long long)tiles_w * tiles_h > 65535) return (int)cudaErrorInvalidValue;
+  if (DOWN && (bias == nullptr || partial == nullptr || stats == nullptr || T != tiles_w * tiles_h))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, wm, ym;
+  int e;
+  const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)Win, (cuuint64_t)Hin, (cuuint64_t)B};
+  const cuuint32_t xbox[4] = {64, (cuuint32_t)(DOWN ? 2 * L::TW : L::SW), (cuuint32_t)(DOWN ? 2 * L::TH : L::TH + 2),
+                              1};
+  const cuuint32_t xstride[4] = {1, DOWN ? 2u : 1u, DOWN ? 2u : 1u, 1};
+  if ((e = encode_tensor_map(&xm, x, 4, xdims, xbox, xstride))) return e;
+  if ((e = encode_tensor_map_3d(&wm, w, N, C, 9, 64))) return e;
+  const cuuint64_t ydims[4] = {(cuuint64_t)N, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint32_t ybox[4] = {64, L::TW, L::MB, 1};
+  const cuuint32_t ystride[4] = {1, 1, 1, 1};
+  if ((e = encode_tensor_map(&ym, y, 4, ydims, ybox, ystride))) return e;
+  // the shared-memory opt-in, once per device
+  static uint64_t opted_in = 0;
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return (int)ce;
+  if (dev >= 64 || !((opted_in >> dev) & 1)) {
+    ce = cudaFuncSetAttribute(conv_sm90_kernel<DOWN>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+    if (ce != cudaSuccess) return (int)ce;
+    if (dev < 64) opted_in |= (uint64_t)1 << dev;
+  }
+  dim3 grid((N + L::BN - 1) / L::BN, tiles_w * tiles_h, B);
+  conv_sm90_kernel<DOWN><<<grid, L::THREADS, L::bytes, stream>>>(xm, wm, ym, bias, partial, H, W, C, N, tiles_w);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess || !DOWN) return (int)ce;
+  stats_reduce_kernel<<<dim3((N + 31) / 32, B), dim3(32, 32), 0, stream>>>(partial, stats, T, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

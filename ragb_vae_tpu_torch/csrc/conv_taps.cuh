@@ -1,6 +1,7 @@
 // The implicit-GEMM conv kernel shared by the resnet-block kernels, forward
-// (resnet_block.cu) and backward (resnet_block_bwd.cu), and by the stand-alone
-// convs (conv_kernels.cu). NHWC bf16 in and out.
+// (resnet_block.cu) and backward (resnet_block_bwd.cu), and by the fused
+// GroupNorm + SiLU conv K12 (conv_kernels.cu). NHWC bf16 in and out. (K9 and
+// K11 run on the TMA + wgmma engine of conv_sm90.cuh.)
 //
 // One block computes a TH x TW tile of output pixels for TN output channels:
 // M = 64 pixels, N = 64 channels, K = taps x input channels, on tensor cores
@@ -8,12 +9,10 @@
 // halo'd input slab is loaded ONCE into shared memory (optionally through the
 // GroupNorm-coefficient + SiLU transform, rounded to bf16 there), and every
 // tap reads its shifted window of it. MODE picks the taps:
-//   MODE_CONV3    3x3 SAME conv                         (K1, K6 dA, K11, K12)
+//   MODE_CONV3    3x3 SAME conv                         (K1, K6 dA, K12)
 //   MODE_SUBPIXEL four 2x2 parity convs of a nearest-2x upsample  (K2)
 //   MODE_CONV1    1x1 conv                                        (K6 dskip)
 //   MODE_DOWN4    4x4 stride-2 conv of a (2H, 2W) input           (K7 dx)
-//   MODE_DOWN3    3x3 stride-2 conv, bottom row and right column
-//                 zero-padded (diffusers Downsample2D)            (K9)
 // EPI picks what happens to the fp32 tile:
 //   EPI_FWD       + bias [+ skip | + skip @ ws + wsb], round, store, and the
 //                 per-channel (sum, sumsq) of the rounded output as partials
@@ -44,20 +43,20 @@ constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int TILE_PIX = TH * TW;       // 64 output pixels
 
-enum { MODE_CONV3 = 0, MODE_SUBPIXEL = 1, MODE_CONV1 = 2, MODE_DOWN4 = 3, MODE_DOWN3 = 4 };
+enum { MODE_CONV3 = 0, MODE_SUBPIXEL = 1, MODE_CONV1 = 2, MODE_DOWN4 = 3 };
 enum { EPI_FWD = 0, EPI_BWD_ACT = 1 };
 enum { SKIP_NONE = 0, SKIP_ADD = 1, SKIP_PROJ = 2 };
 
 template <int MODE>
 struct TapGeometry {
   static constexpr int P = (MODE == MODE_SUBPIXEL) ? 4 : 1;          // output parities
-  static constexpr int NTAPS = (MODE == MODE_CONV3 || MODE == MODE_DOWN3) ? 9
-                               : (MODE == MODE_SUBPIXEL)                  ? 4
-                               : (MODE == MODE_CONV1)                     ? 1
-                                                                          : 16;
-  static constexpr int PS = (MODE == MODE_DOWN4 || MODE == MODE_DOWN3) ? 2 : 1;  // input pixels per output pixel
+  static constexpr int NTAPS = (MODE == MODE_CONV3)      ? 9
+                               : (MODE == MODE_SUBPIXEL) ? 4
+                               : (MODE == MODE_CONV1)    ? 1
+                                                         : 16;
+  static constexpr int PS = (MODE == MODE_DOWN4) ? 2 : 1;  // input pixels per output pixel
   // halo rows / columns before the tile's first input pixel, and after its last
-  static constexpr int LO = (MODE == MODE_CONV1 || MODE == MODE_DOWN3) ? 0 : 1;
+  static constexpr int LO = (MODE == MODE_CONV1) ? 0 : 1;
   static constexpr int HI = (MODE == MODE_CONV1) ? 0 : 1;
   static constexpr int SH = PS * TH + LO + HI;                       // slab rows
   static constexpr int SW = PS * TW + LO + HI;                       // slab columns
@@ -65,7 +64,7 @@ struct TapGeometry {
 };
 
 struct ConvArgs {
-  const bf16* x;       // conv input (B, Hin, Win, C); Hin = PS*H, Win = PS*W (K9: as given)
+  const bf16* x;       // conv input (B, PS*H, PS*W, C)
   const float* a;      // (B, C) GroupNorm scale coefficients applied on load, or null
   const float* b;      // (B, C) GroupNorm shift coefficients
   const bf16* w;       // (taps, C, N); K2: (2, 2, 2, 2C, N) folded
@@ -80,7 +79,6 @@ struct ConvArgs {
   const float* act_a;
   const float* act_b;
   int B, H, W, C, N, Cs;
-  int Hin, Win;        // MODE_DOWN3 only: the input's own size (H = Hin / 2, W = Win / 2)
   int silu;
   int skip_mode;
   int tiles_w, tiles_h;
@@ -113,8 +111,8 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
   const int pa = parity >> 1, pb = parity & 1;
   const int h0 = th * TH, w0 = tw * TW;
   const int H = p.H, W = p.W, C = p.C, N = p.N;
-  const int Hin = (MODE == MODE_DOWN3) ? p.Hin : PS * H;
-  const int Win = (MODE == MODE_DOWN3) ? p.Win : PS * W;
+  const int Hin = PS * H;
+  const int Win = PS * W;
   const int warp = threadIdx.x >> 5;
   const int wrow = warp >> 1;           // tile row this warp's fragments cover
   const int wcol = (warp & 1) * 32;     // first of its 32 output channels
@@ -176,7 +174,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
 #pragma unroll
     for (int t = 0; t < NTAPS; ++t) {
       int dy, dx;
-      if (MODE == MODE_CONV3 || MODE == MODE_DOWN3) {
+      if (MODE == MODE_CONV3) {
         dy = t / 3;
         dx = t % 3;
       } else if (MODE == MODE_SUBPIXEL) {

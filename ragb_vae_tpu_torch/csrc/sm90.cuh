@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives in raw PTX, shared by the port's TMA- and
 // wgmma-based kernels:
 // - mbarrier: init, arrive, arrive.expect_tx, try_wait.parity;
-// - TMA: cp.async.bulk.tensor 3-D load (completing on an mbarrier) and store
-//   (bulk group), and the host-side tensor map (cuTensorMapEncodeTiled,
-//   looked up at run time, so the library links no libcuda);
+// - TMA: cp.async.bulk.tensor 3-D and 4-D loads (completing on an mbarrier)
+//   and stores (bulk group), and the host-side tensor maps
+//   (cuTensorMapEncodeTiled, looked up at run time, so the library links no
+//   libcuda), with traversal strides for a strided read;
 // - wgmma: the shared-memory matrix descriptor for 128-byte swizzled tiles,
 //   mma_async bf16 -> fp32 m64nNk16 with A from shared memory or from
 //   registers, fence, commit_group and wait_group;
@@ -55,6 +56,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait that gives up: after 2^22 polls (~80 ms or more, far beyond any
+// load's latency) the kernel traps, so a barrier that can never complete
+// fails the launch with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++polls == (1u << 22)) __trap();
+  } while (!done);
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
@@ -64,6 +80,23 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// elements of the box outside the tensor are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -91,11 +124,14 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + ((col & 7) << 1);
 }
 
-// Host: a 3-D tensor map over a contiguous bf16 (n2, n1, n0) tensor, box
-// {64, box_rows, 1}, 128-byte swizzle, zero fill out of bounds. Returns a
-// cudaError_t.
-static inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, int n0, int n1, int n2,
-                                       int box_rows) {
+// Host: a tiled tensor map over a contiguous bf16 tensor of `rank` (<= 5)
+// dimensions, dims[0] innermost, box {64, box[1], ...} in 128-byte swizzle,
+// zero fill out of bounds (negative coordinates included). elem_strides are
+// the traversal strides: along dimension i the box spans box[i] elements and
+// TMA reads every elem_strides[i]-th of them, ceil(box[i] / elem_strides[i])
+// in all, packed densely in shared memory. Returns a cudaError_t.
+static inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                                    const cuuint32_t* box, const cuuint32_t* elem_strides) {
   typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
                                   CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
@@ -109,14 +145,27 @@ static inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, int n
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
-  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 2, (cuuint64_t)n0 * n1 * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (rank < 1 || rank > 5) return (int)cudaErrorInvalidValue;
+  cuuint64_t strides[4];
+  cuuint64_t bytes = 2;
+  for (int i = 0; i + 1 < rank; ++i) {
+    bytes *= dims[i];
+    strides[i] = bytes;
+  }
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Host: a 3-D tensor map over a contiguous bf16 (n2, n1, n0) tensor, box
+// {64, box_rows, 1}.
+static inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, int n0, int n1, int n2,
+                                       int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode_tensor_map(map, base, 3, dims, box, elem_strides);
 }
 
 // ---------------------------------------------------------------------------
@@ -214,6 +263,33 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, u
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x N) (+)= A (64 x 16, K-major in shared memory) B (16 x N, MN-major
+// in shared memory: N contiguous, as a (K, N) weight matrix lies).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

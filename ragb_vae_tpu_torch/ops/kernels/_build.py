@@ -50,6 +50,7 @@ _SIGNATURES = {
     "ragb_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
     "ragb_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "ragb_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "ragb_conv_sm90_tile_shape": [_P, _P],
     "ragb_conv3x3_same": [_P] * 3 + [_I] * 5 + [_P],
     "ragb_fused_gn_silu_conv3x3": [_P] * 6 + [_I] * 5 + [_P],
     "ragb_downsample_conv3x3_stats": [_P] * 6 + [_I] * 6 + [_P],
@@ -144,6 +145,10 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on the CUDA `device`:
+    one call into the extension, where `torch.cuda.current_stream(device)
+    .cuda_stream` builds a Stream object first."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -3,11 +3,12 @@ statistics.
 
 Counterpart of `ragb_vae_tpu/ops/pallas/conv3x3.py`. A CPU tensor takes
 `conv3x3_same_plain`; a CUDA tensor launches the hand-written kernel
-(`ragb_conv3x3_same` in `csrc/conv_kernels.cu`, an entry point over the
-implicit-GEMM template the resnet-block kernels share) or raises. The kernel
-masks the image edge itself, so there is no padding pass and no alignment rule
-beyond channel counts that are multiples of 8. The backward differentiates
-the plain version, as the JAX package differentiates its XLA reference.
+(`ragb_conv3x3_same` in `csrc/conv_kernels.cu`, an entry point over the TMA +
+wgmma implicit-GEMM engine of `csrc/conv_sm90.cuh`) or raises. TMA's zero fill
+outside the image is the SAME padding, so there is no padding pass and no
+alignment rule beyond channel counts that are multiples of 8. The backward
+differentiates the plain version, as the JAX package differentiates its XLA
+reference.
 """
 from __future__ import annotations
 

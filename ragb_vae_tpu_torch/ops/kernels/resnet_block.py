@@ -21,9 +21,10 @@ plain version `wino_conv3x3_stats_plain`), picked per call by `algo=` or by
 the module default `CONV_ALGO`; Winograd takes only the shapes of the JAX
 package's predicate (`wino_aligned`), everything else stays direct. Both
 routes share K6 as their backward: the function is the same.
-The downsample conv (`fused_downsample_conv3x3_stats`, kernel in
-`csrc/conv_kernels.cu`) has a forward kernel only: its backward differentiates
-its plain version, as the JAX package differentiates its XLA reference.
+The downsample conv (`fused_downsample_conv3x3_stats`, entry point in
+`csrc/conv_kernels.cu` over the TMA + wgmma engine of `csrc/conv_sm90.cuh`)
+has a forward kernel only: its backward differentiates its plain version, as
+the JAX package differentiates its XLA reference.
 """
 from __future__ import annotations
 
@@ -151,17 +152,18 @@ def _ptr(t: Optional[Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-_TILE_SHAPE: Optional[Tuple[int, int]] = None
+_TILE_SHAPES: dict = {}
 
 
-def _tile_shape() -> Tuple[int, int]:
-    """The conv kernels' output tile (rows, cols), read from the library once."""
-    global _TILE_SHAPE
-    if _TILE_SHAPE is None:
+def _tile_shape(export: str = "ragb_conv_tile_shape") -> Tuple[int, int]:
+    """A conv kernel's output tile (rows, cols), read once from the library's
+    `export`: the wmma template's (K1, K2, K6, K7) by default,
+    `ragb_wino_tile_shape` (K8) or `ragb_conv_sm90_tile_shape` (K9, K11)."""
+    if export not in _TILE_SHAPES:
         th, tw = ctypes.c_int(), ctypes.c_int()
-        _build.library().ragb_conv_tile_shape(ctypes.byref(th), ctypes.byref(tw))
-        _TILE_SHAPE = (th.value, tw.value)
-    return _TILE_SHAPE
+        getattr(_build.library(), export)(ctypes.byref(th), ctypes.byref(tw))
+        _TILE_SHAPES[export] = (th.value, tw.value)
+    return _TILE_SHAPES[export]
 
 
 def _conv_operands(name, x, a, b, w, bias, skip, ws, wsb, activation):
@@ -306,19 +308,6 @@ def wino_conv3x3_stats_plain(
     return y, tensor_stats(y)
 
 
-_WINO_TILE_SHAPE: Optional[Tuple[int, int]] = None
-
-
-def _wino_tile_shape() -> Tuple[int, int]:
-    """K8's output tile (rows, cols), read from the library once."""
-    global _WINO_TILE_SHAPE
-    if _WINO_TILE_SHAPE is None:
-        th, tw = ctypes.c_int(), ctypes.c_int()
-        _build.library().ragb_wino_tile_shape(ctypes.byref(th), ctypes.byref(tw))
-        _WINO_TILE_SHAPE = (th.value, tw.value)
-    return _WINO_TILE_SHAPE
-
-
 def wino_conv3x3_stats_cuda(
     x: Tensor,
     a: Tensor,
@@ -342,7 +331,7 @@ def wino_conv3x3_stats_cuda(
     if height % 2 or width % 2:
         raise ValueError(f"{name}: H and W must be even, got {height} x {width}")
     u = wino_weights(w, x.dtype).contiguous()
-    th, tw = _wino_tile_shape()
+    th, tw = _tile_shape("ragb_wino_tile_shape")
     tiles = -(-height // th) * -(-width // tw)
     y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
     partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)
@@ -809,11 +798,12 @@ def downsample_conv3x3_stats_cuda(x: Tensor, w: Tensor, bias: Tensor) -> Tuple[T
     if c_in % 8 or n_out % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out}")
     h_out, w_out = height // 2, width // 2
-    th, tw = _tile_shape()
+    th, tw = _tile_shape("ragb_conv_sm90_tile_shape")
     tiles = -(-h_out // th) * -(-w_out // tw)
     y = torch.empty((bsz, h_out, w_out, n_out), dtype=x.dtype, device=x.device)
-    partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)
-    stats = torch.empty((bsz, 2, n_out), dtype=torch.float32, device=x.device)
+    # one allocation: the (B, T, 2, N) partials, then the (B, 2, N) statistics
+    scratch = torch.empty(bsz * (tiles + 1) * 2 * n_out, dtype=torch.float32, device=x.device)
+    partial, stats = scratch[: bsz * tiles * 2 * n_out], scratch[bsz * tiles * 2 * n_out:].view(bsz, 2, n_out)
     err = _build.library().ragb_downsample_conv3x3_stats(
         _ptr(x), _ptr(w), _ptr(bias), _ptr(y), _ptr(partial), _ptr(stats),
         tiles, bsz, height, width, c_in, n_out,

@@ -1,11 +1,12 @@
 """Show that `chip_smoke.py`'s bounds on the attention forward (K3), on the
-backward kernels (K4-K7), on the int8 matmul and the downsample conv (K10,
-K9) and on the Winograd conv (K8) bite.
+backward kernels (K4-K7), on the int8 matmul (K10), on the Hopper conv
+engine of K9 and K11 and on the Winograd conv (K8) bite.
 
     python3 scripts/planted_faults_bwd.py
 
     python3 scripts/planted_faults_bwd.py --only winograd    # the faults whose label holds it
     python3 scripts/planted_faults_bwd.py --only 'attention forward'
+    python3 scripts/planted_faults_bwd.py --only 'Hopper conv engine'
 
 For each fault below, the package, `chip_smoke.py` and `configs/` are copied
 into a temporary directory, one line of a CUDA source in the COPY is
@@ -33,6 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 BACKWARD_KERNELS = ("_bwd", "flash_attention_dq", "flash_attention_dkv")
 FORWARD_KERNELS = ("flash_attention_fwd",)
+CONV_SM90_KERNELS = ("downsample_conv3x3_stats", "conv3x3_same")
 
 # (label, source file, the text to replace (once in the file), its replacement, the kernels whose lines must FAIL
 # [, the phases that must fail: `kernels` when not given[, phases only read, which may pass]])
@@ -79,10 +81,24 @@ FAULTS = [
      "const float s0 = scale[n], s1 = scale[n + 1];",
      "const bool last = n0 + BN >= N; const float s0 = last ? 1.0f : scale[n], s1 = last ? 1.0f : scale[n + 1];",
      ("int8_matmul",)),
-    ("downsample conv: the padded bottom row read from the image instead of zero", "conv_taps.cuh",
-     "const int hh = PS * h0 - G::LO + r, ww = PS * w0 - G::LO + c;",
-     "const int hh0 = PS * h0 - G::LO + r, ww = PS * w0 - G::LO + c; "
-     "const int hh = (MODE == MODE_DOWN3 && hh0 == Hin) ? Hin - 1 : hh0;", ("downsample_conv3x3_stats",)),
+    # K9 and K11 on the Hopper conv engine: K9's input tensor map one row
+    # taller, so the zero-padded bottom row is read from memory (the next
+    # image's first row) instead of TMA's zero fill
+    ("Hopper conv engine, K9: the padded bottom row read from memory", "conv_sm90.cuh",
+     "(cuuint64_t)Hin, (cuuint64_t)B};", "(cuuint64_t)(Hin + DOWN), (cuuint64_t)B};", ("downsample_conv3x3_stats",)),
+    ("Hopper conv engine: the last tap left out of the K loop", "conv_sm90.cuh",
+     "static constexpr int TAPS = 9;", "static constexpr int TAPS = 8;", CONV_SM90_KERNELS),
+    # the weights' MN-major B operand: its LBO (the distance between the two
+    # 64-channel boxes of N) halved, so channels 64..127 read rows 32..63 of
+    # the first box
+    ("Hopper conv engine: the weights' MN-major descriptor LBO halved", "conv_sm90.cuh",
+     "wgmma_desc(b_stage(bs) + kk * 2048, L::B_BOX, 1024)", "wgmma_desc(b_stage(bs) + kk * 2048, L::B_BOX / 2, 1024)",
+     CONV_SM90_KERNELS),
+    # the consumers wait on the last B stage's full barrier for the phase
+    # before the one they need: they read that stage before its load lands
+    ("Hopper conv engine: one B ring stage's parity read from the wrong phase", "conv_sm90.cuh",
+     "mbar_wait_or_trap(b_full(bs), (it / BST) & 1);", "mbar_wait_or_trap(b_full(bs), ((it / BST) & 1) ^ (bs == BST - 1));",
+     CONV_SM90_KERNELS),
     ("winograd conv: a sign flipped in the input transform", "resnet_block_wino.cu",
      "cv[r][0] = d0 - d2;", "cv[r][0] = d0 + d2;", ("resnet_conv3x3_stats_wino",), ("kernels", "stage1")),
     ("winograd conv: one variant's product left out", "resnet_block_wino.cu",

@@ -81,8 +81,9 @@ KERNEL_CLASSES = [
     ("K7 data gradient (conv_taps_kernel<3, 0>)", _conv_taps(3, 0)),
     ("K6/K7 weight gradient (wgrad_kernel)", re.compile(r"wgrad_kernel")),
     ("K6/K7 dye pass and partial reduces", re.compile(r"dye_kernel|reduce_rows_kernel")),
-    ("K1/K2/K6 stats reduce", re.compile(r"stats_reduce_kernel")),
+    ("K1/K2/K6/K9 stats reduce", re.compile(r"stats_reduce_kernel")),
     ("K8 Winograd conv (wino_conv_kernel)", re.compile(r"wino_conv_kernel")),
+    ("K9/K11 Hopper conv engine (conv_sm90_kernel)", re.compile(r"conv_sm90_kernel")),
     ("K3 flash attention (flash_fwd_wgmma_kernel)", re.compile(r"flash_fwd")),
     ("K3 key-split merge (flash_merge_kernel)", re.compile(r"flash_merge_kernel")),
     ("K4 attention dQ", re.compile(r"flash_dq_kernel")),

@@ -418,7 +418,8 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take():
         i8.int8_matmul(ok, wq, scale.cpu(), None)
 
 
-@pytest.mark.parametrize("shape,n", [((2, 37, 50, 64), 96), ((1, 64, 48, 128), 128), ((3, 18, 14, 16), 24)])
+@pytest.mark.parametrize("shape,n", [((2, 37, 50, 64), 96), ((1, 64, 48, 128), 128), ((3, 18, 14, 16), 24),
+                                     ((1, 64, 95, 128), 200)])
 def test_downsample_kernel(shape, n):
     gen = torch.Generator("cuda").manual_seed(22)
     x = _randn(gen, shape)
@@ -438,7 +439,7 @@ def test_downsample_kernel(shape, n):
     assert x.grad is not None and bool(torch.isfinite(x.grad.float()).all())
 
 
-@pytest.mark.parametrize("shape,n", [((1, 19, 27, 64), 40), ((2, 36, 24, 128), 128)])
+@pytest.mark.parametrize("shape,n", [((1, 19, 27, 64), 40), ((2, 36, 24, 128), 128), ((2, 33, 70, 72), 136)])
 def test_conv3x3_same_and_fused_gn_silu_conv_kernels(shape, n):
     from ragb_vae_tpu_torch.ops.kernels import conv3x3 as c3
     from ragb_vae_tpu_torch.ops.kernels import fused_gn_silu_conv as fgc
@@ -461,6 +462,68 @@ def test_conv3x3_same_and_fused_gn_silu_conv_kernels(shape, n):
     assert (z.float() - ref).abs().max() <= 3e-2 * ref.abs().max()
     assert torch.equal(z, fgc.fused_gn_silu_conv3x3_batched(x, a, b, wt, bias))
     assert (c3.LAUNCHES, fgc.LAUNCHES) == (counts[0] + 3, counts[1] + 2)
+
+
+def _own_stats(y):
+    yd = y.double()
+    return torch.stack([yd.sum(dim=(1, 2)), yd.square().sum(dim=(1, 2))], dim=1)
+
+
+# K9 and K11 on the Hopper conv engine at ragged shapes: y against the exact
+# fp32 conv of the same bf16 inputs rounded once (one bf16 ulp of the largest
+# value), K9's statistics against fp64 sums of its own rounded y (fp32
+# summation order: 1e-4 of H*W*mean(y^2)), both bit for bit over two calls
+@pytest.mark.parametrize("shape,n", [((2, 33, 70, 72), 136), ((1, 19, 27, 64), 40), ((3, 18, 14, 16), 24),
+                                     ((1, 9, 130, 200), 64)])
+def test_conv3x3_same_kernel_against_exact(shape, n):
+    from ragb_vae_tpu_torch.ops.kernels import conv3x3 as c3
+
+    gen = torch.Generator("cuda").manual_seed(24)
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, shape[3], n), 1.0 / math.sqrt(9 * shape[3]))
+    y = c3.conv3x3_same_batched(x, wt)
+    exact = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), wt.float().permute(3, 2, 0, 1), padding=1)
+    exact = exact.permute(0, 2, 3, 1)
+    assert y.shape == (*shape[:3], n)
+    assert (y.float() - exact).abs().max() <= 1e-2 * exact.abs().max()
+    assert torch.equal(y, c3.conv3x3_same_batched(x, wt))
+
+
+@pytest.mark.parametrize("shape,n", [((2, 37, 50, 64), 96), ((1, 64, 95, 128), 200), ((1, 2, 2, 8), 8),
+                                     ((2, 20, 131, 72), 136)])
+def test_downsample_kernel_against_exact(shape, n):
+    gen = torch.Generator("cuda").manual_seed(25)
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, shape[3], n), 1.0 / math.sqrt(9 * shape[3]))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    y, s = rb.downsample_conv3x3_stats_cuda(x, wt, bias)
+    xp = torch.nn.functional.pad(x.float().permute(0, 3, 1, 2), (0, 1, 0, 1))
+    exact = torch.nn.functional.conv2d(xp, wt.float().permute(3, 2, 0, 1), stride=2).permute(0, 2, 3, 1) + bias
+    assert y.shape == (shape[0], shape[1] // 2, shape[2] // 2, n)
+    assert (y.float() - exact).abs().max() <= 1e-2 * exact.abs().max()
+    norm = y.shape[1] * y.shape[2] * y.float().square().mean()
+    assert (s.double() - _own_stats(y)).abs().max() <= 1e-4 * norm
+    y2, s2 = rb.downsample_conv3x3_stats_cuda(x, wt, bias)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_engine_wrappers_refuse_n_not_a_multiple_of_8_and_cpu_tensors():
+    from ragb_vae_tpu_torch.ops.kernels import conv3x3 as c3
+
+    x = torch.zeros((1, 8, 8, 16), device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, 16, 12), device="cuda", dtype=torch.bfloat16)      # N % 8 != 0
+    bias = torch.zeros(12, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        c3.conv3x3_same_cuda(x, w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        rb.downsample_conv3x3_stats_cuda(x, w, bias)
+    w16 = torch.zeros((3, 3, 16, 16), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        c3.conv3x3_same_cuda(x.cpu(), w16.cpu())
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        c3.conv3x3_same_cuda(x, w16.cpu())
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        rb.downsample_conv3x3_stats_cuda(x, w16, torch.zeros(16))
 
 
 def test_new_conv_wrappers_refuse_what_the_kernels_do_not_take():

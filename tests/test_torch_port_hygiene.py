@@ -31,7 +31,8 @@ import ragb_vae_tpu_torch
 ROOT = Path(ragb_vae_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragb_vae_tpu")
 PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
-    "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py")]
+    "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py",
+    "time_conv_engine.py")]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -211,6 +212,61 @@ def test_attention_backward_uses_the_hopper_primitives(token):
     ring, a producer warp and consumer warpgroups, wgmma products."""
     code = _code(ROOT / "csrc" / "flash_attention_bwd.cu")
     assert '#include "sm90.cuh"' in code and token in code
+
+
+SM90_CONV = ROOT / "csrc" / "conv_sm90.cuh"
+
+
+def test_hopper_conv_engine_is_built_and_names_what_it_replaces():
+    """K9 and K11 run on csrc/conv_sm90.cuh: it is one of the library's
+    sources (conv_kernels.cu includes it and routes both entry points through
+    it, K12 stays on conv_taps.cuh), its note names both TPU kernels and what
+    bounds it, and the K9 wrapper sizes its partials from the engine's tile."""
+    import inspect
+
+    from ragb_vae_tpu_torch.ops.kernels import _build
+    from ragb_vae_tpu_torch.ops.kernels import resnet_block as rb
+
+    assert SM90_CONV in _build._sources()
+    assert "ragb_conv_sm90_tile_shape" in _build._SIGNATURES
+    entries = _code(ROOT / "csrc" / "conv_kernels.cu")
+    assert '#include "conv_sm90.cuh"' in entries
+    assert "launch_conv_sm90<false>(" in entries and "launch_conv_sm90<true>(" in entries
+    assert entries.count("launch_conv<MODE_CONV3, EPI_FWD>(") == 1      # K12 alone
+    text = SM90_CONV.read_text()
+    assert "ragb_vae_tpu/ops/pallas/conv3x3.py:39" in text and "`_conv_kernel`" in text
+    assert "ragb_vae_tpu/ops/pallas/resnet_block.py:1622" in text and "`_downsample_kernel`" in text
+    assert "What bounds it on the H100" in text and "bytes bound it" in text
+    wrapper = inspect.getsource(rb.downsample_conv3x3_stats_cuda)
+    assert '_tile_shape("ragb_conv_sm90_tile_shape")' in wrapper and "_tile_shape()" not in wrapper
+    # one block owns its output tile; the product is the kernel's own
+    assert "atomic" not in _code(SM90_CONV) and "cublas" not in text.lower() and "cudnn" not in text.lower()
+
+
+@pytest.mark.parametrize("token", ["wgmma_ss_tb<", "tma_load_4d(", "tma_load_3d(", "tma_store_4d(",
+                                   "mbar_wait_or_trap(", "mbar_arrive_expect_tx(", "setmaxnreg_dec<",
+                                   "setmaxnreg_inc<", "conv_sm90_kernel<"])
+def test_hopper_conv_engine_uses_the_hopper_primitives(token):
+    """The engine is built on csrc/sm90.cuh: TMA loads into mbarrier rings, a
+    producer warp and consumer warpgroups, wgmma products, a TMA store."""
+    code = _code(SM90_CONV)
+    assert '#include "sm90.cuh"' in code and token in code
+
+
+@pytest.mark.parametrize("ptx", ["wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                                 "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes",
+                                 "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"])
+def test_hopper_conv_engine_primitives_are_wgmma_and_bulk_tensor_copies(ptx):
+    assert ptx in _code(ROOT / "csrc" / "sm90.cuh")
+
+
+@pytest.mark.parametrize("token", ["wmma::", "mma_sync", "mma.sync", "mma_16816", "ldmatrix", "cp_async16",
+                                   "cp.async.ca", "cp.async.cg", '#include "mma.cuh"'])
+def test_hopper_conv_engine_has_no_legacy_tensor_core_path(token):
+    """No wmma or mma.sync fragment, ldmatrix or cp.async staging in the
+    engine (K12's template, which it includes for the statistics reduce, is
+    another file)."""
+    assert token not in _code(SM90_CONV)
 
 
 def test_scan_covers_the_int8_path_and_the_stand_alone_convs():

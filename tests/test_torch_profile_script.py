@@ -1,7 +1,7 @@
 """`scripts/profile_torch_slice.py`'s device-time breakdown sorts each
-kernel of the port into its own class (K8 and K3's merge included), and its
-`--conv-algo` switch names the resnet-conv routes. CPU only: the script's
-measurements need the card, its classifier does not."""
+kernel of the port into its own class (K8, K3's merge and the K9 / K11 conv
+engine included), and its `--conv-algo` switch names the resnet-conv routes.
+CPU only: the script's measurements need the card, its classifier does not."""
 import importlib.util
 from pathlib import Path
 
@@ -26,6 +26,11 @@ def profile():
     ("void (anonymous namespace)::flash_merge_kernel<512>(float const*, float const*, float const*, "
      "__nv_bfloat16*, float*, int, int)", "K3 key-split merge"),
     ("void (anonymous namespace)::conv_taps_kernel<0, 0>(ConvArgs)", "K1 resnet conv"),
+    ("void (anonymous namespace)::conv_sm90_kernel<true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float*, int, int, int, int, int)", "K9/K11 Hopper conv engine"),
+    ("void (anonymous namespace)::conv_sm90_kernel<false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float*, int, int, int, int, int)", "K9/K11 Hopper conv engine"),
+    ("void (anonymous namespace)::stats_reduce_kernel(float const*, float*, int, int)", "K1/K2/K6/K9 stats reduce"),
     ("void (anonymous namespace)::flash_dq_kernel<128>(...)", "K4 attention dQ"),
     ("void (anonymous namespace)::flash_dq_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, float const*, float const*, int, int, float)", "K4 attention dQ"),
