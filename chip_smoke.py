@@ -254,8 +254,11 @@ WINO_Y_PLAIN_NORM_TOL = 3e-4
 # by the order of an fp32 sum over K <= 15360 terms. The plain version rounds
 # the unscaled product to bf16 before it scales it and rounds again. A K tile
 # of 64 left out moves every output by ~sqrt(64 / K) of its size (>= 6e-2 at
-# K = 15360), and a scale left out of a tile multiplies it by ~1 / scale
-# (> 1000): each is far past the exact bound.
+# K = 15360), a scale left out of a tile multiplies it by ~1 / scale
+# (> 1000), and a weight fragment read from another k-step (or, in the
+# skinny kernel, x's second chunk of 2048 k taken from its first) makes the
+# terms it touches uncorrelated, errors of the output's own size: each is far
+# past the exact bound.
 INT8_BF16_EXACT_TOL = 1e-2
 INT8_FP32_EXACT_TOL = 1e-4
 INT8_PLAIN_TOL = 3e-2
@@ -681,7 +684,16 @@ def check_int8_matmul(gen, m, k, n, dtype=torch.bfloat16, with_bias=True):
     bias = 0.1 * torch.randn((n,), generator=gen, device="cuda") if with_bias else None
     run_k = lambda: i8.int8_matmul_cuda(x, wq, scale, bias)
     run_p = lambda: i8.int8_matmul_plain(x, wq, scale, bias)
-    out, plain = run_k(), run_p()
+    fp32 = dtype == torch.float32
+    label = f"({m}, {k}) x ({k}, {n}) {'fp32' if fp32 else 'bf16'}{'' if with_bias else ' no bias'}"
+    try:   # a launch that fails (a ring wait that traps) fails this kernel's line and the phase
+        out = run_k()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        first = str(err).strip().splitlines()[0] if str(err).strip() else type(err).__name__
+        log("kernels", f"int8_matmul {label}: the kernel failed ({first[:200]}) FAIL")
+        raise SystemExit(f"[kernels] int8_matmul {label}: the kernel failed") from err
+    plain = run_p()
     exact = x.float() @ wq.float().t() * scale + (0.0 if bias is None else bias)
     exact = exact.to(dtype).float()
     torch.cuda.synchronize()
@@ -689,23 +701,24 @@ def check_int8_matmul(gen, m, k, n, dtype=torch.bfloat16, with_bias=True):
     err_x = (out.float() - exact).abs().max().item()
     rel_x, rel_p = err_x / top, (out.float() - plain.float()).abs().max().item() / top
     tol_x = INT8_BF16_EXACT_TOL if dtype == torch.bfloat16 else INT8_FP32_EXACT_TOL
-    ms, plain_ms = time_ms(run_k), time_ms(run_p)
+    ms, queued_ms, plain_ms = time_ms(run_k), time_queued_ms(run_k), time_ms(run_p)
     w_bf16 = (wq.float() * scale[:, None]).to(torch.bfloat16)
     x_bf16 = x.to(torch.bfloat16)
     b_bf16 = None if bias is None else bias.to(torch.bfloat16)
-    linear_ms = time_ms(lambda: F.linear(x_bf16, w_bf16, b_bf16))
+    linear = lambda: F.linear(x_bf16, w_bf16, b_bf16)
+    linear_ms, linear_queued_ms = time_ms(linear), time_queued_ms(linear)
     del w_bf16
     library_ms = int8pack_mm_ms(x, wq, scale)
-    fp32 = dtype == torch.float32
     limit = bound(2 * m * n * k, _nbytes(x, wq, scale, bias, out), PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
     ok = (out.shape == (m, n) and out.dtype == dtype and bool(torch.isfinite(out.float()).all())
           and rel_x <= tol_x and rel_p <= INT8_PLAIN_TOL)
-    label = f"({m}, {k}) x ({k}, {n}) {'fp32' if fp32 else 'bf16'}{'' if with_bias else ' no bias'}"
     log("kernels", f"int8_matmul {label}: vs exact max_abs_err={err_x:.4g} (rel {rel_x:.3g} <= {tol_x}); "
-        f"vs plain rel {rel_p:.3g} (<= {INT8_PLAIN_TOL}); kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-        f"bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}) {'ok' if ok else 'FAIL'}")
+        f"vs plain rel {rel_p:.3g} (<= {INT8_PLAIN_TOL}); kernel {ms:.3f} ms (back to back {queued_ms:.3f}) "
+        f"plain {plain_ms:.3f} ms bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}) {'ok' if ok else 'FAIL'}")
     log("kernels", f"int8_matmul {label}: F.linear over a resident bf16 weight (not the same function: "
-        f"twice the weight bytes; what an unquantised layer pays) {linear_ms:.3f} ms")
+        f"twice the weight bytes; what an unquantised layer pays) {linear_ms:.3f} ms (back to back "
+        f"{linear_queued_ms:.3f}); K10 / F.linear {ms / linear_ms:.3f} (back to back "
+        f"{queued_ms / linear_queued_ms:.3f})")
     return ok, label, err_x, ms, plain_ms, library_ms, limit
 
 
@@ -972,14 +985,18 @@ def phase_kernels() -> dict:
             lambda: check_downsample(gen, (1, 64, 95, 128), 200),
         ],
         # the token streams of a 512^2 request (text 512 + 2 x 1024 image
-        # tokens) and of a 1024^2 one, the fp32 AdaLN modulation at batch 1,
-        # and the ragged ends of the path: x_embedder (K = 64) and proj_out
+        # tokens: the single blocks' 2560, a double block's text 512 and
+        # image 2048) and of a 1024^2 one, the fp32 AdaLN modulation at batch
+        # 1 and 4, and the ragged ends of the path: x_embedder (K = 64) and proj_out
         # (N = 64, M = batch)
         "int8_matmul": [
             lambda: check_int8_matmul(gen, 2560, 3072, 12288),
             lambda: check_int8_matmul(gen, 2560, 15360, 3072),
             lambda: check_int8_matmul(gen, 8704, 3072, 9216, with_bias=False),
             lambda: check_int8_matmul(gen, 1, 3072, 18432, dtype=torch.float32),
+            lambda: check_int8_matmul(gen, 4, 3072, 18432, dtype=torch.float32),   # batch 4: two x chunks
+            lambda: check_int8_matmul(gen, 512, 3072, 3072),
+            lambda: check_int8_matmul(gen, 2048, 3072, 12288),
             lambda: check_int8_matmul(gen, 300, 64, 3072),
             lambda: check_int8_matmul(gen, 2, 3072, 64, with_bias=False),
             lambda: check_int8_matmul(gen, 2, 3072, 64),

@@ -2,19 +2,22 @@
 // wgmma-based kernels:
 // - mbarrier: init, arrive, arrive.expect_tx, try_wait.parity;
 // - TMA: cp.async.bulk.tensor 3-D and 4-D loads (completing on an mbarrier)
-//   and stores (bulk group), and the host-side tensor maps
+//   and stores (bulk group), and the host-side tensor maps over bf16 or byte
+//   tensors in 128- or 64-byte swizzle
 //   (cuTensorMapEncodeTiled, looked up at run time, so the library links no
 //   libcuda), with traversal strides for a strided read;
 // - wgmma: the shared-memory matrix descriptor for 128-byte swizzled tiles,
 //   mma_async bf16 -> fp32 m64nNk16 with A from shared memory or from
-//   registers, fence, commit_group and wait_group;
+//   registers (B K-major or MN-major), fence, commit_group and wait_group;
+//   stmatrix (transposed) for staging an accumulator tile;
 // - setmaxnreg and named barriers for warp-specialised blocks.
 //
 // Layout convention: every operand tile in shared memory is what a TMA load
 // with CU_TENSOR_MAP_SWIZZLE_128B writes for a box of {64 bf16, rows}: rows of
 // 128 bytes whose 16-byte chunks are XOR-ed with (row % 8), each box starting
 // on a 1024-byte boundary. A matrix wider than 64 elements is several such
-// boxes side by side.
+// boxes side by side. (The int8 weights of int8_matmul.cu, read by the threads
+// and not by wgmma, are boxes of {64 bytes, rows} in 64-byte swizzle.)
 #pragma once
 
 #include <cuda.h>
@@ -124,14 +127,19 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + ((col & 7) << 1);
 }
 
-// Host: a tiled tensor map over a contiguous bf16 tensor of `rank` (<= 5)
-// dimensions, dims[0] innermost, box {64, box[1], ...} in 128-byte swizzle,
-// zero fill out of bounds (negative coordinates included). elem_strides are
+// Host: a tiled tensor map over a contiguous tensor of `rank` (<= 5)
+// dimensions, dims[0] innermost, zero fill out of bounds (negative
+// coordinates included). The elements are bf16 (`dtype` BFLOAT16, the
+// default) or bytes (UINT8, which carries int8 as it is); the box's innermost
+// extent must fit the swizzle span (64 bf16 or 128 bytes in the default
+// 128-byte swizzle, 64 bytes in CU_TENSOR_MAP_SWIZZLE_64B). elem_strides are
 // the traversal strides: along dimension i the box spans box[i] elements and
 // TMA reads every elem_strides[i]-th of them, ceil(box[i] / elem_strides[i])
 // in all, packed densely in shared memory. Returns a cudaError_t.
 static inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                                    const cuuint32_t* box, const cuuint32_t* elem_strides) {
+                                    const cuuint32_t* box, const cuuint32_t* elem_strides,
+                                    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
                                   CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
@@ -146,15 +154,17 @@ static inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
   if (rank < 1 || rank > 5) return (int)cudaErrorInvalidValue;
+  if (dtype != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 && dtype != CU_TENSOR_MAP_DATA_TYPE_UINT8)
+    return (int)cudaErrorInvalidValue;
   cuuint64_t strides[4];
-  cuuint64_t bytes = 2;
+  cuuint64_t bytes = dtype == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
   for (int i = 0; i + 1 < rank; ++i) {
     bytes *= dims[i];
     strides[i] = bytes;
   }
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), dims,
-                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = encode(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, elem_strides,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -215,13 +225,6 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d);
 
-// D (64 x N) (+)= A (64 x 16, bf16 in registers) B (16 x N, MN-major in
-// shared memory). The A fragment is the m16n8k16 A layout of the thread's
-// warp: a[0] = (row l / 4, columns 2 (l % 4) + {0, 1}), a[1] = the same 8 rows
-// down, a[2] and a[3] = the same 8 columns right.
-template <int N>
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
-                                            int scale_d);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
@@ -301,9 +304,15 @@ __device__ __forceinline__ void wgmma_ss_tb<128>(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
-                                                int scale_d) {
+// D (64 x N) (+)= A (64 x 16, bf16 in registers) B (16 x N in shared memory),
+// B MN-major (TB = 1: N contiguous, as V lies in P V) or K-major (TB = 0: the
+// contraction contiguous, as the rows of x lie in x W^T). The A fragment is
+// the m16n8k16 A layout of the thread's warp: a[0] = (row l / 4, columns
+// 2 (l % 4) + {0, 1}), a[1] = the same 8 rows down, a[2] and a[3] = the same
+// 8 columns right. The registers of `a` must stay untouched until the wgmma
+// has completed (wgmma_wait).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_imm(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -312,7 +321,7 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -321,12 +330,11 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b,
-                                                int scale_d) {
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_imm(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -339,7 +347,7 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -356,7 +364,28 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                            int scale_d) {
+  wgmma_rs_imm<1>(d, a, desc_b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  wgmma_rs_imm<0>(d, a, desc_b, scale_d);
+}
+
+// Four 8 x 8 b16 matrices from registers to shared memory, each transposed:
+// lane l gives the address of row l % 8 of matrix l / 8, and that row
+// receives column l % 8 of the matrix whose rows the threads hold as in the
+// m16n8k16 accumulator (thread (g, t) holds row g, columns 2t, 2t + 1).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -7,6 +7,7 @@ engine of K9 and K11 and on the Winograd conv (K8) bite.
     python3 scripts/planted_faults_bwd.py --only winograd    # the faults whose label holds it
     python3 scripts/planted_faults_bwd.py --only 'attention forward'
     python3 scripts/planted_faults_bwd.py --only 'Hopper conv engine'
+    python3 scripts/planted_faults_bwd.py --only 'int8 matmul'
 
 For each fault below, the package, `chip_smoke.py` and `configs/` are copied
 into a temporary directory, one line of a CUDA source in the COPY is
@@ -75,12 +76,29 @@ FAULTS = [
      "for (int s = 0; s < splits; ++s) {", "for (int s = 0; s < splits - 1; ++s) {", FORWARD_KERNELS),
     ("attention forward, d = 512: the other warpgroup's half of S left out", "flash_attention.cu",
      "sc[i] += xb[", "sc[i] += 0.0f * xb[", FORWARD_KERNELS),
-    ("int8 matmul: last K tile left out of the loop", "int8_matmul.cu",
-     "const int nk = (K + BK - 1) / BK;", "const int nk = (K + BK - 1) / BK - 1;", ("int8_matmul",)),
-    ("int8 matmul: scale left out of the last N tile", "int8_matmul.cu",
-     "const float s0 = scale[n], s1 = scale[n + 1];",
-     "const bool last = n0 + BN >= N; const float s0 = last ? 1.0f : scale[n], s1 = last ? 1.0f : scale[n + 1];",
+    # K10: the tensor-core kernel's last 64-k ring stage left out (producer
+    # and consumers agree, so nothing hangs: the products miss 64 of K terms)
+    ("int8 matmul: last K chunk left out of the loop", "int8_matmul.cu",
+     "const int chunks = (K + L::BK - 1) / L::BK;", "const int chunks = (K + L::BK - 1) / L::BK - (K > L::BK);",
      ("int8_matmul",)),
+    ("int8 matmul: scale left out of the last N tile", "int8_matmul.cu",
+     "sc[h] = n < N ? scale[n] : 0.0f;", "sc[h] = n < N ? (n0 + L::BN >= N ? 1.0f : scale[n]) : 0.0f;",
+     ("int8_matmul",)),
+    # the consumers wait on the last ring stage's full barrier for the phase
+    # before the one they need: they read that stage before its load lands
+    ("int8 matmul: one ring stage's parity read from the wrong phase", "int8_matmul.cu",
+     "mbar_wait_or_trap(full(nx), ((c + 1) / ST) & 1);", "mbar_wait_or_trap(full(nx), (((c + 1) / ST) & 1) ^ (nx == ST - 1));",
+     ("int8_matmul",)),
+    # the int8 fragment read one 16-byte chunk off the 64-byte swizzle: each
+    # k-step takes the weights of another k-step of the same rows
+    ("int8 matmul: the weight fragment's swizzle off by one chunk", "int8_matmul.cu",
+     "((s ^ (r >> 1)) & 3) * 16", "((s ^ ((r >> 1) + 1)) & 3) * 16", ("int8_matmul",)),
+    # the skinny kernel stages only the first chunk of x (8192 / rows k):
+    # every later chunk multiplies the first chunk's x (chip_smoke's fp32
+    # modulation at batch 4 has two chunks)
+    ("int8 matmul, skinny kernel: a K chunk of x left out of shared memory", "int8_matmul.cu",
+     "stage_x<T, ROWS>(x, gemv_xs, m0, rows, K, kc, klen);",
+     "if (kc == 0) stage_x<T, ROWS>(x, gemv_xs, m0, rows, K, kc, klen);", ("int8_matmul",)),
     # K9 and K11 on the Hopper conv engine: K9's input tensor map one row
     # taller, so the zero-padded bottom row is read from memory (the next
     # image's first row) instead of TMA's zero fill

@@ -88,8 +88,8 @@ KERNEL_CLASSES = [
     ("K3 key-split merge (flash_merge_kernel)", re.compile(r"flash_merge_kernel")),
     ("K4 attention dQ", re.compile(r"flash_dq_kernel")),
     ("K5 attention dK/dV", re.compile(r"flash_dkv_kernel")),
-    ("K10 int8 matmul (tensor-core tiles)", re.compile(r"int8_mma_kernel")),
-    ("K10 int8 matmul (skinny)", re.compile(r"int8_skinny_kernel")),
+    ("K10 int8 matmul (int8_wgmma_kernel)", re.compile(r"int8_wgmma_kernel")),
+    ("K10 int8 matmul, skinny (int8_gemv_kernel)", re.compile(r"int8_gemv_kernel")),
     ("cuDNN conv", re.compile(r"fprop|dgrad|wgrad|cudnn|convolve|winograd", re.I)),
     ("cuBLAS GEMM/GEMV", re.compile(r"gemm|gemv|xmma|cutlass|nvjet|cublas", re.I)),
     ("PyTorch elementwise/copy/reduce", re.compile(r".")),

@@ -371,6 +371,12 @@ def _int8_case(gen, m, k, n, dtype):
     (8, 256, 3072, torch.bfloat16),         # the skinny kernel in bf16
     (3, 3072, 1024, torch.float32),         # the fp32 modulation
     (13, 48, 24, torch.float32),            # fp32 past the skinny kernel's row block
+    (512, 3088, 200, torch.bfloat16),       # the text stream's M, K past the 64-k stage, N past the 128 tile
+    (9, 1040, 200, torch.bfloat16),         # just above the skinny rows, K and N ragged
+    (2560, 3072, 3072, torch.bfloat16),     # the 256-token tile (a single block's stream at 512^2)
+    (5, 4112, 72, torch.bfloat16),          # skinny: five x chunks of 1024, the last ragged; N past a block's 32
+    (20, 2064, 40, torch.float32),          # fp32 in three row blocks of 8 and three x chunks
+    (40, 16, 8, torch.bfloat16),            # the least K and N: one k-step, one box of 64 channels clipped to 8
 ])
 def test_int8_matmul_kernel(m, k, n, dtype):
     from ragb_vae_tpu_torch.ops.kernels import int8_matmul as i8

@@ -32,7 +32,7 @@ ROOT = Path(ragb_vae_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragb_vae_tpu")
 PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py",
-    "time_conv_engine.py")]
+    "time_conv_engine.py", "time_int8_matmul.py")]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -267,6 +267,117 @@ def test_hopper_conv_engine_has_no_legacy_tensor_core_path(token):
     engine (K12's template, which it includes for the statistics reduce, is
     another file)."""
     assert token not in _code(SM90_CONV)
+
+
+INT8_SRC = ROOT / "csrc" / "int8_matmul.cu"
+
+
+@pytest.mark.parametrize("token", ["int8_wgmma_kernel<", "int8_gemv_kernel<", "tma_load_3d(", "tma_store_3d(",
+                                   "mbar_wait_or_trap(", "mbar_arrive_expect_tx(", "wgmma_rs<", "setmaxnreg_dec<",
+                                   "setmaxnreg_inc<", "stmatrix_x4_trans(", "CU_TENSOR_MAP_DATA_TYPE_UINT8",
+                                   "CU_TENSOR_MAP_SWIZZLE_64B"])
+def test_int8_matmul_uses_the_hopper_primitives(token):
+    """K10's tensor-core kernel is built on csrc/sm90.cuh: TMA loads of x and
+    of the int8 weights into an mbarrier ring, a producer warp and consumer
+    warpgroups, register-A wgmma over the converted weights, a TMA store."""
+    code = _code(INT8_SRC)
+    assert '#include "sm90.cuh"' in code and token in code
+
+
+@pytest.mark.parametrize("token", ["wmma::", "mma_sync", "mma.sync", "mma_16816", "ldmatrix", "cp_async16",
+                                   "cp.async.ca", "cp.async.cg", '#include "mma.cuh"'])
+def test_int8_matmul_has_no_legacy_tensor_core_path(token):
+    """No mma.sync fragment, ldmatrix or cp.async staging is left in K10."""
+    assert token not in _code(INT8_SRC)
+
+
+@pytest.mark.parametrize("ptx", ["wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+                                 "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16"])
+def test_int8_matmul_primitives_are_in_sm90(ptx):
+    assert ptx in _code(ROOT / "csrc" / "sm90.cuh")
+
+
+def test_int8_matmul_register_a_wgmma_takes_k_major_b():
+    """The register-A wgmma has one body per N whose last immediate is the
+    transpose-B flag: 1 for the MN-major V of P V, 0 for the K-major rows of x."""
+    code = _code(ROOT / "csrc" / "sm90.cuh")
+    assert "wgmma_rs_imm<1>(d, a, desc_b, scale_d);" in code and "wgmma_rs_imm<0>(d, a, desc_b, scale_d);" in code
+    assert code.count('"n"(TB)') == 2
+
+
+def _bf16_value(bits: int) -> float:
+    import struct
+
+    return struct.unpack("<f", struct.pack("<I", (bits & 0xFFFF) << 16))[0]
+
+
+def test_int8_to_bf16_conversion_is_exact_for_every_byte():
+    """K10's int8x2_to_bf16x2: (q & 0x7F) | 0x4300 plus (q & 0x80) | 0xC300,
+    both bf16, is q for each of the 256 bytes, and both terms and the sum are
+    exact in bf16 (the add rounds nothing). The constants are the source's."""
+    code = _code(INT8_SRC)
+    for const in ("0x007F007Fu", "0x43004300u", "0x00800080u", "0xC300C300u", "0x3F803F80u", "0x4140"):
+        assert const in code
+    for q in range(-128, 128):
+        byte = q & 0xFF
+        mag, off = (byte & 0x7F) | 0x4300, (byte & 0x80) | 0xC300
+        assert _bf16_value(mag) == 128 + (byte & 0x7F)
+        assert _bf16_value(off) == -(128 + (byte & 0x80))
+        assert _bf16_value(mag) + _bf16_value(off) == q
+    assert _bf16_value(0x3F80) == 1.0
+
+
+@pytest.mark.parametrize("s", range(4))
+def test_int8_weight_fragment_read_is_bank_conflict_free(s):
+    """K10's consumers read their A fragments from the 64-byte-swizzled int8
+    box with 2-byte loads: lane (g, t) of warp w takes bytes 2t (and 2t + 8)
+    of k-step s of row 16 w + g (and + 8), at chunk s ^ ((row >> 1) & 3). In
+    every such load the 32 lanes touch 16 distinct 4-byte words in 16
+    distinct banks (lanes 2t and 2t + 1 share a word), so no load of a warp
+    waits on a bank conflict."""
+    assert "((s ^ (r >> 1)) & 3) * 16 + 2 * t" in _code(INT8_SRC)
+    for warp in range(8):                      # 64 w + 16 warp over both consumer warpgroups
+        for h in range(2):
+            for hi in (0, 8):
+                words = set()
+                for g in range(8):
+                    for t in range(4):
+                        r = 16 * warp + g + 8 * h
+                        words.add((r * 64 + ((s ^ (r >> 1)) & 3) * 16 + 2 * t + hi) // 4)
+                assert len(words) == 16 and len({w % 32 for w in words}) == 16
+
+
+def test_int8_gemv_x_swizzle_is_bank_conflict_free():
+    """The skinny kernel's x chunk swizzle, k ^ (((k >> 5) & 3) << 2), is a
+    permutation of 4-float pieces inside each 64-float row segment, and the
+    eight lanes of a shared-memory phase that read piece j (lane l at k =
+    16 l + 4 j) land in eight distinct 16-byte bank groups."""
+    assert "k ^ (((k >> 5) & 3) << 2)" in _code(INT8_SRC)
+    swz = lambda k: k ^ (((k >> 5) & 3) << 2)
+    assert sorted(swz(k) for k in range(0, 2048, 4)) == list(range(0, 2048, 4))
+    for j in range(4):
+        for phase in range(4):
+            groups = {(swz(16 * lane + 4 * j) // 4) % 8 for lane in range(8 * phase, 8 * phase + 8)}
+            assert len(groups) == 8
+
+
+def _planted_faults():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("planted_faults_bwd", ROOT.parent / "scripts" / "planted_faults_bwd.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.FAULTS
+
+
+@pytest.mark.parametrize("fault", _planted_faults(), ids=lambda f: f[0])
+def test_planted_fault_replaces_one_line_of_its_source(fault):
+    """`scripts/planted_faults_bwd.py` plants each fault by replacing text
+    that occurs exactly once in its CUDA source: a fault whose text drifted
+    out of the source would stop the script on the card."""
+    label, source, old, new = fault[:4]
+    text = (ROOT / "csrc" / source).read_text()
+    assert text.count(old) == 1 and old != new, label
 
 
 def test_scan_covers_the_int8_path_and_the_stand_alone_convs():

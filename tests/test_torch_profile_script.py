@@ -1,6 +1,6 @@
 """`scripts/profile_torch_slice.py`'s device-time breakdown sorts each
-kernel of the port into its own class (K8, K3's merge and the K9 / K11 conv
-engine included), and its `--conv-algo` switch names the resnet-conv routes.
+kernel of the port into its own class (K8, K3's merge, the K9 / K11 conv
+engine and K10's two kernels included), and its `--conv-algo` switch names the resnet-conv routes.
 CPU only: the script's measurements need the card, its classifier does not."""
 import importlib.util
 from pathlib import Path
@@ -37,6 +37,14 @@ def profile():
     ("void (anonymous namespace)::flash_dkv_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, int, int, float)",
      "K5 attention dK/dV"),
+    ("void (anonymous namespace)::int8_wgmma_kernel<256>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float const*, int, int, int)", "K10 int8 matmul (int8_wgmma_kernel)"),
+    ("void (anonymous namespace)::int8_wgmma_kernel<128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float const*, int, int, int)", "K10 int8 matmul (int8_wgmma_kernel)"),
+    ("void (anonymous namespace)::int8_gemv_kernel<float, 1>(float const*, signed char const*, float const*, "
+     "float const*, float*, int, int, int)", "K10 int8 matmul, skinny"),
+    ("void (anonymous namespace)::int8_gemv_kernel<__nv_bfloat16, 8>(__nv_bfloat16 const*, signed char const*, "
+     "float const*, float const*, __nv_bfloat16*, int, int, int)", "K10 int8 matmul, skinny"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "cuBLAS GEMM/GEMV"),
     ("void at::native::vectorized_elementwise_kernel<4>(...)", "PyTorch elementwise/copy/reduce"),
 ])
