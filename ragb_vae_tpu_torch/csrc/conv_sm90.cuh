@@ -2,7 +2,8 @@
 // fed by TMA through an mbarrier ring and computed by wgmma, with one
 // producer warp and two consumer warpgroups per block.
 //
-// Replaces two TPU kernels (the entry points are in conv_kernels.cu):
+// Replaces two TPU kernels (the entry points are in conv_kernels.cu) and
+// runs the data gradient of a third:
 //   K11 `_conv_kernel` of ragb_vae_tpu/ops/pallas/conv3x3.py:39 (entry
 //       `conv3x3_same`): y = conv3x3_same(x, w), stride 1, no bias, no
 //       statistics. The TPU version pads the input in a pass of its own.
@@ -11,7 +12,16 @@
 //       1, right 1), w, stride 2) + bias, and the per-channel (sum, sum of
 //       squares) of the ROUNDED y. The TPU version views column pairs as 2C
 //       channels and pads each row tap to a dense K = 4C GEMM.
-// Both accumulate in fp32 and round y to bf16 once.
+//   K6  `_bwd_kernel` of ragb_vae_tpu/ops/pallas/resnet_block.py:952 (entry
+//       `ragb_resnet_conv3x3_stats_bwd` in resnet_block_bwd.cu; BWD = true):
+//       dA = conv3x3_same(dye, flipped-transposed w), K11's mainloop, with the
+//       chain rule through A = act(t), t = x*a + b, in the epilogue: the
+//       forward's x comes in by TMA, d_t = dA * act'(t) from the fp32
+//       accumulators (dA is never rounded), dx = bf16(d_t * a) and
+//       A = bf16(act(t)) go out by TMA stores (A is the weight gradient's
+//       operand), and per-channel (d_t * x, d_t) sums over the tile's pixels
+//       inside the image become one (B, T, 2, C) partial row per block.
+// All accumulate in fp32 and round y (dx) to bf16 once.
 //
 // What bounds it on the H100: a conv3x3 does 2*9*C operations per output
 // element. K11 at (1,128,128,512)->512 does 77 GFLOP against 38 MB: tensor-
@@ -61,7 +71,14 @@
 //   inside the image: a fixed shuffle tree over a warp's rows, then the 8
 //   warps in order into one (B, T, 2, N) partial row per block, which
 //   `stats_reduce_kernel` (conv_taps.cuh, K1's) sums in a fixed order. No
-//   float atomics: bit-for-bit reproducible.
+//   float atomics: bit-for-bit reproducible. K6's data gradient (BWD) stages
+//   dx the same way; the forward's x tile comes by TMA into the B ring, one
+//   {64 C, TW, MB} box per stage, each stage as soon as the consumers release
+//   it after its last k-step (the last boxes' loads overlap the last
+//   products); each thread reads its own accumulator elements' x, computes
+//   t, sigmoid(t) once, d_t, dx and A, writes A over x in place (no other
+//   thread reads that element) and the boxes go out by TMA stores; the
+//   (d_t * x, d_t) sums take K9's shuffle tree and partial rows.
 // One block per tile. Persistent blocks, whose producer runs on into the
 // next tile, measured 8-14% slower storing y from the accumulators, and with
 // the TMA store and 3-stage rings 3-15% slower for K9 (7% faster for K11 at
@@ -98,21 +115,45 @@ struct ConvSm90 {
   static constexpr int b_off = a_off + A_STAGES * A_STAGE;
   static constexpr int red_off = b_off + B_STAGES * B_BYTES;   // [2][8 warps][BN] fp32 statistics
   static constexpr int bar_off = red_off + 2 * 8 * BN * 4;
-  static constexpr int bytes = bar_off + 2 * (A_STAGES + B_STAGES) * 8 + 1024;   // + alignment slack
+  static constexpr int bytes = bar_off + (2 * (A_STAGES + B_STAGES) + 1) * 8 + 1024;   // + alignment slack
   static constexpr int CONSUMERS = 256, THREADS = 384;
   static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
   static_assert(bytes <= 232448, "shared memory");
   static_assert(2 * (BN / 64) * Y_BOX <= red_off, "the output tile is staged in the drained rings");
+  // K6's data gradient: dx staged in the drained A ring, x (then A) one box per B stage
+  static_assert(DOWN || 2 * (BN / 64) * Y_BOX <= A_STAGES * A_STAGE, "dx is staged in the A ring");
+  static_assert(Y_BOX == B_BYTES && B_STAGES == 2 * (BN / 64), "one x box per B stage");
 };
 
-// DOWN = false: K11 (stride 1, SAME, no bias, no statistics); DOWN = true: K9.
+// K6's chain rule through the activation, per element: t = x*a + b; the
+// cotangent of t from dA (fp32), and A = act(t) before its rounding. The
+// sigmoid takes the fast exp and divide: a few ulp of fp32, far below the
+// bf16 rounding of dx and A.
+__device__ __forceinline__ void act_chain(float x, float a, float b, float da, int silu, float& d_t, float& act) {
+  const float t = x * a + b;
+  if (silu) {
+    const float s = __fdividef(1.0f, 1.0f + __expf(-t));
+    d_t = da * (s * (1.0f + t * (1.0f - s)));
+    act = t * s;
+  } else {
+    d_t = da;
+    act = t;
+  }
+}
+
+// DOWN = false: K11 (stride 1, SAME, no bias, no statistics); DOWN = true: K9;
+// BWD = true (with DOWN = false): K6's data gradient, y = dx, the forward's x
+// read through emap, A written through amap, coefficients act_a, act_b (B, N).
 // Grid (N tiles, pixel tiles of one image, batch).
-template <bool DOWN>
+template <bool DOWN, bool BWD = false>
 __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
     conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-                     const __grid_constant__ CUtensorMap ymap, const float* __restrict__ bias,
+                     const __grid_constant__ CUtensorMap ymap, const __grid_constant__ CUtensorMap emap,
+                     const __grid_constant__ CUtensorMap amap, const float* __restrict__ bias,
+                     const float* __restrict__ act_a, const float* __restrict__ act_b, int silu,
                      float* __restrict__ partial, int H, int W, int C, int N, int tiles_w) {
   using L = ConvSm90<DOWN>;
+  static_assert(!(DOWN && BWD), "the data gradient is a stride-1 conv");
   constexpr int AST = L::A_STAGES, BST = L::B_STAGES, BN = L::BN, MB = L::MB;
   extern __shared__ __align__(1024) unsigned char conv_sm90_smem[];
   const uint32_t raw = smem_addr(conv_sm90_smem);
@@ -123,6 +164,7 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
   auto a_empty = [&](int s) { return bars + 8 * (AST + s); };
   auto b_full = [&](int s) { return bars + 8 * (2 * AST + s); };
   auto b_empty = [&](int s) { return bars + 8 * (2 * AST + BST + s); };
+  const uint32_t e_full = bars + 8 * (2 * AST + 2 * BST);   // BWD: the forward's x tile has landed
   auto a_stage = [&](int s) { return base + L::a_off + s * L::A_STAGE; };
   auto b_stage = [&](int s) { return base + L::b_off + s * L::B_BYTES; };
 
@@ -140,6 +182,7 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
       mbar_init(b_full(s), 1);
       mbar_init(b_empty(s), 8);
     }
+    if (BWD) mbar_init(e_full, 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -170,6 +213,16 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
             tma_load_3d(b_stage(bs) + j * L::B_BOX, &wmap, n0 + 64 * j, c0, tap, b_full(bs));
+        }
+      }
+      if (BWD) {
+        // the forward's x for the epilogue: box k (output rows MB (k / 2) .., channels 64 (k % 2) ..)
+        // into B stage (it + k) % BST, each once the consumers have released it
+        mbar_arrive_expect_tx(e_full, BST * L::B_BYTES);
+        for (int k = 0; k < BST; ++k, ++it) {
+          const int bs = it % BST;
+          mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1);
+          tma_load_4d(b_stage(bs), &emap, n0 + 64 * (k % 2), w0, h0 + MB * (k / 2), b, e_full);
         }
       }
     }
@@ -221,9 +274,11 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
     wgmma_wait<0>();
 #pragma unroll
     for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+    if (BWD && lane == 0) mbar_arrive(b_empty((it - 1) % BST));   // the last B stage, for the x tile
     // both warpgroups' products are complete and every load has landed: the
     // rings are free for the output tile
     named_barrier_sync(1, L::CONSUMERS);
+    if (BWD) mbar_wait_or_trap(e_full, 0);
 
     // epilogue: the thread's accumulator rows are columns r and r + 8 of output rows MB w + m
     const int r = 16 * warp + g;
@@ -245,23 +300,55 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
       }
       unsigned char* box = sm + L::a_off + (w * (BN / 64) + col / 64) * L::Y_BOX;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};       // sum, sum, sumsq, sumsq of columns col, col + 1
+      if (BWD) {
+        // v: (d_t * x, d_t * x, d_t, d_t) of columns col, col + 1; x box k = the k-th load after the products
+        unsigned char* xbox = sm + L::b_off + ((it + w * (BN / 64) + col / 64) % BST) * L::B_BYTES;
+        float a0 = 0.0f, a1 = 0.0f, e0 = 0.0f, e1 = 0.0f;
+        if (n0 + col < N) {
+          a0 = act_a[(size_t)b * N + n0 + col];
+          a1 = act_a[(size_t)b * N + n0 + col + 1];
+          e0 = act_b[(size_t)b * N + n0 + col];
+          e1 = act_b[(size_t)b * N + n0 + col + 1];
+        }
 #pragma unroll
-      for (int m = 0; m < MB; ++m) {
+        for (int m = 0; m < MB; ++m) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const __nv_bfloat162 yv =
-              __floats2bfloat162_rn(acc[m][4 * nt + 2 * h] + b0, acc[m][4 * nt + 2 * h + 1] + b1);
-          *reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(m * L::TW + r + 8 * h, col % 64)) = yv;
-          if (DOWN && in[m][h]) {                  // statistics of the rounded y inside the image
-            const float2 f = __bfloat1622float2(yv);
-            v[0] += f.x;
-            v[1] += f.y;
-            v[2] += f.x * f.x;
-            v[3] += f.y * f.y;
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t off = sw128_offset(m * L::TW + r + 8 * h, col % 64);
+            __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(xbox + off);
+            const float2 xv = __bfloat1622float2(*xp);
+            float d0, d1, g0, g1;
+            act_chain(xv.x, a0, e0, acc[m][4 * nt + 2 * h], silu, d0, g0);
+            act_chain(xv.y, a1, e1, acc[m][4 * nt + 2 * h + 1], silu, d1, g1);
+            *reinterpret_cast<__nv_bfloat162*>(box + off) = __floats2bfloat162_rn(d0 * a0, d1 * a1);
+            *xp = __floats2bfloat162_rn(g0, g1);     // A over x: this thread alone reads and writes it
+            if (in[m][h]) {
+              v[0] += d0 * xv.x;
+              v[1] += d1 * xv.y;
+              v[2] += d0;
+              v[3] += d1;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < MB; ++m) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const __nv_bfloat162 yv =
+                __floats2bfloat162_rn(acc[m][4 * nt + 2 * h] + b0, acc[m][4 * nt + 2 * h + 1] + b1);
+            *reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(m * L::TW + r + 8 * h, col % 64)) = yv;
+            if (DOWN && in[m][h]) {                // statistics of the rounded y inside the image
+              const float2 f = __bfloat1622float2(yv);
+              v[0] += f.x;
+              v[1] += f.y;
+              v[2] += f.x * f.x;
+              v[3] += f.y * f.y;
+            }
           }
         }
       }
-      if (DOWN) {
+      if (DOWN || BWD) {
 #pragma unroll
         for (int off = 4; off < 32; off <<= 1)
 #pragma unroll
@@ -282,9 +369,15 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
       for (int j = 0; j < BN / 64; ++j)
         if (n0 + 64 * j < N)
           tma_store_4d(&ymap, base + L::a_off + (w * (BN / 64) + j) * L::Y_BOX, n0 + 64 * j, w0, h0 + MB * w, b);
+      if (BWD)
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          if (n0 + 64 * j < N)
+            tma_store_4d(&amap, base + L::b_off + ((it + w * (BN / 64) + j) % BST) * L::B_BYTES, n0 + 64 * j, w0,
+                         h0 + MB * w, b);
       tma_store_commit_and_wait();
     }
-    if (DOWN) {
+    if (DOWN || BWD) {
       named_barrier_sync(1, L::CONSUMERS);
       const int n = n0 + (int)threadIdx.x;
       if ((int)threadIdx.x < BN && n < N) {
@@ -302,13 +395,25 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
   }
 }
 
+// K6's data-gradient operands: the forward's input x (B, H, W, N) and its
+// coefficients a, b (B, N) fp32, and the activation A = act(x*a + b) written
+// out as bf16 (B, H, W, N); silu 0 is the identity.
+struct ConvSm90Act {
+  const void* x;
+  const float* a;
+  const float* b;
+  void* act;
+  int silu;
+};
+
 // Launches the conv over x (B, Hin, Win, C) and w (3, 3, C, N) into y (B, H,
-// W, N): H, W = Hin, Win (K11) or Hin / 2, Win / 2 (K9). K9 also writes the
-// per-tile partials (B, T, 2, N), T = the tiles of one image, and their
-// fixed-order sum `stats` (B, 2, N).
-template <bool DOWN>
+// W, N): H, W = Hin, Win (K11, K6's dA) or Hin / 2, Win / 2 (K9). K9 and K6
+// also write the per-tile partials (B, T, 2, N), T = the tiles of one image,
+// and their fixed-order sum `stats` (B, 2, N): K9 (sum, sum of squares) of y,
+// K6 (sum of d_t * x, sum of d_t), with y = dx and `bwd` its operands.
+template <bool DOWN, bool BWD = false>
 int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, float* partial, float* stats, int T,
-                     int B, int Hin, int Win, int C, int N, cudaStream_t stream) {
+                     int B, int Hin, int Win, int C, int N, cudaStream_t stream, const ConvSm90Act* bwd = nullptr) {
   using L = ConvSm90<DOWN>;
   const int H = DOWN ? Hin / 2 : Hin, W = DOWN ? Win / 2 : Win;
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 8 || N < 8 || C % 8 || N % 8)
@@ -319,7 +424,9 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
   if ((long long)tiles_w * tiles_h > 65535) return (int)cudaErrorInvalidValue;
   if (DOWN && (bias == nullptr || partial == nullptr || stats == nullptr || T != tiles_w * tiles_h))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap xm, wm, ym;
+  if (BWD && (bwd == nullptr || partial == nullptr || stats == nullptr || T != tiles_w * tiles_h))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, wm, ym, em, am;
   int e;
   const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)Win, (cuuint64_t)Hin, (cuuint64_t)B};
   const cuuint32_t xbox[4] = {64, (cuuint32_t)(DOWN ? 2 * L::TW : L::SW), (cuuint32_t)(DOWN ? 2 * L::TH : L::TH + 2),
@@ -331,20 +438,30 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
   const cuuint32_t ybox[4] = {64, L::TW, L::MB, 1};
   const cuuint32_t ystride[4] = {1, 1, 1, 1};
   if ((e = encode_tensor_map(&ym, y, 4, ydims, ybox, ystride))) return e;
+  em = ym;
+  am = ym;
+  if (BWD) {
+    if ((reinterpret_cast<uintptr_t>(bwd->x) | reinterpret_cast<uintptr_t>(bwd->act)) & 15)
+      return (int)cudaErrorMisalignedAddress;
+    if ((e = encode_tensor_map(&em, bwd->x, 4, ydims, ybox, ystride))) return e;
+    if ((e = encode_tensor_map(&am, bwd->act, 4, ydims, ybox, ystride))) return e;
+  }
   // the shared-memory opt-in, once per device
   static uint64_t opted_in = 0;
   int dev = 0;
   cudaError_t ce = cudaGetDevice(&dev);
   if (ce != cudaSuccess) return (int)ce;
   if (dev >= 64 || !((opted_in >> dev) & 1)) {
-    ce = cudaFuncSetAttribute(conv_sm90_kernel<DOWN>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+    ce = cudaFuncSetAttribute(conv_sm90_kernel<DOWN, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
     if (ce != cudaSuccess) return (int)ce;
     if (dev < 64) opted_in |= (uint64_t)1 << dev;
   }
   dim3 grid((N + L::BN - 1) / L::BN, tiles_w * tiles_h, B);
-  conv_sm90_kernel<DOWN><<<grid, L::THREADS, L::bytes, stream>>>(xm, wm, ym, bias, partial, H, W, C, N, tiles_w);
+  conv_sm90_kernel<DOWN, BWD><<<grid, L::THREADS, L::bytes, stream>>>(
+      xm, wm, ym, em, am, bias, BWD ? bwd->a : nullptr, BWD ? bwd->b : nullptr, BWD ? bwd->silu : 0, partial, H, W,
+      C, N, tiles_w);
   ce = cudaGetLastError();
-  if (ce != cudaSuccess || !DOWN) return (int)ce;
+  if (ce != cudaSuccess || !(DOWN || BWD)) return (int)ce;
   stats_reduce_kernel<<<dim3((N + 31) / 32, B), dim3(32, 32), 0, stream>>>(partial, stats, T, N);
   return (int)cudaGetLastError();
 }

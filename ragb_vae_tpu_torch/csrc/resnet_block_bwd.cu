@@ -8,7 +8,7 @@
 //        dA    = conv3x3(dye, flipped-transposed W)
 //        dx    = dA * act'(t) * a,  t = x*a + b recomputed from x
 //        da,db = per-(B, C) sums of dA*act'(t)*x and dA*act'(t)
-//        dW    = A-patches^T @ dye,  A = act(t) recomputed, rounded to bf16
+//        dW    = A-patches^T @ dye,  A = act(t) rounded to bf16
 //        dbias = sum dye;  dskip = dye | dye @ ws^T;  dws = skip^T @ dye
 //   K7 `_subpixel_bwd_kernel` (driven by `_subpixel_bwd_impl`): every
 //      cotangent of the nearest-2x upsample + conv3x3: dye on the (2H, 2W)
@@ -21,29 +21,33 @@
 // What bounds it on the H100: the data gradient and the weight gradient are
 // each a GEMM of the forward's size (2*9*C*N FLOPs per pixel against a few
 // (C+N) bytes), far above the bf16 ridge (~295 FLOP/byte): tensor-core FLOPs
-// bound them; the dye pass and the reduces are bytes-bound and small. The
-// design therefore (1) forms dye ONCE, in fp32 from bf16 g, bf16 y and the
-// fp32 statistics cotangent, rounds it to bf16 and stores it (it is dskip
-// itself under an identity skip), so both GEMMs stream one operand instead
-// of two and dbias falls out of the same pass; (2) runs the data gradient
-// through the forward's conv template (conv_taps.cuh) with the chain rule
-// through act(x*a + b) fused into its epilogue, where x is read once more and
-// neither t nor A ever goes to device memory; (3) runs the weight gradient as
-// a split-K GEMM on wmma tensor-core fragments, K = pixels: a block owns a
-// 64 x 64 (c, n) tile of one row of taps and a slice of the image rows,
-// recomputes A = act(x*a + b) on load, and writes an fp32 partial. The TPU
-// grid ran in order and kept dW, da, db, dbias in scratch across all steps;
-// CUDA blocks run in parallel, so every cross-block sum goes through
-// per-slice fp32 partials (a bounded number of slices, not one per tile) and
-// a second kernel that adds them in a fixed order: no float atomics, so a
+// bound them; the dye pass and the reduces are bytes-bound and small.
+//
+// K6's design: (1) dye is formed ONCE, in fp32 from bf16 g, bf16 y and the
+// fp32 statistics cotangent, rounded to bf16 and stored (it is dskip itself
+// under an identity skip), so both GEMMs stream one operand instead of two
+// and dbias falls out of the same pass; (2) the data gradient runs on the
+// Hopper conv engine (conv_sm90.cuh, K11's TMA + wgmma mainloop) with the
+// chain rule through act(x*a + b) in its epilogue, which also writes
+// A = bf16(act(t)) once, a scratch the size of x that lives for this call;
+// (3) the weight gradient is the TMA + wgmma split-K GEMM of wgrad_sm90.cuh
+// over A, whose zero fill is the SAME padding (dws is its 1-tap case over
+// the skip); (4) dskip = dye @ ws^T stays on the wmma template's 1x1 mode
+// (conv_taps.cuh MODE_CONV1). The TPU grid ran in order and kept dW, da, db,
+// dbias in scratch across all steps; CUDA blocks run in parallel, so every
+// cross-block sum goes through per-tile or per-slice fp32 partials and a
+// second kernel that adds them in a fixed order: no float atomics, so a
 // training step is bit-for-bit reproducible.
+// K7 keeps the first design: the wmma data-gradient conv (MODE_DOWN4) and the
+// wmma split-K weight gradient `wgrad_kernel`, which recomputes nothing (its
+// A is x itself).
 // Rounding points follow the TPU kernel: dye rounded to bf16 before the
-// GEMMs, A rounded to bf16 for dW, dx and dskip rounded once on store; SAME
-// padding zeroes A and dye outside the image, not x.
-// Not yet done (later work): wgmma, TMA pipelines, larger tiles, fusing the
-// three row taps of dW into one pass over x.
+// GEMMs, dA kept in fp32 through the chain rule, A rounded to bf16 for dW,
+// dx and dskip rounded once on store; SAME padding zeroes A and dye outside
+// the image, not x.
 
-#include "conv_taps.cuh"
+#include "conv_sm90.cuh"
+#include "wgrad_sm90.cuh"
 
 namespace {
 
@@ -130,7 +134,8 @@ int launch_dye(const bf16* g, const bf16* y, const float* ds, bf16* dye, float* 
 }
 
 // ---------------------------------------------------------------------------
-// Weight gradient: dW[tap][c][n] = sum over pixels of A[pixel + tap][c] * dye[pixel][n]
+// K7's weight gradient: the folded weights' dW[tap][c][n] = sum over pixels of
+// x[pixel + tap][c] * dye[2 pixel + parity][n]
 // ---------------------------------------------------------------------------
 constexpr int WG_PW = 64;               // pixels (GEMM K) per chunk: part of one image row
 constexpr int WG_TC = 64;               // input channels (GEMM M) per block
@@ -139,16 +144,13 @@ constexpr int WG_A_LD = WG_TC + 16;     // 32-byte aligned rows: fragments start
 constexpr int WG_B_LD = WG_TN + 8;
 constexpr int WG_S_LD = WG_TN + 4;      // fp32 staging tile of the masked store
 
-enum { WG_CONV3 = 0, WG_CONV1 = 1, WG_SUBPIXEL = 2 };
+enum { WG_SUBPIXEL = 2 };
 
 struct WgradArgs {
-  const bf16* x;       // (B, H, W, C): the forward's input (or the skip)
-  const float* a;      // (B, C) or null: A = act(x*a + b) rounded to bf16, else A = x
-  const float* b;
-  const bf16* dye;     // (B, DS*H, DS*W, N), DS = 2 for WG_SUBPIXEL else 1
+  const bf16* x;       // (B, H, W, C): the forward's input
+  const bf16* dye;     // (B, 2H, 2W, N)
   float* partial;      // (S, groups, taps, C, N)
   int B, H, W, C, N, S;
-  int silu;
 };
 
 __host__ __device__ constexpr size_t wgrad_smem_bytes() {
@@ -157,17 +159,15 @@ __host__ __device__ constexpr size_t wgrad_smem_bytes() {
   return main > stage ? main : stage;
 }
 
-// MODE WG_CONV3: groups = 3 tap rows u, 3 taps v each: A pixel (h+u-1, w+v-1).
-// MODE WG_CONV1: one group, one tap: A pixel (h, w)                  (dws).
 // MODE WG_SUBPIXEL: groups = 8 (pa, pb, u), 2 taps v each: the gradient of the
 //   folded weights [pa][pb][u][v]: A pixel (r+pa+u-1, c+pb+v-1) of the small
 //   grid against dye pixel (2r+pa, 2c+pb) of the large one.
 // grid (C/64, N/64, groups * S); 8 warps, each a 16 x 32 piece of every tap.
 template <int MODE>
 __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(WgradArgs p) {
-  constexpr int GROUPS = (MODE == WG_CONV3) ? 3 : (MODE == WG_CONV1) ? 1 : 8;
-  constexpr int NTV = (MODE == WG_CONV3) ? 3 : (MODE == WG_CONV1) ? 1 : 2;
-  constexpr int DS = (MODE == WG_SUBPIXEL) ? 2 : 1;
+  constexpr int GROUPS = 8;
+  constexpr int NTV = 2;
+  constexpr int DS = 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);         // slot s <-> x column w0 - 1 + s
   bf16* Bs = As + (WG_PW + 2) * WG_A_LD;
@@ -177,19 +177,11 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(WgradArgs p) {
   const int group = blockIdx.z % GROUPS;
   const int slice = blockIdx.z / GROUPS;
   const int H = p.H, W = p.W, C = p.C, N = p.N;
-  int row_off, col_off0, pa = 0, pb = 0;   // A row = r + row_off; tap v's A column = c + col_off0 + v
-  if (MODE == WG_CONV3) {
-    row_off = group - 1;
-    col_off0 = -1;
-  } else if (MODE == WG_CONV1) {
-    row_off = 0;
-    col_off0 = 0;
-  } else {
-    pa = group >> 2;
-    pb = (group >> 1) & 1;
-    row_off = pa + (group & 1) - 1;
-    col_off0 = pb - 1;
-  }
+  // A row = r + row_off; tap v's A column = c + col_off0 + v
+  const int pa = group >> 2;
+  const int pb = (group >> 1) & 1;
+  const int row_off = pa + (group & 1) - 1;
+  const int col_off0 = pb - 1;
   const int warp = threadIdx.x >> 5;
   const int ci = (warp >> 1) * 16;         // this warp's 16 input channels of the tile
   const int nj = (warp & 1) * 32;          // first of its 32 output channels
@@ -216,22 +208,7 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(WgradArgs p) {
         const int cv = (i % (WG_TC / 8)) * 8;
         const int ww = w0 - 1 + slot, ch = c0 + cv;
         uint4 out = zero_vec();
-        if (ww >= 0 && ww < W && ch < C) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(xrow + (size_t)ww * C + ch);
-          if (p.a != nullptr) {
-            const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-            bf16 o[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              float t = __bfloat162float(xv[j]) * p.a[b * C + ch + j] + p.b[b * C + ch + j];
-              if (p.silu) t = t / (1.0f + expf(-t));
-              o[j] = __float2bfloat16(t);
-            }
-            out = *reinterpret_cast<const uint4*>(o);
-          } else {
-            out = raw;
-          }
-        }
+        if (ww >= 0 && ww < W && ch < C) out = *reinterpret_cast<const uint4*>(xrow + (size_t)ww * C + ch);
         *reinterpret_cast<uint4*>(As + slot * WG_A_LD + cv) = out;
       }
       for (int i = threadIdx.x; i < WG_PW * (WG_TN / 8); i += NTHREADS) {
@@ -279,12 +256,12 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(WgradArgs p) {
   }
 }
 
-// Launches the split-K weight gradient and the fixed-order reduce of its S
+// Launches K7's split-K weight gradient and the fixed-order reduce of its S
 // partials into `dw` (groups * taps * C * N floats).
 template <int MODE>
 int launch_wgrad(WgradArgs& p, float* dw, cudaStream_t stream) {
-  constexpr int GROUPS = (MODE == WG_CONV3) ? 3 : (MODE == WG_CONV1) ? 1 : 8;
-  constexpr int NTV = (MODE == WG_CONV3) ? 3 : (MODE == WG_CONV1) ? 1 : 2;
+  constexpr int GROUPS = 8;
+  constexpr int NTV = 2;
   if (p.C % 8 || p.N % 8 || p.S < 1 || (long long)GROUPS * p.S > 65535)
     return (int)cudaErrorInvalidValue;
   const size_t smem = wgrad_smem_bytes();
@@ -303,43 +280,30 @@ int launch_wgrad(WgradArgs& p, float* dw, cudaStream_t stream) {
 extern "C" {
 
 // K6. Scratch and outputs are the wrapper's: dye (B, H, W, N) bf16 (it IS
-// dskip under an identity skip), dbias_partial (B*S_dye, N), dab_partial
-// (B, T, 2, C), dw_partial (S_w, 3, 3, C, N), dws_partial (S_w, Cs, N).
-// wt is w flipped and transposed, (3, 3, N, C); wst is ws transposed, (N, Cs).
+// dskip under an identity skip), act (B, H, W, C) bf16 (A, written by the
+// data gradient, read by the weight gradient), dbias_partial (B*S_dye, N),
+// dab_partial (B, T, 2, C) with T the conv engine's tiles of one image,
+// dw_partial (S_w, 3, 3, C, N), dws_partial (S_ws, Cs, N). wt is w flipped
+// and transposed, (3, 3, N, C); wst is ws transposed, (N, Cs).
 int ragb_resnet_conv3x3_stats_bwd(
     const void* x, const float* a, const float* b, const void* wt, const void* skip,
     const void* wst, const void* y, const void* gy, const float* gstats,
-    void* dye, void* dx, float* dab, float* dw, float* dbias, void* dskip, float* dws,
+    void* dye, void* act, void* dx, float* dab, float* dw, float* dbias, void* dskip, float* dws,
     float* dbias_partial, float* dab_partial, float* dw_partial, float* dws_partial,
-    int T, int S_dye, int S_w, int B, int H, int W, int C, int N, int Cs, int silu,
+    int T, int S_dye, int S_w, int S_ws, int B, int H, int W, int C, int N, int Cs, int silu,
     int skip_mode, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   int err = launch_dye(static_cast<const bf16*>(gy), static_cast<const bf16*>(y), gstats,
                        static_cast<bf16*>(dye), dbias_partial, dbias, B, H * W, N, S_dye, stream);
   if (err) return err;
 
-  ConvArgs da{};                        // dA = conv3x3(dye, wt), then the chain rule through act
-  da.x = static_cast<const bf16*>(dye);
-  da.w = static_cast<const bf16*>(wt);
-  da.y = static_cast<bf16*>(dx);
-  da.partial = dab_partial;
-  da.act_x = static_cast<const bf16*>(x);
-  da.act_a = a;
-  da.act_b = b;
-  da.B = B; da.H = H; da.W = W; da.C = N; da.N = C;
-  da.silu = silu;
-  err = launch_conv<MODE_CONV3, EPI_BWD_ACT>(da, dab, T, stream);
+  // dA = conv3x3(dye, wt) on the conv engine, the chain rule through act in its
+  // epilogue: dx, A and the (da, db) partials, then their fixed-order sum
+  const ConvSm90Act op{x, a, b, act, silu};
+  err = launch_conv_sm90<false, true>(dye, wt, nullptr, dx, dab_partial, dab, T, B, H, W, N, C, stream, &op);
   if (err) return err;
 
-  WgradArgs wg{};
-  wg.x = static_cast<const bf16*>(x);
-  wg.a = a;
-  wg.b = b;
-  wg.dye = static_cast<const bf16*>(dye);
-  wg.partial = dw_partial;
-  wg.B = B; wg.H = H; wg.W = W; wg.C = C; wg.N = N; wg.S = S_w;
-  wg.silu = silu;
-  err = launch_wgrad<WG_CONV3>(wg, dw, stream);
+  err = launch_wgrad_sm90<3>(act, dye, dw_partial, dw, S_w, B, H, W, C, N, stream);
   if (err) return err;
 
   if (skip_mode == SKIP_PROJ) {
@@ -350,12 +314,7 @@ int ragb_resnet_conv3x3_stats_bwd(
     ds.B = B; ds.H = H; ds.W = W; ds.C = N; ds.N = Cs;
     err = launch_conv<MODE_CONV1, EPI_FWD>(ds, nullptr, 0, stream);
     if (err) return err;
-    WgradArgs ws{};                     // dws = skip^T @ dye
-    ws.x = static_cast<const bf16*>(skip);
-    ws.dye = static_cast<const bf16*>(dye);
-    ws.partial = dws_partial;
-    ws.B = B; ws.H = H; ws.W = W; ws.C = Cs; ws.N = N; ws.S = S_w;
-    err = launch_wgrad<WG_CONV1>(ws, dws, stream);
+    err = launch_wgrad_sm90<1>(skip, dye, dws_partial, dws, S_ws, B, H, W, Cs, N, stream);   // dws = skip^T @ dye
     if (err) return err;
   }
   return 0;

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "ragb_resnet_conv3x3_stats_wino": [_P] * 11 + [_I] * 9 + [_P],
     "ragb_subpixel_upsample_conv3x3_stats": [_P] * 6 + [_I] * 6 + [_P],
     "ragb_flash_attention_fwd": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "ragb_resnet_conv3x3_stats_bwd": [_P] * 20 + [_I] * 11 + [_P],
+    "ragb_resnet_conv3x3_stats_bwd": [_P] * 21 + [_I] * 12 + [_P],
     "ragb_subpixel_upsample_conv3x3_stats_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "ragb_flash_attention_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
     "ragb_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],

@@ -29,7 +29,8 @@ the JAX package differentiates its XLA reference.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +54,15 @@ CONV_ALGO = "direct"
 
 # The weight gradient is a split-K GEMM: the image rows are cut into at most
 # this many slices, each with an fp32 partial that a second pass adds in order.
-MAX_WGRAD_SLICES = 32
+MAX_WGRAD_SLICES = 64
 MAX_DYE_SLICES = 64
 _WGRAD_TARGET_BLOCKS = 4 * 132
+# K6's weight-gradient kernel (csrc/wgrad_sm90.cuh): a block owns 128 input x
+# 128 output channels of one tap row (three column taps; one tap for the
+# projection) and steps over 64 pixels at a time.
+_WGRAD_SM90_TILE = (128, 128, 64)
+_H100_SMS = 132
+_PEAK_FLOPS, _PEAK_BYTES = 989e12, 3.35e12
 
 
 def reset_launch_counts() -> None:
@@ -421,15 +428,69 @@ def conv3x3_stats_bwd_plain(
 
 
 def _wgrad_slices(rows: int, c_in: int, n_out: int, groups: int) -> int:
-    """Row slices of the split-K weight gradient: enough blocks to fill the
+    """Row slices of K7's split-K weight gradient: enough blocks to fill the
     card, never more than MAX_WGRAD_SLICES partials."""
     tiles = -(-c_in // 64) * -(-n_out // 64) * groups
     slices = max(1, min(MAX_WGRAD_SLICES, rows, -(-_WGRAD_TARGET_BLOCKS // tiles)))
     return -(-rows // -(-rows // slices))      # no slice without a row
 
 
+def _wgrad_sm90_slices(rows: int, width: int, c_in: int, n_out: int, taps: int, sms: int = _H100_SMS) -> int:
+    """Row slices of K6's split-K weight gradient (`taps` 3: one block per tap
+    row; 1: the projection's dws): the count, at most MAX_WGRAD_SLICES, that
+    minimises a model of its time, the waves of one-block-an-SM blocks times
+    each block's k-steps at the tensor-core peak plus the fp32 partials'
+    write and read at the memory rate. The fewest slices win a tie, and no
+    slice is left without a row."""
+    bm, bn, bk = _WGRAD_SM90_TILE
+    tiles = -(-c_in // bm) * -(-n_out // bn) * taps
+    step_s = 2.0 * bm * bn * bk * taps / (_PEAK_FLOPS / sms)
+    partial_s = 2.0 * taps * taps * c_in * n_out * 4 / _PEAK_BYTES
+    steps_per_row = -(-width // bk)
+
+    def cost(s: int) -> float:
+        return -(-tiles * s // sms) * -(-rows // s) * steps_per_row * step_s + s * partial_s
+
+    best = min(range(1, min(MAX_WGRAD_SLICES, rows) + 1), key=lambda s: (cost(s), s))
+    return -(-rows // -(-rows // best))
+
+
 def _dye_slices(pixels: int) -> int:
     return max(1, min(MAX_DYE_SLICES, pixels // 64))
+
+
+class K6Plan(NamedTuple):
+    """K6's launch geometry: T, the conv engine's tiles of one image (one
+    (da, db) partial row each), the slice counts of dye, dW and dws, and the
+    partials' shapes (dws_partial None without a projection)."""
+    tiles: int
+    s_dye: int
+    s_w: int
+    s_ws: int
+    dbias_partial: Tuple[int, ...]
+    dab_partial: Tuple[int, ...]
+    dw_partial: Tuple[int, ...]
+    dws_partial: Optional[Tuple[int, ...]]
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_stats_bwd_plan(bsz: int, height: int, width: int, c_in: int, n_out: int, c_skip: int,
+                           tile: Tuple[int, int], sms: int = _H100_SMS) -> K6Plan:
+    """K6's plan for x (bsz, height, width, c_in) -> n_out channels (c_skip:
+    the projection's input channels, 0 without one), `tile` the conv
+    engine's output tile (rows, cols), on a card of `sms` SMs. Cached: a
+    training step asks for the same few shapes every step."""
+    th, tw = tile
+    tiles = -(-height // th) * -(-width // tw)
+    # dye: a slice of 16 pixel rows of the block's threads each (`launch_dye`'s
+    # block: n_out / 8 threads a pixel, 256 / (n_out / 8) pixels at a time);
+    # 64 slices took 0.31 ms at (4,512,512,128), 1024 take 0.27 (bound 0.24)
+    pix_per_pass = 1 if n_out // 8 >= 256 else 256 // (n_out // 8)
+    s_dye = max(1, -(-height * width // (16 * pix_per_pass)))
+    s_w = _wgrad_sm90_slices(bsz * height, width, c_in, n_out, 3, sms)
+    s_ws = _wgrad_sm90_slices(bsz * height, width, c_skip, n_out, 1, sms) if c_skip else 0
+    return K6Plan(tiles, s_dye, s_w, s_ws, (bsz * s_dye, n_out), (bsz, tiles, 2, c_in), (s_w, 3, 3, c_in, n_out),
+                  (s_ws, c_skip, n_out) if c_skip else None)
 
 
 def conv3x3_stats_bwd_cuda(
@@ -487,12 +548,12 @@ def conv3x3_stats_bwd_cuda(
         raise ValueError(f"{name}: coefficient shapes do not match")
     if c_in % 8 or n_out % 8 or c_skip % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out} Cs={c_skip}")
-    th, tw = _tile_shape()
-    tiles = -(-height // th) * -(-width // tw)
-    s_dye = _dye_slices(height * width)
-    s_w = _wgrad_slices(bsz * height, min(c_in, c_skip or c_in), n_out, 3)
+    plan = conv3x3_stats_bwd_plan(bsz, height, width, c_in, n_out, c_skip,
+                                  _tile_shape("ragb_conv_sm90_tile_shape"),
+                                  torch.cuda.get_device_properties(dev).multi_processor_count)
     f32 = {"dtype": torch.float32, "device": dev}
     dye = torch.empty(out_shape, dtype=x.dtype, device=dev)   # dskip itself under an identity skip
+    act = torch.empty_like(x)       # A = act(x*a + b) in bf16: the data gradient writes it, dW reads it
     dx = torch.empty_like(x)
     dab = torch.empty((bsz, 2, c_in), **f32)
     dw = torch.empty((3, 3, c_in, n_out), **f32)
@@ -503,15 +564,15 @@ def conv3x3_stats_bwd_cuda(
     elif skip_mode == 2:
         dskip = torch.empty_like(skip)
         dws = torch.empty((c_skip, n_out), **f32)
-        dws_partial = torch.empty((s_w, c_skip, n_out), **f32)
-    dbias_partial = torch.empty((bsz * s_dye, n_out), **f32)
-    dab_partial = torch.empty((bsz, tiles, 2, c_in), **f32)
-    dw_partial = torch.empty((s_w, 3, 3, c_in, n_out), **f32)
+        dws_partial = torch.empty(plan.dws_partial, **f32)
+    dbias_partial = torch.empty(plan.dbias_partial, **f32)
+    dab_partial = torch.empty(plan.dab_partial, **f32)
+    dw_partial = torch.empty(plan.dw_partial, **f32)
     err = _build.library().ragb_resnet_conv3x3_stats_bwd(
         _ptr(x), _ptr(a), _ptr(b), _ptr(wt), _ptr(skip), _ptr(wst), _ptr(y), _ptr(gy), _ptr(gstats),
-        _ptr(dye), _ptr(dx), _ptr(dab), _ptr(dw), _ptr(dbias), _ptr(dskip), _ptr(dws),
+        _ptr(dye), _ptr(act), _ptr(dx), _ptr(dab), _ptr(dw), _ptr(dbias), _ptr(dskip), _ptr(dws),
         _ptr(dbias_partial), _ptr(dab_partial), _ptr(dw_partial), _ptr(dws_partial),
-        tiles, s_dye, s_w, bsz, height, width, c_in, n_out, c_skip,
+        plan.tiles, plan.s_dye, plan.s_w, plan.s_ws, bsz, height, width, c_in, n_out, c_skip,
         1 if activation == "silu" else 0, skip_mode,
         ctypes.c_void_p(_build.stream_ptr(dev)),
     )

@@ -5,13 +5,15 @@ engine of K9 and K11 and on the Winograd conv (K8) bite.
     python3 scripts/planted_faults_bwd.py
 
     python3 scripts/planted_faults_bwd.py --only winograd    # the faults whose label holds it
+    python3 scripts/planted_faults_bwd.py --only 'resnet conv backward'    # K6's
     python3 scripts/planted_faults_bwd.py --only 'attention forward'
     python3 scripts/planted_faults_bwd.py --only 'Hopper conv engine'
     python3 scripts/planted_faults_bwd.py --only 'int8 matmul'
 
 For each fault below, the package, `chip_smoke.py` and `configs/` are copied
-into a temporary directory, one line of a CUDA source in the COPY is
-replaced, and `python3 chip_smoke.py --phases P` runs there (it rebuilds the
+into a temporary directory, some text of a source in the COPY is replaced
+(a CUDA source under `ragb_vae_tpu_torch/csrc/`, or, for a name with a
+slash, a file under `ragb_vae_tpu_torch/`), and `python3 chip_smoke.py --phases P` runs there (it rebuilds the
 kernels from the copy) for each phase P the fault names, then for each phase
 it names only to read (run and printed; it may pass). A fault counts as
 caught when every run of a phase it names exits non-zero with a FAIL on a line of the
@@ -35,20 +37,56 @@ ROOT = Path(__file__).resolve().parents[1]
 
 BACKWARD_KERNELS = ("_bwd", "flash_attention_dq", "flash_attention_dkv")
 FORWARD_KERNELS = ("flash_attention_fwd",)
-CONV_SM90_KERNELS = ("downsample_conv3x3_stats", "conv3x3_same")
+# the conv engine runs K9, K11 and K6's data gradient
+CONV_SM90_KERNELS = ("downsample_conv3x3_stats", "conv3x3_same", "resnet_conv3x3_stats_bwd")
 
 # (label, source file, the text to replace (once in the file), its replacement, the kernels whose lines must FAIL
 # [, the phases that must fail: `kernels` when not given[, phases only read, which may pass]])
 FAULTS = [
-    ("one weight-gradient partial left out of the reduce", "resnet_block_bwd.cu",
+    # K6, the resnet-block conv backward: dye pass, data gradient on the conv
+    # engine (conv_sm90.cuh, BWD), weight gradient (wgrad_sm90.cuh)
+    ("resnet conv backward: one weight-gradient pixel slice's partial left out of the sum", "wgrad_sm90.cuh",
+     "for (int r = 1; r < S; ++r) {", "for (int r = 1; r < S - 1; ++r) {", BACKWARD_KERNELS),
+    # warpgroup 0's first tap row reads one slab row down: the tile's top
+    # halo row never enters the data gradient
+    ("resnet conv backward: the data gradient's top halo row skipped", "conv_sm90.cuh",
+     "const uint32_t a_row = DOWN ? MB * w * L::TW : (MB * w + tap / 3) * L::SW + tap % 3;",
+     "const uint32_t a_row = DOWN ? MB * w * L::TW : (MB * w + tap / 3 + (BWD && w == 0 && tap < 3)) * L::SW + tap % 3;",
+     BACKWARD_KERNELS),
+    ("resnet conv backward: statistics cotangent's sum-of-squares term left out of dye", "resnet_block_bwd.cu",
+     "ds1[j] = 2.0f * ds[", "ds1[j] = 0.0f * ds[", BACKWARD_KERNELS),
+    ("resnet conv backward: the third column tap's K offset one pixel off", "wgrad_sm90.cuh",
+     "wgmma_desc(a_slab + v * 128 + kk * 2048, L::A_SLOT, 1024)",
+     "wgmma_desc(a_slab + (v + (v == 2)) * 128 + kk * 2048, L::A_SLOT, 1024)", BACKWARD_KERNELS),
+    # the trap the materialised A avoids: had the weight gradient applied the
+    # activation to a zero-filled x, SAME padding would read act(0 * a + b)
+    # = act(b); the fault adds those halo terms (A rounded to bf16) to dW
+    ("resnet conv backward: A's SAME padding taken as act(zero-filled x) = act(b)", "ops/kernels/resnet_block.py",
+     "    _build.check(err, name)\n    CONV_BWD_LAUNCHES += 1\n",
+     "    _build.check(err, name)\n"
+     "    halo = torch.ones((bsz, height + 2, width + 2, 1), device=dev)\n"
+     "    halo[:, 1:-1, 1:-1] = 0.0\n"
+     "    halo = halo * (F.silu(b) if activation == 'silu' else b).to(torch.bfloat16).float()[:, None, None, :]\n"
+     "    dw += torch.stack([torch.stack([halo[:, u:u + height, v:v + width].reshape(-1, c_in).t()\n"
+     "                                    @ dye.float().reshape(-1, n_out) for v in range(3)]) for u in range(3)])\n"
+     "    CONV_BWD_LAUNCHES += 1\n", BACKWARD_KERNELS),
+    ("resnet conv backward: one tile's (d_t * x, d_t) partial left out", "conv_sm90.cuh",
+     "partial[row * N + n] = s0;\n        partial[(row + 1) * N + n] = s1;",
+     "partial[row * N + n] = BWD && tile == 1 ? 0.0f : s0;\n        partial[(row + 1) * N + n] = BWD && tile == 1 ? 0.0f : s1;",
+     BACKWARD_KERNELS),
+    ("resnet conv backward: the epilogue's x read from the neighbouring tile", "conv_sm90.cuh",
+     "tma_load_4d(b_stage(bs), &emap, n0 + 64 * (k % 2), w0, h0 + MB * (k / 2), b, e_full);",
+     "tma_load_4d(b_stage(bs), &emap, n0 + 64 * (k % 2), w0 + L::TW, h0 + MB * (k / 2), b, e_full);",
+     BACKWARD_KERNELS),
+    # the producer waits for the last x box's B stage one phase late: the
+    # release it waits for never comes, the wait traps, the launch fails
+    ("resnet conv backward: one ring stage's parity wrong for the epilogue's x (traps)", "conv_sm90.cuh",
+     "mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1);\n          tma_load_4d(b_stage(bs), &emap",
+     "mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1 ^ (k == BST - 1));\n          tma_load_4d(b_stage(bs), &emap",
+     BACKWARD_KERNELS),
+    ("sub-pixel backward (K7): one weight-gradient partial left out of the reduce", "resnet_block_bwd.cu",
      "return launch_reduce_rows(p.partial, dw, p.S,",
      "return launch_reduce_rows(p.partial, dw, p.S > 1 ? p.S - 1 : p.S,", BACKWARD_KERNELS),
-    ("top halo row missing from the data-gradient conv's slab", "conv_taps.cuh",
-     "if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C) {",
-     "if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C && !(EPI == EPI_BWD_ACT && r == 0)) {",
-     BACKWARD_KERNELS),
-    ("statistics cotangent's sum-of-squares term left out of dye", "resnet_block_bwd.cu",
-     "ds1[j] = 2.0f * ds[", "ds1[j] = 0.0f * ds[", BACKWARD_KERNELS),
     # The dQ kernel's key-tail mask cut one key short: the last real key's
     # dS K term is lost from every dQ row. (Leaving the mask out altogether
     # changes no output: TMA zero-fills the K rows past Sk, so their dS K
@@ -134,6 +172,11 @@ FAULTS = [
 ]
 
 
+def source_path(package: Path, source: str) -> Path:
+    """A fault's file: `csrc/<source>`, or `<source>` under the package when it names a directory."""
+    return package / source if "/" in source else package / "csrc" / source
+
+
 def _run_phase(work: Path, phase: str, kernels) -> tuple:
     """chip_smoke's `phase` in `work` -> (exit code, its FAIL lines, the stage-1 route readings, output)."""
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phase], cwd=work,
@@ -153,7 +196,7 @@ def run_fault(label: str, source: str, old: str, new: str, kernels, phases=("ker
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copytree(ROOT / "configs", work / "configs")
         shutil.copy(ROOT / "chip_smoke.py", work / "chip_smoke.py")
-        path = work / "ragb_vae_tpu_torch" / "csrc" / source
+        path = source_path(work / "ragb_vae_tpu_torch", source)
         text = path.read_text()
         if text.count(old) != 1:
             raise SystemExit(f"[fault] {label}: the line to replace occurs {text.count(old)} times in {source}")

@@ -76,10 +76,12 @@ def _conv_taps(mode: int, epilogue: int):
 KERNEL_CLASSES = [
     ("K1 resnet conv (conv_taps_kernel<0, 0>)", _conv_taps(0, 0)),
     ("K2 sub-pixel upsample (conv_taps_kernel<1, 0>)", _conv_taps(1, 0)),
-    ("K6 data gradient (conv_taps_kernel<0, 1>)", _conv_taps(0, 1)),
+    ("K6 data gradient (conv_sm90_kernel<false, true>)", re.compile(r"conv_sm90_kernel<false, ?true>")),
+    ("K6 weight gradient (wgrad_sm90_kernel)", re.compile(r"wgrad_sm90_kernel")),
+    ("K6 weight-gradient slice sum (sum_slices_kernel)", re.compile(r"sum_slices_kernel")),
     ("K6 skip-projection gradient (conv_taps_kernel<2, 0>)", _conv_taps(2, 0)),
     ("K7 data gradient (conv_taps_kernel<3, 0>)", _conv_taps(3, 0)),
-    ("K6/K7 weight gradient (wgrad_kernel)", re.compile(r"wgrad_kernel")),
+    ("K7 weight gradient (wgrad_kernel)", re.compile(r"wgrad_kernel")),
     ("K6/K7 dye pass and partial reduces", re.compile(r"dye_kernel|reduce_rows_kernel")),
     ("K1/K2/K6/K9 stats reduce", re.compile(r"stats_reduce_kernel")),
     ("K8 Winograd conv (wino_conv_kernel)", re.compile(r"wino_conv_kernel")),

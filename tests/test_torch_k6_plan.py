@@ -1,0 +1,102 @@
+"""K6's host-side plan (`conv3x3_stats_bwd_plan`): the (da, db) partials
+count the Hopper conv engine's tiles, the split-K weight gradient's slices
+stay within bounds and leave no slice without a row, and the scratch shapes
+are the ones the kernels index. CPU only: the plan is plain Python."""
+import inspect
+import re
+from pathlib import Path
+
+import pytest
+
+from ragb_vae_tpu_torch.ops.kernels import resnet_block as rb
+
+CSRC = Path(rb.__file__).resolve().parents[2] / "csrc"
+
+# the shapes a VAE micro-batch of 4 at 512^2 gives K6 (the encoder sees the
+# triplet, batch 12), chip_smoke's ragged ones and more ragged edges
+SHAPES = [
+    ((4, 128, 128, 512), 512, 0), ((4, 256, 256, 512), 256, 512), ((12, 64, 64, 512), 512, 0),
+    ((4, 512, 512, 128), 128, 256), ((12, 512, 512, 128), 128, 0), ((12, 256, 256, 256), 256, 128),
+    ((1, 64, 64, 128), 128, 0), ((2, 37, 50, 128), 256, 128), ((2, 20, 131, 64), 136, 64),
+    ((1, 1, 1, 8), 8, 0), ((3, 5, 300, 24), 40, 0),
+]
+
+
+def _engine_tile():
+    """The engine's output tile as its source declares it."""
+    match = re.search(r"static constexpr int TH = (\d+), TW = (\d+);", (CSRC / "conv_sm90.cuh").read_text())
+    return int(match.group(1)), int(match.group(2))
+
+
+def test_engine_tile_is_the_one_the_source_declares():
+    assert _engine_tile() == (4, 64)
+
+
+def test_wrapper_counts_the_engines_tiles():
+    """T comes from the engine's tile (the library's export), not from the
+    wmma template's 4 x 16 tile that K1 and K7 use."""
+    src = inspect.getsource(rb.conv3x3_stats_bwd_cuda)
+    assert '_tile_shape("ragb_conv_sm90_tile_shape")' in src and "_tile_shape()" not in src
+
+
+@pytest.mark.parametrize("shape,n,cs", SHAPES)
+def test_plan_partials_match_the_kernels(shape, n, cs):
+    bsz, h, w, c = shape
+    th, tw = _engine_tile()
+    plan = rb.conv3x3_stats_bwd_plan(bsz, h, w, c, n, cs, (th, tw))
+    assert plan.tiles == -(-h // th) * -(-w // tw)
+    assert plan.dab_partial == (bsz, plan.tiles, 2, c)
+    assert plan.dbias_partial == (bsz * plan.s_dye, n)
+    assert plan.dw_partial == (plan.s_w, 3, 3, c, n)
+    if cs:
+        assert plan.dws_partial == (plan.s_ws, cs, n) and plan.s_ws >= 1
+    else:
+        assert plan.dws_partial is None and plan.s_ws == 0
+
+
+@pytest.mark.parametrize("shape,n,cs", SHAPES)
+def test_slices_are_bounded_and_none_is_empty(shape, n, cs):
+    bsz, h, w, c = shape
+    plan = rb.conv3x3_stats_bwd_plan(bsz, h, w, c, n, cs, _engine_tile())
+    rows = bsz * h
+    for s in (plan.s_w,) + ((plan.s_ws,) if cs else ()):
+        assert 1 <= s <= min(rb.MAX_WGRAD_SLICES, rows)
+        per = -(-rows // s)
+        assert (s - 1) * per < rows          # the kernel's last slice starts inside the rows
+    per = -(-h * w // plan.s_dye)
+    assert 1 <= plan.s_dye and (plan.s_dye - 1) * per < h * w
+
+
+@pytest.mark.parametrize("shape,n,cs", SHAPES[:6])
+def test_slices_minimise_the_cost_model(shape, n, cs):
+    """The chosen slice count is the cheapest under the model (waves of
+    one-block-an-SM blocks times their k-steps, plus the partials' bytes),
+    and no smaller count is as cheap."""
+    bsz, h, w, c = shape
+    rows, sms = bsz * h, 132
+    bm, bn, bk = rb._WGRAD_SM90_TILE
+
+    def cost(s, taps, cin):
+        tiles = -(-cin // bm) * -(-n // bn) * taps
+        step = 2.0 * bm * bn * bk * taps / (rb._PEAK_FLOPS / sms)
+        part = 2.0 * taps * taps * cin * n * 4 / rb._PEAK_BYTES
+        return -(-tiles * s // sms) * -(-rows // s) * -(-w // bk) * step + s * part
+
+    plan = rb.conv3x3_stats_bwd_plan(bsz, h, w, c, n, cs, _engine_tile(), sms)
+    for chosen, taps, cin in ((plan.s_w, 3, c),) + (((plan.s_ws, 1, cs),) if cs else ()):
+        best = min(cost(s, taps, cin) for s in range(1, min(rb.MAX_WGRAD_SLICES, rows) + 1))
+        assert cost(chosen, taps, cin) == pytest.approx(best)
+
+
+def test_plan_fills_the_card_at_the_decoders_last_level():
+    """At 512^2 x 128 channels one C x N tile of 128 x 128 per tap row leaves
+    3 blocks a slice: the plan takes enough slices for one full wave."""
+    plan = rb.conv3x3_stats_bwd_plan(4, 512, 512, 128, 128, 0, _engine_tile(), 132)
+    assert 3 * plan.s_w == 132
+    plan = rb.conv3x3_stats_bwd_plan(4, 128, 128, 512, 512, 0, _engine_tile(), 132)
+    assert plan.s_w == 8                      # 384 blocks: 3 waves, 97% full
+
+
+def test_plan_is_cached_per_shape():
+    a = rb.conv3x3_stats_bwd_plan(2, 37, 50, 128, 256, 128, (4, 64))
+    assert rb.conv3x3_stats_bwd_plan(2, 37, 50, 128, 256, 128, (4, 64)) is a

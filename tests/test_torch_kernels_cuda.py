@@ -179,6 +179,8 @@ def _check_cotangents(got, want):
     ((2, 37, 50, 64), 128, "proj", "silu"),            # ragged in H, W and the channel tiles
     ((1, 19, 33, 64), 64, "identity", "identity"),
     ((3, 8, 8, 512), 512, "identity", "silu"),
+    ((1, 512, 512, 128), 128, "identity", "silu"),     # the decoder's last level at 512^2
+    ((2, 20, 131, 64), 136, "proj", "silu"),           # W past two 64-pixel k-steps, N past a 128 tile
 ])
 def test_conv3x3_stats_bwd_kernel(shape, n, skip, act):
     gen = torch.Generator("cuda").manual_seed(4)

@@ -32,7 +32,7 @@ ROOT = Path(ragb_vae_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragb_vae_tpu")
 PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py",
-    "time_conv_engine.py", "time_int8_matmul.py")]
+    "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py")]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -361,23 +361,38 @@ def test_int8_gemv_x_swizzle_is_bank_conflict_free():
             assert len(groups) == 8
 
 
-def _planted_faults():
+def _planted_faults_module():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("planted_faults_bwd", ROOT.parent / "scripts" / "planted_faults_bwd.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.FAULTS
+    return module
+
+
+def _planted_faults():
+    return _planted_faults_module().FAULTS
 
 
 @pytest.mark.parametrize("fault", _planted_faults(), ids=lambda f: f[0])
 def test_planted_fault_replaces_one_line_of_its_source(fault):
     """`scripts/planted_faults_bwd.py` plants each fault by replacing text
-    that occurs exactly once in its CUDA source: a fault whose text drifted
-    out of the source would stop the script on the card."""
+    that occurs exactly once in its source (a CUDA file, or for K6's padding
+    trap the wrapper): a fault whose text drifted out of the source would
+    stop the script on the card."""
     label, source, old, new = fault[:4]
-    text = (ROOT / "csrc" / source).read_text()
+    text = _planted_faults_module().source_path(ROOT, source).read_text()
     assert text.count(old) == 1 and old != new, label
+
+
+def test_k6_faults_share_a_selector():
+    """`--only 'resnet conv backward'` selects every K6 fault: the three that
+    came with the first design (two of them now planted in the new sources)
+    and the new kernels' six."""
+    k6 = [f for f in _planted_faults() if "resnet conv backward" in f[0]]
+    assert len(k6) == 8
+    assert {f[1] for f in k6} == {"wgrad_sm90.cuh", "conv_sm90.cuh", "resnet_block_bwd.cu",
+                                  "ops/kernels/resnet_block.py"}
 
 
 def test_scan_covers_the_int8_path_and_the_stand_alone_convs():
@@ -509,3 +524,88 @@ def test_plain_vjp_is_called_only_from_backward_methods(tmp_path):
     planted = tmp_path / "planted.py"
     planted.write_text("def forward(ctx, x):\n    return plain_vjp(f_plain, (x,), (x,))\n")
     assert _plain_vjp_callers(planted) == ["forward"]
+
+
+# ---------------------------------------------------------------------------
+# K6, the resnet-block conv backward, on the Hopper kernels
+# ---------------------------------------------------------------------------
+BWD_SRC = ROOT / "csrc" / "resnet_block_bwd.cu"
+WGRAD_SRC = ROOT / "csrc" / "wgrad_sm90.cuh"
+
+
+def _k6_entry() -> str:
+    """The body of K6's C entry point, without comments."""
+    code = _code(BWD_SRC)
+    start = code.index("int ragb_resnet_conv3x3_stats_bwd(")
+    return code[start:code.index("int ragb_subpixel_upsample_conv3x3_stats_bwd(")]
+
+
+@pytest.mark.parametrize("call", ["launch_conv_sm90<false, true>(", "launch_wgrad_sm90<3>(", "launch_wgrad_sm90<1>(",
+                                  "launch_dye("])
+def test_k6_entry_runs_the_hopper_kernels(call):
+    """K6's data gradient runs on the conv engine (BWD epilogue), its weight
+    gradient and dws on the TMA + wgmma weight-gradient kernel."""
+    assert call in _k6_entry()
+
+
+@pytest.mark.parametrize("token", ["launch_conv<MODE_CONV3", "EPI_BWD_ACT", "launch_wgrad<", "wgrad_kernel<",
+                                   "WG_CONV3", "WG_CONV1", "wmma", "mma_sync", "mma.sync"])
+def test_k6_entry_launches_no_wmma_kernel(token):
+    """Nothing on K6's path is a wmma kernel but dskip's 1x1 conv, which
+    stays on conv_taps.cuh's MODE_CONV1 (the one launch_conv left)."""
+    entry = _k6_entry()
+    assert token not in entry
+    assert entry.count("launch_conv<") == 1 and "launch_conv<MODE_CONV1, EPI_FWD>(" in entry
+
+
+@pytest.mark.parametrize("token", ["WG_CONV3", "WG_CONV1", "EPI_BWD_ACT", "act_x"])
+def test_first_k6_design_is_gone(token):
+    """The wmma weight gradient's 3x3 and 1x1 modes and the wmma template's
+    backward epilogue have no launch left, and no code."""
+    for path in sorted((ROOT / "csrc").iterdir()):
+        assert token not in _code(path), path.name
+
+
+@pytest.mark.parametrize("token", ["wgmma_ss_tatb<", "tma_load_4d(", "mbar_wait_or_trap(", "mbar_arrive_expect_tx(",
+                                   "named_barrier_sync(", "wgrad_sm90_kernel<", "sum_slices_kernel<<<"])
+def test_k6_weight_gradient_uses_the_hopper_primitives(token):
+    code = _code(WGRAD_SRC)
+    assert '#include "sm90.cuh"' in code and token in code
+
+
+@pytest.mark.parametrize("token", ["wmma::", "mma_sync", "mma.sync", "mma_16816", "ldmatrix", "cp_async16",
+                                   "cp.async.ca", "cp.async.cg", "atomic"])
+def test_k6_weight_gradient_has_no_legacy_path_and_no_atomics(token):
+    assert token not in _code(WGRAD_SRC)
+
+
+def test_k6_sources_name_what_they_replace_and_their_bound():
+    for path in (WGRAD_SRC, SM90_CONV, BWD_SRC):
+        text = path.read_text()
+        assert "ragb_vae_tpu/ops/pallas/resnet_block.py:952" in text or "`_bwd_kernel`" in text, path.name
+        assert "What bounds it on the H100" in text, path.name
+    assert WGRAD_SRC in _build_sources()
+
+
+def _build_sources():
+    from ragb_vae_tpu_torch.ops.kernels import _build
+
+    return _build._sources()
+
+
+def test_transposed_a_wgmma_sets_both_transpose_immediates():
+    """The weight gradient's operands are both MN-major (pixels are NHWC's
+    outer dimension): its wgmma sets imm-trans-a and imm-trans-b to 1."""
+    code = _code(ROOT / "csrc" / "sm90.cuh")
+    body = code[code.index("void wgmma_ss_tatb<128>"):]
+    body = body[:body.index("}\n")]
+    assert "p, 1, 1, 1, 1;" in body and "m64n128k16.f32.bf16.bf16" in body
+
+
+@pytest.mark.parametrize("token", ["template <bool DOWN, bool BWD = false>", "tma_store_4d(&amap", "e_full",
+                                   "act_chain(", "stats_reduce_kernel<<<"])
+def test_conv_engine_carries_k6_data_gradient(token):
+    """K6's data gradient is the engine's BWD mode: the forward's x by TMA
+    into the drained ring, the chain rule in the epilogue, dx and A by TMA
+    stores, the (d_t * x, d_t) partials summed in a fixed order."""
+    assert token in _code(SM90_CONV)

@@ -1,6 +1,7 @@
 """`scripts/profile_torch_slice.py`'s device-time breakdown sorts each
 kernel of the port into its own class (K8, K3's merge, the K9 / K11 conv
-engine and K10's two kernels included), and its `--conv-algo` switch names the resnet-conv routes.
+engine, K10's two kernels and K6's data gradient on that engine, its
+weight gradient and slice sum included), and its `--conv-algo` switch names the resnet-conv routes.
 CPU only: the script's measurements need the card, its classifier does not."""
 import importlib.util
 from pathlib import Path
@@ -31,6 +32,22 @@ def profile():
     ("void (anonymous namespace)::conv_sm90_kernel<false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "float const*, float*, int, int, int, int, int)", "K9/K11 Hopper conv engine"),
     ("void (anonymous namespace)::stats_reduce_kernel(float const*, float*, int, int)", "K1/K2/K6/K9 stats reduce"),
+    ("void (anonymous namespace)::conv_sm90_kernel<false, true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, int, float*, int, int, int, int, int)",
+     "K6 data gradient"),
+    ("void (anonymous namespace)::conv_sm90_kernel<false, false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, int, float*, int, int, int, int, int)",
+     "K9/K11 Hopper conv engine"),
+    ("void (anonymous namespace)::wgrad_sm90_kernel<3>(CUtensorMap_st, CUtensorMap_st, float*, int, int, int, int, "
+     "int, int)", "K6 weight gradient (wgrad_sm90_kernel)"),
+    ("void (anonymous namespace)::wgrad_sm90_kernel<1>(CUtensorMap_st, CUtensorMap_st, float*, int, int, int, int, "
+     "int, int)", "K6 weight gradient (wgrad_sm90_kernel)"),
+    ("void (anonymous namespace)::sum_slices_kernel(float4 const*, float4*, int, unsigned long)",
+     "K6 weight-gradient slice sum"),
+    ("void (anonymous namespace)::wgrad_kernel<2>((anonymous namespace)::WgradArgs)", "K7 weight gradient"),
+    ("void (anonymous namespace)::dye_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+     "__nv_bfloat16*, float*, int, int, int)", "K6/K7 dye pass and partial reduces"),
+    ("void (anonymous namespace)::conv_taps_kernel<2, 0>(ConvArgs)", "K6 skip-projection gradient"),
     ("void (anonymous namespace)::flash_dq_kernel<128>(...)", "K4 attention dQ"),
     ("void (anonymous namespace)::flash_dq_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, float const*, float const*, int, int, float)", "K4 attention dQ"),
