@@ -96,7 +96,7 @@ SEED = 0
 
 KERNELS = {
     "resnet_conv3x3_stats": {
-        "source": "ragb_vae_tpu_torch/csrc/resnet_block.cu",
+        "source": "ragb_vae_tpu_torch/csrc/conv_sm90.cuh",
         "replaces": "ragb_vae_tpu/ops/pallas/resnet_block.py:69",
     },
     "subpixel_upsample_conv3x3_stats": {
@@ -136,7 +136,7 @@ KERNELS = {
         "replaces": "ragb_vae_tpu/ops/pallas/conv3x3.py:39",
     },
     "fused_gn_silu_conv3x3": {
-        "source": "ragb_vae_tpu_torch/csrc/conv_kernels.cu",
+        "source": "ragb_vae_tpu_torch/csrc/conv_sm90.cuh",
         "replaces": "ragb_vae_tpu/ops/pallas/fused_gn_silu_conv.py:45",
     },
     "resnet_conv3x3_stats_wino": {
@@ -486,7 +486,8 @@ def _own_stats(y):
 
 def _launch_or_fail(label, run_k):
     """run_k() and a synchronise; a launch that fails (a ring wait that
-    traps) fails this kernel's line and the phase."""
+    traps), on a kernel's first call or while it is timed, fails this
+    kernel's line and the phase."""
     try:
         out = run_k()
         torch.cuda.synchronize()
@@ -497,12 +498,15 @@ def _launch_or_fail(label, run_k):
     return out
 
 
-def _check_conv(label, run_k, run_p, run_x, flops, nbytes, run_lib=None, lib_name="", queued=False):
+def _check_conv(label, run_k, run_p, run_x, flops, nbytes, run_lib=None, lib_name="", queued=False,
+                part_only=False):
     """A conv kernel (y, or y and statistics) against its plain version, y
     against its exact reference and the statistics against fp64 sums of the
     kernel's own y; `run_lib`: the one PyTorch call that computes the same y,
-    timed as a yardstick; `queued`: also timed back to back. A launch that
-    fails fails this kernel's line and the phase."""
+    timed as a yardstick (`part_only`: a call for a part of the function
+    only, printed and not reported as the library's time); `queued`: also
+    timed back to back. A launch that fails fails this kernel's line and the
+    phase."""
     y, st = _with_stats(_launch_or_fail(label, run_k))
     y_p, st_p = _with_stats(run_p())
     y_x, _ = _with_stats(run_x())
@@ -510,8 +514,8 @@ def _check_conv(label, run_k, run_p, run_x, flops, nbytes, run_lib=None, lib_nam
     err_y, rel_p, abs_s, s_p = _conv_errors(y, st, y_p, st_p)
     _, rel_x, _, _ = _conv_errors(y, None, y_x, None)
     s_own = 0.0 if st is None else _conv_errors(y, st.double(), y, _own_stats(y))[3]
-    ms, plain_ms = time_ms(run_k), time_ms(run_p)
-    queued_ms = time_queued_ms(run_k) if queued else None
+    ms, plain_ms = _launch_or_fail(label, lambda: (time_ms(run_k), time_ms(run_p)))
+    queued_ms = _launch_or_fail(label, lambda: time_queued_ms(run_k)) if queued else None
     library_ms = None if run_lib is None else time_ms(run_lib)
     ok = (rel_p <= CONV_Y_REL_TOL and s_p <= CONV_STATS_PLAIN_TOL and rel_x <= CONV_Y_EXACT_TOL
           and s_own <= CONV_STATS_EXACT_TOL and bool(torch.isfinite(y.float()).all())
@@ -524,10 +528,12 @@ def _check_conv(label, run_k, run_p, run_x, flops, nbytes, run_lib=None, lib_nam
         + (f"(back to back {queued_ms:.3f}) " if queued else "") + f"plain {plain_ms:.3f} ms "
         + (f"{lib_name} {library_ms:.3f} ms " if run_lib is not None else "")
         + f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}) {'ok' if ok else 'FAIL'}")
-    return ok, label, err_y, ms, plain_ms, library_ms, lim
+    return ok, label, err_y, ms, plain_ms, None if part_only else library_ms, lim
 
 
-def _conv_inputs(gen, shape, n_out, skip):
+def _conv_inputs(gen, shape, n_out, skip, c_skip=None):
+    """K1's operands; skip "proj" projects x itself (Cs = C) unless `c_skip`
+    gives the skip a width of its own, as the model's fused blocks do."""
     bsz, h, w, c = shape
     x = _randn(gen, shape)
     a = 1.0 + 0.1 * torch.randn((bsz, c), generator=gen, device="cuda")
@@ -538,25 +544,44 @@ def _conv_inputs(gen, shape, n_out, skip):
     if skip == "identity":
         sk = _randn(gen, (bsz, h, w, n_out))
     elif skip == "proj":
-        sk = x
-        ws = _randn(gen, (c, n_out), 1.0 / math.sqrt(c))
+        sk = x if c_skip is None else _randn(gen, (bsz, h, w, c_skip))
+        ws = _randn(gen, (sk.shape[3], n_out), 1.0 / math.sqrt(sk.shape[3]))
         wsb = 0.1 * torch.randn((n_out,), generator=gen, device="cuda")
     return x, a, b, wt, bias, sk, ws, wsb
 
 
-def check_conv(gen, shape, n_out, *, skip, activation):
+def _nan_guarded(t):
+    """t (B, C) fp32 in memory followed by 64 NaN: a kernel that reads past
+    channel C of its coefficients turns y into NaN."""
+    flat = torch.full((t.numel() + 64,), float("nan"), device=t.device)
+    flat[: t.numel()] = t.reshape(-1)
+    return flat[: t.numel()].view(t.shape)
+
+
+def check_conv(gen, shape, n_out, *, skip, activation, c_skip=None):
+    """K1; beside its time, `F.conv2d` over the activation it forms in shared
+    memory (a yardstick for its conv part only: no one PyTorch call computes
+    the whole function)."""
     bsz, h, w, c = shape
-    x, a, b, wt, bias, sk, ws, wsb = _conv_inputs(gen, shape, n_out, skip)
+    x, a, b, wt, bias, sk, ws, wsb = _conv_inputs(gen, shape, n_out, skip, c_skip)
+    a, b = _nan_guarded(a), _nan_guarded(b)
     args = (x, a, b, wt, bias, sk, ws, wsb, activation)
     c_skip = 0 if ws is None else sk.shape[3]
     flops = 2 * (9 * c + c_skip) * bsz * h * w * n_out
-    nbytes = (_nbytes(x, a, b, wt, bias, ws, wsb) + (_nbytes(sk) if skip == "identity" else 0)
+    nbytes = (_nbytes(x, a, b, wt, bias, ws, wsb) + (0 if sk is None or sk is x else _nbytes(sk))
               + 2 * bsz * h * w * n_out + 4 * bsz * 2 * n_out)       # y, stats
+    t = x.float() * a[:, None, None, :] + b[:, None, None, :]
+    t_lib = (F.silu(t) if activation == "silu" else t).to(torch.bfloat16).permute(0, 3, 1, 2)
+    w_lib = _oihw(wt)
+    del t
     return _check_conv(
-        f"resnet_conv3x3_stats {shape}->{n_out} {activation} skip={skip}",
+        f"resnet_conv3x3_stats {shape}->{n_out} {activation} skip={skip}"
+        + (f" Cs={c_skip}" if c_skip and sk is not x else ""),
         lambda: rb.conv3x3_stats_cuda(*args),
         lambda: rb.conv3x3_stats_plain(*args),
         lambda: conv3x3_stats_exact(*args), flops, nbytes,
+        lambda: F.conv2d(t_lib, w_lib, padding=1), "F.conv2d on the activated input (conv part only)",
+        queued=True, part_only=True,
     )
 
 
@@ -782,8 +807,8 @@ def _check_bwd(label, names, run_k, run_p, run_x, flops, nbytes, queued=False):
         worst_abs = max(worst_abs, err_x)
         parts.append(f"{name} exact {rel_x:.2g}<={tol_x} plain {rel_p:.2g}<={tol_p}"
                      f"{'' if fine else ' FAIL'}")
-    ms, plain_ms = time_ms(run_k), time_ms(run_p)
-    queued_ms = time_queued_ms(run_k) if queued else None
+    ms, plain_ms = _launch_or_fail(label, lambda: (time_ms(run_k), time_ms(run_p)))
+    queued_ms = _launch_or_fail(label, lambda: time_queued_ms(run_k)) if queued else None
     log("kernels", f"{label}: " + "; ".join(parts) + f"; kernel {ms:.3f} ms "
         + (f"(back to back {queued_ms:.3f}) " if queued else "") + f"plain {plain_ms:.3f} ms "
         f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms ({bound(flops, nbytes)['bound_by']}) {'ok' if ok else 'FAIL'}")
@@ -948,10 +973,18 @@ def check_attention_bwd(gen, bh, seq_q, seq_k):
 def phase_kernels() -> dict:
     gen = torch.Generator("cuda").manual_seed(SEED)
     cases = {
+        # the encoder's and decoder's convs at 512^2 (batch 2, and the
+        # decoder's last level at batch 4), the projections the model's fused
+        # blocks run (conv2: C = N, a skip of Cin channels; the encoder sees
+        # the triplet, batch 12), and a shape with every edge ragged
         "resnet_conv3x3_stats": [
             lambda: check_conv(gen, (2, 128, 128, 512), 512, skip=None, activation="silu"),
             lambda: check_conv(gen, (2, 128, 128, 512), 256, skip="proj", activation="silu"),
             lambda: check_conv(gen, (1, 64, 64, 128), 128, skip="identity", activation="identity"),
+            lambda: check_conv(gen, (4, 256, 256, 256), 256, skip="proj", activation="silu", c_skip=128),
+            lambda: check_conv(gen, (12, 128, 128, 512), 512, skip="proj", activation="silu", c_skip=256),
+            lambda: check_conv(gen, (4, 512, 512, 128), 128, skip="identity", activation="silu"),
+            lambda: check_conv(gen, (2, 37, 50, 72), 136, skip="proj", activation="silu", c_skip=40),
         ],
         "subpixel_upsample_conv3x3_stats": [
             lambda: check_upsample(gen, (2, 64, 64, 512), 512),

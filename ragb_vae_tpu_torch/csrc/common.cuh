@@ -8,6 +8,10 @@
 
 typedef __nv_bfloat16 bf16;
 
+// The resnet conv's residual (K1, K8 and K6's skip_mode argument): none, an
+// identity skip added to y, or a 1x1 projection skip @ ws + wsb.
+enum { SKIP_NONE = 0, SKIP_ADD = 1, SKIP_PROJ = 2 };
+
 // 16-byte vector of eight bf16 values.
 __device__ __forceinline__ uint4 zero_vec() { return make_uint4(0u, 0u, 0u, 0u); }
 

@@ -1,19 +1,21 @@
 // The Hopper (sm_90a) implicit-GEMM conv engine: a 3x3 conv over NHWC bf16,
 // fed by TMA through an mbarrier ring and computed by wgmma, with one
-// producer warp and two consumer warpgroups per block.
+// producer warp and two consumer warpgroups per block. One kernel template,
+// `conv_sm90_kernel<MODE>`, four modes:
 //
-// Replaces two TPU kernels (the entry points are in conv_kernels.cu) and
-// runs the data gradient of a third:
-//   K11 `_conv_kernel` of ragb_vae_tpu/ops/pallas/conv3x3.py:39 (entry
-//       `conv3x3_same`): y = conv3x3_same(x, w), stride 1, no bias, no
-//       statistics. The TPU version pads the input in a pass of its own.
-//   K9  `_downsample_kernel` of ragb_vae_tpu/ops/pallas/resnet_block.py:1622
-//       (entry `fused_downsample_conv3x3_stats`): y = conv3x3(pad(x, bottom
-//       1, right 1), w, stride 2) + bias, and the per-channel (sum, sum of
-//       squares) of the ROUNDED y. The TPU version views column pairs as 2C
-//       channels and pads each row tap to a dense K = 4C GEMM.
-//   K6  `_bwd_kernel` of ragb_vae_tpu/ops/pallas/resnet_block.py:952 (entry
-//       `ragb_resnet_conv3x3_stats_bwd` in resnet_block_bwd.cu; BWD = true):
+//   CONV_SAME (K11) `_conv_kernel` of ragb_vae_tpu/ops/pallas/conv3x3.py:39
+//       (entry `conv3x3_same` in conv_kernels.cu): y = conv3x3_same(x, w),
+//       stride 1, no bias, no statistics. The TPU version pads the input in
+//       a pass of its own.
+//   CONV_DOWN (K9) `_downsample_kernel` of
+//       ragb_vae_tpu/ops/pallas/resnet_block.py:1622 (entry
+//       `fused_downsample_conv3x3_stats`): y = conv3x3(pad(x, bottom 1, right
+//       1), w, stride 2) + bias, and the per-channel (sum, sum of squares) of
+//       the ROUNDED y. The TPU version views column pairs as 2C channels and
+//       pads each row tap to a dense K = 4C GEMM.
+//   CONV_BWD (K6's data gradient) `_bwd_kernel` of
+//       ragb_vae_tpu/ops/pallas/resnet_block.py:952 (entry
+//       `ragb_resnet_conv3x3_stats_bwd` in resnet_block_bwd.cu):
 //       dA = conv3x3_same(dye, flipped-transposed w), K11's mainloop, with the
 //       chain rule through A = act(t), t = x*a + b, in the epilogue: the
 //       forward's x comes in by TMA, d_t = dA * act'(t) from the fp32
@@ -21,14 +23,29 @@
 //       A = bf16(act(t)) go out by TMA stores (A is the weight gradient's
 //       operand), and per-channel (d_t * x, d_t) sums over the tile's pixels
 //       inside the image become one (B, T, 2, C) partial row per block.
+//   CONV_ACT (K1 and K12) `_kernel` of ragb_vae_tpu/ops/pallas/resnet_block.py:69
+//       (entry `gn_silu_conv3x3_stats`, C entry `ragb_resnet_conv3x3_stats` in
+//       resnet_block.cu) and `_kernel` of
+//       ragb_vae_tpu/ops/pallas/fused_gn_silu_conv.py:45 (entry
+//       `fused_gn_silu_conv3x3`, C entry `ragb_fused_gn_silu_conv3x3` in
+//       conv_kernels.cu):
+//         y = bf16(conv3x3_same(bf16(act(x*a + b))) + bias
+//                  [+ skip | + skip @ ws + wsb])
+//       with act SiLU or the identity and a, b (B, C) fp32, and for K1 the
+//       per-channel (sum, sum of squares) of the ROUNDED y. K12 is this mode
+//       with no skip and no statistics.
 // All accumulate in fp32 and round y (dx) to bf16 once.
 //
 // What bounds it on the H100: a conv3x3 does 2*9*C operations per output
 // element. K11 at (1,128,128,512)->512 does 77 GFLOP against 38 MB: tensor-
 // core operations bound it (0.078 ms at 989 TFLOP/s). K9 at C = 512, e.g.
-// (2,128,128,512)->512, also (0.039 ms). K9 at (4,512,512,128)->128 reads a
-// 268 MB input and writes 67 MB for 77 GFLOP, 230 FLOP per byte, below the
-// bf16 ridge (~295): bytes bound it (0.100 ms at 3.35 TB/s).
+// (2,128,128,512)->512, also (0.039 ms). K1 at (2,128,128,512)->512 does 155
+// GFLOP against 38 MB (0.156 ms, operations); at (1,512,512,128)->128 with an
+// identity skip 39 GFLOP against 201 MB, 193 FLOP per byte, still
+// operations (0.078 ms against 0.060 for the bytes). K9 at
+// (4,512,512,128)->128 reads a 268 MB input and writes 67 MB for 77 GFLOP,
+// 230 FLOP per byte, below the bf16 ridge (~295): bytes bound it (0.100 ms
+// at 3.35 TB/s).
 //
 // What the design does about it:
 // - Implicit GEMM: M = a tile of TH x TW = 4 x 64 output pixels (one output
@@ -47,31 +64,69 @@
 //   instead of 9 (a box per tap, the first design, moved ~9.5 TB/s from L2
 //   on an H100 SXM: about all L2 delivers). TMA's zero fill outside the tensor, negative coordinates
 //   included, IS the SAME padding: no pad pass, no edge test.
+// - K1's A is K11's slab, rewritten in shared memory before the consumers
+//   read it: the activation stage. TMA brings raw x into a ring of three
+//   slab stages; threads that are not issuing a wgmma rewrite each slab IN
+//   PLACE to bf16(act(x*a + b)), fence their writes to the async proxy
+//   (fence.proxy.async: generic writes before a wgmma read) and arrive on a
+//   per-stage "ready" barrier, which the consumers wait on instead of the
+//   TMA's. SAME padding pads the ACTIVATED value, so the stage writes 0, not
+//   act(0*a + b) = act(b), at every slab pixel outside the image (the halo
+//   included: TMA's zero fill there is x, not the activation), and at every
+//   channel >= C of a partial last chunk, where a and b are not read at all
+//   (they end at C; a NaN past them would survive B's zero rows, since
+//   0 * NaN = NaN). A thread owns one LOGICAL 16-byte chunk (8 channels) of
+//   a group of rows, its 16 coefficients in registers for the chunk; the
+//   chunk's physical place in row r is logical ^ (r % 8) (128-byte
+//   swizzle), and a quarter warp covers one row's 128 bytes (no bank
+//   conflicts). The sigmoid takes the fast exp and divide (K6's
+//   act_chain), 2 MUFU operations an element.
+//   Who does the work decides the speed. The producer warpgroup's three
+//   idle warps alone (one warp per SM sub-partition) took ~8.5 us a
+//   64-channel chunk, more than the chunk's ~8 us of wgmma, and K1 ran at
+//   0.43-0.52 ms at (2,128,128,512)->512. So the 256 consumer threads share
+//   each slab with them (9 rows each of 44 groups of 8 threads): a consumer
+//   activates one row of the NEXT chunk's slab after issuing each tap's
+//   wgmma, while the tensor cores run (chunk 0's rows before the first
+//   products), and the three warps take the rest as soon as the slab lands;
+//   their first thread also issues the A ring's loads, one step ahead, so
+//   that a slab's load does not queue behind the B ring's. 0.35-0.37 ms
+//   there (H100 SXM, scripts/time_conv_engine.py).
+// - K1's 1x1 projection skip (skip_mode 2) is an extra K loop after the nine
+//   taps, into the same accumulators: per 64 skip channels one {64 Cs, TW,
+//   TH} box of the RAW skip (no activation stage, no halo) through the A
+//   ring, rows in output-pixel order, and two {64 N, 64 Cs} boxes of ws
+//   (Cs, N) through a 3-D map as B; wsb joins the bias.
 // - K9's A is one box per (tap, chunk), {64, 2 TW, 2 TH, 1} read with
 //   traversal strides {1, 2, 2, 1} from (c0, 2 w0 + dx, 2 h0 + dy, b): every
 //   other pixel, so the TH x TW rows are the tap's window as they land, and
 //   the zero fill past Hin and Win IS the (0, 1) padding. (A stride-2 window
 //   is not a run of consecutive slab rows; slabs of the even and odd columns
 //   per (chunk, dy) moved a third fewer bytes but measured 5-11% slower.)
-//   Channels past C read as zeros in both. Halo re-reads come from L2: the
+//   Channels past C read as zeros in K9, K11 and K6.
+//   Halo re-reads come from L2: the
 //   grid walks the N tiles of a pixel tile together and the pixel tiles in
 //   raster order.
 // - B (the weights) straight from HWIO as the MN-major operand (N
 //   contiguous): boxes {64 N, 64 C} of tap t from a 3-D map over w as (N, C,
 //   9); LBO is one box's bytes. No transpose of the weights.
-// - Two rings on full and empty mbarriers: A (K11: 2 slab stages, one per
-//   chunk; K9: 4 stages, one per tap) and B (4 stages, one per tap). One
-//   producer thread keeps the loads in flight; the consumers keep one wgmma
+// - Two rings on full and empty mbarriers: A (K11, K6: 2 slab stages, one per
+//   chunk; K1: 3; K9: 4 stages, one per tap) and B (4 stages, one per tap). One
+//   producer thread keeps the loads in flight (K1's A loads: the activation
+//   stage's first thread); the consumers keep one wgmma
 //   group in flight and release a stage when the group that read it last
 //   has completed.
 // - Epilogue: (+ bias), one rounding to bf16, staged in the drained ring in
 //   the swizzled box layout and written by a TMA store per warpgroup, which
 //   writes no element outside the tensor (ragged H, W, N need no masks). K9
-//   takes the statistics of the rounded y per channel over the tile's pixels
+//   and K1 take the statistics of the rounded y per channel over the tile's pixels
 //   inside the image: a fixed shuffle tree over a warp's rows, then the 8
 //   warps in order into one (B, T, 2, N) partial row per block, which
-//   `stats_reduce_kernel` (conv_taps.cuh, K1's) sums in a fixed order. No
-//   float atomics: bit-for-bit reproducible. K6's data gradient (BWD) stages
+//   `stats_reduce_kernel` (stats_reduce.cuh) sums in a fixed order. No
+//   float atomics: bit-for-bit reproducible. K1's identity skip (skip_mode
+//   1) comes by TMA into the drained B ring, one {64 N, TW, MB} box per
+//   stage, and is added to the fp32 accumulators before the one rounding.
+//   K6's data gradient (BWD) stages
 //   dx the same way; the forward's x tile comes by TMA into the B ring, one
 //   {64 C, TW, MB} box per stage, each stage as soon as the consumers release
 //   it after its last k-step (the last boxes' loads overlap the last
@@ -84,29 +139,36 @@
 // the TMA store and 3-stage rings 3-15% slower for K9 (7% faster for K11 at
 // C = 128). K9 at C = 128 runs 18 k-steps a tile and pays a fixed ~8 us a
 // tile, most of it the epilogue (a quarter of its time), which this design
-// does not hide. (H100 SXM, scripts/time_conv_engine.py.)
+// does not hide; K1 pays ~17 us a tile (its first slab's activation, the
+// skip's boxes after the last tap, the statistics): 45% of a tile at
+// C = 128, 31% at C = 256. (H100 SXM, scripts/time_conv_engine.py.)
 // Every barrier wait traps after 2^22 polls, so a barrier that can never
 // complete fails the launch instead of hanging the card.
-// C and N must be multiples of 8 (16-byte global strides for TMA).
+// C, N (and K1's Cs) must be multiples of 8 (16-byte global strides for TMA).
 #pragma once
 
-#include "conv_taps.cuh"   // stats_reduce_kernel
 #include "sm90.cuh"
+#include "stats_reduce.cuh"
 
 namespace {
 
-template <bool DOWN>
+// The engine's modes: what one launch computes (see the note above).
+enum { CONV_SAME = 0, CONV_DOWN = 1, CONV_BWD = 2, CONV_ACT = 3 };
+
+template <int MODE>
 struct ConvSm90 {
+  static constexpr bool DOWN = MODE == CONV_DOWN, ACT = MODE == CONV_ACT;
   static constexpr int TH = 4, TW = 64;            // output tile: TH rows x TW columns
   static constexpr int MB = TH / 2;                // output rows (m64 blocks) of a consumer warpgroup
   static constexpr int BN = 128;                   // output channels of a block
-  static constexpr int BK = 64;                    // input channels of a K chunk: one 128-byte row
+  static constexpr int BK = 64;                    // input channels of a K chunk: one 128-byte row (act_live's 64)
   static constexpr int TAPS = 9;
   static constexpr int SW = TW + 2;                // K11 slab row: the tile's columns and their halo
   static constexpr int A_ROWS = DOWN ? TH * TW : (TH + 2) * SW;
   static constexpr int A_BYTES = A_ROWS * 128;     // one A box
+  static constexpr int P_BYTES = TH * TW * 128;    // K1's projection: one {64 Cs, TW, TH} box of the skip
   static constexpr int A_STAGE = (A_BYTES + 1023) / 1024 * 1024;
-  static constexpr int A_STAGES = DOWN ? 4 : 2;
+  static constexpr int A_STAGES = DOWN ? 4 : ACT ? 3 : 2;
   static constexpr int B_BOX = BK * 128;           // one {64 N, 64 C} box of a tap's weights
   static constexpr int B_BYTES = (BN / 64) * B_BOX;
   static constexpr int B_STAGES = 4;
@@ -115,14 +177,28 @@ struct ConvSm90 {
   static constexpr int b_off = a_off + A_STAGES * A_STAGE;
   static constexpr int red_off = b_off + B_STAGES * B_BYTES;   // [2][8 warps][BN] fp32 statistics
   static constexpr int bar_off = red_off + 2 * 8 * BN * 4;
-  static constexpr int bytes = bar_off + (2 * (A_STAGES + B_STAGES) + 1) * 8 + 1024;   // + alignment slack
+  // full and empty per stage of each ring, the epilogue tile's, K1's "ready" per A stage
+  static constexpr int BARS = 2 * (A_STAGES + B_STAGES) + 1 + (ACT ? A_STAGES : 0);
+  static constexpr int bytes = bar_off + BARS * 8 + 1024;   // + alignment slack
   static constexpr int CONSUMERS = 256, THREADS = 384;
-  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  // K1's activation stage: warps 1-3 of the producer warpgroup (96 threads)
+  // and the 256 consumer threads share each slab. A thread owns one logical
+  // 16-byte chunk (8 channels) of a row group: a producer-warp thread
+  // STAGE_ROWS rows 12 apart from row q / 8, a consumer thread TAP_ROWS rows
+  // 32 apart from row 12 STAGE_ROWS + threadIdx.x / 8, spread over the nine
+  // taps of the chunk before
+  static constexpr int ACT_THREADS = 96 + CONSUMERS, STAGE_ROWS = 9, TAP_ROWS = 9;
+  // the stage keeps 16 coefficients and a row of work in registers; the pool
+  // of 384 x 168 stays what every other setmaxnreg kernel here uses
+  static constexpr int PRODUCER_REGS = ACT ? 56 : 40, CONSUMER_REGS = ACT ? 224 : 232;
   static_assert(bytes <= 232448, "shared memory");
+  static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= THREADS * 168, "register pool");
   static_assert(2 * (BN / 64) * Y_BOX <= red_off, "the output tile is staged in the drained rings");
   // K6's data gradient: dx staged in the drained A ring, x (then A) one box per B stage
   static_assert(DOWN || 2 * (BN / 64) * Y_BOX <= A_STAGES * A_STAGE, "dx is staged in the A ring");
   static_assert(Y_BOX == B_BYTES && B_STAGES == 2 * (BN / 64), "one x box per B stage");
+  static_assert(!ACT || (P_BYTES <= A_STAGE && 12 * STAGE_ROWS + 32 * TAP_ROWS == A_ROWS),
+                "K1's stage covers each slab row once");
 };
 
 // K6's chain rule through the activation, per element: t = x*a + b; the
@@ -141,19 +217,76 @@ __device__ __forceinline__ void act_chain(float x, float a, float b, float da, i
   }
 }
 
-// DOWN = false: K11 (stride 1, SAME, no bias, no statistics); DOWN = true: K9;
-// BWD = true (with DOWN = false): K6's data gradient, y = dx, the forward's x
-// read through emap, A written through amap, coefficients act_a, act_b (B, N).
-// Grid (N tiles, pixel tiles of one image, batch).
-template <bool DOWN, bool BWD = false>
-__global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
+// K1's activation of two neighbouring channels of a raw bf16 pair, rounded
+// to bf16: act(x*a + b), the value K6's data gradient recomputes as A.
+__device__ __forceinline__ uint32_t act_pair(uint32_t raw, float a0, float a1, float b0, float b1, int silu) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+  float d, g0, g1;                                 // no cotangent here: d is dead
+  act_chain(x.x, a0, b0, 0.0f, silu, d, g0);
+  act_chain(x.y, a1, b1, 0.0f, silu, d, g1);
+  return pack_bf16x2(g0, g1);
+}
+
+// Whether logical chunk lc of K1's 64-channel chunk c (channels 64 c + 8 lc
+// .. + 7) lies inside C; C % 8 == 0, so all 8 channels or none.
+__device__ __forceinline__ bool act_live(int c, int lc, int C) { return c * 64 + 8 * lc < C; }
+
+// K1's activation coefficients of one thread: those channels of one
+// sample's a and b (B, C) fp32, or zeros past C, where a and b are not read.
+__device__ __forceinline__ void act_coeffs(const float* ca, const float* cb, int c, int lc, int C, float4& a0,
+                                           float4& a1, float4& e0, float4& e1) {
+  const int ch = c * 64 + 8 * lc;
+  a0 = a1 = e0 = e1 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (act_live(c, lc, C)) {
+    a0 = *reinterpret_cast<const float4*>(ca + ch);
+    a1 = *reinterpret_cast<const float4*>(ca + ch + 4);
+    e0 = *reinterpret_cast<const float4*>(cb + ch);
+    e1 = *reinterpret_cast<const float4*>(cb + ch + 4);
+  }
+}
+
+// K1's activation of chunk c's slab in place, one thread's share: logical
+// chunk lc (coefficients a0, a1, e0, e1) of slab rows r0 + k stride, k in
+// [k0, k1), each at its physical place lc ^ (r % 8) (128-byte swizzle); 0
+// where the slab pixel lies outside the image (SAME padding pads the
+// activated value) or the channels lie past C.
+template <int SW>
+__device__ __forceinline__ void act_rows(unsigned char* slab, int c, int C, int r0, int stride, int k0, int k1, int lc,
+                                         const float4& a0, const float4& a1, const float4& e0, const float4& e1,
+                                         int h0, int w0, int H, int W, int silu) {
+  const bool live = act_live(c, lc, C);
+  for (int k = k0; k < k1; ++k) {
+    const int r = r0 + k * stride;
+    const int hh = h0 - 1 + r / SW, ww = w0 - 1 + r % SW;
+    uint4* p = reinterpret_cast<uint4*>(slab + r * 128 + ((lc ^ (r & 7)) << 4));
+    uint4 out = zero_vec();
+    if (live && (unsigned)hh < (unsigned)H && (unsigned)ww < (unsigned)W) {
+      const uint4 xv = *p;
+      out.x = act_pair(xv.x, a0.x, a0.y, e0.x, e0.y, silu);
+      out.y = act_pair(xv.y, a0.z, a0.w, e0.z, e0.w, silu);
+      out.z = act_pair(xv.z, a1.x, a1.y, e1.x, e1.y, silu);
+      out.w = act_pair(xv.w, a1.z, a1.w, e1.z, e1.w, silu);
+    }
+    *p = out;
+  }
+}
+
+// Grid (N tiles, pixel tiles of one image, batch). Per mode (see the note
+// above): xmap the conv input (K1: raw x); wmap the weights; ymap y (K6:
+// dx); emap the epilogue's tile (K6: the forward's x; K1: the identity skip);
+// amap K6's A (written) or K1's projection operand (the skip, read); pmap
+// K1's ws. act_a, act_b (B, C or N) the activation's coefficients; wsb K1's
+// projection bias; proj_steps K1's projection K loop (0: none).
+template <int MODE>
+__global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
     conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                      const __grid_constant__ CUtensorMap ymap, const __grid_constant__ CUtensorMap emap,
-                     const __grid_constant__ CUtensorMap amap, const float* __restrict__ bias,
-                     const float* __restrict__ act_a, const float* __restrict__ act_b, int silu,
-                     float* __restrict__ partial, int H, int W, int C, int N, int tiles_w) {
-  using L = ConvSm90<DOWN>;
-  static_assert(!(DOWN && BWD), "the data gradient is a stride-1 conv");
+                     const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap pmap,
+                     const float* __restrict__ bias, const float* __restrict__ act_a,
+                     const float* __restrict__ act_b, const float* __restrict__ wsb, int silu, int skip_mode,
+                     int proj_steps, float* __restrict__ partial, int H, int W, int C, int N, int tiles_w) {
+  using L = ConvSm90<MODE>;
+  constexpr bool DOWN = L::DOWN, BWD = MODE == CONV_BWD, ACT = L::ACT;
   constexpr int AST = L::A_STAGES, BST = L::B_STAGES, BN = L::BN, MB = L::MB;
   extern __shared__ __align__(1024) unsigned char conv_sm90_smem[];
   const uint32_t raw = smem_addr(conv_sm90_smem);
@@ -164,7 +297,8 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
   auto a_empty = [&](int s) { return bars + 8 * (AST + s); };
   auto b_full = [&](int s) { return bars + 8 * (2 * AST + s); };
   auto b_empty = [&](int s) { return bars + 8 * (2 * AST + BST + s); };
-  const uint32_t e_full = bars + 8 * (2 * AST + 2 * BST);   // BWD: the forward's x tile has landed
+  const uint32_t e_full = bars + 8 * (2 * AST + 2 * BST);   // BWD, K1's skip: the epilogue's tile has landed
+  auto a_ready = [&](int s) { return bars + 8 * (2 * AST + 2 * BST + 1 + s); };   // K1: slab s activated
   auto a_stage = [&](int s) { return base + L::a_off + s * L::A_STAGE; };
   auto b_stage = [&](int s) { return base + L::b_off + s * L::B_BYTES; };
 
@@ -172,17 +306,20 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
   const int tile = blockIdx.y, b = blockIdx.z;
   const int h0 = (tile / tiles_w) * L::TH, w0 = (tile % tiles_w) * L::TW;
   const int chunks = (C + L::BK - 1) / L::BK;
+  const bool epi_tile = BWD || (ACT && skip_mode == SKIP_ADD);
+  const bool stats = DOWN || BWD || (ACT && partial != nullptr);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < AST; ++s) {
       mbar_init(a_full(s), 1);
       mbar_init(a_empty(s), 8);                    // lane 0 of each consumer warp
+      if (ACT) mbar_init(a_ready(s), L::ACT_THREADS);
     }
     for (int s = 0; s < BST; ++s) {
       mbar_init(b_full(s), 1);
       mbar_init(b_empty(s), 8);
     }
-    if (BWD) mbar_init(e_full, 1);
+    if (BWD || ACT) mbar_init(e_full, 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -194,7 +331,7 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
       int it = 0;                                  // (chunk, tap) steps, tap inside
       for (int chunk = 0; chunk < chunks; ++chunk) {
         const int c0 = chunk * L::BK;
-        if (!DOWN) {
+        if (!DOWN && !ACT) {                       // K1's slabs: the activation stage loads its own
           const int as = chunk % AST;
           mbar_wait_or_trap(a_empty(as), ((chunk / AST) & 1) ^ 1);
           mbar_arrive_expect_tx(a_full(as), L::A_BYTES);
@@ -215,9 +352,21 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
             tma_load_3d(b_stage(bs) + j * L::B_BOX, &wmap, n0 + 64 * j, c0, tap, b_full(bs));
         }
       }
-      if (BWD) {
-        // the forward's x for the epilogue: box k (output rows MB (k / 2) .., channels 64 (k % 2) ..)
-        // into B stage (it + k) % BST, each once the consumers have released it
+      if (ACT) {
+        // K1's projection: ws's two {64 N, 64 Cs} boxes through the B ring
+        for (int j = 0; j < proj_steps; ++j, ++it) {
+          const int bs = it % BST;
+          mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1);
+          mbar_arrive_expect_tx(b_full(bs), L::B_BYTES);
+#pragma unroll
+          for (int jj = 0; jj < BN / 64; ++jj)
+            tma_load_3d(b_stage(bs) + jj * L::B_BOX, &pmap, n0 + 64 * jj, j * L::BK, 0, b_full(bs));
+        }
+      }
+      if (epi_tile) {
+        // the epilogue's tile (K6: the forward's x; K1: the skip): box k
+        // (output rows MB (k / 2) .., channels 64 (k % 2) ..) into B stage
+        // (it + k) % BST, each once the consumers have released it
         mbar_arrive_expect_tx(e_full, BST * L::B_BYTES);
         for (int k = 0; k < BST; ++k, ++it) {
           const int bs = it % BST;
@@ -225,6 +374,43 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
           tma_load_4d(b_stage(bs), &emap, n0 + 64 * (k % 2), w0, h0 + MB * (k / 2), b, e_full);
         }
       }
+    } else if (ACT && threadIdx.x >= L::CONSUMERS + 32) {
+      // ---------------- K1's activation stage, its producer-warp share: slab
+      // rows of each chunk as soon as it lands
+      const int q = threadIdx.x - L::CONSUMERS - 32;
+      const int lc = q % 8;                        // the logical chunk: channels 8 lc .. 8 lc + 7
+      const float* ca = act_a + (size_t)b * C;
+      const float* cb = act_b + (size_t)b * C;
+      // The A ring's loads, issued by the stage's first thread one step
+      // ahead of its work (a single producer thread would queue them behind
+      // the B ring's, a few taps before the consumers need the slab): the
+      // chunks' raw slabs, then K1's projection boxes of the raw skip.
+      const int a_steps = chunks + proj_steps;
+      auto load_a = [&](int i) {
+        const int as = i % AST;
+        mbar_wait_or_trap(a_empty(as), ((i / AST) & 1) ^ 1);
+        if (i < chunks) {
+          mbar_arrive_expect_tx(a_full(as), L::A_BYTES);
+          tma_load_4d(a_stage(as), &xmap, i * L::BK, w0 - 1, h0 - 1, b, a_full(as));
+        } else {
+          mbar_arrive_expect_tx(a_full(as), L::P_BYTES);
+          tma_load_4d(a_stage(as), &amap, (i - chunks) * L::BK, w0, h0, b, a_full(as));
+        }
+      };
+      if (q == 0) load_a(0);
+      for (int chunk = 0; chunk < chunks; ++chunk) {
+        const int s = chunk % AST;
+        if (q == 0 && chunk + 1 < a_steps) load_a(chunk + 1);
+        float4 a0, a1, e0, e1;
+        act_coeffs(ca, cb, chunk, lc, C, a0, a1, e0, e1);
+        mbar_wait_or_trap(a_full(s), (chunk / AST) & 1);
+        act_rows<L::SW>(sm + L::a_off + s * L::A_STAGE, chunk, C, q / 8, 12, 0, L::STAGE_ROWS, lc, a0, a1, e0, e1, h0,
+                        w0, H, W, silu);
+        fence_proxy_async();                       // these writes before the consumers' wgmma reads
+        mbar_arrive(a_ready(s));
+      }
+      if (q == 0)
+        for (int i = chunks + 1; i < a_steps; ++i) load_a(i);
     }
   } else {
     // ---------------- consumer warpgroups: warpgroup w owns output rows MB w .. MB w + MB - 1
@@ -237,9 +423,30 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
     for (int m = 0; m < MB; ++m)
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[m][i] = 0.0f;
+    // K1: the consumers' share of the activation stage, rows k0 .. k1 - 1 of
+    // their slab rows of chunk c; chunk 0's before the first products, chunk
+    // c + 1's spread over the taps of chunk c, its coefficients loaded
+    // (act_load) before the chunk's first barrier wait
+    const int alc = threadIdx.x & 7;
+    float4 ka0, ka1, ke0, ke1;
+    auto act_load = [&](int c) {
+      act_coeffs(act_a + (size_t)b * C, act_b + (size_t)b * C, c, alc, C, ka0, ka1, ke0, ke1);
+    };
+    auto act_row = [&](int c, int k0, int k1) {
+      act_rows<L::SW>(sm + L::a_off + (c % AST) * L::A_STAGE, c, C, 12 * L::STAGE_ROWS + (threadIdx.x >> 3), 32, k0,
+                      k1, alc, ka0, ka1, ke0, ke1, h0, w0, H, W, silu);
+    };
+    if (ACT) {
+      act_load(0);
+      mbar_wait_or_trap(a_full(0), 0);
+      act_row(0, 0, L::TAP_ROWS);
+      fence_proxy_async();
+      mbar_arrive(a_ready(0));
+    }
     int it = 0;
     for (int chunk = 0; chunk < chunks; ++chunk) {
-      if (!DOWN) mbar_wait_or_trap(a_full(chunk % AST), (chunk / AST) & 1);
+      if (ACT && chunk + 1 < chunks) act_load(chunk + 1);
+      if (!DOWN) mbar_wait_or_trap(ACT ? a_ready(chunk % AST) : a_full(chunk % AST), (chunk / AST) & 1);
       for (int tap = 0; tap < L::TAPS; ++tap, ++it) {
         const int as = DOWN ? it % AST : chunk % AST;
         if (DOWN) mbar_wait_or_trap(a_full(as), (it / AST) & 1);
@@ -258,6 +465,14 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
                             wgmma_desc(a_stage(as) + (a_row + m * (DOWN ? L::TW : L::SW)) * 128 + kk * 32, 16, 1024),
                             wgmma_desc(b_stage(bs) + kk * 2048, L::B_BOX, 1024), 1);
         wgmma_commit();
+        if (ACT && chunk + 1 < chunks) {           // while the tap's products run: rows of the next slab
+          if (tap == 0) mbar_wait_or_trap(a_full((chunk + 1) % AST), ((chunk + 1) / AST) & 1);
+          act_row(chunk + 1, tap * L::TAP_ROWS / L::TAPS, (tap + 1) * L::TAP_ROWS / L::TAPS);
+          if (tap == L::TAPS - 1) {
+            fence_proxy_async();
+            mbar_arrive(a_ready((chunk + 1) % AST));
+          }
+        }
         // one group stays in flight; the previous one has read its stages
         wgmma_wait<1>();
 #pragma unroll
@@ -271,14 +486,40 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
         }
       }
     }
+    if (ACT) {
+      // K1's projection: output row MB w + m is rows (MB w + m) TW .. of the skip box
+      for (int j = 0; j < proj_steps; ++j, ++it) {
+        const int i = chunks + j, as = i % AST;
+        const uint32_t ws_stage = b_stage(it % BST);
+        mbar_wait_or_trap(a_full(as), (i / AST) & 1);
+        mbar_wait_or_trap(b_full(it % BST), (it / BST) & 1);
+#pragma unroll
+        for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+#pragma unroll
+          for (int kk = 0; kk < L::BK / 16; ++kk)
+            wgmma_ss_tb<BN>(acc[m], wgmma_desc(a_stage(as) + (MB * w + m) * L::TW * 128 + kk * 32, 16, 1024),
+                            wgmma_desc(ws_stage + kk * 2048, L::B_BOX, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+#pragma unroll
+        for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+        if (lane == 0) {                           // the previous k-step (the last tap, or a projection step)
+          mbar_arrive(b_empty((it - 1) % BST));
+          mbar_arrive(a_empty((i - 1) % AST));
+        }
+      }
+    }
     wgmma_wait<0>();
 #pragma unroll
     for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
-    if (BWD && lane == 0) mbar_arrive(b_empty((it - 1) % BST));   // the last B stage, for the x tile
+    if (epi_tile && lane == 0) mbar_arrive(b_empty((it - 1) % BST));   // the last B stage, for the epilogue's tile
     // both warpgroups' products are complete and every load has landed: the
     // rings are free for the output tile
     named_barrier_sync(1, L::CONSUMERS);
-    if (BWD) mbar_wait_or_trap(e_full, 0);
+    if (epi_tile) mbar_wait_or_trap(e_full, 0);
 
     // epilogue: the thread's accumulator rows are columns r and r + 8 of output rows MB w + m
     const int r = 16 * warp + g;
@@ -294,15 +535,20 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
     for (int nt = 0; nt < BN / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
       float b0 = 0.0f, b1 = 0.0f;
-      if (DOWN && n0 + col < N) {                  // N % 8 == 0: col + 1 is inside too
+      if ((DOWN || ACT) && n0 + col < N) {         // N % 8 == 0: col + 1 is inside too
         b0 = bias[n0 + col];
         b1 = bias[n0 + col + 1];
+        if (ACT && skip_mode == SKIP_PROJ) {
+          b0 += wsb[n0 + col];
+          b1 += wsb[n0 + col + 1];
+        }
       }
       unsigned char* box = sm + L::a_off + (w * (BN / 64) + col / 64) * L::Y_BOX;
+      // K6's x, K1's skip: box k = the k-th B load after the products
+      unsigned char* xbox = sm + L::b_off + ((it + w * (BN / 64) + col / 64) % BST) * L::B_BYTES;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};       // sum, sum, sumsq, sumsq of columns col, col + 1
       if (BWD) {
-        // v: (d_t * x, d_t * x, d_t, d_t) of columns col, col + 1; x box k = the k-th load after the products
-        unsigned char* xbox = sm + L::b_off + ((it + w * (BN / 64) + col / 64) % BST) * L::B_BYTES;
+        // v: (d_t * x, d_t * x, d_t, d_t) of columns col, col + 1
         float a0 = 0.0f, a1 = 0.0f, e0 = 0.0f, e1 = 0.0f;
         if (n0 + col < N) {
           a0 = act_a[(size_t)b * N + n0 + col];
@@ -335,10 +581,16 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
         for (int m = 0; m < MB; ++m) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const __nv_bfloat162 yv =
-                __floats2bfloat162_rn(acc[m][4 * nt + 2 * h] + b0, acc[m][4 * nt + 2 * h + 1] + b1);
-            *reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(m * L::TW + r + 8 * h, col % 64)) = yv;
-            if (DOWN && in[m][h]) {                // statistics of the rounded y inside the image
+            const uint32_t off = sw128_offset(m * L::TW + r + 8 * h, col % 64);
+            float y0 = acc[m][4 * nt + 2 * h] + b0, y1 = acc[m][4 * nt + 2 * h + 1] + b1;
+            if (ACT && skip_mode == SKIP_ADD) {    // the skip before the one rounding
+              const float2 sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xbox + off));
+              y0 += sv.x;
+              y1 += sv.y;
+            }
+            const __nv_bfloat162 yv = __floats2bfloat162_rn(y0, y1);
+            *reinterpret_cast<__nv_bfloat162*>(box + off) = yv;
+            if (stats && in[m][h]) {               // statistics of the rounded y inside the image
               const float2 f = __bfloat1622float2(yv);
               v[0] += f.x;
               v[1] += f.y;
@@ -348,7 +600,7 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
           }
         }
       }
-      if (DOWN || BWD) {
+      if (stats) {
 #pragma unroll
         for (int off = 4; off < 32; off <<= 1)
 #pragma unroll
@@ -377,7 +629,7 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
                          h0 + MB * w, b);
       tma_store_commit_and_wait();
     }
-    if (DOWN || BWD) {
+    if (stats) {
       named_barrier_sync(1, L::CONSUMERS);
       const int n = n0 + (int)threadIdx.x;
       if ((int)threadIdx.x < BN && n < N) {
@@ -395,26 +647,36 @@ __global__ void __launch_bounds__(ConvSm90<DOWN>::THREADS, 1)
   }
 }
 
-// K6's data-gradient operands: the forward's input x (B, H, W, N) and its
-// coefficients a, b (B, N) fp32, and the activation A = act(x*a + b) written
-// out as bf16 (B, H, W, N); silu 0 is the identity.
+// The operands beyond x, w and bias. K6's data gradient: the forward's input
+// x (B, H, W, N), its coefficients a, b (B, N) fp32, and the activation
+// A = act(x*a + b) written out as bf16 (B, H, W, N). K1 and K12: the
+// coefficients a, b (B, C) fp32 of the input's activation, and K1's skip:
+// skip_mode SKIP_ADD adds skip (B, H, W, N), SKIP_PROJ adds skip (B, H, W,
+// Cs) @ ws (Cs, N) + wsb (N,) fp32. silu 0 is the identity.
 struct ConvSm90Act {
   const void* x;
   const float* a;
   const float* b;
   void* act;
   int silu;
+  const void* skip;
+  const void* ws;
+  const float* wsb;
+  int Cs;
+  int skip_mode;
 };
 
 // Launches the conv over x (B, Hin, Win, C) and w (3, 3, C, N) into y (B, H,
-// W, N): H, W = Hin, Win (K11, K6's dA) or Hin / 2, Win / 2 (K9). K9 and K6
-// also write the per-tile partials (B, T, 2, N), T = the tiles of one image,
-// and their fixed-order sum `stats` (B, 2, N): K9 (sum, sum of squares) of y,
-// K6 (sum of d_t * x, sum of d_t), with y = dx and `bwd` its operands.
-template <bool DOWN, bool BWD = false>
+// W, N): H, W = Hin, Win (K11, K6's dA, K1) or Hin / 2, Win / 2 (K9). K9, K6
+// and K1 (when `partial` is given) also write the per-tile partials (B, T, 2,
+// N), T = the tiles of one image, and their fixed-order sum `stats` (B, 2,
+// N): K9 and K1 (sum, sum of squares) of y, K6 (sum of d_t * x, sum of d_t),
+// with y = dx. `op` holds K6's and K1's further operands.
+template <int MODE>
 int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, float* partial, float* stats, int T,
-                     int B, int Hin, int Win, int C, int N, cudaStream_t stream, const ConvSm90Act* bwd = nullptr) {
-  using L = ConvSm90<DOWN>;
+                     int B, int Hin, int Win, int C, int N, cudaStream_t stream, const ConvSm90Act* op = nullptr) {
+  using L = ConvSm90<MODE>;
+  constexpr bool DOWN = L::DOWN, BWD = MODE == CONV_BWD, ACT = L::ACT;
   const int H = DOWN ? Hin / 2 : Hin, W = DOWN ? Win / 2 : Win;
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 8 || N < 8 || C % 8 || N % 8)
     return (int)cudaErrorInvalidValue;
@@ -422,11 +684,25 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
     return (int)cudaErrorMisalignedAddress;
   const int tiles_w = (W + L::TW - 1) / L::TW, tiles_h = (H + L::TH - 1) / L::TH;
   if ((long long)tiles_w * tiles_h > 65535) return (int)cudaErrorInvalidValue;
-  if (DOWN && (bias == nullptr || partial == nullptr || stats == nullptr || T != tiles_w * tiles_h))
+  const bool with_stats = DOWN || BWD || partial != nullptr;
+  if (with_stats && (partial == nullptr || stats == nullptr || T != tiles_w * tiles_h))
     return (int)cudaErrorInvalidValue;
-  if (BWD && (bwd == nullptr || partial == nullptr || stats == nullptr || T != tiles_w * tiles_h))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap xm, wm, ym, em, am;
+  if (DOWN && bias == nullptr) return (int)cudaErrorInvalidValue;
+  if ((BWD || ACT) && (op == nullptr || op->a == nullptr || op->b == nullptr)) return (int)cudaErrorInvalidValue;
+  int proj_steps = 0;
+  if (ACT) {
+    if (bias == nullptr || op->skip_mode < SKIP_NONE || op->skip_mode > SKIP_PROJ) return (int)cudaErrorInvalidValue;
+    if (op->skip_mode != SKIP_NONE && op->skip == nullptr) return (int)cudaErrorInvalidValue;
+    if (op->skip_mode == SKIP_PROJ) {
+      if (op->ws == nullptr || op->wsb == nullptr || op->Cs < 8 || op->Cs % 8) return (int)cudaErrorInvalidValue;
+      proj_steps = (op->Cs + L::BK - 1) / L::BK;
+    }
+    // the activation stage reads a and b as float4
+    if ((reinterpret_cast<uintptr_t>(op->a) | reinterpret_cast<uintptr_t>(op->b) |
+         reinterpret_cast<uintptr_t>(op->skip) | reinterpret_cast<uintptr_t>(op->ws)) & 15)
+      return (int)cudaErrorMisalignedAddress;
+  }
+  CUtensorMap xm, wm, ym, em, am, pm;
   int e;
   const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)Win, (cuuint64_t)Hin, (cuuint64_t)B};
   const cuuint32_t xbox[4] = {64, (cuuint32_t)(DOWN ? 2 * L::TW : L::SW), (cuuint32_t)(DOWN ? 2 * L::TH : L::TH + 2),
@@ -440,11 +716,19 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
   if ((e = encode_tensor_map(&ym, y, 4, ydims, ybox, ystride))) return e;
   em = ym;
   am = ym;
+  pm = wm;
   if (BWD) {
-    if ((reinterpret_cast<uintptr_t>(bwd->x) | reinterpret_cast<uintptr_t>(bwd->act)) & 15)
+    if ((reinterpret_cast<uintptr_t>(op->x) | reinterpret_cast<uintptr_t>(op->act)) & 15)
       return (int)cudaErrorMisalignedAddress;
-    if ((e = encode_tensor_map(&em, bwd->x, 4, ydims, ybox, ystride))) return e;
-    if ((e = encode_tensor_map(&am, bwd->act, 4, ydims, ybox, ystride))) return e;
+    if ((e = encode_tensor_map(&em, op->x, 4, ydims, ybox, ystride))) return e;
+    if ((e = encode_tensor_map(&am, op->act, 4, ydims, ybox, ystride))) return e;
+  }
+  if (ACT && op->skip_mode == SKIP_ADD && (e = encode_tensor_map(&em, op->skip, 4, ydims, ybox, ystride))) return e;
+  if (ACT && op->skip_mode == SKIP_PROJ) {
+    const cuuint64_t sdims[4] = {(cuuint64_t)op->Cs, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint32_t sbox[4] = {64, L::TW, L::TH, 1};
+    if ((e = encode_tensor_map(&am, op->skip, 4, sdims, sbox, ystride))) return e;
+    if ((e = encode_tensor_map_3d(&pm, op->ws, N, op->Cs, 1, 64))) return e;
   }
   // the shared-memory opt-in, once per device
   static uint64_t opted_in = 0;
@@ -452,16 +736,17 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
   cudaError_t ce = cudaGetDevice(&dev);
   if (ce != cudaSuccess) return (int)ce;
   if (dev >= 64 || !((opted_in >> dev) & 1)) {
-    ce = cudaFuncSetAttribute(conv_sm90_kernel<DOWN, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+    ce = cudaFuncSetAttribute(conv_sm90_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
     if (ce != cudaSuccess) return (int)ce;
     if (dev < 64) opted_in |= (uint64_t)1 << dev;
   }
   dim3 grid((N + L::BN - 1) / L::BN, tiles_w * tiles_h, B);
-  conv_sm90_kernel<DOWN, BWD><<<grid, L::THREADS, L::bytes, stream>>>(
-      xm, wm, ym, em, am, bias, BWD ? bwd->a : nullptr, BWD ? bwd->b : nullptr, BWD ? bwd->silu : 0, partial, H, W,
-      C, N, tiles_w);
+  conv_sm90_kernel<MODE><<<grid, L::THREADS, L::bytes, stream>>>(
+      xm, wm, ym, em, am, pm, bias, op != nullptr ? op->a : nullptr, op != nullptr ? op->b : nullptr,
+      ACT && op->skip_mode == SKIP_PROJ ? op->wsb : nullptr, op != nullptr ? op->silu : 0,
+      ACT ? op->skip_mode : SKIP_NONE, proj_steps, with_stats ? partial : nullptr, H, W, C, N, tiles_w);
   ce = cudaGetLastError();
-  if (ce != cudaSuccess || !(DOWN || BWD)) return (int)ce;
+  if (ce != cudaSuccess || !with_stats) return (int)ce;
   stats_reduce_kernel<<<dim3((N + 31) / 32, B), dim3(32, 32), 0, stream>>>(partial, stats, T, N);
   return (int)cudaGetLastError();
 }

@@ -1,23 +1,21 @@
-// The implicit-GEMM conv kernel shared by the resnet-block kernels, forward
-// (resnet_block.cu) and backward (resnet_block_bwd.cu: K6's dskip, K7's dx),
-// and by the fused GroupNorm + SiLU conv K12 (conv_kernels.cu). NHWC bf16 in
-// and out. (K9, K11 and K6's data gradient run on the TMA + wgmma engine of
+// The first design's implicit-GEMM conv kernel, still shared by the
+// sub-pixel upsample conv K2 (resnet_block.cu) and two backward convs
+// (resnet_block_bwd.cu: K6's dskip, K7's dx). NHWC bf16 in and out. (K1,
+// K9, K11, K12 and K6's data gradient run on the TMA + wgmma engine of
 // conv_sm90.cuh.)
 //
 // One block computes a TH x TW tile of output pixels for TN output channels:
 // M = 64 pixels, N = 64 channels, K = taps x input channels, on tensor cores
 // through nvcuda::wmma bf16 fragments with fp32 accumulation. Each K chunk's
-// halo'd input slab is loaded ONCE into shared memory (optionally through the
-// GroupNorm-coefficient + SiLU transform, rounded to bf16 there), and every
-// tap reads its shifted window of it. MODE picks the taps:
-//   MODE_CONV3    3x3 SAME conv                                (K1, K12)
+// halo'd input slab is loaded ONCE into shared memory, and every tap reads
+// its shifted window of it. MODE picks the taps:
 //   MODE_SUBPIXEL four 2x2 parity convs of a nearest-2x upsample  (K2)
 //   MODE_CONV1    1x1 conv                                        (K6 dskip)
 //   MODE_DOWN4    4x4 stride-2 conv of a (2H, 2W) input           (K7 dx)
 // EPI picks what happens to the fp32 tile:
-//   EPI_FWD       + bias [+ skip | + skip @ ws + wsb], round, store, and the
-//                 per-channel (sum, sumsq) of the rounded output as partials
-//                 (bias and partial may be null: a bare conv that only stores)
+//   EPI_FWD       + bias, round, store, and the per-channel (sum, sumsq) of
+//                 the rounded output as partials (bias and partial may be
+//                 null: a bare conv that only stores)
 // Per-block partials land in a (B, T, 2, N) scratch and `stats_reduce_kernel`
 // adds them in a fixed order: no float atomics, so results are bit-for-bit
 // reproducible. Tile edges (H, W, N not multiples of the tile) are masked; C
@@ -25,6 +23,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "stats_reduce.cuh"
 
 using namespace nvcuda;
 
@@ -41,17 +40,13 @@ constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int TILE_PIX = TH * TW;       // 64 output pixels
 
-enum { MODE_CONV3 = 0, MODE_SUBPIXEL = 1, MODE_CONV1 = 2, MODE_DOWN4 = 3 };
+enum { MODE_SUBPIXEL = 1, MODE_CONV1 = 2, MODE_DOWN4 = 3 };
 enum { EPI_FWD = 0 };
-enum { SKIP_NONE = 0, SKIP_ADD = 1, SKIP_PROJ = 2 };
 
 template <int MODE>
 struct TapGeometry {
   static constexpr int P = (MODE == MODE_SUBPIXEL) ? 4 : 1;          // output parities
-  static constexpr int NTAPS = (MODE == MODE_CONV3)      ? 9
-                               : (MODE == MODE_SUBPIXEL) ? 4
-                               : (MODE == MODE_CONV1)    ? 1
-                                                         : 16;
+  static constexpr int NTAPS = (MODE == MODE_SUBPIXEL) ? 4 : (MODE == MODE_CONV1) ? 1 : 16;
   static constexpr int PS = (MODE == MODE_DOWN4) ? 2 : 1;  // input pixels per output pixel
   // halo rows / columns before the tile's first input pixel, and after its last
   static constexpr int LO = (MODE == MODE_CONV1) ? 0 : 1;
@@ -63,22 +58,11 @@ struct TapGeometry {
 
 struct ConvArgs {
   const bf16* x;       // conv input (B, PS*H, PS*W, C)
-  const float* a;      // (B, C) GroupNorm scale coefficients applied on load, or null
-  const float* b;      // (B, C) GroupNorm shift coefficients
   const bf16* w;       // (taps, C, N); K2: (2, 2, 2, 2C, N) folded
   const float* bias;   // (N,) or null
-  const bf16* skip;    // (B, H, W, N) or (B, H, W, Cs)
-  const bf16* ws;      // (Cs, N)
-  const float* wsb;    // (N,)
   bf16* y;             // K2: (B, 2H, 2W, N); else (B, H, W, N)
   float* partial;      // (B, T, 2, N) per-block partial sums, or null
-  // Read by no kernel (the first K6 design's epilogue operands): they keep
-  // the parameter block's layout, without which nvcc emits another K1 and
-  // K2 (K1 1.5-2% slower, K2 5-7% faster on an H100 SXM).
-  const void* unused[3];
-  int B, H, W, C, N, Cs;
-  int silu;
-  int skip_mode;
+  int B, H, W, C, N;
   int tiles_w, tiles_h;
 };
 
@@ -120,8 +104,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
   wmma::fill_fragment(acc[1], 0.0f);
 
   for (int c0 = 0; c0 < C; c0 += KC) {
-    // halo'd input slab, zero outside the image AFTER the transform (SAME
-    // padding pads the activated value)
+    // halo'd input slab, zero outside the image
     for (int i = threadIdx.x; i < G::SLAB_PIX * (KC / 8); i += NTHREADS) {
       const int pix = i / (KC / 8);
       const int cv = (i % (KC / 8)) * 8;
@@ -129,22 +112,8 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
       const int hh = PS * h0 - G::LO + r, ww = PS * w0 - G::LO + c;
       const int ch = c0 + cv;
       uint4 out = zero_vec();
-      if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C) {
-        uint4 raw = *reinterpret_cast<const uint4*>(p.x + (((size_t)b * Hin + hh) * Win + ww) * C + ch);
-        if (MODE == MODE_CONV3 && p.a != nullptr) {
-          const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-          bf16 o[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float t = __bfloat162float(xv[j]) * p.a[b * C + ch + j] + p.b[b * C + ch + j];
-            if (p.silu) t = t / (1.0f + expf(-t));
-            o[j] = __float2bfloat16(t);
-          }
-          out = *reinterpret_cast<const uint4*>(o);
-        } else {
-          out = raw;
-        }
-      }
+      if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C)
+        out = *reinterpret_cast<const uint4*>(p.x + (((size_t)b * Hin + hh) * Win + ww) * C + ch);
       *reinterpret_cast<uint4*>(slab + pix * A_LD + cv) = out;
     }
     // this chunk's weights for every tap: NTAPS x KC x TN
@@ -172,10 +141,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
 #pragma unroll
     for (int t = 0; t < NTAPS; ++t) {
       int dy, dx;
-      if (MODE == MODE_CONV3) {
-        dy = t / 3;
-        dx = t % 3;
-      } else if (MODE == MODE_SUBPIXEL) {
+      if (MODE == MODE_SUBPIXEL) {
         dy = pa + (t >> 1);
         dx = pb + (t & 1);
       } else if (MODE == MODE_CONV1) {
@@ -203,44 +169,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
     __syncthreads();
   }
 
-  if (MODE == MODE_CONV3 && EPI == EPI_FWD && p.skip_mode == SKIP_PROJ) {
-    // 1x1 conv_shortcut on the raw skip tile, into the same accumulators
-    for (int c0 = 0; c0 < p.Cs; c0 += KC) {
-      for (int i = threadIdx.x; i < TILE_PIX * (KC / 8); i += NTHREADS) {
-        const int pix = i / (KC / 8);
-        const int cv = (i % (KC / 8)) * 8;
-        const int hh = h0 + pix / TW, ww = w0 + pix % TW;
-        const int ch = c0 + cv;
-        uint4 val = zero_vec();
-        if (hh < H && ww < W && ch < p.Cs)
-          val = *reinterpret_cast<const uint4*>(p.skip + (((size_t)b * H + hh) * W + ww) * p.Cs + ch);
-        *reinterpret_cast<uint4*>(slab + pix * A_LD + cv) = val;
-      }
-      for (int i = threadIdx.x; i < KC * (TN / 8); i += NTHREADS) {
-        const int k = i / (TN / 8);
-        const int nv = (i % (TN / 8)) * 8;
-        uint4 val = zero_vec();
-        if (c0 + k < p.Cs && n0 + nv < N)
-          val = *reinterpret_cast<const uint4*>(p.ws + (size_t)(c0 + k) * N + n0 + nv);
-        *reinterpret_cast<uint4*>(wsm + k * B_LD + nv) = val;
-      }
-      __syncthreads();
-      const bf16* arow = slab + (wrow * TW) * A_LD;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, arow + kk, A_LD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, wsm + kk * B_LD + wcol + j * 16, B_LD);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
   // epilogue: fragments -> fp32 tile in shared memory (reusing the slab)
   float* ctile = reinterpret_cast<float*>(smem_raw);
   float* red = ctile + TILE_PIX * C_LD;
@@ -255,15 +183,12 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
   const int n = n0 + n_local;
   float s0 = 0.0f, s1 = 0.0f;
   if (n < N) {
-    const float bn = (p.bias != nullptr ? p.bias[n] : 0.0f) +
-                     (p.skip_mode == SKIP_PROJ ? p.wsb[n] : 0.0f);
+    const float bn = p.bias != nullptr ? p.bias[n] : 0.0f;
     for (int q = 0; q < TILE_PIX / 4; ++q) {
       const int pix = grp * (TILE_PIX / 4) + q;
       const int hh = h0 + pix / TW, ww = w0 + pix % TW;
       if (hh < H && ww < W) {
-        float v = ctile[pix * C_LD + n_local] + bn;
-        if (p.skip_mode == SKIP_ADD)
-          v += __bfloat162float(p.skip[(((size_t)b * H + hh) * W + ww) * N + n]);
+        const float v = ctile[pix * C_LD + n_local] + bn;
         size_t oidx;
         if (MODE == MODE_SUBPIXEL)
           oidx = (((size_t)b * (2 * H) + 2 * hh + pa) * (2 * W) + 2 * ww + pb) * N + n;
@@ -295,34 +220,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
   }
 }
 
-// Sums the (B, T, 2, N) partials into (B, 2, N) in a fixed order: thread
-// lane j adds tiles j, j+32, ... in sequence, then lane 0 adds the 32 lanes.
-__global__ void stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ stats,
-                                    int T, int N) {
-  __shared__ float red[2][32][33];
-  const int n = blockIdx.x * 32 + threadIdx.x;
-  const int b = blockIdx.y;
-  float s0 = 0.0f, s1 = 0.0f;
-  if (n < N) {
-    for (int t = threadIdx.y; t < T; t += 32) {
-      s0 += partial[(((size_t)b * T + t) * 2 + 0) * N + n];
-      s1 += partial[(((size_t)b * T + t) * 2 + 1) * N + n];
-    }
-  }
-  red[0][threadIdx.y][threadIdx.x] = s0;
-  red[1][threadIdx.y][threadIdx.x] = s1;
-  __syncthreads();
-  if (threadIdx.y == 0 && n < N) {
-    float t0 = 0.0f, t1 = 0.0f;
-    for (int j = 0; j < 32; ++j) {
-      t0 += red[0][j][threadIdx.x];
-      t1 += red[1][j][threadIdx.x];
-    }
-    stats[((size_t)b * 2 + 0) * N + n] = t0;
-    stats[((size_t)b * 2 + 1) * N + n] = t1;
-  }
-}
-
 // Launches the conv and, when `sums` is given, the fixed-order reduce of its
 // partials into `sums` (B, 2, N). T is the caller's count of partial tiles.
 template <int MODE, int EPI>
@@ -330,7 +227,7 @@ int launch_conv(ConvArgs& p, float* sums, int T, cudaStream_t stream) {
   constexpr int P = TapGeometry<MODE>::P;
   p.tiles_w = (p.W + TW - 1) / TW;
   p.tiles_h = (p.H + TH - 1) / TH;
-  if (p.C % 8 || p.N % 8 || p.Cs % 8) return (int)cudaErrorInvalidValue;
+  if (p.C % 8 || p.N % 8) return (int)cudaErrorInvalidValue;
   if (p.partial != nullptr && T != P * p.tiles_w * p.tiles_h) return (int)cudaErrorInvalidValue;
   if ((long long)p.B * P > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = conv_smem_bytes<MODE>();

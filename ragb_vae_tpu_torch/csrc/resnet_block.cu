@@ -1,9 +1,10 @@
 // Whole-resnet-block conv kernels for Hopper (sm_90a), NHWC bf16 in and out.
 //
 // Replaces two TPU kernels of ragb_vae_tpu/ops/pallas/resnet_block.py:
-//   K1 `_kernel` (driven by `_chain_fwd_impl`, entry `gn_silu_conv3x3_stats`):
+//   K1 `_kernel` (:69, driven by `_chain_fwd_impl`, entry
+//      `gn_silu_conv3x3_stats`):
 //      y = conv3x3(act(x*a + b)) + bias [+ skip | + skip @ ws + wsb]
-//   K2 `_subpixel_kernel` (driven by `_subpixel_fwd_impl`, entry
+//   K2 `_subpixel_kernel` (:231, driven by `_subpixel_fwd_impl`, entry
 //      `fused_upsample_conv3x3_stats`): nearest-2x upsample + conv3x3 + bias
 //      computed as four 2x2 "parity" convs on the small grid.
 // Both end in the same epilogue: the output is rounded to bf16 and stored,
@@ -13,59 +14,60 @@
 // What bounds it on the H100: at the VAE's widths (C, N in 128..512) a conv
 // does 2*9*C FLOPs per output element against ~2*(C+N) bytes of traffic, so
 // it sits well above the bf16 ridge (~295 FLOP/byte): tensor-core FLOPs bound
-// it. The design therefore (1) runs the GEMM on tensor cores through
-// nvcuda::wmma bf16 fragments with fp32 accumulation, as an implicit GEMM
-// (M = 64 output pixels, N = 64 output channels, K = taps x C); (2) loads each
-// input element of a block's halo'd slab ONCE per K chunk, applies the GroupNorm
-// coefficients and SiLU there in fp32 and rounds to bf16 (the activation
-// never goes to device memory), and lets all taps read their shifted window
-// of that slab from shared memory; (3) fuses bias, residual or 1x1
-// projection (a fourth GEMM on the skip tile into the same accumulators) and
-// the statistics into the epilogue, so the next GroupNorm costs no extra pass.
+// it.
+//
+// K1 runs on the Hopper conv engine (conv_sm90.cuh, mode CONV_ACT): TMA
+// brings each 64-channel chunk's halo'd slab of raw x, an activation stage
+// (three warps that issue no wgmma) rewrites it in shared memory to
+// bf16(act(x*a + b)) with 0 outside the image and past channel C (SAME
+// padding pads the activated value), and two consumer warpgroups run K11's
+// wgmma mainloop over it; the 1x1 projection is an extra K loop over the raw
+// skip into the same accumulators, the identity skip comes by TMA into the
+// drained ring, and the epilogue adds bias (+ wsb) and the skip to the fp32
+// accumulators, rounds once, stores by TMA and writes one statistics partial
+// row a block. conv_sm90.cuh says what each part of the design does about
+// the bound.
+// K2 keeps the first design (conv_taps.cuh, MODE_SUBPIXEL): nvcuda::wmma
+// bf16 fragments with fp32 accumulation as an implicit GEMM (M = 64 output
+// pixels, N = 64 output channels, K = taps x C), each input element of a
+// block's halo'd slab loaded ONCE per K chunk and read by all taps from
+// shared memory; bias and statistics in the epilogue.
 // TPU grids run in order and carried the statistics across row tiles; CUDA
 // blocks run in parallel, so each block writes its partial sums to a scratch
-// and a second small kernel sums them in a fixed order: no float atomics, so
-// the statistics, and everything downstream, are bit-for-bit reproducible.
-// Tile edges (H, W, N not multiples of the tile) are masked; C and N must be
-// multiples of 8 (16-byte vector loads), which the wrapper checks.
-// The kernel template itself is in conv_taps.cuh, shared with the backward
-// kernels of resnet_block_bwd.cu; this file holds the forward entry points.
-// Not yet done (later work): cp.async/TMA double buffering, wgmma.
+// and a second small kernel (stats_reduce.cuh) sums them in a fixed order:
+// no float atomics, so the statistics, and everything downstream, are
+// bit-for-bit reproducible. C, N (and K1's Cs) must be multiples of 8, which
+// the wrapper checks.
+// Not yet done (later work): K2 on the conv engine (TMA, wgmma).
 
+#include "conv_sm90.cuh"
 #include "conv_taps.cuh"
 
 extern "C" {
 
 const char* ragb_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Output tile geometry, so the wrapper sizes the partial-statistics scratch.
+// The wmma template's output tile, so K2's wrapper sizes its partial-statistics scratch.
 int ragb_conv_tile_shape(int* tile_h, int* tile_w) {
   *tile_h = TH;
   *tile_w = TW;
   return 0;
 }
 
+// K1: x (B, H, W, C), a, b (B, C) fp32, w (3, 3, C, N), bias (N,) fp32; skip
+// (B, H, W, N) for skip_mode SKIP_ADD or (B, H, W, Cs) with ws (Cs, N) and
+// wsb (N,) fp32 for SKIP_PROJ; y (B, H, W, N), stats (B, 2, N) and partial
+// (B, T, 2, N) with T the conv engine's tiles of one image
+// (ragb_conv_sm90_tile_shape).
 int ragb_resnet_conv3x3_stats(const void* x, const float* a, const float* b, const void* w,
                               const float* bias, const void* skip, const void* ws,
                               const float* wsb, void* y, float* partial, float* stats, int T,
                               int B, int H, int W, int C, int N, int Cs, int silu, int skip_mode,
                               void* stream) {
-  ConvArgs p{};
-  p.x = static_cast<const bf16*>(x);
-  p.a = a;
-  p.b = b;
-  p.w = static_cast<const bf16*>(w);
-  p.bias = bias;
-  p.skip = static_cast<const bf16*>(skip);
-  p.ws = static_cast<const bf16*>(ws);
-  p.wsb = wsb;
-  p.y = static_cast<bf16*>(y);
-  p.partial = partial;
-  p.B = B; p.H = H; p.W = W; p.C = C; p.N = N;
-  p.Cs = skip_mode == SKIP_PROJ ? Cs : 0;
-  p.silu = silu;
-  p.skip_mode = skip_mode;
-  return launch_conv<MODE_CONV3, EPI_FWD>(p, stats, T, static_cast<cudaStream_t>(stream));
+  if (partial == nullptr || stats == nullptr) return (int)cudaErrorInvalidValue;
+  const ConvSm90Act op{nullptr, a, b, nullptr, silu, skip, ws, wsb, skip_mode == SKIP_PROJ ? Cs : 0, skip_mode};
+  return launch_conv_sm90<CONV_ACT>(x, w, bias, y, partial, stats, T, B, H, W, C, N,
+                                    static_cast<cudaStream_t>(stream), &op);
 }
 
 int ragb_subpixel_upsample_conv3x3_stats(const void* x, const void* w_fold, const float* bias,
@@ -78,9 +80,6 @@ int ragb_subpixel_upsample_conv3x3_stats(const void* x, const void* w_fold, cons
   p.y = static_cast<bf16*>(y);
   p.partial = partial;
   p.B = B; p.H = H; p.W = W; p.C = C; p.N = N;
-  p.Cs = 0;
-  p.silu = 0;
-  p.skip_mode = SKIP_NONE;
   return launch_conv<MODE_SUBPIXEL, EPI_FWD>(p, stats, T, static_cast<cudaStream_t>(stream));
 }
 

@@ -47,6 +47,7 @@
 // the image, not x.
 
 #include "conv_sm90.cuh"
+#include "conv_taps.cuh"
 #include "wgrad_sm90.cuh"
 
 namespace {
@@ -300,7 +301,7 @@ int ragb_resnet_conv3x3_stats_bwd(
   // dA = conv3x3(dye, wt) on the conv engine, the chain rule through act in its
   // epilogue: dx, A and the (da, db) partials, then their fixed-order sum
   const ConvSm90Act op{x, a, b, act, silu};
-  err = launch_conv_sm90<false, true>(dye, wt, nullptr, dx, dab_partial, dab, T, B, H, W, N, C, stream, &op);
+  err = launch_conv_sm90<CONV_BWD>(dye, wt, nullptr, dx, dab_partial, dab, T, B, H, W, N, C, stream, &op);
   if (err) return err;
 
   err = launch_wgrad_sm90<3>(act, dye, dw_partial, dw, S_w, B, H, W, C, N, stream);

@@ -37,16 +37,33 @@
 // bf16, never written out), transformed into shared memory, and the 16
 // variants' products run on mma.sync m16n8k16 from ldmatrix fragments. The 1x1
 // projection of the skip is a GEMM of its own after the main loop. The
-// statistics go through per-block fp32 partials and K1's fixed-order reduce
+// statistics go through per-block fp32 partials and the fixed-order reduce
 // (stats_reduce_kernel): no float atomics, bit-for-bit reproducible.
 // H and W must be even (a Winograd tile never straddles the image edge), C, N
 // and Cs multiples of 8 (16-byte vector loads); tile edges are masked.
 // Not yet done (later work): cp.async double buffering, wgmma, TMA.
 
-#include "conv_taps.cuh"
 #include "mma.cuh"
+#include "stats_reduce.cuh"
 
 namespace {
+
+struct WinoArgs {
+  const bf16* x;       // (B, H, W, C)
+  const float* a;      // (B, C) GroupNorm coefficients applied on load: x*a + b
+  const float* b;
+  const bf16* w;       // U = G w G^T: (16, C, N)
+  const float* bias;   // (N,)
+  const bf16* skip;    // (B, H, W, N) or (B, H, W, Cs)
+  const bf16* ws;      // (Cs, N)
+  const float* wsb;    // (N,)
+  bf16* y;             // (B, H, W, N)
+  float* partial;      // (B, T, 2, N) per-block partial sums
+  int B, H, W, C, N, Cs;
+  int silu;
+  int skip_mode;
+  int tiles_w, tiles_h;
+};
 
 constexpr int WH = 8;                          // output rows per block
 constexpr int WW = 16;                         // output columns per block
@@ -81,7 +98,7 @@ constexpr size_t WINO_SMEM = MAIN_BYTES > EPI_BYTES ? MAIN_BYTES : EPI_BYTES;
 static_assert((size_t)WPIX * V_LD * sizeof(bf16) + (size_t)WKC * U_LD * sizeof(bf16) <= MAIN_BYTES,
               "the projection's staging fits the main loop's bytes");
 
-__global__ void __launch_bounds__(WTHREADS) wino_conv_kernel(ConvArgs p) {
+__global__ void __launch_bounds__(WTHREADS) wino_conv_kernel(WinoArgs p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* slab = reinterpret_cast<bf16*>(smem_raw);
   bf16* vbuf = reinterpret_cast<bf16*>(smem_raw + SLAB_BYTES);
@@ -335,7 +352,7 @@ int ragb_resnet_conv3x3_stats_wino(const void* x, const float* a, const float* b
                                    const float* wsb, void* y, float* partial, float* stats, int T,
                                    int B, int H, int W, int C, int N, int Cs, int silu,
                                    int skip_mode, void* stream) {
-  ConvArgs p{};
+  WinoArgs p{};
   p.x = static_cast<const bf16*>(x);
   p.a = a;
   p.b = b;

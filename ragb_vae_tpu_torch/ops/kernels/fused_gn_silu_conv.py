@@ -6,7 +6,8 @@ the folded GroupNorm coefficients (gn(x) = x*a + b, `group_norm_coeffs`); the
 activated tensor is rounded to x's dtype and feeds the conv without going to
 device memory. A CPU tensor takes `fused_gn_silu_conv3x3_plain`; a CUDA tensor
 launches the hand-written kernel (`ragb_fused_gn_silu_conv3x3` in
-`csrc/conv_kernels.cu`) or raises. The backward differentiates the plain
+`csrc/conv_kernels.cu`: K1's mode of the conv engine in `csrc/conv_sm90.cuh`,
+with no skip and no statistics) or raises. The backward differentiates the plain
 version, as the JAX package differentiates its XLA reference.
 """
 from __future__ import annotations

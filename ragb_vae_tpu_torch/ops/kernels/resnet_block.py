@@ -13,8 +13,8 @@ cotangent (the statistics' included) in one call.
 Dispatch: a CPU tensor takes the plain PyTorch version beside each kernel
 (`conv3x3_stats_plain`, `upsample_conv3x3_stats_plain` and their `_bwd_plain`
 counterparts); a CUDA tensor launches the hand-written kernels in
-`csrc/resnet_block.cu` (forward) and `csrc/resnet_block_bwd.cu` (backward) or
-raises. There is no fallback from one to the other, and no route by size.
+`csrc/resnet_block.cu` (forward; K1 over the TMA + wgmma conv engine of
+`csrc/conv_sm90.cuh`) and `csrc/resnet_block_bwd.cu` (backward) or raises. There is no fallback from one to the other, and no route by size.
 `gn_silu_conv3x3_stats` has two forward routes, as in the JAX package: the
 direct conv (K1) and Winograd F(2x2, 3x3) (K8, `csrc/resnet_block_wino.cu`,
 plain version `wino_conv3x3_stats_plain`), picked per call by `algo=` or by
@@ -164,8 +164,8 @@ _TILE_SHAPES: dict = {}
 
 def _tile_shape(export: str = "ragb_conv_tile_shape") -> Tuple[int, int]:
     """A conv kernel's output tile (rows, cols), read once from the library's
-    `export`: the wmma template's (K1, K2, K6, K7) by default,
-    `ragb_wino_tile_shape` (K8) or `ragb_conv_sm90_tile_shape` (K9, K11)."""
+    `export`: the wmma template's (K2) by default, `ragb_wino_tile_shape`
+    (K8) or `ragb_conv_sm90_tile_shape` (the conv engine's: K1, K6, K9)."""
     if export not in _TILE_SHAPES:
         th, tw = ctypes.c_int(), ctypes.c_int()
         getattr(_build.library(), export)(ctypes.byref(th), ctypes.byref(tw))
@@ -220,14 +220,16 @@ def conv3x3_stats_cuda(
     wsb: Optional[Tensor] = None,
     activation: str = "silu",
 ) -> Tuple[Tensor, Tensor]:
-    """Launch the K1 kernel (`ragb_resnet_conv3x3_stats`)."""
+    """Launch the K1 kernel (`ragb_resnet_conv3x3_stats`, the conv engine's
+    activation mode): one statistics partial row per engine tile of an
+    image."""
     global CONV_LAUNCHES
     name = "resnet_conv3x3_stats"
     x, a, b, w, bias, skip, ws, wsb, skip_mode, c_skip = _conv_operands(
         name, x, a, b, w, bias, skip, ws, wsb, activation)
     bsz, height, width, c_in = x.shape
     n_out = w.shape[3]
-    th, tw = _tile_shape()
+    th, tw = _tile_shape("ragb_conv_sm90_tile_shape")
     tiles = -(-height // th) * -(-width // tw)
     y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
     partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)

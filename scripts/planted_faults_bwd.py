@@ -1,11 +1,13 @@
 """Show that `chip_smoke.py`'s bounds on the attention forward (K3), on the
 backward kernels (K4-K7), on the int8 matmul (K10), on the Hopper conv
-engine of K9 and K11 and on the Winograd conv (K8) bite.
+engine of K9, K11 and K1 (the resnet conv forward) and on the Winograd conv
+(K8) bite.
 
     python3 scripts/planted_faults_bwd.py
 
     python3 scripts/planted_faults_bwd.py --only winograd    # the faults whose label holds it
     python3 scripts/planted_faults_bwd.py --only 'resnet conv backward'    # K6's
+    python3 scripts/planted_faults_bwd.py --only 'resnet conv forward'     # K1's
     python3 scripts/planted_faults_bwd.py --only 'attention forward'
     python3 scripts/planted_faults_bwd.py --only 'Hopper conv engine'
     python3 scripts/planted_faults_bwd.py --only 'int8 matmul'
@@ -37,8 +39,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 BACKWARD_KERNELS = ("_bwd", "flash_attention_dq", "flash_attention_dkv")
 FORWARD_KERNELS = ("flash_attention_fwd",)
-# the conv engine runs K9, K11 and K6's data gradient
-CONV_SM90_KERNELS = ("downsample_conv3x3_stats", "conv3x3_same", "resnet_conv3x3_stats_bwd")
+# the conv engine runs K9, K11, K6's data gradient, K1 and K12
+CONV_SM90_KERNELS = ("downsample_conv3x3_stats", "conv3x3_same", "resnet_conv3x3_stats_bwd", "resnet_conv3x3_stats ",
+                     "fused_gn_silu_conv3x3")
+# K1's lines of the kernel phase (not its backward's or K8's)
+K1_KERNELS = ("resnet_conv3x3_stats ",)
 
 # (label, source file, the text to replace (once in the file), its replacement, the kernels whose lines must FAIL
 # [, the phases that must fail: `kernels` when not given[, phases only read, which may pass]])
@@ -79,11 +84,35 @@ FAULTS = [
      "tma_load_4d(b_stage(bs), &emap, n0 + 64 * (k % 2), w0 + L::TW, h0 + MB * (k / 2), b, e_full);",
      BACKWARD_KERNELS),
     # the producer waits for the last x box's B stage one phase late: the
-    # release it waits for never comes, the wait traps, the launch fails
+    # release it waits for never comes, the wait traps, the launch fails (in
+    # K6's mode only: the loader also brings K1's identity skip)
     ("resnet conv backward: one ring stage's parity wrong for the epilogue's x (traps)", "conv_sm90.cuh",
      "mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1);\n          tma_load_4d(b_stage(bs), &emap",
-     "mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1 ^ (k == BST - 1));\n          tma_load_4d(b_stage(bs), &emap",
+     "mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1 ^ (BWD && k == BST - 1));\n          tma_load_4d(b_stage(bs), &emap",
      BACKWARD_KERNELS),
+    # K1 on the conv engine's activation mode (conv_sm90.cuh, CONV_ACT)
+    # SAME padding pads the activated value: the stage computes act(0 * a + b)
+    # = act(b) for the pixels outside the image instead of writing 0
+    ("resnet conv forward: the halo written as act(b) instead of 0", "conv_sm90.cuh",
+     "if (live && (unsigned)hh < (unsigned)H && (unsigned)ww < (unsigned)W) {", "if (live) {", K1_KERNELS),
+    # the channels past C of a partial last chunk activated too, their a and b
+    # read past the (B, C) arrays (chip_smoke puts NaN after them)
+    ("resnet conv forward: the channel tail of a partial chunk not zeroed", "conv_sm90.cuh",
+     "{ return c * 64 + 8 * lc < C; }", "{ return true; }", K1_KERNELS),
+    ("resnet conv forward: a and b taken by the physical, not the logical, swizzle chunk", "conv_sm90.cuh",
+     "slab + r * 128 + ((lc ^ (r & 7)) << 4)", "slab + r * 128 + (lc << 4)", K1_KERNELS),
+    ("resnet conv forward: the activation stage skipped for the last chunk", "conv_sm90.cuh",
+     "for (int k = k0; k < k1; ++k) {", "for (int k = k0; k < (c == (C - 1) / 64 ? k0 : k1); ++k) {", K1_KERNELS),
+    ("resnet conv forward: the projection loop drops its last Cs chunk", "conv_sm90.cuh",
+     "proj_steps = (op->Cs + L::BK - 1) / L::BK;", "proj_steps = (op->Cs + L::BK - 1) / L::BK - 1;", K1_KERNELS),
+    ("resnet conv forward: the identity skip's box taken from the neighbouring tile", "conv_sm90.cuh",
+     "tma_load_4d(b_stage(bs), &emap, n0 + 64 * (k % 2), w0, h0 + MB * (k / 2), b, e_full);",
+     "tma_load_4d(b_stage(bs), &emap, n0 + 64 * (k % 2), w0 + (ACT ? L::TW : 0), h0 + MB * (k / 2), b, e_full);",
+     K1_KERNELS),
+    ("resnet conv forward: one tile's statistics partial row left out", "conv_sm90.cuh",
+     "partial[row * N + n] = s0;\n        partial[(row + 1) * N + n] = s1;",
+     "partial[row * N + n] = ACT && tile == 1 ? 0.0f : s0;\n        partial[(row + 1) * N + n] = ACT && tile == 1 ? 0.0f : s1;",
+     K1_KERNELS),
     ("sub-pixel backward (K7): one weight-gradient partial left out of the reduce", "resnet_block_bwd.cu",
      "return launch_reduce_rows(p.partial, dw, p.S,",
      "return launch_reduce_rows(p.partial, dw, p.S > 1 ? p.S - 1 : p.S,", BACKWARD_KERNELS),

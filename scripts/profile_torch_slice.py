@@ -73,17 +73,22 @@ def _conv_taps(mode: int, epilogue: int):
     return re.compile(rf"conv_taps_kernel<(\(int\))?{mode}, ?(\(int\))?{epilogue}>")
 
 
+def _conv_engine(mode: int):
+    """`conv_sm90_kernel<MODE>` (csrc/conv_sm90.cuh): 0 K11, 1 K9, 2 K6's data gradient, 3 K1 and K12."""
+    return re.compile(rf"conv_sm90_kernel<(\(int\))?{mode}>")
+
+
 KERNEL_CLASSES = [
-    ("K1 resnet conv (conv_taps_kernel<0, 0>)", _conv_taps(0, 0)),
+    ("K1/K12 resnet conv on the conv engine (conv_sm90_kernel<3>)", _conv_engine(3)),
     ("K2 sub-pixel upsample (conv_taps_kernel<1, 0>)", _conv_taps(1, 0)),
-    ("K6 data gradient (conv_sm90_kernel<false, true>)", re.compile(r"conv_sm90_kernel<false, ?true>")),
+    ("K6 data gradient (conv_sm90_kernel<2>)", _conv_engine(2)),
     ("K6 weight gradient (wgrad_sm90_kernel)", re.compile(r"wgrad_sm90_kernel")),
     ("K6 weight-gradient slice sum (sum_slices_kernel)", re.compile(r"sum_slices_kernel")),
     ("K6 skip-projection gradient (conv_taps_kernel<2, 0>)", _conv_taps(2, 0)),
     ("K7 data gradient (conv_taps_kernel<3, 0>)", _conv_taps(3, 0)),
     ("K7 weight gradient (wgrad_kernel)", re.compile(r"wgrad_kernel")),
     ("K6/K7 dye pass and partial reduces", re.compile(r"dye_kernel|reduce_rows_kernel")),
-    ("K1/K2/K6/K9 stats reduce", re.compile(r"stats_reduce_kernel")),
+    ("K1/K2/K6/K8/K9 stats reduce", re.compile(r"stats_reduce_kernel")),
     ("K8 Winograd conv (wino_conv_kernel)", re.compile(r"wino_conv_kernel")),
     ("K9/K11 Hopper conv engine (conv_sm90_kernel)", re.compile(r"conv_sm90_kernel")),
     ("K3 flash attention (flash_fwd_wgmma_kernel)", re.compile(r"flash_fwd")),

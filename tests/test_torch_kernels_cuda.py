@@ -52,6 +52,11 @@ def _check_conv(y, s, y_ref, s_ref):
     ((1, 36, 24, 128), 128, None, "silu"),           # ragged tiles (576x384 request)
     ((2, 72, 48, 256), 128, "proj", "silu"),
     ((1, 19, 33, 64), 64, "identity", "identity"),
+    # the projection as the model fuses it (conv2: C = N = Cout, a skip of
+    # Cin channels), and every edge ragged: C and Cs not multiples of the
+    # 64-channel chunk, N not a multiple of the 128-channel tile
+    ((2, 40, 72, 256), 256, "proj128", "silu"),
+    ((2, 37, 50, 72), 136, "proj40", "silu"),
 ])
 def test_conv3x3_stats_kernel(shape, n, skip, act):
     gen = torch.Generator("cuda").manual_seed(0)
@@ -66,6 +71,10 @@ def test_conv3x3_stats_kernel(shape, n, skip, act):
         sk = _randn(gen, (bsz, h, w, n))
     elif skip == "proj":
         sk, ws, wsb = x, _randn(gen, (c, n), c ** -0.5), torch.zeros(n, device="cuda")
+    elif skip is not None:                           # "proj<Cs>": a skip of its own width
+        c_skip = int(skip[4:])
+        sk, ws = _randn(gen, (bsz, h, w, c_skip)), _randn(gen, (c_skip, n), c_skip ** -0.5)
+        wsb = 0.1 * torch.randn((n,), generator=gen, device="cuda")
     before = rb.CONV_LAUNCHES
     y, s = rb.gn_silu_conv3x3_stats(x, a, b, wt, bias, sk, proj=None if ws is None else (ws, wsb),
                                     activation=act)
@@ -495,6 +504,55 @@ def test_conv3x3_same_kernel_against_exact(shape, n):
     assert y.shape == (*shape[:3], n)
     assert (y.float() - exact).abs().max() <= 1e-2 * exact.abs().max()
     assert torch.equal(y, c3.conv3x3_same_batched(x, wt))
+
+
+def _guarded(t):
+    """t (B, C) fp32 in memory followed by 64 NaN: the kernel reads t, not past it."""
+    flat = torch.full((t.numel() + 64,), float("nan"), device=t.device)
+    flat[: t.numel()] = t.reshape(-1)
+    return flat[: t.numel()].view(t.shape)
+
+
+# K1 on the conv engine at ragged shapes against its exact arithmetic (the
+# activation x*a + b rounded to bf16, fp32 sums of its products, bias and
+# skip in fp32, one rounding): one bf16 ulp of the largest value; the
+# statistics against fp64 sums of its own rounded y (fp32 summation order:
+# 1e-4 of H*W*mean(y^2)); bit for bit over two calls. a and b are followed in
+# memory by NaN, so a coefficient read past channel C poisons y.
+@pytest.mark.parametrize("shape,n,skip,act", [
+    ((2, 37, 50, 72), 136, 40, "silu"),              # C, Cs, N, H, W all ragged; a 1x1 projection
+    ((1, 19, 33, 64), 64, "identity", "identity"),
+    ((2, 9, 130, 200), 64, None, "silu"),            # C = 200: a partial fourth chunk
+])
+def test_conv3x3_stats_kernel_against_exact(shape, n, skip, act):
+    gen = torch.Generator("cuda").manual_seed(26)
+    bsz, h, w, c = shape
+    x = _randn(gen, shape)
+    a = _guarded(1.0 + 0.1 * torch.randn((bsz, c), generator=gen, device="cuda"))
+    b = _guarded(0.1 * torch.randn((bsz, c), generator=gen, device="cuda"))
+    wt = _randn(gen, (3, 3, c, n), 1.0 / math.sqrt(9 * c))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    sk = ws = wsb = None
+    if skip == "identity":
+        sk = _randn(gen, (bsz, h, w, n))
+    elif skip is not None:
+        sk, ws = _randn(gen, (bsz, h, w, skip)), _randn(gen, (skip, n), skip ** -0.5)
+        wsb = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    y, s = rb.conv3x3_stats_cuda(x, a, b, wt, bias, sk, ws, wsb, act)
+    t = x.float() * a[:, None, None, :] + b[:, None, None, :]
+    t = (torch.nn.functional.silu(t) if act == "silu" else t).to(torch.bfloat16).float()
+    exact = torch.nn.functional.conv2d(t.permute(0, 3, 1, 2), wt.float().permute(3, 2, 0, 1), padding=1)
+    exact = exact.permute(0, 2, 3, 1) + bias
+    if ws is not None:
+        exact = exact + sk.float() @ ws.float() + wsb
+    elif sk is not None:
+        exact = exact + sk.float()
+    assert y.shape == (bsz, h, w, n) and bool(torch.isfinite(y.float()).all())
+    assert (y.float() - exact).abs().max() <= 1e-2 * exact.abs().max()
+    norm = h * w * y.float().square().mean()
+    assert (s.double() - _own_stats(y)).abs().max() <= 1e-4 * norm
+    y2, s2 = rb.conv3x3_stats_cuda(x, a, b, wt, bias, sk, ws, wsb, act)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
 
 
 @pytest.mark.parametrize("shape,n", [((2, 37, 50, 64), 96), ((1, 64, 95, 128), 200), ((1, 2, 2, 8), 8),

@@ -32,7 +32,7 @@ ROOT = Path(ragb_vae_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragb_vae_tpu")
 PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py",
-    "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py")]
+    "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py", "k1_stage_variants.py")]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -218,10 +218,11 @@ SM90_CONV = ROOT / "csrc" / "conv_sm90.cuh"
 
 
 def test_hopper_conv_engine_is_built_and_names_what_it_replaces():
-    """K9 and K11 run on csrc/conv_sm90.cuh: it is one of the library's
-    sources (conv_kernels.cu includes it and routes both entry points through
-    it, K12 stays on conv_taps.cuh), its note names both TPU kernels and what
-    bounds it, and the K9 wrapper sizes its partials from the engine's tile."""
+    """K9, K11 and K12 run on csrc/conv_sm90.cuh: it is one of the library's
+    sources (conv_kernels.cu includes it and routes all three entry points
+    through it, each in its own mode, and includes the wmma template no
+    more), its note names the TPU kernels and what bounds it, and the K9
+    wrapper sizes its partials from the engine's tile."""
     import inspect
 
     from ragb_vae_tpu_torch.ops.kernels import _build
@@ -230,12 +231,14 @@ def test_hopper_conv_engine_is_built_and_names_what_it_replaces():
     assert SM90_CONV in _build._sources()
     assert "ragb_conv_sm90_tile_shape" in _build._SIGNATURES
     entries = _code(ROOT / "csrc" / "conv_kernels.cu")
-    assert '#include "conv_sm90.cuh"' in entries
-    assert "launch_conv_sm90<false>(" in entries and "launch_conv_sm90<true>(" in entries
-    assert entries.count("launch_conv<MODE_CONV3, EPI_FWD>(") == 1      # K12 alone
+    assert '#include "conv_sm90.cuh"' in entries and '#include "conv_taps.cuh"' not in entries
+    assert all(f"launch_conv_sm90<{mode}>(" in entries for mode in ("CONV_SAME", "CONV_DOWN", "CONV_ACT"))
+    assert "launch_conv<" not in entries
     text = SM90_CONV.read_text()
     assert "ragb_vae_tpu/ops/pallas/conv3x3.py:39" in text and "`_conv_kernel`" in text
     assert "ragb_vae_tpu/ops/pallas/resnet_block.py:1622" in text and "`_downsample_kernel`" in text
+    assert "ragb_vae_tpu/ops/pallas/resnet_block.py:69" in text
+    assert "ragb_vae_tpu/ops/pallas/fused_gn_silu_conv.py:45" in text
     assert "What bounds it on the H100" in text and "bytes bound it" in text
     wrapper = inspect.getsource(rb.downsample_conv3x3_stats_cuda)
     assert '_tile_shape("ragb_conv_sm90_tile_shape")' in wrapper and "_tile_shape()" not in wrapper
@@ -264,8 +267,8 @@ def test_hopper_conv_engine_primitives_are_wgmma_and_bulk_tensor_copies(ptx):
                                    "cp.async.ca", "cp.async.cg", '#include "mma.cuh"'])
 def test_hopper_conv_engine_has_no_legacy_tensor_core_path(token):
     """No wmma or mma.sync fragment, ldmatrix or cp.async staging in the
-    engine (K12's template, which it includes for the statistics reduce, is
-    another file)."""
+    engine, K1's and K12's activation mode included (the wmma template is
+    another file, which the engine no longer includes)."""
     assert token not in _code(SM90_CONV)
 
 
@@ -540,7 +543,7 @@ def _k6_entry() -> str:
     return code[start:code.index("int ragb_subpixel_upsample_conv3x3_stats_bwd(")]
 
 
-@pytest.mark.parametrize("call", ["launch_conv_sm90<false, true>(", "launch_wgrad_sm90<3>(", "launch_wgrad_sm90<1>(",
+@pytest.mark.parametrize("call", ["launch_conv_sm90<CONV_BWD>(", "launch_wgrad_sm90<3>(", "launch_wgrad_sm90<1>(",
                                   "launch_dye("])
 def test_k6_entry_runs_the_hopper_kernels(call):
     """K6's data gradient runs on the conv engine (BWD epilogue), its weight
@@ -602,10 +605,118 @@ def test_transposed_a_wgmma_sets_both_transpose_immediates():
     assert "p, 1, 1, 1, 1;" in body and "m64n128k16.f32.bf16.bf16" in body
 
 
-@pytest.mark.parametrize("token", ["template <bool DOWN, bool BWD = false>", "tma_store_4d(&amap", "e_full",
+@pytest.mark.parametrize("token", ["template <int MODE>", "tma_store_4d(&amap", "e_full",
                                    "act_chain(", "stats_reduce_kernel<<<"])
 def test_conv_engine_carries_k6_data_gradient(token):
     """K6's data gradient is the engine's BWD mode: the forward's x by TMA
     into the drained ring, the chain rule in the epilogue, dx and A by TMA
     stores, the (d_t * x, d_t) partials summed in a fixed order."""
     assert token in _code(SM90_CONV)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K12 on the conv engine's activation mode (CONV_ACT)
+# ---------------------------------------------------------------------------
+def _c_entry(path: Path, name: str) -> str:
+    """The body of the C entry point `name` in `path`, comments stripped."""
+    code = _code(path)
+    start = code.index(f"int {name}(")
+    return code[start:code.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("path,name", [("resnet_block.cu", "ragb_resnet_conv3x3_stats"),
+                                       ("conv_kernels.cu", "ragb_fused_gn_silu_conv3x3")])
+def test_k1_and_k12_entries_launch_the_conv_engine(path, name):
+    """K1's and K12's C entries launch the engine's activation mode, and no
+    wmma template."""
+    entry = _c_entry(ROOT / "csrc" / path, name)
+    assert "launch_conv_sm90<CONV_ACT>(" in entry and "launch_conv<" not in entry and "ConvArgs" not in entry
+    assert '#include "conv_sm90.cuh"' in _code(ROOT / "csrc" / path)
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "csrc").glob("*.cu*")), ids=lambda p: p.name)
+def test_no_wmma_conv3_mode_is_left(path):
+    """The wmma template's 3x3 mode (K1's and K12's first design) has no
+    launch left, and no code."""
+    assert "MODE_CONV3" not in _code(path)
+
+
+@pytest.mark.parametrize("pattern", [r"\bMODE_CONV3\b", r"\bunused\[", r"\bskip_mode\b", r"\bSKIP_PROJ\b",
+                                     r"\bSKIP_ADD\b", r"\bsilu\b", r"\bws\b", r"\bwsb\b", r"\bexpf\(",
+                                     r"\bp\.a\[", r"\bCs\b"])
+def test_wmma_template_lost_k1s_prologue_and_projection(pattern):
+    """What only K1 and K12 read in conv_taps.cuh is gone: the GroupNorm +
+    SiLU load transform, the projection loop, the skip handling and their
+    ConvArgs fields (the Winograd kernel keeps its own argument struct)."""
+    assert not re.search(pattern, _code(ROOT / "csrc" / "conv_taps.cuh")), pattern
+
+
+def test_k1_wrapper_sizes_its_partials_from_the_engine_tile():
+    import inspect
+
+    from ragb_vae_tpu_torch.ops.kernels import resnet_block as rb
+
+    wrapper = inspect.getsource(rb.conv3x3_stats_cuda)
+    assert '_tile_shape("ragb_conv_sm90_tile_shape")' in wrapper and "_tile_shape()" not in wrapper
+
+
+def _activation_stage() -> str:
+    """The activation of a thread's rows (`act_live`, `act_coeffs`,
+    `act_rows`) and the producer warps' loop over the slabs, comments
+    stripped."""
+    code = _code(SM90_CONV)
+    start = code.index("bool act_live(")
+    body = code[start:code.index("__global__", start)]
+    start = code.index("ACT && threadIdx.x >= L::CONSUMERS + 32")
+    return body + code[start:code.index("setmaxnreg_inc<", start)]
+
+
+@pytest.mark.parametrize("token", ["mbar_wait_or_trap(a_full(", "fence_proxy_async();", "mbar_arrive(a_ready(",
+                                   "lc ^ (r & 7)", "(unsigned)hh < (unsigned)H", "c * 64 + 8 * lc < C", "act_pair("])
+def test_activation_stage_writes_the_slab_in_shared_memory(token):
+    """K1's activation stage waits for each TMA slab, rewrites it in place
+    (the logical chunk found through the 128-byte swizzle, 0 outside the
+    image and past channel C), fences it to the async proxy and signals the
+    consumers on a barrier of its own."""
+    assert token in _activation_stage()
+
+
+@pytest.mark.parametrize("token", ["fence_proxy_async(", "mbar_wait_or_trap(", "tma_load_4d(", "tma_load_3d(",
+                                   "wgmma_ss_tb<", "a_ready(", "&amap", "&pmap", "proj_steps", "CONV_ACT",
+                                   "act_row(chunk + 1, tap * L::TAP_ROWS / L::TAPS,"])
+def test_conv_engine_activation_mode_uses_the_hopper_primitives(token):
+    """The activation mode is the engine's: TMA loads (the raw slab, the
+    skip's projection box, ws), mbarrier rings whose waits trap, the proxy
+    fence between the stage's writes and wgmma, the consumers' share of the
+    next slab done while a tap's wgmma runs; no wmma (the engine's
+    legacy-path test covers the file)."""
+    code = _code(SM90_CONV)
+    assert token in code and "wmma::" not in code
+
+
+def test_k1_faults_share_a_selector():
+    """`--only 'resnet conv forward'` selects K1's seven planted faults, all
+    in the conv engine, each held to K1's lines of chip_smoke's kernel phase."""
+    k1 = [f for f in _planted_faults() if "resnet conv forward" in f[0]]
+    assert len(k1) == 7
+    assert {f[1] for f in k1} == {"conv_sm90.cuh"}
+    assert all(f[4] == ("resnet_conv3x3_stats ",) for f in k1)
+
+
+def _stage_variants():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("k1_stage_variants", ROOT.parent / "scripts" / "k1_stage_variants.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.VARIANTS
+
+
+@pytest.mark.parametrize("variant", _stage_variants(), ids=lambda v: v[0])
+def test_stage_variant_replaces_text_that_occurs_once(variant):
+    """`scripts/k1_stage_variants.py` builds each variant by replacing text
+    that occurs exactly once in `conv_sm90.cuh`: a variant whose text drifted
+    out of the source would stop the script on the card."""
+    text = SM90_CONV.read_text()
+    for old, new in variant[1]:
+        assert text.count(old) == 1 and old != new, variant[0]

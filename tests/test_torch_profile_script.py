@@ -1,7 +1,8 @@
 """`scripts/profile_torch_slice.py`'s device-time breakdown sorts each
-kernel of the port into its own class (K8, K3's merge, the K9 / K11 conv
-engine, K10's two kernels and K6's data gradient on that engine, its
-weight gradient and slice sum included), and its `--conv-algo` switch names the resnet-conv routes.
+kernel of the port into its own class (K8, K3's merge, the conv engine's
+modes: K1 / K12, K6's data gradient and K9 / K11 apart, K10's two kernels,
+K6's weight gradient and slice sum included), and its `--conv-algo` switch
+names the resnet-conv routes.
 CPU only: the script's measurements need the card, its classifier does not."""
 import importlib.util
 from pathlib import Path
@@ -20,24 +21,27 @@ def profile():
 
 
 @pytest.mark.parametrize("kernel,cls", [
-    ("void (anonymous namespace)::wino_conv_kernel(ConvArgs)", "K8 Winograd conv"),
+    ("void (anonymous namespace)::wino_conv_kernel((anonymous namespace)::WinoArgs)", "K8 Winograd conv"),
     ("void (anonymous namespace)::flash_fwd_wgmma_kernel<128>(CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, float*, float*, float*, float*, int, int, float, int)", "K3 flash attention"),
     ("void (anonymous namespace)::flash_fwd_wgmma_kernel<512>(CUtensorMap_st)", "K3 flash attention"),
     ("void (anonymous namespace)::flash_merge_kernel<512>(float const*, float const*, float const*, "
      "__nv_bfloat16*, float*, int, int)", "K3 key-split merge"),
-    ("void (anonymous namespace)::conv_taps_kernel<0, 0>(ConvArgs)", "K1 resnet conv"),
-    ("void (anonymous namespace)::conv_sm90_kernel<true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "float const*, float*, int, int, int, int, int)", "K9/K11 Hopper conv engine"),
-    ("void (anonymous namespace)::conv_sm90_kernel<false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "float const*, float*, int, int, int, int, int)", "K9/K11 Hopper conv engine"),
-    ("void (anonymous namespace)::stats_reduce_kernel(float const*, float*, int, int)", "K1/K2/K6/K9 stats reduce"),
-    ("void (anonymous namespace)::conv_sm90_kernel<false, true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, int, float*, int, int, int, int, int)",
-     "K6 data gradient"),
-    ("void (anonymous namespace)::conv_sm90_kernel<false, false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, int, float*, int, int, int, int, int)",
-     "K9/K11 Hopper conv engine"),
+    ("void (anonymous namespace)::conv_sm90_kernel<3>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, float const*, int, int, int, "
+     "float*, int, int, int, int, int)", "K1/K12 resnet conv on the conv engine"),
+    ("void (anonymous namespace)::conv_sm90_kernel<1>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, float const*, int, int, int, "
+     "float*, int, int, int, int, int)", "K9/K11 Hopper conv engine"),
+    ("void (anonymous namespace)::conv_sm90_kernel<0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, float const*, int, int, int, "
+     "float*, int, int, int, int, int)", "K9/K11 Hopper conv engine"),
+    ("void (anonymous namespace)::stats_reduce_kernel(float const*, float*, int, int)", "K1/K2/K6/K8/K9 stats reduce"),
+    ("void (anonymous namespace)::conv_sm90_kernel<2>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, float const*, int, int, int, "
+     "float*, int, int, int, int, int)", "K6 data gradient"),
+    ("void (anonymous namespace)::conv_sm90_kernel<(int)1>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, ...)", "K9/K11 Hopper conv engine"),
     ("void (anonymous namespace)::wgrad_sm90_kernel<3>(CUtensorMap_st, CUtensorMap_st, float*, int, int, int, int, "
      "int, int)", "K6 weight gradient (wgrad_sm90_kernel)"),
     ("void (anonymous namespace)::wgrad_sm90_kernel<1>(CUtensorMap_st, CUtensorMap_st, float*, int, int, int, int, "
