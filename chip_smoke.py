@@ -100,7 +100,7 @@ KERNELS = {
         "replaces": "ragb_vae_tpu/ops/pallas/resnet_block.py:69",
     },
     "subpixel_upsample_conv3x3_stats": {
-        "source": "ragb_vae_tpu_torch/csrc/resnet_block.cu",
+        "source": "ragb_vae_tpu_torch/csrc/conv_sm90.cuh",
         "replaces": "ragb_vae_tpu/ops/pallas/resnet_block.py:231",
     },
     "flash_attention_fwd": {
@@ -499,14 +499,15 @@ def _launch_or_fail(label, run_k):
 
 
 def _check_conv(label, run_k, run_p, run_x, flops, nbytes, run_lib=None, lib_name="", queued=False,
-                part_only=False):
+                part_only=False, variant=None):
     """A conv kernel (y, or y and statistics) against its plain version, y
     against its exact reference and the statistics against fp64 sums of the
     kernel's own y; `run_lib`: the one PyTorch call that computes the same y,
     timed as a yardstick (`part_only`: a call for a part of the function
     only, printed and not reported as the library's time); `queued`: also
-    timed back to back. A launch that fails fails this kernel's line and the
-    phase."""
+    timed back to back; `variant`: (what, call), another way of calling the
+    same kernel, timed the same way and printed beside `run_k`'s time. A
+    launch that fails fails this kernel's line and the phase."""
     y, st = _with_stats(_launch_or_fail(label, run_k))
     y_p, st_p = _with_stats(run_p())
     y_x, _ = _with_stats(run_x())
@@ -516,6 +517,8 @@ def _check_conv(label, run_k, run_p, run_x, flops, nbytes, run_lib=None, lib_nam
     s_own = 0.0 if st is None else _conv_errors(y, st.double(), y, _own_stats(y))[3]
     ms, plain_ms = _launch_or_fail(label, lambda: (time_ms(run_k), time_ms(run_p)))
     queued_ms = _launch_or_fail(label, lambda: time_queued_ms(run_k)) if queued else None
+    if variant is not None:
+        v_ms, v_queued = _launch_or_fail(label, lambda: (time_ms(variant[1]), time_queued_ms(variant[1])))
     library_ms = None if run_lib is None else time_ms(run_lib)
     ok = (rel_p <= CONV_Y_REL_TOL and s_p <= CONV_STATS_PLAIN_TOL and rel_x <= CONV_Y_EXACT_TOL
           and s_own <= CONV_STATS_EXACT_TOL and bool(torch.isfinite(y.float()).all())
@@ -525,7 +528,9 @@ def _check_conv(label, run_k, run_p, run_x, flops, nbytes, run_lib=None, lib_nam
         f"stats max_abs_err={abs_s:.4g} (normalised {s_p:.3g} <= {CONV_STATS_PLAIN_TOL}); "
         f"vs exact y rel {rel_x:.3g} (<= {CONV_Y_EXACT_TOL}); stats vs fp64 sums of its own y {s_own:.3g} "
         f"(<= {CONV_STATS_EXACT_TOL}); kernel {ms:.3f} ms "
-        + (f"(back to back {queued_ms:.3f}) " if queued else "") + f"plain {plain_ms:.3f} ms "
+        + (f"(back to back {queued_ms:.3f}) " if queued else "")
+        + (f"{variant[0]} {v_ms:.3f} ms (back to back {v_queued:.3f}) " if variant is not None else "")
+        + f"plain {plain_ms:.3f} ms "
         + (f"{lib_name} {library_ms:.3f} ms " if run_lib is not None else "")
         + f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}) {'ok' if ok else 'FAIL'}")
     return ok, label, err_y, ms, plain_ms, None if part_only else library_ms, lim
@@ -630,19 +635,35 @@ def check_wino(gen, shape, n_out, *, skip, activation):
     return ok, f"{shape}->{n_out} {activation} skip={skip}", err_y, ms, plain_ms, None, limit
 
 
+def _upsampled_nchw(x):
+    """Nearest-2x upsample of NHWC x as an NCHW view of channels-last memory,
+    as a caller of F.conv2d over NHWC data keeps it."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2).permute(0, 3, 1, 2)
+
+
 def check_upsample(gen, shape, n_out):
+    """K2 as the training step calls it, the weight fold in the call; beside
+    its time, K2 with the folded weights given, as the Upsample module calls
+    it when no gradient is recorded, and `F.conv2d` over the nearest-2x
+    upsampled input (a yardstick for its conv part only, which does 2.25x
+    the sub-pixel form's products: 9 taps a large-grid pixel against 4)."""
     c = shape[3]
     x = _randn(gen, shape)
     wt = _randn(gen, (3, 3, c, n_out), 1.0 / math.sqrt(9 * c))
     bias = 0.1 * torch.randn((n_out,), generator=gen, device="cuda")
+    w_fold = rb.fold_subpixel_weights(wt.float()).to(torch.bfloat16).contiguous()
     bsz, h, w, _ = shape
     flops = 2 * 16 * bsz * h * w * c * n_out            # four parities of four taps each
     nbytes = _nbytes(x, wt, bias) + 2 * 4 * bsz * h * w * n_out + 4 * bsz * 2 * n_out
+    x_lib, w_lib = _upsampled_nchw(x), _oihw(wt)
     return _check_conv(
         f"subpixel_upsample_conv3x3_stats {shape}->{n_out}",
         lambda: rb.upsample_conv3x3_stats_cuda(x, wt, bias),
         lambda: rb.upsample_conv3x3_stats_plain(x, wt, bias),
         lambda: upsample_conv3x3_exact(x, wt, bias), flops, nbytes,
+        lambda: F.conv2d(x_lib, w_lib, padding=1),
+        "F.conv2d on the upsampled input (conv part only, 2.25x the products)", queued=True, part_only=True,
+        variant=("folded weights given", lambda: rb.upsample_conv3x3_stats_cuda(x, wt, bias, w_fold=w_fold)),
     )
 
 
@@ -782,11 +803,12 @@ BWD_NAMES_K6 = ("dx", "da", "db", "dW", "dbias", "dskip", "dws", "dwsb")
 BWD_NAMES_K7 = ("dx", "dW", "dbias")
 
 
-def _check_bwd(label, names, run_k, run_p, run_x, flops, nbytes, queued=False):
+def _check_bwd(label, names, run_k, run_p, run_x, flops, nbytes, queued=False, run_lib=None, lib_name=""):
     """Every cotangent of a backward kernel against the plain version and the
     exact reference, each relative to max|reference|; `queued`: also timed
-    back to back. A launch that fails fails this kernel's line and the
-    phase."""
+    back to back; `run_lib`: a PyTorch call for the conv part only, timed as
+    a yardstick and printed, not reported as the library's time. A launch
+    that fails fails this kernel's line and the phase."""
     got = _launch_or_fail(label, run_k)
     plain, exact = run_p(), run_x()
     torch.cuda.synchronize()
@@ -809,9 +831,11 @@ def _check_bwd(label, names, run_k, run_p, run_x, flops, nbytes, queued=False):
                      f"{'' if fine else ' FAIL'}")
     ms, plain_ms = _launch_or_fail(label, lambda: (time_ms(run_k), time_ms(run_p)))
     queued_ms = _launch_or_fail(label, lambda: time_queued_ms(run_k)) if queued else None
+    lib_ms = None if run_lib is None else time_ms(run_lib)
     log("kernels", f"{label}: " + "; ".join(parts) + f"; kernel {ms:.3f} ms "
         + (f"(back to back {queued_ms:.3f}) " if queued else "") + f"plain {plain_ms:.3f} ms "
-        f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms ({bound(flops, nbytes)['bound_by']}) {'ok' if ok else 'FAIL'}")
+        + (f"{lib_name} {lib_ms:.3f} ms " if run_lib is not None else "")
+        + f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms ({bound(flops, nbytes)['bound_by']}) {'ok' if ok else 'FAIL'}")
     return ok, label, worst_abs, ms, plain_ms, None, bound(flops, nbytes)
 
 
@@ -835,6 +859,9 @@ def check_conv_bwd(gen, shape, n_out, *, skip, activation):
 
 
 def check_upsample_bwd(gen, shape, n_out):
+    """K7; beside its time, `aten.convolution_backward` of the conv over the
+    upsampled input (dx on the large grid, dW, dbias: a yardstick for the
+    conv part only, 2.25x the sub-pixel form's products)."""
     bsz, h, w, c = shape
     x = _randn(gen, shape)
     wt = _randn(gen, (3, 3, c, n_out), 1.0 / math.sqrt(9 * c))
@@ -845,11 +872,16 @@ def check_upsample_bwd(gen, shape, n_out):
     args = (x, wt, bias, y, gy, gstats)
     flops = 2 * 2 * 16 * bsz * h * w * c * n_out
     nbytes = _nbytes(x, wt, y, gy, gstats) + _nbytes(x) + 4 * (wt.numel() + n_out)
+    dye_lib = _dye_exact(y, gy, gstats).to(torch.bfloat16).permute(0, 3, 1, 2)
+    x_lib, w_lib = _upsampled_nchw(x), _oihw(wt)
+    lib = lambda: torch.ops.aten.convolution_backward(dye_lib, x_lib, w_lib, [n_out], [1, 1], [1, 1], [1, 1], False,
+                                                      [0, 0], 1, [True, True, True])
     return _check_bwd(
         f"subpixel_upsample_conv3x3_stats_bwd {shape}->{n_out}", BWD_NAMES_K7,
         lambda: rb.upsample_conv3x3_stats_bwd_cuda(*args),
         lambda: rb.upsample_conv3x3_stats_bwd_plain(*args),
-        lambda: upsample_conv3x3_stats_bwd_exact(*args), flops, nbytes)
+        lambda: upsample_conv3x3_stats_bwd_exact(*args), flops, nbytes, queued=True, run_lib=lib,
+        lib_name="aten.convolution_backward over the upsampled input (conv part only, 2.25x the products)")
 
 
 def check_attention(gen, shape):
@@ -986,9 +1018,14 @@ def phase_kernels() -> dict:
             lambda: check_conv(gen, (4, 512, 512, 128), 128, skip="identity", activation="silu"),
             lambda: check_conv(gen, (2, 37, 50, 72), 136, skip="proj", activation="silu", c_skip=40),
         ],
+        # the decoder's first upsampler at 512^2 b2 and its last at b1, its
+        # middle one at the training micro-batch (b4), and a shape with every
+        # edge ragged (C % 64 != 0, N % 128 != 0, H, W off the 4 x 64 tile)
         "subpixel_upsample_conv3x3_stats": [
             lambda: check_upsample(gen, (2, 64, 64, 512), 512),
             lambda: check_upsample(gen, (1, 256, 256, 256), 256),
+            lambda: check_upsample(gen, (4, 128, 128, 512), 512),
+            lambda: check_upsample(gen, (2, 37, 50, 72), 136),
         ],
         # the 512^2 and 1024^2 requests' FLUX blocks and VAE mid-block (the
         # d = 512 kernel splits one head of 4096 keys in two and merges)
@@ -1016,6 +1053,8 @@ def phase_kernels() -> dict:
             lambda: check_upsample_bwd(gen, (4, 64, 64, 512), 512),
             lambda: check_upsample_bwd(gen, (4, 256, 256, 256), 256),
             lambda: check_upsample_bwd(gen, (1, 19, 27, 64), 128),
+            lambda: check_upsample_bwd(gen, (4, 128, 128, 512), 512),
+            lambda: check_upsample_bwd(gen, (2, 37, 50, 72), 136),
         ],
         # the encoder's first and last downsamplers at 512^2, and ragged ones
         # (odd height, N not a multiple of the 64-channel box; odd width)

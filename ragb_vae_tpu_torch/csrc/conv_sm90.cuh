@@ -1,7 +1,7 @@
 // The Hopper (sm_90a) implicit-GEMM conv engine: a 3x3 conv over NHWC bf16,
 // fed by TMA through an mbarrier ring and computed by wgmma, with one
 // producer warp and two consumer warpgroups per block. One kernel template,
-// `conv_sm90_kernel<MODE>`, four modes:
+// `conv_sm90_kernel<MODE>`, six modes:
 //
 //   CONV_SAME (K11) `_conv_kernel` of ragb_vae_tpu/ops/pallas/conv3x3.py:39
 //       (entry `conv3x3_same` in conv_kernels.cu): y = conv3x3_same(x, w),
@@ -34,6 +34,22 @@
 //       with act SiLU or the identity and a, b (B, C) fp32, and for K1 the
 //       per-channel (sum, sum of squares) of the ROUNDED y. K12 is this mode
 //       with no skip and no statistics.
+//   CONV_UP (K2) `_subpixel_kernel` of
+//       ragb_vae_tpu/ops/pallas/resnet_block.py:231 (entry
+//       `ragb_subpixel_upsample_conv3x3_stats` in resnet_block.cu): a
+//       nearest-2x upsample + conv3x3 + bias as four 2x2 "parity" convs on
+//       the small grid,
+//         y[b, 2h+pa, 2w+pb] = bias + sum over u, v of
+//                              x[b, h+pa+u-1, w+pb+v-1] . Wf[pa, pb, u, v]
+//       over the folded weights Wf (2, 2, 2, 2C, N) (x zero outside the
+//       image), and the per-channel (sum, sum of squares) of the ROUNDED y.
+//   CONV_UP_DX (K7's data gradient) `_subpixel_bwd_kernel` of
+//       ragb_vae_tpu/ops/pallas/resnet_block.py:2003 (entry
+//       `ragb_subpixel_upsample_conv3x3_stats_bwd` in resnet_block_bwd.cu):
+//       dx[h, w] = sum over r, s < 4 of dye[2h-1+r, 2w-1+s] . wb[r, s], a
+//       stride-2 4x4 conv of dye (B, 2H, 2W, N) over the doubly folded
+//       weights wb (4, 4, N, C) (dye zero outside the image); no bias, no
+//       statistics.
 // All accumulate in fp32 and round y (dx) to bf16 once.
 //
 // What bounds it on the H100: a conv3x3 does 2*9*C operations per output
@@ -45,7 +61,10 @@
 // operations (0.078 ms against 0.060 for the bytes). K9 at
 // (4,512,512,128)->128 reads a 268 MB input and writes 67 MB for 77 GFLOP,
 // 230 FLOP per byte, below the bf16 ridge (~295): bytes bound it (0.100 ms
-// at 3.35 TB/s).
+// at 3.35 TB/s). K2 and K7's dx do 2*16*C operations per small-grid pixel
+// and output channel: K2 at (4,128,128,512)->512 0.55 TFLOP against 335 MB
+// (0.556 ms, operations), K7's dx at (4,64,64,512)->512 0.14 TFLOP against
+// 84 MB (0.139 ms, operations).
 //
 // What the design does about it:
 // - Implicit GEMM: M = a tile of TH x TW = 4 x 64 output pixels (one output
@@ -103,23 +122,46 @@
 //   the zero fill past Hin and Win IS the (0, 1) padding. (A stride-2 window
 //   is not a run of consecutive slab rows; slabs of the even and odd columns
 //   per (chunk, dy) moved a third fewer bytes but measured 5-11% slower.)
-//   Channels past C read as zeros in K9, K11 and K6.
+// - K2's A is K11's slab (TMA's zero fill is the upsampled image's zero
+//   halo: K2 has no activation), and tap (u, v) of parity (pa, pb) is K11's
+//   row offset with (dy, dx) = (pa + u, pb + v): output row i reads the 64
+//   rows from (i + pa + u)(TW + 2) + pb + v. A block computes one parity:
+//   the grid's x walks the four parities of each N tile, so a slab comes
+//   from L2 four times (~150 FLOP a byte). B is the folded weights as (16,
+//   C, N), tap t = ((pa * 2 + pb) * 2 + u) * 2 + v, through the 3-D map.
+//   y goes out through four tensor maps, one per parity, over y with the
+//   strides of two columns and two rows from row pa, column pb: a parity's
+//   tile is an ordinary box of its view, clipped at the small grid's edges.
+// - K7's dx reads dye as four parity planes (qa, qb) (rows 2k + qa, columns
+//   2k + qb). Plane (qa, qb)'s slab is one box {64, 2 (TW + 1), 2 (TH + 1),
+//   1} at traversal strides {1, 2, 2, 1} from (c0, 2 w0 - qb, 2 h0 - qa, b):
+//   (TH + 1) x (TW + 1) plane pixels from (h0 - qa, w0 - qb). Output pixel
+//   (h, w) reads plane pixels (h - qa + u', w - qb + v'), u', v' in {0, 1},
+//   through wb[2 u' + 1 - qa][2 v' + 1 - qb]: the plane's four taps are row
+//   offsets (i + u')(TW + 1) + v', as K11's. Four slabs of 41.6 KB a chunk
+//   (a ring of 3) for 16 taps, against 16 boxes of 32 KB read as K9 reads
+//   them (scripts/time_conv_bwd.py --dx-boxes builds that form from a copy
+//   of this file and times both).
+//   TMA's zero fill, negative coordinates included, is dye's zero outside
+//   the image.
+//   Channels past C read as zeros in every mode.
 //   Halo re-reads come from L2: the
 //   grid walks the N tiles of a pixel tile together and the pixel tiles in
 //   raster order.
 // - B (the weights) straight from HWIO as the MN-major operand (N
 //   contiguous): boxes {64 N, 64 C} of tap t from a 3-D map over w as (N, C,
 //   9); LBO is one box's bytes. No transpose of the weights.
-// - Two rings on full and empty mbarriers: A (K11, K6: 2 slab stages, one per
-//   chunk; K1: 3; K9: 4 stages, one per tap) and B (4 stages, one per tap). One
+// - Two rings on full and empty mbarriers: A (K11, K6, K2: 2 slab stages, one
+//   per chunk; K1: 3; K7: 3, one per plane; K9: 4 stages, one per tap) and B
+//   (4 stages, one per tap). One
 //   producer thread keeps the loads in flight (K1's A loads: the activation
 //   stage's first thread); the consumers keep one wgmma
 //   group in flight and release a stage when the group that read it last
 //   has completed.
 // - Epilogue: (+ bias), one rounding to bf16, staged in the drained ring in
 //   the swizzled box layout and written by a TMA store per warpgroup, which
-//   writes no element outside the tensor (ragged H, W, N need no masks). K9
-//   and K1 take the statistics of the rounded y per channel over the tile's pixels
+//   writes no element outside the tensor (ragged H, W, N need no masks). K9,
+//   K1 and K2 take the statistics of the rounded y per channel over the tile's pixels
 //   inside the image: a fixed shuffle tree over a warp's rows, then the 8
 //   warps in order into one (B, T, 2, N) partial row per block, which
 //   `stats_reduce_kernel` (stats_reduce.cuh) sums in a fixed order. No
@@ -153,22 +195,30 @@
 namespace {
 
 // The engine's modes: what one launch computes (see the note above).
-enum { CONV_SAME = 0, CONV_DOWN = 1, CONV_BWD = 2, CONV_ACT = 3 };
+enum { CONV_SAME = 0, CONV_DOWN = 1, CONV_BWD = 2, CONV_ACT = 3, CONV_UP = 4, CONV_UP_DX = 5 };
 
 template <int MODE>
 struct ConvSm90 {
-  static constexpr bool DOWN = MODE == CONV_DOWN, ACT = MODE == CONV_ACT;
+  static constexpr bool DOWN = MODE == CONV_DOWN, ACT = MODE == CONV_ACT, UP = MODE == CONV_UP;
+  static constexpr bool DX = MODE == CONV_UP_DX;
   static constexpr int TH = 4, TW = 64;            // output tile: TH rows x TW columns
   static constexpr int MB = TH / 2;                // output rows (m64 blocks) of a consumer warpgroup
   static constexpr int BN = 128;                   // output channels of a block
   static constexpr int BK = 64;                    // input channels of a K chunk: one 128-byte row (act_live's 64)
-  static constexpr int TAPS = 9;
-  static constexpr int SW = TW + 2;                // K11 slab row: the tile's columns and their halo
-  static constexpr int A_ROWS = DOWN ? TH * TW : (TH + 2) * SW;
+  static constexpr int TAPS = UP ? 4 : DX ? 16 : 9;
+  static constexpr int A_TAPS = DOWN ? 1 : DX ? 4 : TAPS;   // the k-steps that read one A box
+  static constexpr bool SLAB = A_TAPS == TAPS;                // one A box a chunk (K11, K6, K1, K2)
+  static constexpr int W_TAPS = UP || DX ? 16 : 9;                      // the weights' taps (wmap's third dimension)
+  static constexpr int SW = DX ? TW + 1 : TW + 2;  // slab row: the tile's columns and their halo (K7: a plane's)
+  static constexpr int SH = DX ? TH + 1 : TH + 2;
+  // an A box lands as AH rows of AW pixels, read at traversal stride STRIDE
+  static constexpr int AW = DOWN ? TW : SW, AH = DOWN ? TH : SH;
+  static constexpr int STRIDE = DOWN || DX ? 2 : 1;
+  static constexpr int A_ROWS = AH * AW;
   static constexpr int A_BYTES = A_ROWS * 128;     // one A box
   static constexpr int P_BYTES = TH * TW * 128;    // K1's projection: one {64 Cs, TW, TH} box of the skip
   static constexpr int A_STAGE = (A_BYTES + 1023) / 1024 * 1024;
-  static constexpr int A_STAGES = DOWN ? 4 : ACT ? 3 : 2;
+  static constexpr int A_STAGES = DOWN ? 4 : ACT || DX ? 3 : 2;
   static constexpr int B_BOX = BK * 128;           // one {64 N, 64 C} box of a tap's weights
   static constexpr int B_BYTES = (BN / 64) * B_BOX;
   static constexpr int B_STAGES = 4;
@@ -199,6 +249,32 @@ struct ConvSm90 {
   static_assert(Y_BOX == B_BYTES && B_STAGES == 2 * (BN / 64), "one x box per B stage");
   static_assert(!ACT || (P_BYTES <= A_STAGE && 12 * STAGE_ROWS + 32 * TAP_ROWS == A_ROWS),
                 "K1's stage covers each slab row once");
+  static_assert(TAPS % A_TAPS == 0, "a chunk's k-steps read whole A boxes");
+
+  // The origin (column, row) in x of the A box that k-step `tap` of a chunk
+  // starts reading.
+  __device__ __forceinline__ static int2 a_origin(int tap, int w0, int h0) {
+    if (DOWN) return make_int2(2 * w0 + tap % 3, 2 * h0 + tap / 3);      // K9: tap (dy, dx), no halo above or left
+    if (DX) return make_int2(2 * w0 - tap / 4 % 2, 2 * h0 - tap / 8);    // K7: plane (qa, qb) = (tap / 8, tap / 4 % 2)
+    return make_int2(w0 - 1, h0 - 1);                                    // the halo'd slab
+  }
+
+  // The first A row of warpgroup w's first output row under k-step `tap`
+  // (K2: of parity (pa, pb)); output row MB w + m reads from m AW rows on.
+  __device__ __forceinline__ static uint32_t a_row(int w, int tap, int pa, int pb) {
+    if (DOWN) return MB * w * TW;                                // the tap's window as it lands
+    if (UP) return (MB * w + pa + tap / 2) * SW + pb + tap % 2;  // K2: tap (u, v) = (tap / 2, tap % 2)
+    if (DX) return (MB * w + tap % 4 / 2) * SW + tap % 2;        // K7: the plane's tap (u', v')
+    return (MB * w + tap / 3) * SW + tap % 3;                    // K11's tap (dy, dx)
+  }
+
+  // The weights' tap (wmap's third coordinate) of k-step `tap`.
+  __device__ __forceinline__ static int w_tap(int tap, int parity) {
+    if (UP) return parity * 4 + tap;               // Wf[pa][pb][u][v] of (16, C, N): ((pa * 2 + pb) * 2 + u) * 2 + v
+    if (DX)                                        // plane (qa, qb), tap (u', v'): wb[2 u' + 1 - qa][2 v' + 1 - qb]
+      return (2 * (tap % 4 / 2) + 1 - tap / 8) * 4 + 2 * (tap % 2) + 1 - tap / 4 % 2;
+    return tap;
+  }
 };
 
 // K6's chain rule through the activation, per element: t = x*a + b; the
@@ -271,12 +347,15 @@ __device__ __forceinline__ void act_rows(unsigned char* slab, int c, int C, int 
   }
 }
 
-// Grid (N tiles, pixel tiles of one image, batch). Per mode (see the note
-// above): xmap the conv input (K1: raw x); wmap the weights; ymap y (K6:
-// dx); emap the epilogue's tile (K6: the forward's x; K1: the identity skip);
-// amap K6's A (written) or K1's projection operand (the skip, read); pmap
-// K1's ws. act_a, act_b (B, C or N) the activation's coefficients; wsb K1's
-// projection bias; proj_steps K1's projection K loop (0: none).
+// Grid (N tiles, pixel tiles of one image, batch); K2: (4 parities x N
+// tiles, ...), x = parity * N tiles + N tile. Per mode (see the note above):
+// xmap the conv input (K1: raw x; K7: dye); wmap the weights; ymap y (K6,
+// K7: dx); emap the epilogue's tile (K6: the forward's x; K1: the identity
+// skip); amap K6's A (written) or K1's projection operand (the skip, read);
+// pmap K1's ws. K2: ymap, emap, amap, pmap the views of y of parities (0, 0),
+// (0, 1), (1, 0), (1, 1) (`y_view`). act_a, act_b (B, C or N) the activation's
+// coefficients; wsb K1's projection bias; proj_steps K1's projection K loop
+// (0: none).
 template <int MODE>
 __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
     conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
@@ -286,7 +365,7 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
                      const float* __restrict__ act_b, const float* __restrict__ wsb, int silu, int skip_mode,
                      int proj_steps, float* __restrict__ partial, int H, int W, int C, int N, int tiles_w) {
   using L = ConvSm90<MODE>;
-  constexpr bool DOWN = L::DOWN, BWD = MODE == CONV_BWD, ACT = L::ACT;
+  constexpr bool DOWN = L::DOWN, BWD = MODE == CONV_BWD, ACT = L::ACT, UP = L::UP;
   constexpr int AST = L::A_STAGES, BST = L::B_STAGES, BN = L::BN, MB = L::MB;
   extern __shared__ __align__(1024) unsigned char conv_sm90_smem[];
   const uint32_t raw = smem_addr(conv_sm90_smem);
@@ -302,12 +381,17 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
   auto a_stage = [&](int s) { return base + L::a_off + s * L::A_STAGE; };
   auto b_stage = [&](int s) { return base + L::b_off + s * L::B_BYTES; };
 
-  const int n0 = blockIdx.x * BN;
+  const int n_tiles = UP ? gridDim.x / 4 : gridDim.x;
+  const int n0 = (UP ? blockIdx.x % n_tiles : blockIdx.x) * BN;
+  const int parity = UP ? blockIdx.x / n_tiles : 0, pa = parity >> 1, pb = parity & 1;   // K2: rows 2h + pa, columns 2w + pb
+  // K2 has no epilogue tile, projection or ws: parity p's view of y rides in
+  // the p-th of those slots (launch_conv_sm90 fills them in this order)
+  auto y_view = [&](int p) { return p == 0 ? &ymap : p == 1 ? &emap : p == 2 ? &amap : &pmap; };
   const int tile = blockIdx.y, b = blockIdx.z;
   const int h0 = (tile / tiles_w) * L::TH, w0 = (tile % tiles_w) * L::TW;
   const int chunks = (C + L::BK - 1) / L::BK;
   const bool epi_tile = BWD || (ACT && skip_mode == SKIP_ADD);
-  const bool stats = DOWN || BWD || (ACT && partial != nullptr);
+  const bool stats = DOWN || BWD || UP || (ACT && partial != nullptr);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < AST; ++s) {
@@ -331,25 +415,27 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
       int it = 0;                                  // (chunk, tap) steps, tap inside
       for (int chunk = 0; chunk < chunks; ++chunk) {
         const int c0 = chunk * L::BK;
-        if (!DOWN && !ACT) {                       // K1's slabs: the activation stage loads its own
+        if (L::SLAB && !ACT) {                     // K1's slabs: the activation stage loads its own
           const int as = chunk % AST;
+          const int2 at = L::a_origin(0, w0, h0);
           mbar_wait_or_trap(a_empty(as), ((chunk / AST) & 1) ^ 1);
           mbar_arrive_expect_tx(a_full(as), L::A_BYTES);
-          tma_load_4d(a_stage(as), &xmap, c0, w0 - 1, h0 - 1, b, a_full(as));
+          tma_load_4d(a_stage(as), &xmap, c0, at.x, at.y, b, a_full(as));
         }
         for (int tap = 0; tap < L::TAPS; ++tap, ++it) {
-          if (DOWN) {
-            const int as = it % AST;
-            mbar_wait_or_trap(a_empty(as), ((it / AST) & 1) ^ 1);
+          if (!L::SLAB && tap % L::A_TAPS == 0) {  // K9: a box a tap; K7's dx: a plane's slab every 4 taps
+            const int ai = it / L::A_TAPS, as = ai % AST;
+            const int2 at = L::a_origin(tap, w0, h0);
+            mbar_wait_or_trap(a_empty(as), ((ai / AST) & 1) ^ 1);
             mbar_arrive_expect_tx(a_full(as), L::A_BYTES);
-            tma_load_4d(a_stage(as), &xmap, c0, 2 * w0 + tap % 3, 2 * h0 + tap / 3, b, a_full(as));
+            tma_load_4d(a_stage(as), &xmap, c0, at.x, at.y, b, a_full(as));
           }
           const int bs = it % BST;
           mbar_wait_or_trap(b_empty(bs), ((it / BST) & 1) ^ 1);
           mbar_arrive_expect_tx(b_full(bs), L::B_BYTES);
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load_3d(b_stage(bs) + j * L::B_BOX, &wmap, n0 + 64 * j, c0, tap, b_full(bs));
+            tma_load_3d(b_stage(bs) + j * L::B_BOX, &wmap, n0 + 64 * j, c0, L::w_tap(tap, parity), b_full(bs));
         }
       }
       if (ACT) {
@@ -446,14 +532,13 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
     int it = 0;
     for (int chunk = 0; chunk < chunks; ++chunk) {
       if (ACT && chunk + 1 < chunks) act_load(chunk + 1);
-      if (!DOWN) mbar_wait_or_trap(ACT ? a_ready(chunk % AST) : a_full(chunk % AST), (chunk / AST) & 1);
+      if (L::SLAB) mbar_wait_or_trap(ACT ? a_ready(chunk % AST) : a_full(chunk % AST), (chunk / AST) & 1);
       for (int tap = 0; tap < L::TAPS; ++tap, ++it) {
-        const int as = DOWN ? it % AST : chunk % AST;
-        if (DOWN) mbar_wait_or_trap(a_full(as), (it / AST) & 1);
+        const int ai = L::SLAB ? chunk : it / L::A_TAPS, as = ai % AST;   // the A box this k-step reads
+        if (!L::SLAB && tap % L::A_TAPS == 0) mbar_wait_or_trap(a_full(as), (ai / AST) & 1);
         const int bs = it % BST;
         mbar_wait_or_trap(b_full(bs), (it / BST) & 1);
-        // the first A row of output row MB w + m under this tap
-        const uint32_t a_row = DOWN ? MB * w * L::TW : (MB * w + tap / 3) * L::SW + tap % 3;
+        const uint32_t a_row = L::a_row(w, tap, pa, pb);
 #pragma unroll
         for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
         wgmma_fence();
@@ -461,8 +546,7 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
         for (int m = 0; m < MB; ++m)
 #pragma unroll
           for (int kk = 0; kk < L::BK / 16; ++kk)
-            wgmma_ss_tb<BN>(acc[m],
-                            wgmma_desc(a_stage(as) + (a_row + m * (DOWN ? L::TW : L::SW)) * 128 + kk * 32, 16, 1024),
+            wgmma_ss_tb<BN>(acc[m], wgmma_desc(a_stage(as) + (a_row + m * L::AW) * 128 + kk * 32, 16, 1024),
                             wgmma_desc(b_stage(bs) + kk * 2048, L::B_BOX, 1024), 1);
         wgmma_commit();
         if (ACT && chunk + 1 < chunks) {           // while the tap's products run: rows of the next slab
@@ -479,10 +563,8 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
         for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
         if (it > 0 && lane == 0) {
           mbar_arrive(b_empty((it - 1) % BST));
-          if (DOWN)
-            mbar_arrive(a_empty((it - 1) % AST));
-          else if (tap == 0)                       // the previous chunk's last tap read its slab last
-            mbar_arrive(a_empty((chunk - 1) % AST));
+          if (L::SLAB ? tap == 0 : tap % L::A_TAPS == 0)   // the previous k-step read its A box last
+            mbar_arrive(a_empty((L::SLAB ? chunk - 1 : (it - 1) / L::A_TAPS) % AST));
         }
       }
     }
@@ -535,7 +617,7 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
     for (int nt = 0; nt < BN / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
       float b0 = 0.0f, b1 = 0.0f;
-      if ((DOWN || ACT) && n0 + col < N) {         // N % 8 == 0: col + 1 is inside too
+      if ((DOWN || ACT || UP) && n0 + col < N) {   // N % 8 == 0: col + 1 is inside too
         b0 = bias[n0 + col];
         b1 = bias[n0 + col + 1];
         if (ACT && skip_mode == SKIP_PROJ) {
@@ -617,10 +699,11 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
     fence_proxy_async();
     named_barrier_sync(2 + w, 128);
     if (tid == 0) {
+      const CUtensorMap* ym = UP ? y_view(parity) : &ymap;
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j)
         if (n0 + 64 * j < N)
-          tma_store_4d(&ymap, base + L::a_off + (w * (BN / 64) + j) * L::Y_BOX, n0 + 64 * j, w0, h0 + MB * w, b);
+          tma_store_4d(ym, base + L::a_off + (w * (BN / 64) + j) * L::Y_BOX, n0 + 64 * j, w0, h0 + MB * w, b);
       if (BWD)
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j)
@@ -639,7 +722,7 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
           s0 += red[i * BN + threadIdx.x];
           s1 += red[(8 + i) * BN + threadIdx.x];
         }
-        const size_t row = ((size_t)b * gridDim.y + tile) * 2;
+        const size_t row = (((size_t)b * (UP ? 4 : 1) + parity) * gridDim.y + tile) * 2;   // K2: T = 4 x tiles
         partial[row * N + n] = s0;
         partial[(row + 1) * N + n] = s1;
       }
@@ -667,27 +750,29 @@ struct ConvSm90Act {
 };
 
 // Launches the conv over x (B, Hin, Win, C) and w (3, 3, C, N) into y (B, H,
-// W, N): H, W = Hin, Win (K11, K6's dA, K1) or Hin / 2, Win / 2 (K9). K9, K6
-// and K1 (when `partial` is given) also write the per-tile partials (B, T, 2,
-// N), T = the tiles of one image, and their fixed-order sum `stats` (B, 2,
-// N): K9 and K1 (sum, sum of squares) of y, K6 (sum of d_t * x, sum of d_t),
-// with y = dx. `op` holds K6's and K1's further operands.
+// W, N): H, W = Hin, Win (K11, K6's dA, K1) or Hin / 2, Win / 2 (K9; K7's
+// dx, x = dye, w = wb (4, 4, C, N)); K2: w = Wf (2, 2, 2, 2C, N), y (B, 2H,
+// 2W, N) with H, W = Hin, Win. K9, K2, K6 and K1 (when `partial` is given)
+// also write the per-tile partials (B, T, 2, N), T = the tiles of one image
+// (K2: 4 x, one per parity), and their fixed-order sum `stats` (B, 2, N): K9,
+// K2 and K1 (sum, sum of squares) of y, K6 (sum of d_t * x, sum of d_t), with
+// y = dx. `op` holds K6's and K1's further operands.
 template <int MODE>
 int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, float* partial, float* stats, int T,
                      int B, int Hin, int Win, int C, int N, cudaStream_t stream, const ConvSm90Act* op = nullptr) {
   using L = ConvSm90<MODE>;
-  constexpr bool DOWN = L::DOWN, BWD = MODE == CONV_BWD, ACT = L::ACT;
-  const int H = DOWN ? Hin / 2 : Hin, W = DOWN ? Win / 2 : Win;
+  constexpr bool DOWN = L::DOWN, BWD = MODE == CONV_BWD, ACT = L::ACT, UP = L::UP;
+  const int H = DOWN || L::DX ? Hin / 2 : Hin, W = DOWN || L::DX ? Win / 2 : Win;
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 8 || N < 8 || C % 8 || N % 8)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(y)) & 15)
     return (int)cudaErrorMisalignedAddress;
   const int tiles_w = (W + L::TW - 1) / L::TW, tiles_h = (H + L::TH - 1) / L::TH;
   if ((long long)tiles_w * tiles_h > 65535) return (int)cudaErrorInvalidValue;
-  const bool with_stats = DOWN || BWD || partial != nullptr;
-  if (with_stats && (partial == nullptr || stats == nullptr || T != tiles_w * tiles_h))
+  const bool with_stats = DOWN || BWD || UP || partial != nullptr;
+  if (with_stats && (partial == nullptr || stats == nullptr || T != (UP ? 4 : 1) * tiles_w * tiles_h))
     return (int)cudaErrorInvalidValue;
-  if (DOWN && bias == nullptr) return (int)cudaErrorInvalidValue;
+  if ((DOWN || UP) && bias == nullptr) return (int)cudaErrorInvalidValue;
   if ((BWD || ACT) && (op == nullptr || op->a == nullptr || op->b == nullptr)) return (int)cudaErrorInvalidValue;
   int proj_steps = 0;
   if (ACT) {
@@ -705,11 +790,10 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
   CUtensorMap xm, wm, ym, em, am, pm;
   int e;
   const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)Win, (cuuint64_t)Hin, (cuuint64_t)B};
-  const cuuint32_t xbox[4] = {64, (cuuint32_t)(DOWN ? 2 * L::TW : L::SW), (cuuint32_t)(DOWN ? 2 * L::TH : L::TH + 2),
-                              1};
-  const cuuint32_t xstride[4] = {1, DOWN ? 2u : 1u, DOWN ? 2u : 1u, 1};
+  const cuuint32_t xbox[4] = {64, (cuuint32_t)(L::STRIDE * L::AW), (cuuint32_t)(L::STRIDE * L::AH), 1};
+  const cuuint32_t xstride[4] = {1, (cuuint32_t)L::STRIDE, (cuuint32_t)L::STRIDE, 1};
   if ((e = encode_tensor_map(&xm, x, 4, xdims, xbox, xstride))) return e;
-  if ((e = encode_tensor_map_3d(&wm, w, N, C, 9, 64))) return e;
+  if ((e = encode_tensor_map_3d(&wm, w, N, C, L::W_TAPS, 64))) return e;
   const cuuint64_t ydims[4] = {(cuuint64_t)N, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint32_t ybox[4] = {64, L::TW, L::MB, 1};
   const cuuint32_t ystride[4] = {1, 1, 1, 1};
@@ -717,6 +801,19 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
   em = ym;
   am = ym;
   pm = wm;
+  if (UP) {
+    // parity p = (pa, pb)'s pixels of y (B, 2H, 2W, N), rows 2h + pa and
+    // columns 2w + pb, as a (B, H, W, N) tensor: strides of two columns, two
+    // rows and an image, in bytes
+    const cuuint64_t view_strides[3] = {4ull * N, 8ull * W * N, 8ull * H * W * N};
+    CUtensorMap* views[4] = {&ym, &em, &am, &pm};   // the kernel's y_view(p)
+    for (int p = 0; p < 4; ++p) {
+      const bf16* view = static_cast<const bf16*>(y) + ((size_t)(p >> 1) * 2 * W + (p & 1)) * N;
+      if ((e = encode_tensor_map(views[p], view, 4, ydims, ybox, ystride, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                 CU_TENSOR_MAP_SWIZZLE_128B, view_strides)))
+        return e;
+    }
+  }
   if (BWD) {
     if ((reinterpret_cast<uintptr_t>(op->x) | reinterpret_cast<uintptr_t>(op->act)) & 15)
       return (int)cudaErrorMisalignedAddress;
@@ -740,7 +837,7 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
     if (ce != cudaSuccess) return (int)ce;
     if (dev < 64) opted_in |= (uint64_t)1 << dev;
   }
-  dim3 grid((N + L::BN - 1) / L::BN, tiles_w * tiles_h, B);
+  dim3 grid((UP ? 4 : 1) * ((N + L::BN - 1) / L::BN), tiles_w * tiles_h, B);
   conv_sm90_kernel<MODE><<<grid, L::THREADS, L::bytes, stream>>>(
       xm, wm, ym, em, am, pm, bias, op != nullptr ? op->a : nullptr, op != nullptr ? op->b : nullptr,
       ACT && op->skip_mode == SKIP_PROJ ? op->wsb : nullptr, op != nullptr ? op->silu : 0,

@@ -1,17 +1,13 @@
-// The first design's implicit-GEMM conv kernel, still shared by the
-// sub-pixel upsample conv K2 (resnet_block.cu) and two backward convs
-// (resnet_block_bwd.cu: K6's dskip, K7's dx). NHWC bf16 in and out. (K1,
-// K9, K11, K12 and K6's data gradient run on the TMA + wgmma engine of
-// conv_sm90.cuh.)
+// The first design's implicit-GEMM conv kernel, left with one launch: K6's
+// dskip = dye @ ws^T, a 1x1 conv (resnet_block_bwd.cu). NHWC bf16 in and
+// out. (K1, K2, K9, K11, K12, K6's data gradient and K7's run on the TMA +
+// wgmma engine of conv_sm90.cuh.)
 //
 // One block computes a TH x TW tile of output pixels for TN output channels:
-// M = 64 pixels, N = 64 channels, K = taps x input channels, on tensor cores
-// through nvcuda::wmma bf16 fragments with fp32 accumulation. Each K chunk's
-// halo'd input slab is loaded ONCE into shared memory, and every tap reads
-// its shifted window of it. MODE picks the taps:
-//   MODE_SUBPIXEL four 2x2 parity convs of a nearest-2x upsample  (K2)
+// M = 64 pixels, N = 64 channels, K = input channels, on tensor cores
+// through nvcuda::wmma bf16 fragments with fp32 accumulation, each K chunk's
+// input tile loaded into shared memory once. MODE picks the taps:
 //   MODE_CONV1    1x1 conv                                        (K6 dskip)
-//   MODE_DOWN4    4x4 stride-2 conv of a (2H, 2W) input           (K7 dx)
 // EPI picks what happens to the fp32 tile:
 //   EPI_FWD       + bias, round, store, and the per-channel (sum, sumsq) of
 //                 the rounded output as partials (bias and partial may be
@@ -40,27 +36,21 @@ constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int TILE_PIX = TH * TW;       // 64 output pixels
 
-enum { MODE_SUBPIXEL = 1, MODE_CONV1 = 2, MODE_DOWN4 = 3 };
+enum { MODE_CONV1 = 2 };
 enum { EPI_FWD = 0 };
 
 template <int MODE>
 struct TapGeometry {
-  static constexpr int P = (MODE == MODE_SUBPIXEL) ? 4 : 1;          // output parities
-  static constexpr int NTAPS = (MODE == MODE_SUBPIXEL) ? 4 : (MODE == MODE_CONV1) ? 1 : 16;
-  static constexpr int PS = (MODE == MODE_DOWN4) ? 2 : 1;  // input pixels per output pixel
-  // halo rows / columns before the tile's first input pixel, and after its last
-  static constexpr int LO = (MODE == MODE_CONV1) ? 0 : 1;
-  static constexpr int HI = (MODE == MODE_CONV1) ? 0 : 1;
-  static constexpr int SH = PS * TH + LO + HI;                       // slab rows
-  static constexpr int SW = PS * TW + LO + HI;                       // slab columns
+  static constexpr int NTAPS = 1;
+  static constexpr int SH = TH, SW = TW;                             // the input tile: no halo
   static constexpr int SLAB_PIX = SH * SW;
 };
 
 struct ConvArgs {
-  const bf16* x;       // conv input (B, PS*H, PS*W, C)
-  const bf16* w;       // (taps, C, N); K2: (2, 2, 2, 2C, N) folded
+  const bf16* x;       // conv input (B, H, W, C)
+  const bf16* w;       // (taps, C, N)
   const float* bias;   // (N,) or null
-  bf16* y;             // K2: (B, 2H, 2W, N); else (B, H, W, N)
+  bf16* y;             // (B, H, W, N)
   float* partial;      // (B, T, 2, N) per-block partial sums, or null
   int B, H, W, C, N;
   int tiles_w, tiles_h;
@@ -81,20 +71,14 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
   bf16* slab = reinterpret_cast<bf16*>(smem_raw);
   bf16* wsm = slab + G::SLAB_PIX * A_LD;
 
-  constexpr int P = G::P;
   constexpr int NTAPS = G::NTAPS;
-  constexpr int PS = G::PS;
   const int tile = blockIdx.x;
   const int tw = tile % p.tiles_w;
   const int th = tile / p.tiles_w;
   const int n0 = blockIdx.y * TN;
-  const int b = blockIdx.z / P;
-  const int parity = blockIdx.z % P;
-  const int pa = parity >> 1, pb = parity & 1;
+  const int b = blockIdx.z;
   const int h0 = th * TH, w0 = tw * TW;
   const int H = p.H, W = p.W, C = p.C, N = p.N;
-  const int Hin = PS * H;
-  const int Win = PS * W;
   const int warp = threadIdx.x >> 5;
   const int wrow = warp >> 1;           // tile row this warp's fragments cover
   const int wcol = (warp & 1) * 32;     // first of its 32 output channels
@@ -104,16 +88,16 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
   wmma::fill_fragment(acc[1], 0.0f);
 
   for (int c0 = 0; c0 < C; c0 += KC) {
-    // halo'd input slab, zero outside the image
+    // the input tile, zero outside the image
     for (int i = threadIdx.x; i < G::SLAB_PIX * (KC / 8); i += NTHREADS) {
       const int pix = i / (KC / 8);
       const int cv = (i % (KC / 8)) * 8;
       const int r = pix / G::SW, c = pix % G::SW;
-      const int hh = PS * h0 - G::LO + r, ww = PS * w0 - G::LO + c;
+      const int hh = h0 + r, ww = w0 + c;
       const int ch = c0 + cv;
       uint4 out = zero_vec();
-      if (hh >= 0 && hh < Hin && ww >= 0 && ww < Win && ch < C)
-        out = *reinterpret_cast<const uint4*>(p.x + (((size_t)b * Hin + hh) * Win + ww) * C + ch);
+      if (hh < H && ww < W && ch < C)
+        out = *reinterpret_cast<const uint4*>(p.x + (((size_t)b * H + hh) * W + ww) * C + ch);
       *reinterpret_cast<uint4*>(slab + pix * A_LD + cv) = out;
     }
     // this chunk's weights for every tap: NTAPS x KC x TN
@@ -124,40 +108,20 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
       const int nv = (rem % (TN / 8)) * 8;
       const int ch = c0 + k, n = n0 + nv;
       uint4 val = zero_vec();
-      if (ch < C && n < N) {
-        const bf16* wt;
-        if (MODE == MODE_SUBPIXEL) {
-          const int u = t >> 1, v = t & 1;
-          wt = p.w + ((size_t)((parity * 2 + u) * 2) * C + (size_t)v * C) * N;
-        } else {
-          wt = p.w + (size_t)t * C * N;
-        }
-        val = *reinterpret_cast<const uint4*>(wt + (size_t)ch * N + n);
-      }
+      if (ch < C && n < N) val = *reinterpret_cast<const uint4*>(p.w + ((size_t)t * C + ch) * N + n);
       *reinterpret_cast<uint4*>(wsm + (t * KC + k) * B_LD + nv) = val;
     }
     __syncthreads();
 
 #pragma unroll
     for (int t = 0; t < NTAPS; ++t) {
-      int dy, dx;
-      if (MODE == MODE_SUBPIXEL) {
-        dy = pa + (t >> 1);
-        dx = pb + (t & 1);
-      } else if (MODE == MODE_CONV1) {
-        dy = 0;
-        dx = 0;
-      } else {
-        dy = t / 4;
-        dx = t % 4;
-      }
-      // fragment row j is output pixel (wrow, j): slab pixel (PS*wrow + dy, PS*j + dx)
-      const bf16* arow = slab + ((PS * wrow + dy) * G::SW + dx) * A_LD;
+      // fragment row j is output pixel (wrow, j): tile pixel (wrow, j)
+      const bf16* arow = slab + wrow * G::SW * A_LD;
       const bf16* bt = wsm + t * KC * B_LD;
 #pragma unroll
       for (int kk = 0; kk < KC; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, arow + kk, PS * A_LD);
+        wmma::load_matrix_sync(fa, arow + kk, A_LD);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
@@ -189,11 +153,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
       const int hh = h0 + pix / TW, ww = w0 + pix % TW;
       if (hh < H && ww < W) {
         const float v = ctile[pix * C_LD + n_local] + bn;
-        size_t oidx;
-        if (MODE == MODE_SUBPIXEL)
-          oidx = (((size_t)b * (2 * H) + 2 * hh + pa) * (2 * W) + 2 * ww + pb) * N + n;
-        else
-          oidx = (((size_t)b * H + hh) * W + ww) * N + n;
+        const size_t oidx = (((size_t)b * H + hh) * W + ww) * N + n;
         const bf16 yb = __float2bfloat16(v);
         p.y[oidx] = yb;
         const float yr = __bfloat162float(yb);   // stats of the ROUNDED output
@@ -213,10 +173,9 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
       t0 += red[(g * 2 + 0) * TN + n_local];
       t1 += red[(g * 2 + 1) * TN + n_local];
     }
-    const size_t T = (size_t)P * p.tiles_h * p.tiles_w;
-    const size_t tid = (size_t)parity * p.tiles_h * p.tiles_w + tile;
-    p.partial[(((size_t)b * T + tid) * 2 + 0) * N + n] = t0;
-    p.partial[(((size_t)b * T + tid) * 2 + 1) * N + n] = t1;
+    const size_t T = (size_t)p.tiles_h * p.tiles_w;
+    p.partial[(((size_t)b * T + tile) * 2 + 0) * N + n] = t0;
+    p.partial[(((size_t)b * T + tile) * 2 + 1) * N + n] = t1;
   }
 }
 
@@ -224,17 +183,16 @@ __global__ void __launch_bounds__(NTHREADS) conv_taps_kernel(ConvArgs p) {
 // partials into `sums` (B, 2, N). T is the caller's count of partial tiles.
 template <int MODE, int EPI>
 int launch_conv(ConvArgs& p, float* sums, int T, cudaStream_t stream) {
-  constexpr int P = TapGeometry<MODE>::P;
   p.tiles_w = (p.W + TW - 1) / TW;
   p.tiles_h = (p.H + TH - 1) / TH;
   if (p.C % 8 || p.N % 8) return (int)cudaErrorInvalidValue;
-  if (p.partial != nullptr && T != P * p.tiles_w * p.tiles_h) return (int)cudaErrorInvalidValue;
-  if ((long long)p.B * P > 65535) return (int)cudaErrorInvalidValue;
+  if (p.partial != nullptr && T != p.tiles_w * p.tiles_h) return (int)cudaErrorInvalidValue;
+  if (p.B > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = conv_smem_bytes<MODE>();
   cudaError_t e = cudaFuncSetAttribute(conv_taps_kernel<MODE, EPI>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(p.tiles_w * p.tiles_h, (p.N + TN - 1) / TN, p.B * P);
+  dim3 grid(p.tiles_w * p.tiles_h, (p.N + TN - 1) / TN, p.B);
   conv_taps_kernel<MODE, EPI><<<grid, NTHREADS, smem, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess || p.partial == nullptr) return (int)e;

@@ -27,32 +27,24 @@
 // accumulators, rounds once, stores by TMA and writes one statistics partial
 // row a block. conv_sm90.cuh says what each part of the design does about
 // the bound.
-// K2 keeps the first design (conv_taps.cuh, MODE_SUBPIXEL): nvcuda::wmma
-// bf16 fragments with fp32 accumulation as an implicit GEMM (M = 64 output
-// pixels, N = 64 output channels, K = taps x C), each input element of a
-// block's halo'd slab loaded ONCE per K chunk and read by all taps from
-// shared memory; bias and statistics in the epilogue.
+// K2 runs on the same engine's CONV_UP mode: K11's halo'd slab of x a
+// 64-channel chunk, the four 2x2 taps of one output parity (pa, pb) as row
+// offsets into it, the folded weights as (16, C, N) through a 3-D map, bias,
+// one rounding, and a TMA store through the parity's strided view of y (rows
+// 2h + pa, columns 2w + pb); K9's statistics partial rows, one per (parity,
+// tile).
 // TPU grids run in order and carried the statistics across row tiles; CUDA
 // blocks run in parallel, so each block writes its partial sums to a scratch
 // and a second small kernel (stats_reduce.cuh) sums them in a fixed order:
 // no float atomics, so the statistics, and everything downstream, are
 // bit-for-bit reproducible. C, N (and K1's Cs) must be multiples of 8, which
 // the wrapper checks.
-// Not yet done (later work): K2 on the conv engine (TMA, wgmma).
 
 #include "conv_sm90.cuh"
-#include "conv_taps.cuh"
 
 extern "C" {
 
 const char* ragb_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
-
-// The wmma template's output tile, so K2's wrapper sizes its partial-statistics scratch.
-int ragb_conv_tile_shape(int* tile_h, int* tile_w) {
-  *tile_h = TH;
-  *tile_w = TW;
-  return 0;
-}
 
 // K1: x (B, H, W, C), a, b (B, C) fp32, w (3, 3, C, N), bias (N,) fp32; skip
 // (B, H, W, N) for skip_mode SKIP_ADD or (B, H, W, Cs) with ws (Cs, N) and
@@ -70,17 +62,14 @@ int ragb_resnet_conv3x3_stats(const void* x, const float* a, const float* b, con
                                     static_cast<cudaStream_t>(stream), &op);
 }
 
+// K2: x (B, H, W, C), w_fold (2, 2, 2, 2C, N) the folded weights, bias (N,)
+// fp32; y (B, 2H, 2W, N), stats (B, 2, N) and partial (B, T, 2, N) with T
+// four times the conv engine's tiles of one small image (one per parity).
 int ragb_subpixel_upsample_conv3x3_stats(const void* x, const void* w_fold, const float* bias,
                                          void* y, float* partial, float* stats, int T, int B,
                                          int H, int W, int C, int N, void* stream) {
-  ConvArgs p{};
-  p.x = static_cast<const bf16*>(x);
-  p.w = static_cast<const bf16*>(w_fold);
-  p.bias = bias;
-  p.y = static_cast<bf16*>(y);
-  p.partial = partial;
-  p.B = B; p.H = H; p.W = W; p.C = C; p.N = N;
-  return launch_conv<MODE_SUBPIXEL, EPI_FWD>(p, stats, T, static_cast<cudaStream_t>(stream));
+  return launch_conv_sm90<CONV_UP>(x, w_fold, bias, y, partial, stats, T, B, H, W, C, N,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

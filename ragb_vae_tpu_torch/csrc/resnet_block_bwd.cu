@@ -38,9 +38,12 @@
 // cross-block sum goes through per-tile or per-slice fp32 partials and a
 // second kernel that adds them in a fixed order: no float atomics, so a
 // training step is bit-for-bit reproducible.
-// K7 keeps the first design: the wmma data-gradient conv (MODE_DOWN4) and the
-// wmma split-K weight gradient `wgrad_kernel`, which recomputes nothing (its
-// A is x itself).
+// K7's design: the same dye pass; dx on the conv engine's CONV_UP_DX mode
+// (dye read as four parity planes, one TMA slab each a 64-channel chunk,
+// the plane's 2 x 2 taps as row offsets); the gradient of the folded
+// weights on wgrad_sm90.cuh's sub-pixel variant (a block per (pa, pb, u),
+// raw x as A, whose zero fill is the padding, dye's parity pixels by a
+// stride-2 box), split-K with a fixed-order slice sum; it recomputes nothing.
 // Rounding points follow the TPU kernel: dye rounded to bf16 before the
 // GEMMs, dA kept in fp32 through the chain rule, A rounded to bf16 for dW,
 // dx and dskip rounded once on store; SAME padding zeroes A and dye outside
@@ -134,148 +137,6 @@ int launch_dye(const bf16* g, const bf16* y, const float* ds, bf16* dye, float* 
   return launch_reduce_rows(partial, dbias, B * S, (size_t)N, stream);
 }
 
-// ---------------------------------------------------------------------------
-// K7's weight gradient: the folded weights' dW[tap][c][n] = sum over pixels of
-// x[pixel + tap][c] * dye[2 pixel + parity][n]
-// ---------------------------------------------------------------------------
-constexpr int WG_PW = 64;               // pixels (GEMM K) per chunk: part of one image row
-constexpr int WG_TC = 64;               // input channels (GEMM M) per block
-constexpr int WG_TN = 64;               // output channels (GEMM N) per block
-constexpr int WG_A_LD = WG_TC + 16;     // 32-byte aligned rows: fragments start at any pixel
-constexpr int WG_B_LD = WG_TN + 8;
-constexpr int WG_S_LD = WG_TN + 4;      // fp32 staging tile of the masked store
-
-enum { WG_SUBPIXEL = 2 };
-
-struct WgradArgs {
-  const bf16* x;       // (B, H, W, C): the forward's input
-  const bf16* dye;     // (B, 2H, 2W, N)
-  float* partial;      // (S, groups, taps, C, N)
-  int B, H, W, C, N, S;
-};
-
-__host__ __device__ constexpr size_t wgrad_smem_bytes() {
-  size_t main = (size_t)(WG_PW + 2) * WG_A_LD * sizeof(bf16) + (size_t)WG_PW * WG_B_LD * sizeof(bf16);
-  size_t stage = (size_t)WG_TC * WG_S_LD * sizeof(float);
-  return main > stage ? main : stage;
-}
-
-// MODE WG_SUBPIXEL: groups = 8 (pa, pb, u), 2 taps v each: the gradient of the
-//   folded weights [pa][pb][u][v]: A pixel (r+pa+u-1, c+pb+v-1) of the small
-//   grid against dye pixel (2r+pa, 2c+pb) of the large one.
-// grid (C/64, N/64, groups * S); 8 warps, each a 16 x 32 piece of every tap.
-template <int MODE>
-__global__ void __launch_bounds__(NTHREADS) wgrad_kernel(WgradArgs p) {
-  constexpr int GROUPS = 8;
-  constexpr int NTV = 2;
-  constexpr int DS = 2;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);         // slot s <-> x column w0 - 1 + s
-  bf16* Bs = As + (WG_PW + 2) * WG_A_LD;
-
-  const int c0 = blockIdx.x * WG_TC;
-  const int n0 = blockIdx.y * WG_TN;
-  const int group = blockIdx.z % GROUPS;
-  const int slice = blockIdx.z / GROUPS;
-  const int H = p.H, W = p.W, C = p.C, N = p.N;
-  // A row = r + row_off; tap v's A column = c + col_off0 + v
-  const int pa = group >> 2;
-  const int pb = (group >> 1) & 1;
-  const int row_off = pa + (group & 1) - 1;
-  const int col_off0 = pb - 1;
-  const int warp = threadIdx.x >> 5;
-  const int ci = (warp >> 1) * 16;         // this warp's 16 input channels of the tile
-  const int nj = (warp & 1) * 32;          // first of its 32 output channels
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NTV][2];
-#pragma unroll
-  for (int v = 0; v < NTV; ++v) {
-    wmma::fill_fragment(acc[v][0], 0.0f);
-    wmma::fill_fragment(acc[v][1], 0.0f);
-  }
-
-  const int rows = p.B * H;
-  const int rps = (rows + p.S - 1) / p.S;
-  const int row_end = min(rows, (slice + 1) * rps);
-  for (int row = slice * rps; row < row_end; ++row) {
-    const int b = row / H, r = row % H;
-    const int ar = r + row_off;
-    if (ar < 0 || ar >= H) continue;       // a zero row of A adds nothing
-    const bf16* xrow = p.x + ((size_t)b * H + ar) * W * C;
-    const bf16* drow = p.dye + (((size_t)b * DS * H + DS * r + pa) * DS * W + pb) * N;
-    for (int w0 = 0; w0 < W; w0 += WG_PW) {
-      for (int i = threadIdx.x; i < (WG_PW + 2) * (WG_TC / 8); i += NTHREADS) {
-        const int slot = i / (WG_TC / 8);
-        const int cv = (i % (WG_TC / 8)) * 8;
-        const int ww = w0 - 1 + slot, ch = c0 + cv;
-        uint4 out = zero_vec();
-        if (ww >= 0 && ww < W && ch < C) out = *reinterpret_cast<const uint4*>(xrow + (size_t)ww * C + ch);
-        *reinterpret_cast<uint4*>(As + slot * WG_A_LD + cv) = out;
-      }
-      for (int i = threadIdx.x; i < WG_PW * (WG_TN / 8); i += NTHREADS) {
-        const int k = i / (WG_TN / 8);
-        const int nv = (i % (WG_TN / 8)) * 8;
-        uint4 val = zero_vec();
-        if (w0 + k < W && n0 + nv < N)
-          val = *reinterpret_cast<const uint4*>(drow + (size_t)(w0 + k) * DS * N + n0 + nv);
-        *reinterpret_cast<uint4*>(Bs + k * WG_B_LD + nv) = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < WG_PW; kk += 16) {
-        if (w0 + kk < W) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-          wmma::load_matrix_sync(fb[0], Bs + kk * WG_B_LD + nj, WG_B_LD);
-          wmma::load_matrix_sync(fb[1], Bs + kk * WG_B_LD + nj + 16, WG_B_LD);
-#pragma unroll
-          for (int v = 0; v < NTV; ++v) {
-            // A^T: element (c, pixel k) sits at As[(slot of pixel k + tap) * LD + c]
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-            wmma::load_matrix_sync(fa, As + (kk + 1 + col_off0 + v) * WG_A_LD + ci, WG_A_LD);
-            wmma::mma_sync(acc[v][0], fa, fb[0], acc[v][0]);
-            wmma::mma_sync(acc[v][1], fa, fb[1], acc[v][1]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // masked store of each tap's 64 x 64 tile through an fp32 staging tile
-  float* stage = reinterpret_cast<float*>(smem_raw);
-#pragma unroll
-  for (int v = 0; v < NTV; ++v) {
-    wmma::store_matrix_sync(stage + ci * WG_S_LD + nj, acc[v][0], WG_S_LD, wmma::mem_row_major);
-    wmma::store_matrix_sync(stage + ci * WG_S_LD + nj + 16, acc[v][1], WG_S_LD, wmma::mem_row_major);
-    __syncthreads();
-    float* out = p.partial + (((size_t)slice * GROUPS + group) * NTV + v) * C * N;
-    for (int i = threadIdx.x; i < WG_TC * WG_TN; i += NTHREADS) {
-      const int c = i / WG_TN, n = i % WG_TN;
-      if (c0 + c < C && n0 + n < N) out[(size_t)(c0 + c) * N + n0 + n] = stage[c * WG_S_LD + n];
-    }
-    __syncthreads();
-  }
-}
-
-// Launches K7's split-K weight gradient and the fixed-order reduce of its S
-// partials into `dw` (groups * taps * C * N floats).
-template <int MODE>
-int launch_wgrad(WgradArgs& p, float* dw, cudaStream_t stream) {
-  constexpr int GROUPS = 8;
-  constexpr int NTV = 2;
-  if (p.C % 8 || p.N % 8 || p.S < 1 || (long long)GROUPS * p.S > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = wgrad_smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(wgrad_kernel<MODE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((p.C + WG_TC - 1) / WG_TC, (p.N + WG_TN - 1) / WG_TN, GROUPS * p.S);
-  wgrad_kernel<MODE><<<grid, NTHREADS, smem, stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return launch_reduce_rows(p.partial, dw, p.S, (size_t)GROUPS * NTV * p.C * p.N, stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -322,7 +183,8 @@ int ragb_resnet_conv3x3_stats_bwd(
 }
 
 // K7. x (B, H, W, C); y, gy, dye (B, 2H, 2W, N); wb (4, 4, N, C) the doubly
-// folded transposed weights; dwf (2, 2, 2, 2C, N) the folded weights' gradient.
+// folded transposed weights; dwf (2, 2, 2, 2C, N) the folded weights'
+// gradient; dbias_partial (B*S_dye, N), dwf_partial (S_w, 2, 2, 2, 2C, N).
 int ragb_subpixel_upsample_conv3x3_stats_bwd(
     const void* x, const void* wb, const void* y, const void* gy, const float* gstats,
     void* dye, void* dx, float* dwf, float* dbias, float* dbias_partial, float* dwf_partial,
@@ -333,20 +195,12 @@ int ragb_subpixel_upsample_conv3x3_stats_bwd(
                        stream);
   if (err) return err;
 
-  ConvArgs dxa{};                       // dx = stride-2 conv4x4(dye, wb)
-  dxa.x = static_cast<const bf16*>(dye);
-  dxa.w = static_cast<const bf16*>(wb);
-  dxa.y = static_cast<bf16*>(dx);
-  dxa.B = B; dxa.H = H; dxa.W = W; dxa.C = N; dxa.N = C;
-  err = launch_conv<MODE_DOWN4, EPI_FWD>(dxa, nullptr, 0, stream);
+  // dx = the stride-2 conv4x4 of dye over wb, on the conv engine
+  err = launch_conv_sm90<CONV_UP_DX>(dye, wb, nullptr, dx, nullptr, nullptr, 0, B, 2 * H, 2 * W, N, C, stream);
   if (err) return err;
 
-  WgradArgs wg{};
-  wg.x = static_cast<const bf16*>(x);
-  wg.dye = static_cast<const bf16*>(dye);
-  wg.partial = dwf_partial;
-  wg.B = B; wg.H = H; wg.W = W; wg.C = C; wg.N = N; wg.S = S_w;
-  return launch_wgrad<WG_SUBPIXEL>(wg, dwf, stream);
+  // the folded weights' gradient: S_w fp32 partials, then their fixed-order sum
+  return launch_wgrad_sm90<SUBPIXEL_TAPS>(x, dye, dwf_partial, dwf, S_w, B, H, W, C, N, stream);
 }
 
 }  // extern "C"

@@ -136,11 +136,14 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
 // 128-byte swizzle, 64 bytes in CU_TENSOR_MAP_SWIZZLE_64B). elem_strides are
 // the traversal strides: along dimension i the box spans box[i] elements and
 // TMA reads every elem_strides[i]-th of them, ceil(box[i] / elem_strides[i])
-// in all, packed densely in shared memory. Returns a cudaError_t.
+// in all, packed densely in shared memory. `byte_strides` (rank - 1 of them,
+// multiples of 16) are the distances in memory of dimensions 1..; null: a
+// contiguous tensor. Returns a cudaError_t.
 static inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                                     const cuuint32_t* box, const cuuint32_t* elem_strides,
                                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                                    const cuuint64_t* byte_strides = nullptr) {
   typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
                                   CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
@@ -161,7 +164,7 @@ static inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank
   cuuint64_t bytes = dtype == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
   for (int i = 0; i + 1 < rank; ++i) {
     bytes *= dims[i];
-    strides[i] = bytes;
+    strides[i] = byte_strides != nullptr ? byte_strides[i] : bytes;
   }
   CUresult r = encode(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, elem_strides,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

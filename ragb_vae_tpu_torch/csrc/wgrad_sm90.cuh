@@ -1,6 +1,6 @@
-// The weight gradient of K6 for Hopper (sm_90a): a split-K GEMM over pixels,
-// fed by TMA through an mbarrier ring and computed by wgmma, with one
-// producer warp and two consumer warpgroups per block.
+// The weight gradients of K6 and K7 for Hopper (sm_90a): a split-K GEMM over
+// pixels, fed by TMA through an mbarrier ring and computed by wgmma by two
+// warpgroups per block.
 //
 // Replaces the weight-gradient half of the TPU kernel K6 `_bwd_kernel`
 // (ragb_vae_tpu/ops/pallas/resnet_block.py:952; entry
@@ -8,7 +8,15 @@
 //   dW[u][v][c][n] = sum over pixels (b, h, w) of A[b][h+u-1][w+v-1][c] * dye[b][h][w][n]
 // (TAPS = 3, one tap row u per block, A zero outside the image), and the
 // projection's dws[c][n] = sum of skip[b][h][w][c] * dye[b][h][w][n] (TAPS =
-// 1). A is the activation act(x*a + b) rounded to bf16, which K6's data
+// 1); and the weight-gradient half of K7 `_subpixel_bwd_kernel` (:2003;
+// entry `ragb_subpixel_upsample_conv3x3_stats_bwd`), the gradient of the
+// folded weights of the sub-pixel upsample conv (TAPS = SUBPIXEL_TAPS = 2):
+//   dWf[pa][pb][u][v][c][n] = sum over small-grid pixels (b, h, w) of
+//       x[b][h+pa+u-1][w+pb+v-1][c] * dye[b][2h+pa][2w+pb][n]
+// one group (pa, pb, u) of 8 per block with its two column taps v, raw x as
+// A (K2 has no activation: TMA's zero fill is the padding), dye's parity
+// pixels read by a box at traversal stride 2 along W. A is the activation
+// act(x*a + b) rounded to bf16, which K6's data
 // gradient writes in its epilogue (conv_sm90.cuh): SAME padding zeroes A,
 // not x, so A comes in materialised and TMA's zero fill of its boxes IS the
 // padding. (Applying the activation to x in shared memory would make the
@@ -18,7 +26,9 @@
 //
 // What bounds it on the H100: 2 * 9 * C * N operations per pixel against
 // (C + N) * 2 bytes per pixel: tensor-core operations (0.31 ms at
-// (4,128,128,512)->512 and 989 TFLOP/s), far above the bf16 ridge.
+// (4,128,128,512)->512 and 989 TFLOP/s), far above the bf16 ridge. K7's:
+// 2 * 16 * C * N per small-grid pixel, 0.14 TFLOP at (4,64,64,512)->512
+// against ~84 MB of x and dye (0.139 ms, operations).
 //
 // What the design does about it:
 // - M = 128 input channels c (64 per consumer warpgroup), N = 128 output
@@ -41,6 +51,11 @@
 //   sub-partition, ptxas allots 168 registers a thread and spills the
 //   accumulators, serialising the wgmmas (1.8 ms at (4,128,128,512)->512
 //   with 384 threads, 6.6 ms with 288).
+// - K7: group (pa, pb, u)'s A slab is the BK + 1 pixels w0 + pb - 1 .. of x's
+//   row h + pa + u - 1, tap v's operand v rows in; its B the dye pixels
+//   (2h + pa, 2w + pb), a box {64 n, 2 BK} from (n0, 2 w0 + pb, 2h + pa, b)
+//   at traversal stride 2 along W, which lands as BK rows. Two m64n128
+//   accumulators a thread (128 registers). Per k-step ~33 KB for 4.2 MFLOP.
 // - A ring of STAGES stages on full mbarriers. Thread 0 issues the loads
 //   STAGES - 1 k-steps ahead: at step i, once all 8 warps have passed a
 //   named barrier after their wait for step i - 1's wgmma group (so nothing
@@ -49,9 +64,10 @@
 //   mbarrier instead put a loop on a divergent path, and ptxas serialised
 //   the wgmmas around it.) Rows whose A row lies outside the image are
 //   skipped.
-// - Split-K: the grid's z dimension is (slice, tap row); slice s sums the
-//   image rows of its share of B * H and writes its fp32 partial (S, GROUPS,
-//   TAPS, C, N) with masked stores straight from the accumulators;
+// - Split-K: the grid's z dimension is (slice, group: K6's tap row, K7's
+//   (pa, pb, u)); slice s sums the image rows of its share of B * H and
+//   writes its fp32 partial (S, GROUPS, TAPS, C, N) (K7: (S, 2, 2, 2, 2C, N),
+//   dWf's layout) with masked stores straight from the accumulators;
 //   `sum_slices_kernel` adds the S partials in a fixed order, four floats a
 //   thread (one thread per row of 1024 did not keep the memory busy: 0.31 ms
 //   for 84 MB). No float atomics: bit-for-bit reproducible.
@@ -64,9 +80,13 @@
 
 namespace {
 
+// K7's taps: the folded weights' two column taps v of a group (pa, pb, u)
+constexpr int SUBPIXEL_TAPS = 2;
+
 template <int TAPS>
 struct WgradSm90 {
-  static constexpr int GROUPS = TAPS;                // tap rows: one per block
+  static constexpr bool UP = TAPS == SUBPIXEL_TAPS;  // K7
+  static constexpr int GROUPS = UP ? 8 : TAPS;       // one per block: K6's tap rows, K7's (pa, pb, u)
   static constexpr int BM = 128, BN = 128;           // input channels c, output channels n of a block
   static constexpr int BK = 64;                      // pixels of a k-step
   static constexpr int A_ROWS = BK + TAPS - 1;       // the slab: the k-step's pixels and the taps' halo
@@ -81,7 +101,8 @@ struct WgradSm90 {
   static_assert(bytes <= 232448, "shared memory");
 };
 
-// Grid (C tiles, N tiles, S * GROUPS): block z = slice * GROUPS + tap row.
+// Grid (C tiles, N tiles, S * GROUPS): block z = slice * GROUPS + group.
+// H, W: the small grid's for K7 (x (B, H, W, C), dye (B, 2H, 2W, N)).
 template <int TAPS>
 __global__ void __launch_bounds__(WgradSm90<TAPS>::THREADS, 1)
     wgrad_sm90_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap dmap,
@@ -97,7 +118,10 @@ __global__ void __launch_bounds__(WgradSm90<TAPS>::THREADS, 1)
 
   const int c0 = blockIdx.x * L::BM, n0 = blockIdx.y * L::BN;
   const int u = blockIdx.z % L::GROUPS, slice = blockIdx.z / L::GROUPS;
-  const int row_off = TAPS == 3 ? u - 1 : 0;         // A row = h + row_off
+  const int pa = L::UP ? u >> 2 : 0, pb = L::UP ? u >> 1 & 1 : 0;   // K7: group u = (pa, pb, u & 1)
+  // A row = h + row_off, tap v's A column = w + col_off + v
+  const int row_off = L::UP ? pa + (u & 1) - 1 : TAPS == 3 ? u - 1 : 0;
+  const int col_off = L::UP ? pb - 1 : -(TAPS - 1) / 2;
   const int rows = B * H;
   const int rps = (rows + S - 1) / S;
   const int row_begin = slice * rps, row_end = min(rows, row_begin + rps);
@@ -119,10 +143,11 @@ __global__ void __launch_bounds__(WgradSm90<TAPS>::THREADS, 1)
     mbar_arrive_expect_tx(full(s), 2 * L::A_BOX + (L::BN / 64) * L::D_BOX);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      tma_load_4d(stage(s) + j * L::A_SLOT, &amap, c0 + 64 * j, w0 - (TAPS - 1) / 2, h + row_off, b, full(s));
+      tma_load_4d(stage(s) + j * L::A_SLOT, &amap, c0 + 64 * j, w0 + col_off, h + row_off, b, full(s));
 #pragma unroll
-    for (int j = 0; j < L::BN / 64; ++j)
-      tma_load_4d(stage(s) + 2 * L::A_SLOT + j * L::D_BOX, &dmap, n0 + 64 * j, w0, h, b, full(s));
+    for (int j = 0; j < L::BN / 64; ++j)   // K7: dye pixels (2h + pa, 2w + pb)
+      tma_load_4d(stage(s) + 2 * L::A_SLOT + j * L::D_BOX, &dmap, n0 + 64 * j, L::UP ? 2 * w0 + pb : w0,
+                  L::UP ? 2 * h + pa : h, b, full(s));
     if (++lk == steps_per_row) {
       lk = 0;
       ++lrow;
@@ -206,8 +231,8 @@ __global__ void sum_slices_kernel(const float4* __restrict__ partial, float4* __
 }
 
 // Launches the split-K weight gradient of act (B, H, W, C) bf16 against dye
-// (B, H, W, N) bf16 into S fp32 partials (S, TAPS, TAPS, C, N) and their
-// fixed-order sum dw (TAPS, TAPS, C, N).
+// (B, H, W, N) bf16 (K7: x against dye (B, 2H, 2W, N)) into S fp32 partials
+// (S, GROUPS, TAPS, C, N) and their fixed-order sum dw (GROUPS, TAPS, C, N).
 template <int TAPS>
 int launch_wgrad_sm90(const void* act, const void* dye, float* partial, float* dw, int S, int B, int H, int W,
                       int C, int N, cudaStream_t stream) {
@@ -223,9 +248,11 @@ int launch_wgrad_sm90(const void* act, const void* dye, float* partial, float* d
   const cuuint64_t adims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint32_t abox[4] = {64, (cuuint32_t)L::A_ROWS, 1, 1};
   if ((e = encode_tensor_map(&am, act, 4, adims, abox, ones))) return e;
-  const cuuint64_t ddims[4] = {(cuuint64_t)N, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint32_t dbox[4] = {64, (cuuint32_t)L::BK, 1, 1};
-  if ((e = encode_tensor_map(&dm, dye, 4, ddims, dbox, ones))) return e;
+  const int up = L::UP ? 2 : 1;                      // K7: dye on the upsampled grid, read every other column
+  const cuuint64_t ddims[4] = {(cuuint64_t)N, (cuuint64_t)(up * W), (cuuint64_t)(up * H), (cuuint64_t)B};
+  const cuuint32_t dbox[4] = {64, (cuuint32_t)(up * L::BK), 1, 1};
+  const cuuint32_t dstride[4] = {1, (cuuint32_t)up, 1, 1};
+  if ((e = encode_tensor_map(&dm, dye, 4, ddims, dbox, dstride))) return e;
   // the shared-memory opt-in, once per device
   static uint64_t opted_in = 0;
   int dev = 0;

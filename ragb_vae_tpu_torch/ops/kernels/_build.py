@@ -38,7 +38,6 @@ _F = ctypes.c_float
 # C signatures of the exported launchers (each returns a cudaError_t as int)
 _SIGNATURES = {
     "ragb_error_string": [_I],
-    "ragb_conv_tile_shape": [_P, _P],
     "ragb_resnet_conv3x3_stats": [_P] * 11 + [_I] * 9 + [_P],
     "ragb_wino_tile_shape": [_P, _P],
     "ragb_resnet_conv3x3_stats_wino": [_P] * 11 + [_I] * 9 + [_P],

@@ -13,8 +13,10 @@ cotangent (the statistics' included) in one call.
 Dispatch: a CPU tensor takes the plain PyTorch version beside each kernel
 (`conv3x3_stats_plain`, `upsample_conv3x3_stats_plain` and their `_bwd_plain`
 counterparts); a CUDA tensor launches the hand-written kernels in
-`csrc/resnet_block.cu` (forward; K1 over the TMA + wgmma conv engine of
-`csrc/conv_sm90.cuh`) and `csrc/resnet_block_bwd.cu` (backward) or raises. There is no fallback from one to the other, and no route by size.
+`csrc/resnet_block.cu` (forward: K1 and K2 over the TMA + wgmma conv engine
+of `csrc/conv_sm90.cuh`) and `csrc/resnet_block_bwd.cu` (backward: K6 and K7
+over the engine and the TMA + wgmma weight gradient of `csrc/wgrad_sm90.cuh`)
+or raises. There is no fallback from one to the other, and no route by size.
 `gn_silu_conv3x3_stats` has two forward routes, as in the JAX package: the
 direct conv (K1) and Winograd F(2x2, 3x3) (K8, `csrc/resnet_block_wino.cu`,
 plain version `wino_conv3x3_stats_plain`), picked per call by `algo=` or by
@@ -55,11 +57,10 @@ CONV_ALGO = "direct"
 # The weight gradient is a split-K GEMM: the image rows are cut into at most
 # this many slices, each with an fp32 partial that a second pass adds in order.
 MAX_WGRAD_SLICES = 64
-MAX_DYE_SLICES = 64
-_WGRAD_TARGET_BLOCKS = 4 * 132
-# K6's weight-gradient kernel (csrc/wgrad_sm90.cuh): a block owns 128 input x
-# 128 output channels of one tap row (three column taps; one tap for the
-# projection) and steps over 64 pixels at a time.
+# The weight-gradient kernel (csrc/wgrad_sm90.cuh): a block owns 128 input x
+# 128 output channels of one group (K6: a tap row, three column taps; one tap
+# for the projection; K7: a (pa, pb, u) of the folded weights, two column
+# taps) and steps over 64 pixels at a time.
 _WGRAD_SM90_TILE = (128, 128, 64)
 _H100_SMS = 132
 _PEAK_FLOPS, _PEAK_BYTES = 989e12, 3.35e12
@@ -162,10 +163,10 @@ def _ptr(t: Optional[Tensor]):
 _TILE_SHAPES: dict = {}
 
 
-def _tile_shape(export: str = "ragb_conv_tile_shape") -> Tuple[int, int]:
+def _tile_shape(export: str) -> Tuple[int, int]:
     """A conv kernel's output tile (rows, cols), read once from the library's
-    `export`: the wmma template's (K2) by default, `ragb_wino_tile_shape`
-    (K8) or `ragb_conv_sm90_tile_shape` (the conv engine's: K1, K6, K9)."""
+    `export`: `ragb_wino_tile_shape` (K8) or `ragb_conv_sm90_tile_shape` (the
+    conv engine's: K1, K2, K6, K9)."""
     if export not in _TILE_SHAPES:
         th, tw = ctypes.c_int(), ctypes.c_int()
         getattr(_build.library(), export)(ctypes.byref(th), ctypes.byref(tw))
@@ -429,25 +430,21 @@ def conv3x3_stats_bwd_plain(
     return tuple(None if t is None else next(grads) for t in leaves)
 
 
-def _wgrad_slices(rows: int, c_in: int, n_out: int, groups: int) -> int:
-    """Row slices of K7's split-K weight gradient: enough blocks to fill the
-    card, never more than MAX_WGRAD_SLICES partials."""
-    tiles = -(-c_in // 64) * -(-n_out // 64) * groups
-    slices = max(1, min(MAX_WGRAD_SLICES, rows, -(-_WGRAD_TARGET_BLOCKS // tiles)))
-    return -(-rows // -(-rows // slices))      # no slice without a row
-
-
-def _wgrad_sm90_slices(rows: int, width: int, c_in: int, n_out: int, taps: int, sms: int = _H100_SMS) -> int:
-    """Row slices of K6's split-K weight gradient (`taps` 3: one block per tap
-    row; 1: the projection's dws): the count, at most MAX_WGRAD_SLICES, that
-    minimises a model of its time, the waves of one-block-an-SM blocks times
-    each block's k-steps at the tensor-core peak plus the fp32 partials'
-    write and read at the memory rate. The fewest slices win a tie, and no
-    slice is left without a row."""
+def _wgrad_sm90_slices(rows: int, width: int, c_in: int, n_out: int, taps: int, sms: int = _H100_SMS,
+                       groups: Optional[int] = None) -> int:
+    """Row slices of the split-K weight gradient over `rows` image rows of
+    `width` pixels, with `taps` column taps a block and `groups` blocks a (C,
+    N) tile (default `taps`: K6's 3 tap rows, or the projection's 1; K7: 2
+    taps, 8 groups): the count, at most MAX_WGRAD_SLICES, that minimises a
+    model of its time, the waves of one-block-an-SM blocks times each
+    block's k-steps at the tensor-core peak plus the fp32 partials' write
+    and read at the memory rate. The fewest slices win a tie, and no slice
+    is left without a row."""
+    groups = taps if groups is None else groups
     bm, bn, bk = _WGRAD_SM90_TILE
-    tiles = -(-c_in // bm) * -(-n_out // bn) * taps
+    tiles = -(-c_in // bm) * -(-n_out // bn) * groups
     step_s = 2.0 * bm * bn * bk * taps / (_PEAK_FLOPS / sms)
-    partial_s = 2.0 * taps * taps * c_in * n_out * 4 / _PEAK_BYTES
+    partial_s = 2.0 * groups * taps * c_in * n_out * 4 / _PEAK_BYTES
     steps_per_row = -(-width // bk)
 
     def cost(s: int) -> float:
@@ -457,8 +454,13 @@ def _wgrad_sm90_slices(rows: int, width: int, c_in: int, n_out: int, taps: int, 
     return -(-rows // -(-rows // best))
 
 
-def _dye_slices(pixels: int) -> int:
-    return max(1, min(MAX_DYE_SLICES, pixels // 64))
+def _dye_slices(pixels: int, n_out: int) -> int:
+    """Pixel slices of the dye pass (`launch_dye`) over `pixels` of an image:
+    16 passes of the block's threads a slice (n_out / 8 threads a pixel,
+    256 / (n_out / 8) pixels at a time). 64 slices took 0.31 ms at
+    (4,512,512,128), 1024 take 0.27 (bound 0.24)."""
+    pix_per_pass = 1 if n_out // 8 >= 256 else 256 // (n_out // 8)
+    return max(1, -(-pixels // (16 * pix_per_pass)))
 
 
 class K6Plan(NamedTuple):
@@ -484,11 +486,7 @@ def conv3x3_stats_bwd_plan(bsz: int, height: int, width: int, c_in: int, n_out: 
     training step asks for the same few shapes every step."""
     th, tw = tile
     tiles = -(-height // th) * -(-width // tw)
-    # dye: a slice of 16 pixel rows of the block's threads each (`launch_dye`'s
-    # block: n_out / 8 threads a pixel, 256 / (n_out / 8) pixels at a time);
-    # 64 slices took 0.31 ms at (4,512,512,128), 1024 take 0.27 (bound 0.24)
-    pix_per_pass = 1 if n_out // 8 >= 256 else 256 // (n_out // 8)
-    s_dye = max(1, -(-height * width // (16 * pix_per_pass)))
+    s_dye = _dye_slices(height * width, n_out)
     s_w = _wgrad_sm90_slices(bsz * height, width, c_in, n_out, 3, sms)
     s_ws = _wgrad_sm90_slices(bsz * height, width, c_skip, n_out, 1, sms) if c_skip else 0
     return K6Plan(tiles, s_dye, s_w, s_ws, (bsz * s_dye, n_out), (bsz, tiles, 2, c_in), (s_w, 3, 3, c_in, n_out),
@@ -665,9 +663,11 @@ def upsample_conv3x3_stats_plain(x: Tensor, w: Tensor, bias: Tensor) -> Tuple[Te
 def upsample_conv3x3_stats_cuda(
     x: Tensor, w: Tensor, bias: Tensor, *, w_fold: Optional[Tensor] = None
 ) -> Tuple[Tensor, Tensor]:
-    """Launch the K2 kernel (`ragb_subpixel_upsample_conv3x3_stats`).
-    `w_fold`: `w` already folded (`fold_subpixel_weights`) in x's dtype, as
-    a module keeps it across calls; folded here when not given."""
+    """Launch the K2 kernel (`ragb_subpixel_upsample_conv3x3_stats`, the conv
+    engine's CONV_UP mode): one statistics partial row per parity and engine
+    tile of the small image. `w_fold`: `w` already folded
+    (`fold_subpixel_weights`) in x's dtype, as a module keeps it across
+    calls; folded here when not given."""
     global UPSAMPLE_LAUNCHES
     name = "subpixel_upsample_conv3x3_stats"
     if x.ndim != 4 or w.shape[:3] != (3, 3, x.shape[3]):
@@ -688,8 +688,8 @@ def upsample_conv3x3_stats_cuda(
         raise ValueError(f"{name}: bias must be ({n_out},)")
     if c_in % 8 or n_out % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out}")
-    th, tw = _tile_shape()
-    tiles = 4 * -(-height // th) * -(-width // tw)
+    th, tw = _tile_shape("ragb_conv_sm90_tile_shape")
+    tiles = 4 * -(-height // th) * -(-width // tw)         # a partial row per parity and engine tile
     y = torch.empty((bsz, 2 * height, 2 * width, n_out), dtype=x.dtype, device=x.device)
     partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, 2, n_out), dtype=torch.float32, device=x.device)
@@ -754,12 +754,35 @@ def upsample_conv3x3_stats_bwd_plain(
     return tuple(grads)
 
 
+class K7Plan(NamedTuple):
+    """K7's launch geometry: the slice counts of the dye pass and of the
+    folded weights' gradient, and their partials' shapes."""
+    s_dye: int
+    s_w: int
+    dbias_partial: Tuple[int, ...]
+    dw_partial: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def upsample_conv3x3_stats_bwd_plan(bsz: int, height: int, width: int, c_in: int, n_out: int,
+                                    sms: int = _H100_SMS) -> K7Plan:
+    """K7's plan for x (bsz, height, width, c_in) -> n_out channels on the (2
+    height, 2 width) grid, on a card of `sms` SMs: a weight-gradient block
+    owns one (pa, pb, u) of the 8 with its 2 column taps and steps over the
+    small grid's rows. Cached per shape."""
+    s_dye = _dye_slices(4 * height * width, n_out)
+    s_w = _wgrad_sm90_slices(bsz * height, width, c_in, n_out, 2, sms, groups=8)
+    return K7Plan(s_dye, s_w, (bsz * s_dye, n_out), (s_w, 2, 2, 2, 2 * c_in, n_out))
+
+
 def upsample_conv3x3_stats_bwd_cuda(
     x: Tensor, w: Tensor, bias: Tensor, y: Tensor, gy: Tensor, gstats: Tensor
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch the K7 kernels (`ragb_subpixel_upsample_conv3x3_stats_bwd`):
-    (dx bf16, dw fp32, dbias fp32). The kernel returns the gradient of the
-    FOLDED weights; its adjoint fold to (3, 3, C, N) is fp32 glue here."""
+    """Launch the K7 kernels (`ragb_subpixel_upsample_conv3x3_stats_bwd`: the
+    dye pass, dx on the conv engine's CONV_UP_DX mode, the folded weights'
+    gradient on `wgrad_sm90.cuh`): (dx bf16, dw fp32, dbias fp32). The kernel
+    returns the gradient of the FOLDED weights; its adjoint fold to (3, 3,
+    C, N) is fp32 glue here."""
     global UPSAMPLE_BWD_LAUNCHES
     name = "subpixel_upsample_conv3x3_stats_bwd"
     if x.ndim != 4 or w.shape[:3] != (3, 3, x.shape[3]):
@@ -780,19 +803,19 @@ def upsample_conv3x3_stats_bwd_cuda(
         raise ValueError(f"{name}: y, gy must be {out_shape} and gstats {(bsz, 2, n_out)}")
     if c_in % 8 or n_out % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out}")
-    s_dye = _dye_slices(4 * height * width)
-    s_w = _wgrad_slices(bsz * height, c_in, n_out, 8)
+    plan = upsample_conv3x3_stats_bwd_plan(bsz, height, width, c_in, n_out,
+                                           torch.cuda.get_device_properties(dev).multi_processor_count)
     f32 = {"dtype": torch.float32, "device": dev}
     dye = torch.empty(out_shape, dtype=x.dtype, device=dev)
     dx = torch.empty_like(x)
     dw_fold = torch.empty((2, 2, 2, 2 * c_in, n_out), **f32)
     dbias = torch.empty((n_out,), **f32)
-    dbias_partial = torch.empty((bsz * s_dye, n_out), **f32)
-    dw_partial = torch.empty((s_w,) + tuple(dw_fold.shape), **f32)
+    dbias_partial = torch.empty(plan.dbias_partial, **f32)
+    dw_partial = torch.empty(plan.dw_partial, **f32)
     err = _build.library().ragb_subpixel_upsample_conv3x3_stats_bwd(
         _ptr(x), _ptr(wb), _ptr(y), _ptr(gy), _ptr(gstats),
         _ptr(dye), _ptr(dx), _ptr(dw_fold), _ptr(dbias), _ptr(dbias_partial), _ptr(dw_partial),
-        s_dye, s_w, bsz, height, width, c_in, n_out,
+        plan.s_dye, plan.s_w, bsz, height, width, c_in, n_out,
         ctypes.c_void_p(_build.stream_ptr(dev)),
     )
     _build.check(err, name)

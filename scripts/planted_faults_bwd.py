@@ -1,13 +1,14 @@
 """Show that `chip_smoke.py`'s bounds on the attention forward (K3), on the
 backward kernels (K4-K7), on the int8 matmul (K10), on the Hopper conv
-engine of K9, K11 and K1 (the resnet conv forward) and on the Winograd conv
-(K8) bite.
+engine of K9, K11, K1 (the resnet conv forward) and K2 (the sub-pixel
+upsample conv) and on the Winograd conv (K8) bite.
 
     python3 scripts/planted_faults_bwd.py
 
     python3 scripts/planted_faults_bwd.py --only winograd    # the faults whose label holds it
     python3 scripts/planted_faults_bwd.py --only 'resnet conv backward'    # K6's
     python3 scripts/planted_faults_bwd.py --only 'resnet conv forward'     # K1's
+    python3 scripts/planted_faults_bwd.py --only 'sub-pixel'               # K2's and K7's
     python3 scripts/planted_faults_bwd.py --only 'attention forward'
     python3 scripts/planted_faults_bwd.py --only 'Hopper conv engine'
     python3 scripts/planted_faults_bwd.py --only 'int8 matmul'
@@ -39,11 +40,14 @@ ROOT = Path(__file__).resolve().parents[1]
 
 BACKWARD_KERNELS = ("_bwd", "flash_attention_dq", "flash_attention_dkv")
 FORWARD_KERNELS = ("flash_attention_fwd",)
-# the conv engine runs K9, K11, K6's data gradient, K1 and K12
+# the conv engine runs K9, K11, K6's data gradient, K1, K12, K2 and K7's data gradient
 CONV_SM90_KERNELS = ("downsample_conv3x3_stats", "conv3x3_same", "resnet_conv3x3_stats_bwd", "resnet_conv3x3_stats ",
-                     "fused_gn_silu_conv3x3")
+                     "fused_gn_silu_conv3x3", "subpixel_upsample_conv3x3_stats")
 # K1's lines of the kernel phase (not its backward's or K8's)
 K1_KERNELS = ("resnet_conv3x3_stats ",)
+# K2's and K7's lines
+K2_KERNELS = ("subpixel_upsample_conv3x3_stats ",)
+K7_KERNELS = ("subpixel_upsample_conv3x3_stats_bwd",)
 
 # (label, source file, the text to replace (once in the file), its replacement, the kernels whose lines must FAIL
 # [, the phases that must fail: `kernels` when not given[, phases only read, which may pass]])
@@ -55,8 +59,8 @@ FAULTS = [
     # warpgroup 0's first tap row reads one slab row down: the tile's top
     # halo row never enters the data gradient
     ("resnet conv backward: the data gradient's top halo row skipped", "conv_sm90.cuh",
-     "const uint32_t a_row = DOWN ? MB * w * L::TW : (MB * w + tap / 3) * L::SW + tap % 3;",
-     "const uint32_t a_row = DOWN ? MB * w * L::TW : (MB * w + tap / 3 + (BWD && w == 0 && tap < 3)) * L::SW + tap % 3;",
+     "return (MB * w + tap / 3) * SW + tap % 3;",
+     "return (MB * w + tap / 3 + (MODE == CONV_BWD && w == 0 && tap < 3)) * SW + tap % 3;",
      BACKWARD_KERNELS),
     ("resnet conv backward: statistics cotangent's sum-of-squares term left out of dye", "resnet_block_bwd.cu",
      "ds1[j] = 2.0f * ds[", "ds1[j] = 0.0f * ds[", BACKWARD_KERNELS),
@@ -113,9 +117,36 @@ FAULTS = [
      "partial[row * N + n] = s0;\n        partial[(row + 1) * N + n] = s1;",
      "partial[row * N + n] = ACT && tile == 1 ? 0.0f : s0;\n        partial[(row + 1) * N + n] = ACT && tile == 1 ? 0.0f : s1;",
      K1_KERNELS),
-    ("sub-pixel backward (K7): one weight-gradient partial left out of the reduce", "resnet_block_bwd.cu",
-     "return launch_reduce_rows(p.partial, dw, p.S,",
-     "return launch_reduce_rows(p.partial, dw, p.S > 1 ? p.S - 1 : p.S,", BACKWARD_KERNELS),
+    # K2 on the conv engine (conv_sm90.cuh, CONV_UP) and K7: dx on the engine
+    # (CONV_UP_DX), the folded weights' gradient on wgrad_sm90.cuh
+    ("sub-pixel upsample (K2): the row offset takes pb for pa", "conv_sm90.cuh",
+     "if (UP) return (MB * w + pa + tap / 2) * SW + pb + tap % 2;",
+     "if (UP) return (MB * w + pb + tap / 2) * SW + pb + tap % 2;", K2_KERNELS),
+    ("sub-pixel upsample (K2): parity (pb, pa)'s folded weights read", "conv_sm90.cuh",
+     "if (UP) return parity * 4 + tap;", "if (UP) return ((parity & 1) * 2 + (parity >> 1)) * 4 + tap;", K2_KERNELS),
+    ("sub-pixel upsample (K2): the column parity dropped from the store", "conv_sm90.cuh",
+     "((size_t)(p >> 1) * 2 * W + (p & 1)) * N", "((size_t)(p >> 1) * 2 * W) * N", K2_KERNELS),
+    ("sub-pixel upsample (K2): the slab's origin at (w0, h0), not (w0 - 1, h0 - 1)", "conv_sm90.cuh",
+     "return make_int2(w0 - 1, h0 - 1);", "return make_int2(w0 - 1 + UP, h0 - 1 + UP);", K2_KERNELS),
+    ("sub-pixel upsample (K2): one tile's statistics partial row left out", "conv_sm90.cuh",
+     "partial[row * N + n] = s0;\n        partial[(row + 1) * N + n] = s1;",
+     "partial[row * N + n] = UP && tile == 1 ? 0.0f : s0;\n        partial[(row + 1) * N + n] = UP && tile == 1 ? 0.0f : s1;",
+     K2_KERNELS),
+    ("sub-pixel backward (K7): dx's plane slab one dye row off", "conv_sm90.cuh",
+     "if (DX) return make_int2(2 * w0 - tap / 4 % 2, 2 * h0 - tap / 8);",
+     "if (DX) return make_int2(2 * w0 - tap / 4 % 2, 2 * h0 - tap / 8 + 1);", K7_KERNELS),
+    # dye's last, partial chunk of channels left out of dx (the ragged N = 136)
+    ("sub-pixel backward (K7): dx loses the last chunk of a ragged N", "conv_sm90.cuh",
+     "const int chunks = (C + L::BK - 1) / L::BK;",
+     "const int chunks = (C + L::BK - 1) / L::BK - (L::DX && C % L::BK != 0);", K7_KERNELS),
+    ("sub-pixel backward (K7): dW's A row h + pa + u, not h + pa + u - 1", "wgrad_sm90.cuh",
+     "const int row_off = L::UP ? pa + (u & 1) - 1 : TAPS == 3 ? u - 1 : 0;",
+     "const int row_off = L::UP ? pa + (u & 1) : TAPS == 3 ? u - 1 : 0;", K7_KERNELS),
+    ("sub-pixel backward (K7): dW's dye box ignores pb", "wgrad_sm90.cuh",
+     "L::UP ? 2 * w0 + pb : w0,", "L::UP ? 2 * w0 : w0,", K7_KERNELS),
+    ("sub-pixel backward (K7): one weight-gradient partial left out of the reduce", "wgrad_sm90.cuh",
+     "reinterpret_cast<float4*>(dw), S, m4);", "reinterpret_cast<float4*>(dw), L::UP && S > 1 ? S - 1 : S, m4);",
+     K7_KERNELS),
     # The dQ kernel's key-tail mask cut one key short: the last real key's
     # dS K term is lost from every dQ row. (Leaving the mask out altogether
     # changes no output: TMA zero-fills the K rows past Sk, so their dS K
@@ -172,7 +203,8 @@ FAULTS = [
     ("Hopper conv engine, K9: the padded bottom row read from memory", "conv_sm90.cuh",
      "(cuuint64_t)Hin, (cuuint64_t)B};", "(cuuint64_t)(Hin + DOWN), (cuuint64_t)B};", ("downsample_conv3x3_stats",)),
     ("Hopper conv engine: the last tap left out of the K loop", "conv_sm90.cuh",
-     "static constexpr int TAPS = 9;", "static constexpr int TAPS = 8;", CONV_SM90_KERNELS),
+     "static constexpr int TAPS = UP ? 4 : DX ? 16 : 9;", "static constexpr int TAPS = UP ? 4 : DX ? 16 : 8;",
+     CONV_SM90_KERNELS),
     # the weights' MN-major B operand: its LBO (the distance between the two
     # 64-channel boxes of N) halved, so channels 64..127 read rows 32..63 of
     # the first box

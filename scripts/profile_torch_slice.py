@@ -13,7 +13,8 @@ For each cell (batch x image size): one warm-up request, then three
 timed requests of 4 sampler steps, each split by CUDA events into encode, sampler (reported per
 step) and decode; peak device memory over the cell. Then one b1 512x512
 request under `torch.profiler`: device time by kernel class, and the idle
-share of the device between its first and last kernel. Prints one line per
+share of the device between its first and last kernel; and the same for
+each cell's encode alone. Prints one line per
 measurement and writes every number, unrounded, to `--out` as JSON.
 
 The training cells take the objects `chip_smoke.py` trains (the FLUX `ae`
@@ -74,19 +75,20 @@ def _conv_taps(mode: int, epilogue: int):
 
 
 def _conv_engine(mode: int):
-    """`conv_sm90_kernel<MODE>` (csrc/conv_sm90.cuh): 0 K11, 1 K9, 2 K6's data gradient, 3 K1 and K12."""
+    """`conv_sm90_kernel<MODE>` (csrc/conv_sm90.cuh): 0 K11, 1 K9, 2 K6's data gradient, 3 K1 and K12, 4 K2,
+    5 K7's data gradient."""
     return re.compile(rf"conv_sm90_kernel<(\(int\))?{mode}>")
 
 
 KERNEL_CLASSES = [
     ("K1/K12 resnet conv on the conv engine (conv_sm90_kernel<3>)", _conv_engine(3)),
-    ("K2 sub-pixel upsample (conv_taps_kernel<1, 0>)", _conv_taps(1, 0)),
+    ("K2 sub-pixel upsample on the conv engine (conv_sm90_kernel<4>)", _conv_engine(4)),
     ("K6 data gradient (conv_sm90_kernel<2>)", _conv_engine(2)),
+    ("K7 data gradient on the conv engine (conv_sm90_kernel<5>)", _conv_engine(5)),
+    ("K7 weight gradient (wgrad_sm90_kernel<2>)", re.compile(r"wgrad_sm90_kernel<(\(int\))?2>")),
     ("K6 weight gradient (wgrad_sm90_kernel)", re.compile(r"wgrad_sm90_kernel")),
-    ("K6 weight-gradient slice sum (sum_slices_kernel)", re.compile(r"sum_slices_kernel")),
+    ("K6 weight-gradient slice sum, K7's too (sum_slices_kernel)", re.compile(r"sum_slices_kernel")),
     ("K6 skip-projection gradient (conv_taps_kernel<2, 0>)", _conv_taps(2, 0)),
-    ("K7 data gradient (conv_taps_kernel<3, 0>)", _conv_taps(3, 0)),
-    ("K7 weight gradient (wgrad_kernel)", re.compile(r"wgrad_kernel")),
     ("K6/K7 dye pass and partial reduces", re.compile(r"dye_kernel|reduce_rows_kernel")),
     ("K1/K2/K6/K8/K9 stats reduce", re.compile(r"stats_reduce_kernel")),
     ("K8 Winograd conv (wino_conv_kernel)", re.compile(r"wino_conv_kernel")),
@@ -209,6 +211,16 @@ def profile_request(model, steps, gen, out_dir):
     return profile_call(f"b{bsz} {h}x{w}", lambda: run_request(model, x, steps, gen), out_dir)
 
 
+def profile_encodes(model, gen, out_dir):
+    """Each serving cell's encode alone under torch.profiler."""
+    out = []
+    for bsz, h, w in CELLS:
+        x = torch.rand((bsz, h, w, 4), generator=gen, device="cuda")
+        eps = torch.randn((bsz,) + model.latent_shape(h, w), generator=gen, device="cuda")
+        out.append(profile_call(f"encode b{bsz} {h}x{w}", lambda: model.encode_latents(x, eps), out_dir))
+    return out
+
+
 def build_model(quant: str):
     vae_cfg = AutoencoderConfig.flux()
     vae_cfg.in_channels = vae_cfg.out_channels = 4
@@ -231,7 +243,8 @@ def measure_serving(model, out_dir):
     with torch.inference_mode():
         cells = [measure_cell(model, cell, STEPS, REPEATS, gen) for cell in CELLS]
         breakdown = profile_request(model, STEPS, gen, out_dir)
-    return {"steps": STEPS, "cells": cells, "profile": breakdown}
+        encodes = profile_encodes(model, gen, out_dir)
+    return {"steps": STEPS, "cells": cells, "profile": breakdown, "encode_profiles": encodes}
 
 
 def measure_lora(model, out_dir):

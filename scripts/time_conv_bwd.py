@@ -1,9 +1,12 @@
-"""Time K6, the resnet-block conv backward (`conv3x3_stats_bwd_cuda`), on one
-NVIDIA GPU, whole and kernel by kernel.
+"""Time K6, the resnet-block conv backward (`conv3x3_stats_bwd_cuda`), and K7,
+the sub-pixel upsample conv's backward (`upsample_conv3x3_stats_bwd_cuda`),
+on one NVIDIA GPU, whole and kernel by kernel.
 
     python3 scripts/time_conv_bwd.py                  # this checkout's package
     python3 scripts/time_conv_bwd.py --root DIR       # the package under DIR
     python3 scripts/time_conv_bwd.py --launches       # also list one VAE micro-batch's K6 calls
+    python3 scripts/time_conv_bwd.py --only k7        # K7 alone
+    python3 scripts/time_conv_bwd.py --only k7 --dx-boxes   # and K7 with dx read as K9 reads, a box per tap
 
 `--root` takes any directory that holds a `ragb_vae_tpu_torch/` package, such
 as another commit's `git archive` unpacked under `build/`, so that two
@@ -26,12 +29,23 @@ step at 512^2, batch 4, remat half (chip_smoke.py's training objects) and
 prints each K6 call's shape with its count. Prints the card's name and power
 limit first; exits 1 if a cotangent disagrees. The inputs, the exact
 reference, the bound and the timers are chip_smoke.py's.
+
+K7 runs the same way at chip_smoke.py's K7 shapes and (4,64,64,512)->256,
+which with (4,64,64,512)->512 splits dx's time into a part per 64-channel
+chunk of dye and a part per tile (same tiles, twice the chunks); its
+yardstick is `aten.convolution_backward` of the conv over the nearest-2x
+upsampled input (2.25x the sub-pixel form's products). `--dx-boxes` then
+copies the package to `build/k7_dx_boxes/`, rewrites the conv engine's
+CONV_UP_DX mode there by the text replacements of `DX_BOXES` (dx reads one
+stride-2 box per tap, 16 a chunk, as K9 reads its A, instead of one slab per
+parity plane) and runs K7 from that copy the same way, in a second process.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -44,6 +58,22 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = [((4, 128, 128, 512), 512, None, "silu"), ((4, 256, 256, 512), 256, "proj", "silu"),
           ((12, 64, 64, 512), 512, "identity", "silu"), ((4, 512, 512, 128), 128, None, "silu"),
           ((1, 64, 64, 128), 128, "identity", "identity"), ((2, 37, 50, 128), 256, "proj", "silu")]
+# K7: (x shape, N); the first two split dx into a part per chunk and a part per tile
+SHAPES_K7 = [((4, 64, 64, 512), 256), ((4, 64, 64, 512), 512), ((4, 128, 128, 512), 512),
+             ((4, 256, 256, 256), 256), ((1, 19, 27, 64), 128), ((2, 37, 50, 72), 136)]
+# K7's dx with a stride-2 box of dye per tap (r, s) from (2 w0 - 1 + s, 2 h0 - 1 + r),
+# landing as the tap's window, and wb's taps in order: (text of conv_sm90.cuh, its
+# replacement), each text found once
+DX_BOXES = [
+    ("A_TAPS = DOWN ? 1 : DX ? 4 : TAPS;", "A_TAPS = DOWN || DX ? 1 : TAPS;"),
+    ("AW = DOWN ? TW : SW, AH = DOWN ? TH : SH;", "AW = DOWN || DX ? TW : SW, AH = DOWN || DX ? TH : SH;"),
+    ("A_STAGES = DOWN ? 4 : ACT || DX ? 3 : 2;", "A_STAGES = DOWN || DX ? 4 : ACT ? 3 : 2;"),
+    ("if (DX) return make_int2(2 * w0 - tap / 4 % 2, 2 * h0 - tap / 8);",
+     "if (DX) return make_int2(2 * w0 - 1 + tap % 4, 2 * h0 - 1 + tap / 4);"),
+    ("if (DOWN) return MB * w * TW;", "if (DOWN || DX) return MB * w * TW;"),
+    ("if (DX)                                        // plane (qa, qb)",
+     "if (false)                                     // plane (qa, qb)"),
+]
 
 
 def per_kernel_ms(fn, calls=5, queued=False):
@@ -110,6 +140,9 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=str(ROOT), help="directory holding the ragb_vae_tpu_torch package to time")
     parser.add_argument("--launches", action="store_true", help="list one VAE micro-batch's K6 calls first")
     parser.add_argument("--out", default="", help="also write every number as JSON to this file")
+    parser.add_argument("--only", choices=("k6", "k7"), default=None, help="time one of the two")
+    parser.add_argument("--dx-boxes", action="store_true",
+                        help="then time K7 again with dx reading a stride-2 box per tap (DX_BOXES)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script times kernels on a GPU")
@@ -129,7 +162,7 @@ def main(argv=None) -> int:
         list_launches(rb)
     gen = torch.Generator("cuda").manual_seed(0)
     ok, rows = True, []
-    for shape, n, skip, act in SHAPES:
+    for shape, n, skip, act in SHAPES if args.only != "k7" else ():
         bsz, h, wd, c = shape
         x, a, b, w, bias, sk, ws, wsb = cs._conv_inputs(gen, shape, n, skip)
         y, _ = rb.conv3x3_stats_cuda(x, a, b, w, bias, sk, ws, wsb, act)
@@ -176,10 +209,95 @@ def main(argv=None) -> int:
                   flush=True)
         del ops, got, dye, act_a, t, x, y, gy, sk
         torch.cuda.empty_cache()
+    if args.only != "k6":
+        k7_ok, k7_rows = time_k7(rb, cs, gen)
+        ok &= k7_ok
+        rows += k7_rows
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))
+    if args.dx_boxes:
+        ok &= dx_boxes(Path(args.root), args.out) == 0
     return 0 if ok else 1
+
+
+def time_k7(rb, cs, gen):
+    """K7 at SHAPES_K7, each cotangent against chip_smoke.py's exact
+    restatement, bit for bit over two calls, timed whole and by kernel ->
+    (all held, rows)."""
+    ok, rows, dx_ms = True, [], {}
+    for shape, n in SHAPES_K7:
+        bsz, h, wd, c = shape
+        x = cs._randn(gen, shape)
+        w = cs._randn(gen, (3, 3, c, n), c ** -0.5 / 3)
+        bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+        y, _ = rb.upsample_conv3x3_stats_cuda(x, w, bias)
+        gy = cs._randn(gen, y.shape)
+        gstats = 0.1 * torch.randn((bsz, 2, n), generator=gen, device="cuda")
+        ops = (x, w, bias, y, gy, gstats)
+        got = rb.upsample_conv3x3_stats_bwd_cuda(*ops)
+        parts, good = [], True
+        for name, g, r in zip(cs.BWD_NAMES_K7, got, cs.upsample_conv3x3_stats_bwd_exact(*ops)):
+            rel = ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+            tol = cs.BWD_BF16_EXACT_TOL if g.dtype == torch.bfloat16 else cs.BWD_SUM_EXACT_TOL
+            good &= rel <= tol and g.shape == r.shape
+            parts.append(f"{name} {rel:.2g}")
+        same = all(torch.equal(g, h) for g, h in zip(got, rb.upsample_conv3x3_stats_bwd_cuda(*ops)))
+        ok &= good and same
+        run = lambda: rb.upsample_conv3x3_stats_bwd_cuda(*ops)
+        dye = cs._dye_exact(y, gy, gstats).to(torch.bfloat16).permute(0, 3, 1, 2)
+        up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2).permute(0, 3, 1, 2)   # nearest-2x, NCHW view
+        lib = lambda: torch.ops.aten.convolution_backward(dye, up, cs._oihw(w), [n], [1, 1], [1, 1], [1, 1], False,
+                                                          [0, 0], 1, [True, True, True])
+        flops = 2 * 2 * 16 * bsz * h * wd * c * n
+        nbytes = cs._nbytes(x, w, y, gy, gstats) + cs._nbytes(x) + 4 * (w.numel() + n)
+        row = {"kernel": "K7", "shape": list(shape), "n": n, "errors": parts, "bitwise": same,
+               "ms": cs.time_ms(run), "queued_ms": cs.time_queued_ms(run, runs=20),
+               "plain_ms": cs.time_ms(lambda: rb.upsample_conv3x3_stats_bwd_plain(*ops)),
+               "convolution_backward_ms": cs.time_ms(lib), **cs.bound(flops, nbytes),
+               "kernels_idle_ms": per_kernel_ms(run), "kernels_queued_ms": per_kernel_ms(run, queued=True)}
+        rows.append(row)
+        dx_ms[(shape, n)] = sum(v for k, v in row["kernels_queued_ms"].items() if "conv_sm90_kernel" in k)
+        print(f"K7 {shape}->{n}: vs exact {', '.join(parts)}; bitwise over two calls {same}; kernel "
+              f"{row['ms']:.4f} ms, back to back {row['queued_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms; "
+              f"aten.convolution_backward over the upsampled input (yardstick, 2.25x the products) "
+              f"{row['convolution_backward_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); device "
+              f"time back to back {sum(row['kernels_queued_ms'].values()):.4f} ms {'ok' if good and same else 'FAIL'}",
+              flush=True)
+        for label, key in (("idle-start", "kernels_idle_ms"), ("back to back", "kernels_queued_ms")):
+            print(f"  kernels, {label}: " + "; ".join(f"{k} {v:.4f}" for k, v in sorted(row[key].items())),
+                  flush=True)
+        del ops, got, dye, up, x, y, gy
+        torch.cuda.empty_cache()
+    lo, hi = ((4, 64, 64, 512), 256), ((4, 64, 64, 512), 512)
+    if dx_ms.get(lo) and dx_ms.get(hi):                 # the engine's dx (not the first design's)
+        # dx: (4, 64, 64) x 512 output channels, 64 tiles of an image x 4 N tiles = 256 blocks either way
+        waves = 4 * 16 * 4 / 132
+        per_chunk = (dx_ms[hi] - dx_ms[lo]) * 1e3 / waves / 4
+        per_tile = dx_ms[lo] * 1e3 / waves - 4 * per_chunk
+        print(f"K7 dx split (device, back to back), dye 256 against 512 channels into 512: {per_chunk:.2f} us a "
+              f"64-channel chunk of a tile (16 taps), {per_tile:.2f} us fixed a tile ({waves:.2f} waves)", flush=True)
+    return ok, rows
+
+
+def dx_boxes(root: Path, out: str) -> int:
+    """K7 from a copy of the package whose dx reads a box per tap."""
+    work = ROOT / "build" / "k7_dx_boxes"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(root / "ragb_vae_tpu_torch", work / "ragb_vae_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    engine = work / "ragb_vae_tpu_torch" / "csrc" / "conv_sm90.cuh"
+    text = engine.read_text()
+    for old, new in DX_BOXES:
+        if text.count(old) != 1:
+            raise SystemExit(f"{old!r} must occur once in {engine}")
+        text = text.replace(old, new)
+    engine.write_text(text)
+    print("K7 with dx as a box per tap (DX_BOXES):", flush=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--root", str(work), "--only", "k7"]
+    if out:
+        cmd += ["--out", str(Path(out).with_name(Path(out).stem + "_dx_boxes.json"))]
+    return subprocess.run(cmd).returncode
 
 
 if __name__ == "__main__":

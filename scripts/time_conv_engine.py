@@ -1,10 +1,11 @@
 """Time the kernels of the Hopper conv engine
-(`ragb_vae_tpu_torch/csrc/conv_sm90.cuh`): K9, K11, and K1 and K12 on its
-activation mode; beside them K2 (the sub-pixel upsample conv) and K8 (K1's
-function by Winograd), on one NVIDIA GPU.
+(`ragb_vae_tpu_torch/csrc/conv_sm90.cuh`): K9, K11, K1 and K12 on its
+activation mode, K2 (the sub-pixel upsample conv) on its CONV_UP mode;
+beside them K8 (K1's function by Winograd), on one NVIDIA GPU.
 
     python3 scripts/time_conv_engine.py                  # this checkout's package
     python3 scripts/time_conv_engine.py --root DIR       # the package under DIR
+    python3 scripts/time_conv_engine.py --only k2        # K2 alone
 
 `--root` takes any directory that holds a `ragb_vae_tpu_torch/` package, such
 as another commit's `git archive` unpacked under `build/`, so that two
@@ -18,10 +19,13 @@ chip_smoke.py times), back to back (mean of 20 calls between two events)
 and beside one PyTorch call for the same y (`F.conv2d`; `F.pad` +
 `F.conv2d` for K9; for K1 and K12, `F.conv2d` over their activation, a
 yardstick for the conv part only). The shapes are chip_smoke.py's and, at
-C = 256 (K11, K9) and at C = 128 and 512 (K1), the pairs that split a
-kernel's time into a part per k-step (64-channel chunk) and a part per
-tile (from the back-to-back times: an idle-card time also holds the
-wrapper's host work). K8 is timed beside K1 on the same inputs. Last, the host's time per
+C = 256 (K11, K9), at C = 128 and 512 (K1) and at C = 256 (K2), the pairs
+that split a kernel's time into a part per k-step (64-channel chunk) and a
+part per tile (from the back-to-back times: an idle-card time also holds the
+wrapper's host work). K2 is timed with its folded weights given, as the
+Upsample module keeps them, and with the fold in the call; its yardstick is
+`F.conv2d` over the nearest-2x upsampled input (2.25x the sub-pixel form's
+products). K8 is timed beside K1 on the same inputs. Last, the host's time per
 call of each wrapper at a small shape, where the host sets the pace (mean
 of 2000 calls, no synchronisation). Prints the card's name and power limit
 first; exits 1 if a kernel disagrees.
@@ -53,7 +57,11 @@ SHAPES_K1 = [((2, 128, 128, 512), 512, None, "silu"), ((2, 128, 128, 256), 512, 
 K1_SPLITS = [(((2, 128, 128, 256), 512), ((2, 128, 128, 512), 512)),
              (((1, 512, 512, 128), 128), ((1, 512, 512, 256), 128))]
 SHAPES_K12 = [((1, 128, 128, 512), 512), ((2, 512, 512, 128), 128)]
-SHAPES_K2 = [((2, 64, 64, 512), 512), ((1, 256, 256, 256), 256)]
+# chip_smoke.py's K2 shapes, a VAE micro-batch's three (b4 512^2) and (2,64,64,256)->512, which
+# with (2,64,64,512)->512 runs the same tiles with half the chunks
+SHAPES_K2 = [((2, 64, 64, 512), 512), ((1, 256, 256, 256), 256), ((4, 128, 128, 512), 512),
+             ((2, 37, 50, 72), 136), ((4, 64, 64, 512), 512), ((4, 256, 256, 256), 256), ((2, 64, 64, 256), 512)]
+K2_SPLIT = (((2, 64, 64, 256), 512), ((2, 64, 64, 512), 512))
 # chip_smoke.py's K8 shapes: K8 (the wrapper as the path calls it, its weight fold included) beside K1
 SHAPES_K8 = [((2, 128, 128, 512), 512, None), ((1, 512, 512, 128), 128, "identity"), ((2, 128, 128, 256), 512, 256)]
 TILE = (4, 64)                  # the conv engine's output tile (rows, columns) and 128 output channels
@@ -136,7 +144,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                         help="directory holding the ragb_vae_tpu_torch package to time")
+    parser.add_argument("--only", choices=("k2",), default=None, help="time K2 alone")
     args = parser.parse_args(argv)
+    every = args.only is None
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script times kernels on a GPU")
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -154,7 +164,7 @@ def main(argv=None) -> int:
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
     ok = True
-    for shape, n in SHAPES_K11:
+    for shape, n in SHAPES_K11 if every else ():
         x = randn(shape)
         w = randn((3, 3, shape[3], n), 1.0 / math.sqrt(9 * shape[3]))
         y = c3.conv3x3_same_cuda(x, w)
@@ -168,7 +178,7 @@ def main(argv=None) -> int:
               f"{queued_ms(run):.4f} ms; F.conv2d {idle_ms(lambda: F.conv2d(x_lib, w_lib, padding=1)):.4f} ms "
               f"{'ok' if good else 'FAIL'}", flush=True)
         del x, w, y, exact
-    for shape, n in SHAPES_K9:
+    for shape, n in SHAPES_K9 if every else ():
         x = randn(shape)
         w = randn((3, 3, shape[3], n), 1.0 / math.sqrt(9 * shape[3]))
         bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
@@ -190,7 +200,7 @@ def main(argv=None) -> int:
               f"{idle_ms(lib):.4f} ms {'ok' if good else 'FAIL'}", flush=True)
         del x, w, y, exact, xp
     k1_ms = {}
-    for shape, n, skip, activation in SHAPES_K1:
+    for shape, n, skip, activation in SHAPES_K1 if every else ():
         x, a, b, w, bias, sk, ws, wsb = k1_inputs(gen, randn, shape, n, skip)
         args = (x, a, b, w, bias, sk, ws, wsb, activation)
         y, st = rb.conv3x3_stats_cuda(*args)
@@ -217,7 +227,7 @@ def main(argv=None) -> int:
               f"F.conv2d on the activated input (conv part only) "
               f"{idle_ms(lambda: F.conv2d(x_lib, w_lib, padding=1)):.4f} ms {'ok' if good else 'FAIL'}", flush=True)
         del x, y, y2, act, exact, x_lib, sk, args
-    for (lo, n_lo), (hi, n_hi) in K1_SPLITS:
+    for (lo, n_lo), (hi, n_hi) in K1_SPLITS if every else ():
         waves = engine_waves(lo, n_lo)
         steps_lo, steps_hi = -(-lo[3] // 64), -(-hi[3] // 64)
         per_step = (k1_ms[(hi, n_hi)] - k1_ms[(lo, n_lo)]) * 1e3 / waves / (steps_hi - steps_lo)
@@ -225,7 +235,7 @@ def main(argv=None) -> int:
         print(f"K1 split, back to back, {lo}->{n_lo} against {hi}->{n_hi} ({waves:.2f} waves of blocks): {per_step:.2f} us a "
               f"chunk of a tile, {per_tile:.2f} us fixed a tile (at C = {lo[3]}: {steps_lo} chunks, the fixed "
               f"part {per_tile / (per_tile + steps_lo * per_step):.0%} of a tile)", flush=True)
-    for shape, n in SHAPES_K12:
+    for shape, n in SHAPES_K12 if every else ():
         x, a, b, w, bias, *_ = k1_inputs(gen, randn, shape, n, None)
         z = fgc.fused_gn_silu_conv3x3_cuda(x, a, b, w, bias)
         act = activated(x, a, b, "silu")
@@ -240,27 +250,50 @@ def main(argv=None) -> int:
               f"{queued_ms(run):.4f} ms; F.conv2d on the activated input (conv part only) "
               f"{idle_ms(lambda: F.conv2d(x_lib, w_lib, padding=1)):.4f} ms {'ok' if good else 'FAIL'}", flush=True)
         del x, z, act, exact, x_lib
+    k2_ms = {}
     for shape, n in SHAPES_K2:
         x = randn(shape)
         w = randn((3, 3, shape[3], n), 1.0 / math.sqrt(9 * shape[3]))
         bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
-        y, _ = rb.upsample_conv3x3_stats_cuda(x, w, bias)
+        w_fold = rb.fold_subpixel_weights(w.float()).to(torch.bfloat16).contiguous()
+        y, st = rb.upsample_conv3x3_stats_cuda(x, w, bias, w_fold=w_fold)
         up = F.interpolate(x.float().permute(0, 3, 1, 2), scale_factor=2, mode="nearest").permute(0, 2, 3, 1)
         exact = conv_exact(up, w) + bias
         rel = ((y.float() - exact).abs().max() / exact.abs().max()).item()
-        good = rel <= 2e-2                          # the folded weights are rounded to bf16 once more
+        yd = y.double()
+        own = torch.stack([yd.sum(dim=(1, 2)), yd.square().sum(dim=(1, 2))], dim=1)
+        s_own = ((st.double() - own).abs().max() / (y.shape[1] * y.shape[2] * yd.square().mean())).item()
+        y2, st2 = rb.upsample_conv3x3_stats_cuda(x, w, bias, w_fold=w_fold)
+        same = torch.equal(y, y2) and torch.equal(st, st2)
+        good = rel <= 2e-2 and s_own <= 1e-4 and same   # the folded weights are rounded to bf16 once more
         ok &= good
-        run = lambda: rb.upsample_conv3x3_stats_cuda(x, w, bias)
-        print(f"K2 {shape}->{n}: vs the exact upsample + conv {rel:.3g}; kernel {idle_ms(run):.4f} ms, back to back "
-              f"{queued_ms(run):.4f} ms {'ok' if good else 'FAIL'}", flush=True)
-        del x, y, up, exact
-    for shape, n, skip in SHAPES_K8:
+        run = lambda: rb.upsample_conv3x3_stats_cuda(x, w, bias, w_fold=w_fold)
+        fold = lambda: rb.upsample_conv3x3_stats_cuda(x, w, bias)
+        x_lib = up.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        k2_ms[(shape, n)] = back = queued_ms(run)
+        print(f"K2 {shape}->{n}: vs the exact upsample + conv {rel:.3g}, statistics vs its own y {s_own:.3g}, bit for "
+              f"bit over two calls {same}; kernel (folded weights given) {idle_ms(run):.4f} ms, back to back "
+              f"{back:.4f} ms; the fold in the call {idle_ms(fold):.4f} ms, back to back {queued_ms(fold):.4f} ms; "
+              f"F.conv2d on the upsampled input (conv part only, 2.25x the products) "
+              f"{idle_ms(lambda: F.conv2d(x_lib, w_lib, padding=1)):.4f} ms {'ok' if good else 'FAIL'}", flush=True)
+        del x, y, y2, up, exact, x_lib
+    (lo, n_lo), (hi, n_hi) = K2_SPLIT
+    waves = 4 * engine_waves(lo, n_lo)                  # a block per parity
+    steps_lo, steps_hi = -(-lo[3] // 64), -(-hi[3] // 64)
+    per_step = (k2_ms[(hi, n_hi)] - k2_ms[(lo, n_lo)]) * 1e3 / waves / (steps_hi - steps_lo)
+    per_tile = k2_ms[(lo, n_lo)] * 1e3 / waves - steps_lo * per_step
+    print(f"K2 split, back to back, {lo}->{n_lo} against {hi}->{n_hi} ({waves:.2f} waves of blocks): {per_step:.2f} us "
+          f"a chunk (4 taps) of a tile, {per_tile:.2f} us fixed a tile", flush=True)
+    for shape, n, skip in SHAPES_K8 if every else ():
         x, a, b, w, bias, sk, ws, wsb = k1_inputs(gen, randn, shape, n, skip)
         args = (x, a, b, w, bias, sk, ws, wsb, "silu")
         run8, run1 = lambda: rb.wino_conv3x3_stats_cuda(*args), lambda: rb.conv3x3_stats_cuda(*args)
         print(f"K8 against K1 {shape}->{n} silu skip={skip}: K8 {idle_ms(run8):.4f} ms (back to back "
               f"{queued_ms(run8):.4f}), K1 {idle_ms(run1):.4f} ms (back to back {queued_ms(run1):.4f})", flush=True)
         del x, sk, args
+    if not every:
+        return 0 if ok else 1
     x = randn((1, 16, 16, 64))
     w = randn((3, 3, 64, 64), 0.04)
     bias = torch.zeros((64,), device="cuda")

@@ -33,8 +33,7 @@ def test_engine_tile_is_the_one_the_source_declares():
 
 
 def test_wrapper_counts_the_engines_tiles():
-    """T comes from the engine's tile (the library's export), not from the
-    wmma template's 4 x 16 tile that K2 uses."""
+    """T comes from the engine's tile (the library's export)."""
     src = inspect.getsource(rb.conv3x3_stats_bwd_cuda)
     assert '_tile_shape("ragb_conv_sm90_tile_shape")' in src and "_tile_shape()" not in src
 

@@ -92,7 +92,12 @@ def test_conv3x3_stats_kernel_is_deterministic():
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
-@pytest.mark.parametrize("shape,n", [((1, 36, 24, 512), 512), ((2, 9, 13, 64), 64)])
+@pytest.mark.parametrize("shape,n", [
+    ((1, 36, 24, 512), 512), ((2, 9, 13, 64), 64),
+    # every edge ragged (C % 64 != 0, N % 128 != 0, H, W off the engine's
+    # 4 x 64 tile), and the decoder's middle upsampler at the training batch
+    ((2, 37, 50, 72), 136), ((4, 128, 128, 512), 512),
+])
 def test_upsample_kernel(shape, n):
     gen = torch.Generator("cuda").manual_seed(2)
     x = _randn(gen, shape)
@@ -213,7 +218,8 @@ def test_conv3x3_stats_bwd_kernel_is_deterministic():
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("shape,n", [((1, 36, 24, 256), 256), ((2, 9, 13, 64), 128), ((4, 64, 64, 128), 128)])
+@pytest.mark.parametrize("shape,n", [((1, 36, 24, 256), 256), ((2, 9, 13, 64), 128), ((4, 64, 64, 128), 128),
+                                     ((2, 37, 50, 72), 136), ((4, 128, 128, 512), 512)])
 def test_upsample_bwd_kernel(shape, n):
     gen = torch.Generator("cuda").manual_seed(6)
     x = _randn(gen, shape)
@@ -226,6 +232,26 @@ def test_upsample_bwd_kernel(shape, n):
     got = rb.upsample_conv3x3_stats_bwd_cuda(x, wt, bias, y, gy, gstats)
     assert rb.UPSAMPLE_BWD_LAUNCHES == before + 1
     _check_cotangents(got, rb.upsample_conv3x3_stats_bwd_plain(x, wt, bias, y, gy, gstats))
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K7"])
+@pytest.mark.parametrize("shape,n", [((2, 37, 50, 72), 136), ((2, 64, 64, 256), 256)])
+def test_upsample_kernels_are_deterministic(kernel, shape, n):
+    """K2 and K7 bit for bit over two calls: every partial has one owner and
+    is summed in a fixed order (no float atomics)."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    x = _randn(gen, shape)
+    wt = _randn(gen, (3, 3, shape[3], n), 1.0 / math.sqrt(9 * shape[3]))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    if kernel == "K2":
+        run = lambda: rb.upsample_conv3x3_stats_cuda(x, wt, bias)
+    else:
+        y, _ = rb.upsample_conv3x3_stats_cuda(x, wt, bias)
+        gy = _randn(gen, y.shape)
+        gstats = 0.1 * torch.randn((shape[0], 2, n), generator=gen, device="cuda")
+        run = lambda: rb.upsample_conv3x3_stats_bwd_cuda(x, wt, bias, y, gy, gstats)
+    first, second = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_functions_carry_the_graph_and_differentiate_like_the_plain_route():

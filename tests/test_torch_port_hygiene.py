@@ -720,3 +720,103 @@ def test_stage_variant_replaces_text_that_occurs_once(variant):
     text = SM90_CONV.read_text()
     for old, new in variant[1]:
         assert text.count(old) == 1 and old != new, variant[0]
+
+
+def _dx_boxes():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("time_conv_bwd", ROOT.parent / "scripts" / "time_conv_bwd.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.DX_BOXES
+
+
+@pytest.mark.parametrize("replacement", _dx_boxes(), ids=lambda r: r[0][:40])
+def test_dx_boxes_variant_replaces_text_that_occurs_once(replacement):
+    """`scripts/time_conv_bwd.py --dx-boxes` builds K7's box-per-tap dx from
+    a copy of `conv_sm90.cuh` by these replacements; a text that drifted
+    out of the source would stop the script on the card."""
+    old, new = replacement
+    assert SM90_CONV.read_text().count(old) == 1 and old != new
+
+
+# ---------------------------------------------------------------------------
+# K2 and K7, the sub-pixel upsample conv and its backward, on the Hopper kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("path,name,calls", [
+    ("resnet_block.cu", "ragb_subpixel_upsample_conv3x3_stats", ["launch_conv_sm90<CONV_UP>("]),
+    ("resnet_block_bwd.cu", "ragb_subpixel_upsample_conv3x3_stats_bwd",
+     ["launch_conv_sm90<CONV_UP_DX>(", "launch_wgrad_sm90<SUBPIXEL_TAPS>(", "launch_dye("]),
+])
+def test_k2_and_k7_entries_launch_the_hopper_kernels(path, name, calls):
+    """K2's C entry launches the conv engine's CONV_UP mode; K7's the dye
+    pass, the engine's CONV_UP_DX mode for dx and the TMA + wgmma weight
+    gradient's sub-pixel variant for dWf."""
+    entry = _c_entry(ROOT / "csrc" / path, name)
+    assert all(call in entry for call in calls)
+
+
+@pytest.mark.parametrize("name", ["ragb_subpixel_upsample_conv3x3_stats", "ragb_subpixel_upsample_conv3x3_stats_bwd"])
+@pytest.mark.parametrize("token", ["launch_conv<", "wgrad_kernel<", "launch_wgrad<", "ConvArgs", "wmma", "mma_sync"])
+def test_k2_and_k7_entries_launch_no_wmma_kernel(name, token):
+    path = ROOT / "csrc" / ("resnet_block_bwd.cu" if name.endswith("_bwd") else "resnet_block.cu")
+    assert token not in _c_entry(path, name)
+
+
+@pytest.mark.parametrize("token", ["MODE_SUBPIXEL", "MODE_DOWN4", "WgradArgs", "ragb_conv_tile_shape", "wgrad_kernel<",
+                                   "wgrad_smem_bytes", "launch_wgrad<", "WG_SUBPIXEL"])
+def test_first_k2_and_k7_design_is_gone(token):
+    """The wmma template's sub-pixel and stride-2 4x4 modes, the wmma weight
+    gradient and the wmma tile's export have no launch left, and no code."""
+    for path in sorted((ROOT / "csrc").iterdir()):
+        assert token not in _code(path), path.name
+    assert token not in (ROOT / "ops" / "kernels" / "_build.py").read_text()
+
+
+def test_resnet_block_forward_no_longer_includes_the_wmma_template():
+    assert '#include "conv_taps.cuh"' not in _code(ROOT / "csrc" / "resnet_block.cu")
+
+
+def test_k2_wrapper_sizes_its_partials_from_the_engine_tile():
+    import inspect
+
+    from ragb_vae_tpu_torch.ops.kernels import resnet_block as rb
+
+    wrapper = inspect.getsource(rb.upsample_conv3x3_stats_cuda)
+    assert '_tile_shape("ragb_conv_sm90_tile_shape")' in wrapper and "_tile_shape()" not in wrapper
+
+
+@pytest.mark.parametrize("token", ["CONV_UP", "CONV_UP_DX", "y_view(parity)", "L::w_tap(tap, parity)", "L::a_origin(tap, w0, h0)",
+                                   "view_strides", "(UP ? 4 : 1) * tiles_w * tiles_h"])
+def test_conv_engine_carries_k2_and_k7_dx(token):
+    """K2 and K7's dx are the engine's CONV_UP and CONV_UP_DX modes: per k-step
+    the A box's origin and the weights' tap come from the mode, K2 stores
+    through a strided view of y per parity and keeps one partial row per
+    (parity, tile)."""
+    assert token in _code(SM90_CONV)
+
+
+def test_k2_and_k7_sources_name_what_they_replace_and_their_bound():
+    for path in (SM90_CONV, WGRAD_SRC):
+        text = path.read_text()
+        assert "`_subpixel_bwd_kernel`" in text and ":2003" in text, path.name
+        assert "What bounds it on the H100" in text, path.name
+    assert "ragb_vae_tpu/ops/pallas/resnet_block.py:231" in SM90_CONV.read_text()
+    assert "`_subpixel_kernel`" in SM90_CONV.read_text()
+
+
+@pytest.mark.parametrize("token", ["SUBPIXEL_TAPS", "L::UP ? 2 * w0 + pb : w0", "dstride", "GROUPS = UP ? 8 : TAPS"])
+def test_weight_gradient_carries_k7s_groups(token):
+    """K7's dWf is wgrad_sm90.cuh's 2-tap variant: 8 groups (pa, pb, u), dye's
+    parity pixels through a box at traversal stride 2 along W."""
+    assert token in _code(WGRAD_SRC)
+
+
+def test_k7_faults_share_a_selector():
+    """`--only 'sub-pixel'` selects the ten K2 and K7 faults, each held to
+    K2's or K7's lines of chip_smoke's kernel phase."""
+    faults = [f for f in _planted_faults() if "sub-pixel" in f[0]]
+    assert len(faults) == 10
+    assert {f[1] for f in faults} == {"conv_sm90.cuh", "wgrad_sm90.cuh"}
+    assert all(f[4] in (("subpixel_upsample_conv3x3_stats ",), ("subpixel_upsample_conv3x3_stats_bwd",))
+               for f in faults)

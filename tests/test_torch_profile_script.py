@@ -1,8 +1,8 @@
 """`scripts/profile_torch_slice.py`'s device-time breakdown sorts each
 kernel of the port into its own class (K8, K3's merge, the conv engine's
-modes: K1 / K12, K6's data gradient and K9 / K11 apart, K10's two kernels,
-K6's weight gradient and slice sum included), and its `--conv-algo` switch
-names the resnet-conv routes.
+modes: K1 / K12, K2, K6's and K7's data gradients and K9 / K11 apart, K10's
+two kernels, K6's and K7's weight gradients and their slice sum included),
+and its `--conv-algo` switch names the resnet-conv routes.
 CPU only: the script's measurements need the card, its classifier does not."""
 import importlib.util
 from pathlib import Path
@@ -48,7 +48,15 @@ def profile():
      "int, int)", "K6 weight gradient (wgrad_sm90_kernel)"),
     ("void (anonymous namespace)::sum_slices_kernel(float4 const*, float4*, int, unsigned long)",
      "K6 weight-gradient slice sum"),
-    ("void (anonymous namespace)::wgrad_kernel<2>((anonymous namespace)::WgradArgs)", "K7 weight gradient"),
+    ("void (anonymous namespace)::wgrad_sm90_kernel<2>(CUtensorMap_st, CUtensorMap_st, float*, int, int, int, int, "
+     "int, int)", "K7 weight gradient (wgrad_sm90_kernel<2>)"),
+    ("void (anonymous namespace)::wgrad_sm90_kernel<(int)2>(CUtensorMap_st, ...)", "K7 weight gradient"),
+    ("void (anonymous namespace)::conv_sm90_kernel<4>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, float const*, int, int, int, "
+     "float*, int, int, int, int, int)", "K2 sub-pixel upsample on the conv engine"),
+    ("void (anonymous namespace)::conv_sm90_kernel<5>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, float const*, int, int, int, "
+     "float*, int, int, int, int, int)", "K7 data gradient on the conv engine"),
     ("void (anonymous namespace)::dye_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
      "__nv_bfloat16*, float*, int, int, int)", "K6/K7 dye pass and partial reduces"),
     ("void (anonymous namespace)::conv_taps_kernel<2, 0>(ConvArgs)", "K6 skip-projection gradient"),
