@@ -16,7 +16,9 @@ clock; any failure exits non-zero without the final line):
              bf16 at the shapes the serving path and the training step give it
              plus short ragged ones: errors, tolerances, the median of 10
              CUDA-event-timed runs of kernel and plain version, and the bound
-             (the least time the card could take for the same work).
+             (the least time the card could take for the same work); K6's
+             dskip also alone, at the four shapes of a VAE micro-batch,
+             beside `torch.matmul` of the same product.
 4. slice   - builds FluxTextAlphaModel at full published width (FLUX.1-Kontext
              transformer, FLUX `ae` RGBA VAE) with random weights from a seed,
              serves 3 requests through InferenceServer, checks each answer and
@@ -234,16 +236,16 @@ ATTN_BWD_PLAIN_TOL = 5e-2
 # restatement of the same arithmetic at (1,32,32,512)->512, (1,64,64,128)->128
 # and (1,32,32,256)->512 with chip_smoke's input distributions reads y
 # 5.0e-3..5.8e-3 and statistics 7.6e-4..3.1e-3: the bounds leave that twice
-# to three times its size. A variant's product left out or a sign flipped in a
-# transform moves y by the size of a whole term: far past both.
+# to three times its size. A column variant's products left out or a sign
+# flipped in a transform moves y by the size of a whole term: far past both.
 WINO_Y_DIRECT_TOL = 1.5e-2
 WINO_STATS_DIRECT_TOL = 1e-2
-# A rounding the plain version does not make (the products M rounded to bf16
-# before the output transform) moves every y by ~2^-9 of its M terms, less than
-# one ulp of the largest y: the max-based bounds cannot see it. Over the whole
-# tensor it can be seen: ||y - y_plain|| / ||y_plain||, where the two differ
-# only where the fp32 sums' order flips a rounding of y. On an H100 the three
-# K8 cases read 3.4e-5..9.25e-5, and 2.25e-3..3.4e-3 with M rounded.
+# A rounding the plain version does not make (the folded products Z rounded
+# to bf16 before the column transform) moves every y by ~2^-9 of its Z terms,
+# less than one ulp of the largest y: the max-based bounds cannot see it. Over
+# the whole tensor it can be seen: ||y - y_plain|| / ||y_plain||, where the two
+# differ only where the fp32 sums' order flips a rounding of y. On an H100 the
+# three K8 cases read 7.2e-5..1.23e-4, and 1.98e-3..2.96e-3 with Z rounded.
 WINO_Y_PLAIN_NORM_TOL = 3e-4
 
 
@@ -592,13 +594,18 @@ def check_conv(gen, shape, n_out, *, skip, activation, c_skip=None):
 
 def check_wino(gen, shape, n_out, *, skip, activation):
     """K8 against its plain version (the same Winograd arithmetic) and against
-    the exact direct conv; beside its time, K1's on the same inputs. K8's
-    time is its wrapper's as the path calls it: the weight fold included."""
+    the exact direct conv. K8's time is its wrapper's as the path calls it,
+    U's tiles given (a fused ResnetBlock keeps them per weight); beside it,
+    with U folded in the call, the fold alone and K1 on the same inputs, each
+    from an idle card and back to back."""
     bsz, h, w, c = shape
     x, a, b, wt, bias, sk, ws, wsb = _conv_inputs(gen, shape, n_out, skip)
     args = (x, a, b, wt, bias, sk, ws, wsb, activation)
-    run_k = lambda: rb.wino_conv3x3_stats_cuda(*args)
-    y, st = run_k()
+    u = rb.wino_tiles(wt, torch.bfloat16)
+    run_k = lambda: rb.wino_conv3x3_stats_cuda(*args, u=u)
+    run_f = lambda: rb.wino_conv3x3_stats_cuda(*args)
+    y, st = _launch_or_fail(f"resnet_conv3x3_stats_wino {shape}", run_k)
+    same_folded = torch.equal(y, run_f()[0])
     y_p, st_p = rb.wino_conv3x3_stats_plain(*args)
     y_x, st_x = conv3x3_stats_exact(*args)
     torch.cuda.synchronize()
@@ -606,33 +613,70 @@ def check_wino(gen, shape, n_out, *, skip, activation):
     _, rel_x, _, s_x = _conv_errors(y, st, y_x, st_x)
     norm_p = ((y.float() - y_p.float()).norm() / y_p.float().norm()).item()
     del y_p, st_p, y_x, st_x
+    run_k1 = lambda: rb.conv3x3_stats_cuda(*args)
     ms, plain_ms = time_ms(run_k), time_ms(lambda: rb.wino_conv3x3_stats_plain(*args))
-    k1_ms = time_ms(lambda: rb.conv3x3_stats_cuda(*args))
-    fold_ms, queued_ms = time_ms(lambda: rb.wino_weights(wt, torch.bfloat16)), time_queued_ms(run_k)
-    k1_queued_ms = time_queued_ms(lambda: rb.conv3x3_stats_cuda(*args))
+    f_ms, k1_ms, fold_ms = time_ms(run_f), time_ms(run_k1), time_ms(lambda: rb.wino_tiles(wt, torch.bfloat16))
+    queued_ms, f_queued_ms, k1_queued_ms = time_queued_ms(run_k), time_queued_ms(run_f), time_queued_ms(run_k1)
     c_skip = 0 if ws is None else sk.shape[3]
     pixels = bsz * h * w
-    # the 16 variant GEMMs (4/9 of the direct MACs) and the projection on the
-    # tensor cores; the transforms' fp32 adds (32 per 2x2 tile and input
-    # channel, 24 per tile and output channel) on the CUDA cores
+    # the function's work: F(2x2, 3x3)'s 16 products a tile (4/9 of the
+    # direct MACs) and the projection on the tensor cores; the transforms'
+    # fp32 adds (32 per 2x2 tile and input channel, 24 per tile and output
+    # channel) on the CUDA cores
     flops = 2 * (4 * c + c_skip) * pixels * n_out
     fp32_ops = (32 * c + 24 * n_out) * pixels // 4
     nbytes = (_nbytes(x, a, b, wt, bias, ws, wsb) + (_nbytes(sk) if skip == "identity" else 0)
               + 2 * pixels * n_out + 4 * bsz * 2 * n_out)
     limit = bound(flops, nbytes, fp32_ops=fp32_ops)
+    # this design's own floor: the row fold's 24 products a tile (6/9 of the
+    # direct MACs), its output transform's 8 adds a tile and output channel
+    floor = bound(2 * (6 * c + c_skip) * pixels * n_out, nbytes, fp32_ops=(32 * c + 8 * n_out) * pixels // 4)
     direct = bound(2 * (9 * c + c_skip) * pixels * n_out, nbytes)
     ok = (rel_p <= CONV_Y_EXACT_TOL and norm_p <= WINO_Y_PLAIN_NORM_TOL and s_p <= CONV_STATS_EXACT_TOL
           and rel_x <= WINO_Y_DIRECT_TOL
-          and s_x <= WINO_STATS_DIRECT_TOL and bool(torch.isfinite(y.float()).all()))
+          and s_x <= WINO_STATS_DIRECT_TOL and same_folded and bool(torch.isfinite(y.float()).all()))
     log("kernels", f"resnet_conv3x3_stats_wino {shape}->{n_out} {activation} skip={skip}: vs plain y "
         f"max_abs_err={err_y:.4g} (rel {rel_p:.3g} <= {CONV_Y_EXACT_TOL}), over the tensor {norm_p:.3g} (<= "
         f"{WINO_Y_PLAIN_NORM_TOL}) stats {s_p:.3g} (<= "
         f"{CONV_STATS_EXACT_TOL}); vs exact direct conv y rel {rel_x:.3g} (<= {WINO_Y_DIRECT_TOL}) stats "
-        f"{s_x:.3g} (<= {WINO_STATS_DIRECT_TOL}); K8 {ms:.3f} ms (its wrapper as the path calls it; the U "
-        f"fold alone {fold_ms:.3f} ms; back to back {queued_ms:.3f} ms a call), K1 on the same inputs "
-        f"{k1_ms:.3f} ms (back to back {k1_queued_ms:.3f}), plain {plain_ms:.3f} ms; bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}; Winograd's "
-        f"operations), a direct conv's {direct['bound_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
+        f"{s_x:.3g} (<= {WINO_STATS_DIRECT_TOL}); K8 as the blocks call it (U given) {ms:.3f} ms "
+        f"(back to back {queued_ms:.3f}), U folded in the call {f_ms:.3f} ms ({f_queued_ms:.3f}; y the same: "
+        f"{same_folded}), the U fold alone {fold_ms:.3f} ms, K1 "
+        f"on the same inputs {k1_ms:.3f} ms ({k1_queued_ms:.3f}), plain {plain_ms:.3f} ms; bound "
+        f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}; Winograd's operations), the row fold's floor "
+        f"{floor['bound_ms']:.4f} ms, a direct conv's {direct['bound_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
     return ok, f"{shape}->{n_out} {activation} skip={skip}", err_y, ms, plain_ms, None, limit
+
+
+# K6's dskip at the four projection blocks of a VAE micro-batch of 4 at 512^2
+# (ch 128, mult (1, 2, 4, 4); the encoder's run at the triplet's batch 12):
+# (dye shape, Cs), one launch each a micro-batch
+DSKIP_SHAPES = [((12, 256, 256, 256), 128), ((12, 128, 128, 512), 256), ((4, 256, 256, 256), 512),
+                ((4, 512, 512, 128), 256)]
+
+
+def check_skip_grad(gen, shape, c_skip):
+    """K6's dskip alone (the conv engine's one-tap mode) against its plain
+    version, the exact fp32 dye @ ws^T rounded once, timed beside
+    `torch.matmul` of the same product; its bound is the bytes it must
+    move."""
+    dye = _randn(gen, shape)
+    ws = _randn(gen, (c_skip, shape[3]), 1.0 / math.sqrt(shape[3]))
+    label = f"dskip {shape} @ ws^T -> Cs {c_skip}"
+    got = _launch_or_fail(label, lambda: rb.skip_grad_cuda(dye, ws))
+    want = rb.skip_grad_plain(dye, ws)                 # fp32 products and sums, one rounding: exact
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    del want
+    ms, queued_ms = time_ms(lambda: rb.skip_grad_cuda(dye, ws)), time_queued_ms(lambda: rb.skip_grad_cuda(dye, ws))
+    lib_ms = time_ms(lambda: torch.matmul(dye.view(-1, shape[3]), ws.t()))
+    pixels = math.prod(shape[:3])
+    limit = bound(2 * pixels * shape[3] * c_skip, _nbytes(dye, ws) + 2 * pixels * c_skip)
+    ok = rel <= BWD_BF16_EXACT_TOL and bool(torch.isfinite(got.float()).all())
+    log("kernels", f"{label}: vs exact {rel:.3g} (<= {BWD_BF16_EXACT_TOL}); kernel {ms:.3f} ms (back to back "
+        f"{queued_ms:.3f}) torch.matmul {lib_ms:.3f} ms bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, ms, limit["bound_ms"]
 
 
 def _upsampled_nchw(x):
@@ -839,9 +883,9 @@ def _check_bwd(label, names, run_k, run_p, run_x, flops, nbytes, queued=False, r
     return ok, label, worst_abs, ms, plain_ms, None, bound(flops, nbytes)
 
 
-def check_conv_bwd(gen, shape, n_out, *, skip, activation):
+def check_conv_bwd(gen, shape, n_out, *, skip, activation, c_skip=None):
     bsz, h, w, c = shape
-    x, a, b, wt, bias, sk, ws, wsb = _conv_inputs(gen, shape, n_out, skip)
+    x, a, b, wt, bias, sk, ws, wsb = _conv_inputs(gen, shape, n_out, skip, c_skip)
     y, _ = rb.conv3x3_stats_cuda(x, a, b, wt, bias, sk, ws, wsb, activation)
     gy = _randn(gen, y.shape)
     gstats = 0.1 * torch.randn((bsz, 2, n_out), generator=gen, device="cuda")
@@ -852,7 +896,8 @@ def check_conv_bwd(gen, shape, n_out, *, skip, activation):
               + _nbytes(x) + 4 * (wt.numel() + 2 * a.numel() + n_out)            # dx, dW, da, db, dbias
               + (0 if sk is None else _nbytes(sk)) + 4 * (0 if ws is None else ws.numel() + n_out))
     return _check_bwd(
-        f"resnet_conv3x3_stats_bwd {shape}->{n_out} {activation} skip={skip}", BWD_NAMES_K6,
+        f"resnet_conv3x3_stats_bwd {shape}->{n_out} {activation} skip={skip}"
+        + (f" Cs={c_skip}" if c_skip else ""), BWD_NAMES_K6,
         lambda: rb.conv3x3_stats_bwd_cuda(*args),
         lambda: rb.conv3x3_stats_bwd_plain(*args),
         lambda: conv3x3_stats_bwd_exact(*args), flops, nbytes, queued=True)
@@ -1047,7 +1092,8 @@ def phase_kernels() -> dict:
             lambda: check_conv_bwd(gen, (4, 256, 256, 512), 256, skip="proj", activation="silu"),
             lambda: check_conv_bwd(gen, (12, 64, 64, 512), 512, skip="identity", activation="silu"),
             lambda: check_conv_bwd(gen, (1, 64, 64, 128), 128, skip="identity", activation="identity"),
-            lambda: check_conv_bwd(gen, (2, 37, 50, 128), 256, skip="proj", activation="silu"),
+            # ragged, dskip's Cs too (against its 128-channel tile and 64-channel chunk)
+            lambda: check_conv_bwd(gen, (2, 37, 50, 128), 256, skip="proj", activation="silu", c_skip=40),
         ],
         "subpixel_upsample_conv3x3_stats_bwd": [
             lambda: check_upsample_bwd(gen, (4, 64, 64, 512), 512),
@@ -1119,6 +1165,12 @@ def phase_kernels() -> dict:
     results, all_ok = {}, True
     for name, fns in cases.items():
         all_ok &= summarise(name, [fn() for fn in fns])
+    # K6's dskip alone at the shapes a micro-batch gives it (K6's line above
+    # holds it inside the whole backward)
+    dskip = [check_skip_grad(gen, shape, c_skip) for shape, c_skip in DSKIP_SHAPES]
+    all_ok &= all(ok for ok, _, _ in dskip) & check_skip_grad(gen, (2, 37, 50, 136), 200)[0]   # ragged Cs and N
+    log("kernels", f"dskip a VAE micro-batch: {sum(ms for _, ms, _ in dskip):.3f} ms (bound "
+        f"{sum(b for _, _, b in dskip):.4f} ms)")
     # K4 and K5 at the shapes a LoRA micro-batch gives them (24 heads x batch 2
     # at 512^2, batch 1 at 1024^2), ragged lengths, and Sq != Sk
     bwd_runs = [check_attention_bwd(gen, *shape) for shape in
@@ -2039,8 +2091,8 @@ def phase_stage1(work: Path) -> dict:
     cfg = _stage1_config(work)
     log("stage1", f"wrote the random RGB ae checkpoint, LPIPS weights and the PNG tree in "
         f"{time.perf_counter() - t0:.1f} s")
-    saved, step_ms, step_k8, fell_through = {}, [], [], set()
-    make_step, save, direct = stage.make_train_step, stage.save_checkpoints, rb.conv3x3_stats_cuda
+    saved, step_ms, step_k8, fell_through, folded = {}, [], [], set(), []
+    make_step, save, direct, fold = stage.make_train_step, stage.save_checkpoints, rb.conv3x3_stats_cuda, rb.wino_tiles
 
     def timed_make_step(*args, **kwargs):
         step = make_step(*args, **kwargs)
@@ -2063,6 +2115,10 @@ def phase_stage1(work: Path) -> dict:
         fell_through.add((tuple(x.shape), tuple(w.shape)))
         return direct(x, a, b, w, *args)
 
+    def fold_counted(w, *args):                      # K8's wrapper folding U itself: no tiles were passed
+        folded.append(tuple(w.shape))
+        return fold(w, *args)
+
     stage.make_train_step, stage.save_checkpoints, rb.conv3x3_stats_cuda = timed_make_step, keep_saved, direct_named
     try:
         _routes_agree(cfg)
@@ -2071,10 +2127,12 @@ def phase_stage1(work: Path) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_all_counts()
+        rb.wino_tiles = fold_counted
         t_run = time.perf_counter()
         first = run_stage(cfg)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t_run
+        rb.wino_tiles = fold
         counts = {"resnet_conv3x3_stats_wino": rb.WINO_LAUNCHES, "resnet_conv3x3_stats": rb.CONV_LAUNCHES,
                   "resnet_conv3x3_stats_bwd": rb.CONV_BWD_LAUNCHES,
                   "subpixel_upsample_conv3x3_stats": rb.UPSAMPLE_LAUNCHES,
@@ -2087,6 +2145,7 @@ def phase_stage1(work: Path) -> dict:
         resume_s = time.perf_counter() - t_resume
     finally:
         stage.make_train_step, stage.save_checkpoints, rb.conv3x3_stats_cuda = make_step, save, direct
+        rb.wino_tiles = fold
         rb.CONV_ALGO = "direct"
 
     ckpt = Path(cfg["training"]["ckpt_dir"])
@@ -2112,6 +2171,9 @@ def phase_stage1(work: Path) -> dict:
         raise SystemExit(f"[stage1] aligned shapes took K1: {misrouted}")
     if not all(counts[k] > 0 for k in counts if k != "resnet_conv3x3_stats"):
         raise SystemExit(f"[stage1] a kernel of the path never launched: {counts}")
+    log("stage1", f"K8 calls that folded U themselves in run 1: {len(folded)} (the blocks pass the tiles they keep)")
+    if folded:
+        raise SystemExit(f"[stage1] K8 folded U in the call for weights {sorted(set(folded))}: a block passed no tiles")
     # the step-2 checkpoint: complete, its HF weights those the loop held when it saved
     step2 = ckpt_lib.checkpoint_dir(ckpt, 2)
     _, state, train_state, meta = ckpt_lib.load_train_checkpoint(step2)

@@ -1,7 +1,7 @@
 // The Hopper (sm_90a) implicit-GEMM conv engine: a 3x3 conv over NHWC bf16,
 // fed by TMA through an mbarrier ring and computed by wgmma, with one
 // producer warp and two consumer warpgroups per block. One kernel template,
-// `conv_sm90_kernel<MODE>`, six modes:
+// `conv_sm90_kernel<MODE>`, seven modes:
 //
 //   CONV_SAME (K11) `_conv_kernel` of ragb_vae_tpu/ops/pallas/conv3x3.py:39
 //       (entry `conv3x3_same` in conv_kernels.cu): y = conv3x3_same(x, w),
@@ -50,7 +50,11 @@
 //       stride-2 4x4 conv of dye (B, 2H, 2W, N) over the doubly folded
 //       weights wb (4, 4, N, C) (dye zero outside the image); no bias, no
 //       statistics.
-// All accumulate in fp32 and round y (dx) to bf16 once.
+//   CONV_1X1 (K6's dskip) of `_bwd_kernel` (entry
+//       `ragb_resnet_conv3x3_stats_bwd`): dskip = dye @ ws^T, a 1x1 conv of
+//       dye (B, H, W, N) into (B, H, W, Cs) over ws (Cs, N) as it lies; no
+//       taps, no halo, no bias, no statistics.
+// All accumulate in fp32 and round y (dx, dskip) to bf16 once.
 //
 // What bounds it on the H100: a conv3x3 does 2*9*C operations per output
 // element. K11 at (1,128,128,512)->512 does 77 GFLOP against 38 MB: tensor-
@@ -64,7 +68,11 @@
 // at 3.35 TB/s). K2 and K7's dx do 2*16*C operations per small-grid pixel
 // and output channel: K2 at (4,128,128,512)->512 0.55 TFLOP against 335 MB
 // (0.556 ms, operations), K7's dx at (4,64,64,512)->512 0.14 TFLOP against
-// 84 MB (0.139 ms, operations).
+// 84 MB (0.139 ms, operations). dskip does 2*N operations per output
+// element against 2 bytes of it and 2*N / Cs of dye's: at most 128 FLOP a
+// byte at Cs = 512, below the ridge, so bytes bound it: (4,256,256,256) ->
+// Cs 512 moves 402 MB (0.120 ms at 3.35 TB/s), (4,512,512,128) -> 256 805 MB
+// (0.240 ms).
 //
 // What the design does about it:
 // - Implicit GEMM: M = a tile of TH x TW = 4 x 64 output pixels (one output
@@ -144,6 +152,17 @@
 //   of this file and times both).
 //   TMA's zero fill, negative coordinates included, is dye's zero outside
 //   the image.
+// - dskip's A is one {64 N, TW, TH} box of dye a 64-channel chunk, rows in
+//   output-pixel order (K1's projection box), and its B is ws (Cs, N) as it
+//   lies: one {64 N, 128 Cs} box is the K-major B operand (the contraction
+//   contiguous), so ws^T needs no copy. It has 2 to 8 k-steps a tile, so a
+//   block a tile would pay its fixed cost (first loads, epilogue, store)
+//   every few k-steps: instead about one block an SM walks tiles (image,
+//   tile) of its 128 output channels, its rings (3 A, 2 B stages) running on
+//   across tiles, and each tile's output goes out of a staging area of its
+//   own by TMA stores that leave while the next tile's products run. A block
+//   reads dye once for its 128 output channels; the blocks of a tile's N
+//   tiles run side by side, so dye's re-reads for Cs > 128 come from L2.
 //   Channels past C read as zeros in every mode.
 //   Halo re-reads come from L2: the
 //   grid walks the N tiles of a pixel tile together and the pixel tiles in
@@ -152,8 +171,9 @@
 //   contiguous): boxes {64 N, 64 C} of tap t from a 3-D map over w as (N, C,
 //   9); LBO is one box's bytes. No transpose of the weights.
 // - Two rings on full and empty mbarriers: A (K11, K6, K2: 2 slab stages, one
-//   per chunk; K1: 3; K7: 3, one per plane; K9: 4 stages, one per tap) and B
-//   (4 stages, one per tap). One
+//   per chunk; K1: 3; K7: 3, one per plane; K9: 4 stages, one per tap;
+//   dskip: 3, one per chunk) and B
+//   (4 stages, one per tap; dskip: 2). One
 //   producer thread keeps the loads in flight (K1's A loads: the activation
 //   stage's first thread); the consumers keep one wgmma
 //   group in flight and release a stage when the group that read it last
@@ -176,7 +196,7 @@
 //   t, sigmoid(t) once, d_t, dx and A, writes A over x in place (no other
 //   thread reads that element) and the boxes go out by TMA stores; the
 //   (d_t * x, d_t) sums take K9's shuffle tree and partial rows.
-// One block per tile. Persistent blocks, whose producer runs on into the
+// One block per tile (but dskip: above). Persistent blocks, whose producer runs on into the
 // next tile, measured 8-14% slower storing y from the accumulators, and with
 // the TMA store and 3-stage rings 3-15% slower for K9 (7% faster for K11 at
 // C = 128). K9 at C = 128 runs 18 k-steps a tile and pays a fixed ~8 us a
@@ -195,22 +215,23 @@
 namespace {
 
 // The engine's modes: what one launch computes (see the note above).
-enum { CONV_SAME = 0, CONV_DOWN = 1, CONV_BWD = 2, CONV_ACT = 3, CONV_UP = 4, CONV_UP_DX = 5 };
+enum { CONV_SAME = 0, CONV_DOWN = 1, CONV_BWD = 2, CONV_ACT = 3, CONV_UP = 4, CONV_UP_DX = 5, CONV_1X1 = 6 };
 
 template <int MODE>
 struct ConvSm90 {
   static constexpr bool DOWN = MODE == CONV_DOWN, ACT = MODE == CONV_ACT, UP = MODE == CONV_UP;
-  static constexpr bool DX = MODE == CONV_UP_DX;
+  static constexpr bool DX = MODE == CONV_UP_DX, ONE = MODE == CONV_1X1;
   static constexpr int TH = 4, TW = 64;            // output tile: TH rows x TW columns
   static constexpr int MB = TH / 2;                // output rows (m64 blocks) of a consumer warpgroup
   static constexpr int BN = 128;                   // output channels of a block
   static constexpr int BK = 64;                    // input channels of a K chunk: one 128-byte row (act_live's 64)
-  static constexpr int TAPS = UP ? 4 : DX ? 16 : 9;
+  static constexpr int TAPS = UP ? 4 : DX ? 16 : ONE ? 1 : 9;
   static constexpr int A_TAPS = DOWN ? 1 : DX ? 4 : TAPS;   // the k-steps that read one A box
   static constexpr bool SLAB = A_TAPS == TAPS;                // one A box a chunk (K11, K6, K1, K2)
-  static constexpr int W_TAPS = UP || DX ? 16 : 9;                      // the weights' taps (wmap's third dimension)
-  static constexpr int SW = DX ? TW + 1 : TW + 2;  // slab row: the tile's columns and their halo (K7: a plane's)
-  static constexpr int SH = DX ? TH + 1 : TH + 2;
+  static constexpr int W_TAPS = UP || DX ? 16 : ONE ? 1 : 9;            // the weights' taps (wmap's third dimension)
+  // slab row: the tile's columns and their halo (K7: a plane's; dskip: no halo)
+  static constexpr int SW = DX ? TW + 1 : ONE ? TW : TW + 2;
+  static constexpr int SH = DX ? TH + 1 : ONE ? TH : TH + 2;
   // an A box lands as AH rows of AW pixels, read at traversal stride STRIDE
   static constexpr int AW = DOWN ? TW : SW, AH = DOWN ? TH : SH;
   static constexpr int STRIDE = DOWN || DX ? 2 : 1;
@@ -218,15 +239,17 @@ struct ConvSm90 {
   static constexpr int A_BYTES = A_ROWS * 128;     // one A box
   static constexpr int P_BYTES = TH * TW * 128;    // K1's projection: one {64 Cs, TW, TH} box of the skip
   static constexpr int A_STAGE = (A_BYTES + 1023) / 1024 * 1024;
-  static constexpr int A_STAGES = DOWN ? 4 : ACT || DX ? 3 : 2;
-  static constexpr int B_BOX = BK * 128;           // one {64 N, 64 C} box of a tap's weights
+  static constexpr int A_STAGES = DOWN ? 4 : ACT || DX || ONE ? 3 : 2;
+  static constexpr int B_BOX = BK * 128;           // one {64 N, 64 C} box of a tap's weights (dskip: one {64 N, 128 Cs} box)
   static constexpr int B_BYTES = (BN / 64) * B_BOX;
-  static constexpr int B_STAGES = 4;
+  static constexpr int B_STAGES = ONE ? 2 : 4;
   static constexpr int Y_BOX = MB * TW * 128;      // a warpgroup's rows x 64 output channels
   static constexpr int a_off = 0;
   static constexpr int b_off = a_off + A_STAGES * A_STAGE;
   static constexpr int red_off = b_off + B_STAGES * B_BYTES;   // [2][8 warps][BN] fp32 statistics
-  static constexpr int bar_off = red_off + 2 * 8 * BN * 4;
+  static constexpr int stg_off = red_off + 2 * 8 * BN * 4;   // dskip: its output tile, staged outside the rings
+  static constexpr int STG_BYTES = ONE ? 2 * (BN / 64) * Y_BOX : 0;
+  static constexpr int bar_off = stg_off + STG_BYTES;
   // full and empty per stage of each ring, the epilogue tile's, K1's "ready" per A stage
   static constexpr int BARS = 2 * (A_STAGES + B_STAGES) + 1 + (ACT ? A_STAGES : 0);
   static constexpr int bytes = bar_off + BARS * 8 + 1024;   // + alignment slack
@@ -246,7 +269,7 @@ struct ConvSm90 {
   static_assert(2 * (BN / 64) * Y_BOX <= red_off, "the output tile is staged in the drained rings");
   // K6's data gradient: dx staged in the drained A ring, x (then A) one box per B stage
   static_assert(DOWN || 2 * (BN / 64) * Y_BOX <= A_STAGES * A_STAGE, "dx is staged in the A ring");
-  static_assert(Y_BOX == B_BYTES && B_STAGES == 2 * (BN / 64), "one x box per B stage");
+  static_assert(Y_BOX == B_BYTES && (ONE || B_STAGES == 2 * (BN / 64)), "one x box per B stage");
   static_assert(!ACT || (P_BYTES <= A_STAGE && 12 * STAGE_ROWS + 32 * TAP_ROWS == A_ROWS),
                 "K1's stage covers each slab row once");
   static_assert(TAPS % A_TAPS == 0, "a chunk's k-steps read whole A boxes");
@@ -363,7 +386,8 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
                      const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap pmap,
                      const float* __restrict__ bias, const float* __restrict__ act_a,
                      const float* __restrict__ act_b, const float* __restrict__ wsb, int silu, int skip_mode,
-                     int proj_steps, float* __restrict__ partial, int H, int W, int C, int N, int tiles_w) {
+                     int proj_steps, float* __restrict__ partial, int H, int W, int C, int N, int tiles_w,
+                     int batch) {
   using L = ConvSm90<MODE>;
   constexpr bool DOWN = L::DOWN, BWD = MODE == CONV_BWD, ACT = L::ACT, UP = L::UP;
   constexpr int AST = L::A_STAGES, BST = L::B_STAGES, BN = L::BN, MB = L::MB;
@@ -407,6 +431,92 @@ __global__ void __launch_bounds__(ConvSm90<MODE>::THREADS, 1)
     mbar_fence_init();
   }
   __syncthreads();
+
+  if (L::ONE) {
+    // dskip: a block walks the (image, tile) items blockIdx.y, + gridDim.y,
+    // ... of its 128 output channels; the rings run on across items, and
+    // an item's TMA store leaves while the next item's products run
+    const int T = tiles_w * ((H + L::TH - 1) / L::TH), items = batch * T;
+    if (threadIdx.x >= L::CONSUMERS) {
+      setmaxnreg_dec<L::PRODUCER_REGS>();
+      if (threadIdx.x != L::CONSUMERS) return;
+      int k = 0;                                   // k-steps of all items: both rings' index
+      for (int item = blockIdx.y; item < items; item += gridDim.y) {
+        const int bi = item / T, t = item % T, ih0 = (t / tiles_w) * L::TH, iw0 = (t % tiles_w) * L::TW;
+        for (int chunk = 0; chunk < chunks; ++chunk, ++k) {
+          const int as = k % AST, bs = k % BST;
+          mbar_wait_or_trap(a_empty(as), ((k / AST) & 1) ^ 1);
+          mbar_arrive_expect_tx(a_full(as), L::A_BYTES);
+          tma_load_4d(a_stage(as), &xmap, chunk * L::BK, iw0, ih0, bi, a_full(as));
+          mbar_wait_or_trap(b_empty(bs), ((k / BST) & 1) ^ 1);
+          mbar_arrive_expect_tx(b_full(bs), L::B_BYTES);
+          tma_load_3d(b_stage(bs), &wmap, chunk * L::BK, n0, 0, b_full(bs));   // ws's {64 N, 128 Cs} box, K-major
+        }
+      }
+      return;
+    }
+    setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int w = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    int k = 0;
+    for (int item = blockIdx.y; item < items; item += gridDim.y) {
+      const int bi = item / T, ti = item % T, ih0 = (ti / tiles_w) * L::TH, iw0 = (ti % tiles_w) * L::TW;
+      float acc[MB][BN / 2];
+#pragma unroll
+      for (int m = 0; m < MB; ++m)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[m][i] = 0.0f;
+      for (int chunk = 0; chunk < chunks; ++chunk, ++k) {
+        const int as = k % AST, bs = k % BST;
+        mbar_wait_or_trap(a_full(as), (k / AST) & 1);
+        mbar_wait_or_trap(b_full(bs), (k / BST) & 1);
+#pragma unroll
+        for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+#pragma unroll
+          for (int kk = 0; kk < L::BK / 16; ++kk)
+            wgmma_ss<BN>(acc[m], wgmma_desc(a_stage(as) + (MB * w + m) * L::TW * 128 + kk * 32, 16, 1024),
+                         wgmma_desc(b_stage(bs) + kk * 32, 16, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+        if (lane == 0) {
+          mbar_arrive(a_empty(as));
+          mbar_arrive(b_empty(bs));
+        }
+      }
+      // the warpgroup's staging is free once its last item's stores have read it
+      if (tid == 0) tma_store_wait_read();
+      named_barrier_sync(2 + w, 128);
+      const int r = 16 * warp + g;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        unsigned char* box = sm + L::stg_off + (w * (BN / 64) + col / 64) * L::Y_BOX;
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(m * L::TW + r + 8 * h, col % 64)) =
+                __floats2bfloat162_rn(acc[m][4 * nt + 2 * h], acc[m][4 * nt + 2 * h + 1]);
+      }
+      fence_proxy_async();
+      named_barrier_sync(2 + w, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          if (n0 + 64 * j < N)
+            tma_store_4d(&ymap, base + L::stg_off + (w * (BN / 64) + j) * L::Y_BOX, n0 + 64 * j, iw0, ih0 + MB * w,
+                         bi);
+        tma_store_commit();
+      }
+    }
+    if (tid == 0) tma_store_wait_read();
+    return;
+  }
 
   if (threadIdx.x >= L::CONSUMERS) {
     // ---------------- producer warpgroup: one thread issues every load
@@ -752,7 +862,8 @@ struct ConvSm90Act {
 // Launches the conv over x (B, Hin, Win, C) and w (3, 3, C, N) into y (B, H,
 // W, N): H, W = Hin, Win (K11, K6's dA, K1) or Hin / 2, Win / 2 (K9; K7's
 // dx, x = dye, w = wb (4, 4, C, N)); K2: w = Wf (2, 2, 2, 2C, N), y (B, 2H,
-// 2W, N) with H, W = Hin, Win. K9, K2, K6 and K1 (when `partial` is given)
+// 2W, N) with H, W = Hin, Win; dskip: x = dye (B, H, W, C), w = ws (N, C), y =
+// dskip (B, H, W, N). K9, K2, K6 and K1 (when `partial` is given)
 // also write the per-tile partials (B, T, 2, N), T = the tiles of one image
 // (K2: 4 x, one per parity), and their fixed-order sum `stats` (B, 2, N): K9,
 // K2 and K1 (sum, sum of squares) of y, K6 (sum of d_t * x, sum of d_t), with
@@ -793,7 +904,10 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
   const cuuint32_t xbox[4] = {64, (cuuint32_t)(L::STRIDE * L::AW), (cuuint32_t)(L::STRIDE * L::AH), 1};
   const cuuint32_t xstride[4] = {1, (cuuint32_t)L::STRIDE, (cuuint32_t)L::STRIDE, 1};
   if ((e = encode_tensor_map(&xm, x, 4, xdims, xbox, xstride))) return e;
-  if ((e = encode_tensor_map_3d(&wm, w, N, C, L::W_TAPS, 64))) return e;
+  // the weights (N contiguous, boxes {64 N, 64 C} per tap); dskip: ws (N, C)
+  // with C contiguous, one {64 C, 128 N} box
+  if ((e = L::ONE ? encode_tensor_map_3d(&wm, w, C, N, 1, L::BN) : encode_tensor_map_3d(&wm, w, N, C, L::W_TAPS, 64)))
+    return e;
   const cuuint64_t ydims[4] = {(cuuint64_t)N, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint32_t ybox[4] = {64, L::TW, L::MB, 1};
   const cuuint32_t ystride[4] = {1, 1, 1, 1};
@@ -838,10 +952,18 @@ int launch_conv_sm90(const void* x, const void* w, const float* bias, void* y, f
     if (dev < 64) opted_in |= (uint64_t)1 << dev;
   }
   dim3 grid((UP ? 4 : 1) * ((N + L::BN - 1) / L::BN), tiles_w * tiles_h, B);
+  if (L::ONE) {                                    // dskip: about one block an SM, each walking its (image, tile) items
+    int sms = 0;
+    if ((ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)ce;
+    const long long items = (long long)B * tiles_w * tiles_h;
+    const int per_tile = grid.x > 0 && sms >= (int)grid.x ? sms / (int)grid.x : 1;   // blocks per N tile
+    grid.y = (unsigned)(items < per_tile ? items : per_tile);
+    grid.z = 1;
+  }
   conv_sm90_kernel<MODE><<<grid, L::THREADS, L::bytes, stream>>>(
       xm, wm, ym, em, am, pm, bias, op != nullptr ? op->a : nullptr, op != nullptr ? op->b : nullptr,
       ACT && op->skip_mode == SKIP_PROJ ? op->wsb : nullptr, op != nullptr ? op->silu : 0,
-      ACT ? op->skip_mode : SKIP_NONE, proj_steps, with_stats ? partial : nullptr, H, W, C, N, tiles_w);
+      ACT ? op->skip_mode : SKIP_NONE, proj_steps, with_stats ? partial : nullptr, H, W, C, N, tiles_w, B);
   ce = cudaGetLastError();
   if (ce != cudaSuccess || !with_stats) return (int)ce;
   stats_reduce_kernel<<<dim3((N + 31) / 32, B), dim3(32, 32), 0, stream>>>(partial, stats, T, N);

@@ -32,8 +32,12 @@
 // A = bf16(act(t)) once, a scratch the size of x that lives for this call;
 // (3) the weight gradient is the TMA + wgmma split-K GEMM of wgrad_sm90.cuh
 // over A, whose zero fill is the SAME padding (dws is its 1-tap case over
-// the skip); (4) dskip = dye @ ws^T stays on the wmma template's 1x1 mode
-// (conv_taps.cuh MODE_CONV1). The TPU grid ran in order and kept dW, da, db,
+// the skip); (4) dskip = dye @ ws^T is the conv engine's one-tap mode
+// (CONV_1X1): dye by TMA a 64-channel box at a time, ws (Cs, N) as it lies
+// as the K-major B operand, dskip out by TMA stores. dskip moves 2 bytes an
+// output and reads dye once per 128 of its channels: bytes bound it, and the
+// engine's 4-box A ring keeps the next chunks' loads under the products.
+// The TPU grid ran in order and kept dW, da, db,
 // dbias in scratch across all steps; CUDA blocks run in parallel, so every
 // cross-block sum goes through per-tile or per-slice fp32 partials and a
 // second kernel that adds them in a fixed order: no float atomics, so a
@@ -50,7 +54,6 @@
 // the image, not x.
 
 #include "conv_sm90.cuh"
-#include "conv_taps.cuh"
 #include "wgrad_sm90.cuh"
 
 namespace {
@@ -146,10 +149,10 @@ extern "C" {
 // data gradient, read by the weight gradient), dbias_partial (B*S_dye, N),
 // dab_partial (B, T, 2, C) with T the conv engine's tiles of one image,
 // dw_partial (S_w, 3, 3, C, N), dws_partial (S_ws, Cs, N). wt is w flipped
-// and transposed, (3, 3, N, C); wst is ws transposed, (N, Cs).
+// and transposed, (3, 3, N, C); ws is the projection's weight as it lies, (Cs, N).
 int ragb_resnet_conv3x3_stats_bwd(
     const void* x, const float* a, const float* b, const void* wt, const void* skip,
-    const void* wst, const void* y, const void* gy, const float* gstats,
+    const void* ws, const void* y, const void* gy, const float* gstats,
     void* dye, void* act, void* dx, float* dab, float* dw, float* dbias, void* dskip, float* dws,
     float* dbias_partial, float* dab_partial, float* dw_partial, float* dws_partial,
     int T, int S_dye, int S_w, int S_ws, int B, int H, int W, int C, int N, int Cs, int silu,
@@ -169,12 +172,8 @@ int ragb_resnet_conv3x3_stats_bwd(
   if (err) return err;
 
   if (skip_mode == SKIP_PROJ) {
-    ConvArgs ds{};                      // dskip = dye @ ws^T
-    ds.x = static_cast<const bf16*>(dye);
-    ds.w = static_cast<const bf16*>(wst);
-    ds.y = static_cast<bf16*>(dskip);
-    ds.B = B; ds.H = H; ds.W = W; ds.C = N; ds.N = Cs;
-    err = launch_conv<MODE_CONV1, EPI_FWD>(ds, nullptr, 0, stream);
+    // dskip = dye @ ws^T on the conv engine's one-tap mode
+    err = launch_conv_sm90<CONV_1X1>(dye, ws, nullptr, dskip, nullptr, nullptr, 0, B, H, W, N, Cs, stream);
     if (err) return err;
     err = launch_wgrad_sm90<1>(skip, dye, dws_partial, dws, S_ws, B, H, W, Cs, N, stream);   // dws = skip^T @ dye
     if (err) return err;
@@ -201,6 +200,14 @@ int ragb_subpixel_upsample_conv3x3_stats_bwd(
 
   // the folded weights' gradient: S_w fp32 partials, then their fixed-order sum
   return launch_wgrad_sm90<SUBPIXEL_TAPS>(x, dye, dwf_partial, dwf, S_w, B, H, W, C, N, stream);
+}
+
+// K6's dskip alone, for measuring it and holding it against dye @ ws^T:
+// dye (B, H, W, N), ws (Cs, N), dskip (B, H, W, Cs).
+int ragb_resnet_skip_grad(const void* dye, const void* ws, void* dskip, int B, int H, int W, int N, int Cs,
+                          void* stream) {
+  return launch_conv_sm90<CONV_1X1>(dye, ws, nullptr, dskip, nullptr, nullptr, 0, B, H, W, N, Cs,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,7 +8,8 @@
 //   libcuda), with traversal strides for a strided read;
 // - wgmma: the shared-memory matrix descriptor for 128-byte swizzled tiles,
 //   mma_async bf16 -> fp32 m64nNk16 with A from shared memory or from
-//   registers (B K-major or MN-major; A MN-major too, from shared memory),
+//   registers (B K-major or MN-major, and at n64 with B's sign as an
+//   immediate; A MN-major too, from shared memory),
 //   fence, commit_group and wait_group;
 //   stmatrix (transposed) for staging an accumulator tile;
 // - setmaxnreg and named barriers for warp-specialised blocks.
@@ -114,6 +115,14 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
 
 __device__ __forceinline__ void tma_store_commit_and_wait() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// the stores issued since the last commit form one bulk group
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// waits until every committed store has read its shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
@@ -306,6 +315,26 @@ __device__ __forceinline__ void wgmma_ss_tb<128>(float (&d)[64], uint64_t desc_a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64) (+)= A (64 x 16, K-major in shared memory) (SB B) (16 x 64,
+// MN-major in shared memory), SB wgmma's imm-scale-b: +1, or -1 to subtract
+// the product (the negation is exact).
+template <int SB>
+__device__ __forceinline__ void wgmma_ss_tb64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  static_assert(SB == 1 || SB == -1, "imm-scale-b is +1 or -1");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, %35, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(SB));
 }
 
 // D (64 x N) (+)= A (64 x 16) B (16 x N), both MN-major in shared memory: A

@@ -34,6 +34,7 @@ from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
 from ragb_vae_tpu_torch.ops.gaussian import DiagonalGaussian
 from ragb_vae_tpu_torch.ops.kernels.conv3x3 import conv3x3_same_batched
 from ragb_vae_tpu_torch.ops.kernels.flash_attention import attention
+from ragb_vae_tpu_torch.ops.kernels import resnet_block
 from ragb_vae_tpu_torch.ops.kernels.resnet_block import (
     fold_subpixel_weights,
     fused_downsample_conv3x3_stats,
@@ -41,6 +42,7 @@ from ragb_vae_tpu_torch.ops.kernels.resnet_block import (
     fused_upsample_conv3x3_stats,
     stats_to_coeffs,
     tensor_stats,
+    wino_tiles,
 )
 
 Tensor = torch.Tensor
@@ -61,11 +63,12 @@ class _KernelWeights(nn.Module):
     when the module is moved or cast (`_apply`) or loads a state dict. While
     autograd records a parameter that requires grad nothing is kept and the
     parameter's own dtype is passed on, so the kernel's fp32 weight cotangent
-    reaches an fp32 parameter unrounded; a kept copy is in `dtype`."""
+    reaches an fp32 parameter unrounded; a kept copy is in `dtype`. A copy
+    no gradient flows through (`detached`) is kept under autograd too."""
 
     def _derived(self, name: str, src: Tensor, make: Callable[[Tensor], Tensor],
-                 dtype: Optional[torch.dtype] = None) -> Tensor:
-        if torch.is_grad_enabled() and src.requires_grad:
+                 dtype: Optional[torch.dtype] = None, detached: bool = False) -> Tensor:
+        if torch.is_grad_enabled() and src.requires_grad and not detached:
             return make(src)
         key = (src.data_ptr(), -1 if src.is_inference() else src._version, dtype)
         cache = self.__dict__.setdefault("_derived_cache", {})
@@ -164,6 +167,13 @@ class ResnetBlock(_KernelWeights):
         return {"kernel": self._derived(name, conv.weight, layout, dtype),
                 "bias": self._derived(name + ".bias", conv.bias, lambda b: b.float())}
 
+    def _wino_tiles(self, name: str, conv: nn.Conv2d, dtype: torch.dtype) -> Tensor:
+        """The Winograd route's U = G w G^T of conv's weight in `dtype`
+        (`wino_tiles`), kept across calls and steps while the weight is
+        unchanged: the backward differentiates w itself, never U."""
+        return self._derived(name + ".u", conv.weight, lambda w: wino_tiles(_hwio(w), dtype), dtype,
+                             detached=True)
+
     def forward(self, x: Tensor, stats: Stats = None) -> Tuple[Tensor, Stats]:
         dtype = compute_dtype_of(self, self.conv1.weight)
         if self.fused:
@@ -173,6 +183,9 @@ class ResnetBlock(_KernelWeights):
                 "norm2": {"scale": self.norm2.weight, "bias": self.norm2.bias},
                 "conv2": self._kernel_conv("conv2", self.conv2, lambda w: _hwio(w).contiguous(), dtype),
             }
+            if x.is_cuda and resnet_block.CONV_ALGO == "winograd":
+                for name in ("conv1", "conv2"):
+                    p[name]["u"] = self._wino_tiles(name, getattr(self, name), dtype)
             if self.conv_shortcut is not None:
                 p["conv_shortcut"] = self._kernel_conv(
                     "conv_shortcut", self.conv_shortcut, lambda w: w[:, :, 0, 0].t().contiguous(), dtype)

@@ -40,11 +40,12 @@ _SIGNATURES = {
     "ragb_error_string": [_I],
     "ragb_resnet_conv3x3_stats": [_P] * 11 + [_I] * 9 + [_P],
     "ragb_wino_tile_shape": [_P, _P],
-    "ragb_resnet_conv3x3_stats_wino": [_P] * 11 + [_I] * 9 + [_P],
+    "ragb_resnet_conv3x3_stats_wino": [_P] * 12 + [_I] * 9 + [_P],
     "ragb_subpixel_upsample_conv3x3_stats": [_P] * 6 + [_I] * 6 + [_P],
     "ragb_flash_attention_fwd": [_P] * 8 + [_I] * 5 + [_F, _P],
     "ragb_resnet_conv3x3_stats_bwd": [_P] * 21 + [_I] * 12 + [_P],
     "ragb_subpixel_upsample_conv3x3_stats_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    "ragb_resnet_skip_grad": [_P] * 3 + [_I] * 5 + [_P],
     "ragb_flash_attention_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
     "ragb_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
     "ragb_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],

@@ -49,6 +49,9 @@ CONV_BWD_LAUNCHES = 0
 UPSAMPLE_BWD_LAUNCHES = 0
 DOWNSAMPLE_LAUNCHES = 0
 WINO_LAUNCHES = 0
+# K6's dskip launched on its own (`skip_grad_cuda`, for measuring it); inside
+# K6 it counts as K6's launch
+SKIP_GRAD_LAUNCHES = 0
 
 # The forward route of `gn_silu_conv3x3_stats` when a call names none:
 # "direct" (K1) or "winograd" (K8, on the shapes `wino_aligned` accepts).
@@ -68,13 +71,14 @@ _PEAK_FLOPS, _PEAK_BYTES = 989e12, 3.35e12
 
 def reset_launch_counts() -> None:
     global CONV_LAUNCHES, UPSAMPLE_LAUNCHES, CONV_BWD_LAUNCHES, UPSAMPLE_BWD_LAUNCHES
-    global DOWNSAMPLE_LAUNCHES, WINO_LAUNCHES
+    global DOWNSAMPLE_LAUNCHES, WINO_LAUNCHES, SKIP_GRAD_LAUNCHES
     CONV_LAUNCHES = 0
     UPSAMPLE_LAUNCHES = 0
     CONV_BWD_LAUNCHES = 0
     UPSAMPLE_BWD_LAUNCHES = 0
     DOWNSAMPLE_LAUNCHES = 0
     WINO_LAUNCHES = 0
+    SKIP_GRAD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -254,15 +258,44 @@ def conv3x3_stats_cuda(
 _WINO_G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 
 
-def wino_weights(w: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
-    """(3, 3, C, N) -> U = G w G^T as (4, 4, C, N) [mu, nu]: folded in fp32
-    (G's halves are exact there; a fold in bf16 would add its own rounding),
-    then cast once to `dtype` (default: w's). The JAX package's `_wino_weights`
-    also folds A^T's rows into the contraction ((2, 4, 3C, N)); the port's
-    kernel keeps the 16 variants apart."""
+def wino_tiles(w: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
+    """(3, 3, C, N) -> U = G w G^T as (4, 4, C, N) [mu, nu], the 16 tiles K8
+    reads: folded in fp32 (G's halves are exact there; a fold in bf16 would
+    add its own rounding), then cast once to `dtype` (default: w's)."""
     g = constant(_WINO_G, torch.float32, w.device)   # kept per device: no host copy per call
     u = torch.einsum("xu,yv,uvcn->xycn", g, g, w.float())
-    return u.to(dtype or w.dtype)
+    return u.to(dtype or w.dtype).contiguous()
+
+
+def wino_weights(w: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
+    """(3, 3, C, N) -> the JAX package's `_wino_weights` (2, 4, 3C, N): U's
+    tiles with the output-row transform A^T folded into the contraction,
+    Uf[0, nu] = [U0; U1; U2][nu] and Uf[1, nu] = [U1; -U2; -U3][nu], folded
+    in fp32, then cast once to `dtype` (default: w's). K8 reads the 16
+    unsigned tiles (`wino_tiles`) and takes the signs in its products."""
+    u = wino_tiles(w, torch.float32)
+    folded = torch.stack([torch.cat([u[0], u[1], u[2]], dim=1), torch.cat([u[1], -u[2], -u[3]], dim=1)])
+    return folded.to(dtype or w.dtype)
+
+
+class WinoPlan(NamedTuple):
+    """K8's launch geometry: its tiles of one image (one statistics partial
+    row each), the grid (64-channel N tiles, tiles, images) and the
+    partials' shape."""
+    tiles: int
+    grid: Tuple[int, int, int]
+    partial: Tuple[int, ...]
+
+
+_WINO_BN = 64                    # K8's output channels of a block
+
+
+def wino_plan(bsz: int, height: int, width: int, n_out: int, tile: Tuple[int, int]) -> WinoPlan:
+    """K8's plan for a (bsz, height, width) image batch -> n_out channels,
+    `tile` the kernel's output tile (rows, cols)."""
+    th, tw = tile
+    tiles = -(-height // th) * -(-width // tw)
+    return WinoPlan(tiles, (-(-n_out // _WINO_BN), tiles, bsz), (bsz, tiles, 2, n_out))
 
 
 def wino_aligned(height: int, width: int, c_in: int, n_out: int, c_skip: Optional[int] = None) -> bool:
@@ -285,16 +318,19 @@ def wino_conv3x3_stats_plain(
 ) -> Tuple[Tensor, Tensor]:
     """Plain version of the K8 kernel, step by step: the activation rounded to
     x's dtype and zero-padded; per 2x2 output tile the 4x4 patch's input
-    transform B^T d B in fp32, columns first, rounded to x's dtype (V); one
-    fp32 product per variant over the channels against U = `wino_weights(w)`
-    in x's dtype; the output transform A^T M A in fp32, rows first; bias,
-    then the projection (fp32) and its bias, or the skip; one rounding of y.
-    Those are the JAX kernel's rounding points."""
+    transform B^T d B in fp32, columns first, rounded to x's dtype (V); per
+    output row p and column variant nu one fp32 product of depth 3C, the
+    V[p:p + 3][nu] of a tile side by side against the JAX package's folded
+    weights Uf[p, nu] (`wino_weights(w)` in x's dtype): Z[p][nu]; the
+    projection (fp32) into Z, as the kernel accumulates it; the column
+    transform (Z0 + Z1 + Z2, Z1 - Z2 - Z3) in fp32; bias (+ the projection's),
+    or the skip; one rounding of y. Those are the JAX kernel's rounding
+    points."""
     bsz, height, width, c_in = x.shape
     n_out = w.shape[3]
     if height % 2 or width % 2:
         raise ValueError(f"wino_conv3x3_stats: H and W must be even, got {height} x {width}")
-    u = wino_weights(w, x.dtype).float().reshape(16, c_in, n_out)
+    uf = wino_weights(w, x.dtype).float()                  # (2, 4, 3C, N)
     t = x.float() * a[:, None, None, :].float() + b[:, None, None, :].float()
     if activation == "silu":
         t = F.silu(t)
@@ -304,15 +340,23 @@ def wino_conv3x3_stats_plain(
     cv = torch.stack([d0 - d2, d1 + d2, d2 - d1, d1 - d3], dim=-1)      # (..., row, nu)
     r0, r1, r2, r3 = cv.unbind(-2)                         # rows
     v = torch.stack([r0 - r2, r1 + r2, r2 - r1, r1 - r3], dim=-2)       # (..., mu, nu)
-    v = v.to(x.dtype).float().permute(4, 5, 0, 1, 2, 3).reshape(16, -1, c_in)
-    m = torch.bmm(v, u).reshape(4, 4, bsz, height // 2, width // 2, n_out)   # [mu, nu]
-    z = (m[0] + m[1] + m[2], m[1] - m[2] - m[3])           # rows p, each [nu]
+    v = v.to(x.dtype).float().permute(4, 5, 0, 1, 2, 3).reshape(4, 4, -1, c_in)   # [mu, nu]: (tiles, C)
+    z = [[(torch.cat([v[p + i, nu] for i in range(3)], dim=1) @ uf[p, nu]).reshape(
+        bsz, height // 2, width // 2, n_out) for nu in range(4)] for p in range(2)]
+    bias = bias.float()
+    if skip is not None and ws is not None:
+        # the projection of pixel (2i + p, 2j + q) joins Z[p][0] (q = 0), which
+        # only y[p][0] reads, or leaves Z[p][3] (q = 1), which y[p][1] reads
+        # negated; its bias joins y's
+        proj = skip.float() @ ws.to(x.dtype).float()
+        for p in range(2):
+            z[p][0] = z[p][0] + proj[:, p::2, 0::2]
+            z[p][3] = z[p][3] - proj[:, p::2, 1::2]
+        bias = bias + wsb.float()
     y = torch.stack([torch.stack([zp[0] + zp[1] + zp[2], zp[1] - zp[2] - zp[3]], dim=3) for zp in z],
                     dim=2).reshape(bsz, height, width, n_out)
-    y = y + bias.float()
-    if skip is not None and ws is not None:
-        y = y + skip.float() @ ws.to(x.dtype).float() + wsb.float()
-    elif skip is not None:
+    y = y + bias
+    if skip is not None and ws is None:
         y = y + skip.float()
     y = y.to(x.dtype)
     return y, tensor_stats(y)
@@ -328,28 +372,36 @@ def wino_conv3x3_stats_cuda(
     ws: Optional[Tensor] = None,
     wsb: Optional[Tensor] = None,
     activation: str = "silu",
+    u: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
-    """Launch the K8 kernel (`ragb_resnet_conv3x3_stats_wino`) over
-    U = `wino_weights(w, x.dtype)`, folded here on every call. The kernel
-    needs H and W even; C, N and C_skip multiples of 8."""
+    """Launch the K8 kernels (`ragb_resnet_conv3x3_stats_wino`: the
+    activation pass into a scratch of x's size, the Winograd conv, the
+    statistics' reduce) over U's 16 tiles in x's dtype: `u` as given (a
+    module keeps them per weight, `ResnetBlock`), else `wino_tiles(w,
+    x.dtype)` folded in this call. The kernel needs H and W even; C, N and
+    C_skip multiples of 8."""
     global WINO_LAUNCHES
     name = "resnet_conv3x3_stats_wino"
+    if u is None:
+        u = wino_tiles(w, x.dtype)
     x, a, b, w, bias, skip, ws, wsb, skip_mode, c_skip = _conv_operands(
         name, x, a, b, w, bias, skip, ws, wsb, activation)
     bsz, height, width, c_in = x.shape
     n_out = w.shape[3]
     if height % 2 or width % 2:
         raise ValueError(f"{name}: H and W must be even, got {height} x {width}")
-    u = wino_weights(w, x.dtype).contiguous()
-    th, tw = _tile_shape("ragb_wino_tile_shape")
-    tiles = -(-height // th) * -(-width // tw)
+    _check_cuda(name, u=u)
+    if u.shape != (4, 4, c_in, n_out) or u.dtype != x.dtype:
+        raise ValueError(f"{name}: u must be {(4, 4, c_in, n_out)} {x.dtype}, got {tuple(u.shape)} {u.dtype}")
+    plan = wino_plan(bsz, height, width, n_out, _tile_shape("ragb_wino_tile_shape"))
+    xa = torch.empty_like(x)        # the activated input, the kernel's scratch for this call
     y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
-    partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)
+    partial = torch.empty(plan.partial, dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, 2, n_out), dtype=torch.float32, device=x.device)
     err = _build.library().ragb_resnet_conv3x3_stats_wino(
         _ptr(x), _ptr(a), _ptr(b), _ptr(u), _ptr(bias), _ptr(skip), _ptr(ws), _ptr(wsb),
-        _ptr(y), _ptr(partial), _ptr(stats),
-        tiles, bsz, height, width, c_in, n_out, c_skip,
+        _ptr(xa), _ptr(y), _ptr(partial), _ptr(stats),
+        plan.tiles, bsz, height, width, c_in, n_out, c_skip,
         1 if activation == "silu" else 0, skip_mode,
         ctypes.c_void_p(_build.stream_ptr(x.device)),
     )
@@ -383,6 +435,7 @@ def gn_silu_conv3x3_stats(
     proj: Optional[Tuple[Tensor, Tensor]] = None,
     activation: str = "silu",
     algo: Optional[str] = None,
+    u: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """y = conv3x3(act(x*a + b)) + bias [+ skip or 1x1(skip)], and the
     per-channel (sum, sumsq) of y as (B, 2, N) fp32.
@@ -391,12 +444,15 @@ def gn_silu_conv3x3_stats(
     w: (3, 3, C, N) HWIO; `proj=(ws, wsb)` runs the 1x1 conv_shortcut on
     `skip` inside the kernel (ws: (C_skip, N)). `algo` ("direct" or
     "winograd"; default `CONV_ALGO`) picks the forward route (`conv_route`).
+    `u`: w's Winograd tiles `wino_tiles(w, x.dtype)` for the Winograd route
+    on CUDA, kept by the caller; folded in the call when not given.
     """
     ws, wsb = proj if proj is not None else (None, None)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gn_silu_conv3x3_stats: unsupported device {x.device}")
     route = conv_route(x, w, skip, ws, algo)
-    return _ConvStats.apply(x, a, b, w, bias, skip, ws, wsb, activation, route)
+    u = u if route == "winograd" and x.is_cuda else None
+    return _ConvStats.apply(x, a, b, w, bias, skip, ws, wsb, activation, route, u)
 
 
 # ---------------------------------------------------------------------------
@@ -527,20 +583,22 @@ def conv3x3_stats_bwd_cuda(
     b = b.float().contiguous()
     # the data gradient is a conv3x3 of dye with the taps flipped and (C, N) transposed
     wt = w.to(x.dtype).flip(0, 1).permute(0, 1, 3, 2).contiguous()
-    skip_mode, c_skip, wst = 0, 0, None
+    skip_mode, c_skip = 0, 0
     if skip is not None:
         skip = skip.contiguous()
         if ws is not None:
             skip_mode, c_skip = 2, skip.shape[3]
-            wst = ws.to(x.dtype).t().contiguous()
+            ws = ws.to(x.dtype).contiguous()      # dskip reads it as it lies: (Cs, N) is ws^T's K-major B
             if ws.shape != (c_skip, n_out) or skip.shape[:3] != x.shape[:3]:
                 raise ValueError(f"{name}: projection shapes do not match")
         else:
             skip_mode = 1
             if skip.shape != (bsz, height, width, n_out):
                 raise ValueError(f"{name}: skip {tuple(skip.shape)} must be {(bsz, height, width, n_out)}")
-    _check_cuda(name, x=x, a=a, b=b, wt=wt, skip=skip, wst=wst, y=y, gy=gy, gstats=gstats)
-    _check_dtype(name, torch.bfloat16, x=x, wt=wt, skip=skip, wst=wst, y=y, gy=gy)
+    else:
+        ws = None
+    _check_cuda(name, x=x, a=a, b=b, wt=wt, skip=skip, ws=ws, y=y, gy=gy, gstats=gstats)
+    _check_dtype(name, torch.bfloat16, x=x, wt=wt, skip=skip, ws=ws, y=y, gy=gy)
     out_shape = (bsz, height, width, n_out)
     if y.shape != out_shape or gy.shape != out_shape or gstats.shape != (bsz, 2, n_out):
         raise ValueError(f"{name}: y, gy must be {out_shape} and gstats {(bsz, 2, n_out)}")
@@ -569,7 +627,7 @@ def conv3x3_stats_bwd_cuda(
     dab_partial = torch.empty(plan.dab_partial, **f32)
     dw_partial = torch.empty(plan.dw_partial, **f32)
     err = _build.library().ragb_resnet_conv3x3_stats_bwd(
-        _ptr(x), _ptr(a), _ptr(b), _ptr(wt), _ptr(skip), _ptr(wst), _ptr(y), _ptr(gy), _ptr(gstats),
+        _ptr(x), _ptr(a), _ptr(b), _ptr(wt), _ptr(skip), _ptr(ws), _ptr(y), _ptr(gy), _ptr(gstats),
         _ptr(dye), _ptr(act), _ptr(dx), _ptr(dab), _ptr(dw), _ptr(dbias), _ptr(dskip), _ptr(dws),
         _ptr(dbias_partial), _ptr(dab_partial), _ptr(dw_partial), _ptr(dws_partial),
         plan.tiles, plan.s_dye, plan.s_w, plan.s_ws, bsz, height, width, c_in, n_out, c_skip,
@@ -581,6 +639,36 @@ def conv3x3_stats_bwd_cuda(
     # the projection's bias cotangent is the same sum of dye as dbias
     dwsb = dbias.clone() if skip_mode == 2 else None
     return dx, dab[:, 0], dab[:, 1], dw, dbias, dskip, dws, dwsb
+
+
+def skip_grad_plain(dye: Tensor, ws: Tensor) -> Tensor:
+    """Plain version of K6's dskip: dye (B, H, W, N) @ ws (Cs, N)^T in fp32,
+    rounded once to dye's dtype, as the kernel rounds it."""
+    return (dye.float() @ ws.float().t()).to(dye.dtype)
+
+
+def skip_grad_cuda(dye: Tensor, ws: Tensor) -> Tensor:
+    """K6's dskip alone (`ragb_resnet_skip_grad`, the conv engine's one-tap
+    mode): dye (B, H, W, N) @ ws (Cs, N)^T -> (B, H, W, Cs) bf16. K6 launches
+    the same kernel inside its own entry; this one is for measuring it."""
+    global SKIP_GRAD_LAUNCHES
+    name = "resnet_skip_grad"
+    if dye.ndim != 4 or ws.ndim != 2 or ws.shape[1] != dye.shape[3]:
+        raise ValueError(f"{name}: dye {tuple(dye.shape)} and ws {tuple(ws.shape)} do not match")
+    dye, ws = dye.contiguous(), ws.to(dye.dtype).contiguous()
+    _check_cuda(name, dye=dye, ws=ws)
+    _check_dtype(name, torch.bfloat16, dye=dye, ws=ws)
+    bsz, height, width, n_out = dye.shape
+    c_skip = ws.shape[0]
+    if n_out % 8 or c_skip % 8:
+        raise ValueError(f"{name}: channel counts must be multiples of 8, got N={n_out} Cs={c_skip}")
+    dskip = torch.empty((bsz, height, width, c_skip), dtype=dye.dtype, device=dye.device)
+    err = _build.library().ragb_resnet_skip_grad(
+        _ptr(dye), _ptr(ws), _ptr(dskip), bsz, height, width, n_out, c_skip,
+        ctypes.c_void_p(_build.stream_ptr(dye.device)))
+    _build.check(err, name)
+    SKIP_GRAD_LAUNCHES += 1
+    return dskip
 
 
 def _to_dtypes(grads, dtypes):
@@ -596,12 +684,12 @@ class _ConvStats(torch.autograd.Function):
     in, so an fp32 parameter receives the fp32 accumulator unrounded."""
 
     @staticmethod
-    def forward(ctx, x, a, b, w, bias, skip, ws, wsb, activation, route):
+    def forward(ctx, x, a, b, w, bias, skip, ws, wsb, activation, route, u):
         ctx.dtypes = tuple(None if t is None else t.dtype for t in (x, a, b, w, bias, skip, ws, wsb))
         if x.is_cuda:
             w = w.to(x.dtype)
             ws = None if ws is None else ws.to(x.dtype)
-            fwd = wino_conv3x3_stats_cuda if route == "winograd" else conv3x3_stats_cuda
+            fwd = functools.partial(wino_conv3x3_stats_cuda, u=u) if route == "winograd" else conv3x3_stats_cuda
         else:
             fwd = wino_conv3x3_stats_plain if route == "winograd" else conv3x3_stats_plain
         y, stats = fwd(x, a, b, w, bias, skip, ws, wsb, activation)
@@ -620,7 +708,7 @@ class _ConvStats(torch.autograd.Function):
             gstats = torch.zeros((y.shape[0], 2, y.shape[3]), dtype=torch.float32, device=y.device)
         bwd = conv3x3_stats_bwd_cuda if x.is_cuda else conv3x3_stats_bwd_plain
         grads = bwd(x, a, b, w, bias, skip, ws, wsb, y, gy, gstats, ctx.activation)
-        return _to_dtypes(grads, ctx.dtypes) + (None, None)
+        return _to_dtypes(grads, ctx.dtypes) + (None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -952,8 +1040,9 @@ def fused_resnet_block(
     num_groups: int,
     stats: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
-    """params: {"norm1": {scale, bias}, "conv1": {kernel (3,3,C,N), bias},
-    "norm2": ..., "conv2": ..., optional "conv_shortcut": {kernel (C,N), bias}}.
+    """params: {"norm1": {scale, bias}, "conv1": {kernel (3,3,C,N), bias,
+    optional u (the kernel's Winograd tiles, `wino_tiles`)}, "norm2": ...,
+    "conv2": ..., optional "conv_shortcut": {kernel (C,N), bias}}.
     `stats`: optional (B, 2, C) statistics of x from the previous block's
     epilogue. Returns (out, stats(out))."""
     _, height, width, _ = x.shape
@@ -961,11 +1050,13 @@ def fused_resnet_block(
     if stats is None:
         stats = tensor_stats(x)
     a1, b1 = stats_to_coeffs(stats, params["norm1"]["scale"], params["norm1"]["bias"], num_groups, hw)
-    y1, stats1 = gn_silu_conv3x3_stats(x, a1, b1, params["conv1"]["kernel"], params["conv1"]["bias"])
+    y1, stats1 = gn_silu_conv3x3_stats(x, a1, b1, params["conv1"]["kernel"], params["conv1"]["bias"],
+                                       u=params["conv1"].get("u"))
     a2, b2 = stats_to_coeffs(stats1, params["norm2"]["scale"], params["norm2"]["bias"], num_groups, hw)
     proj = None
     if "conv_shortcut" in params:
         proj = (params["conv_shortcut"]["kernel"], params["conv_shortcut"]["bias"])
     return gn_silu_conv3x3_stats(
-        y1, a2, b2, params["conv2"]["kernel"], params["conv2"]["bias"], x, proj=proj
+        y1, a2, b2, params["conv2"]["kernel"], params["conv2"]["bias"], x, proj=proj,
+        u=params["conv2"].get("u")
     )

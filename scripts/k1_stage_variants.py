@@ -64,12 +64,20 @@ SHAPES = [("K12", (1, 128, 128, 512), 512, False), ("K1", (2, 128, 128, 512), 51
           ("K1", (1, 512, 512, 256), 128, True)]
 
 
-def start_build(index: int, replacements):
-    """Copy the sources, apply the replacements, start nvcc on the two entry files."""
-    d = OUT / f"v{index}"
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# the C entries each variant's library is called through, with their argtypes
+ENTRIES = {"ragb_resnet_conv3x3_stats": [_PTR] * 11 + [_I32] * 9 + [_PTR],
+           "ragb_fused_gn_silu_conv3x3": [_PTR] * 6 + [_I32] * 5 + [_PTR]}
+
+
+def start_build(index: int, replacements, *, edited: str = "conv_sm90.cuh",
+                sources=("conv_kernels.cu", "resnet_block.cu"), out: Path = OUT):
+    """Copy the sources to `out`/v`index`, apply the replacements to
+    `edited`, start nvcc on each of `sources`."""
+    d = out / f"v{index}"
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(CSRC, d)
-    path = d / "conv_sm90.cuh"
+    path = d / edited
     text = path.read_text()
     for old, new in replacements:
         if text.count(old) != 1:
@@ -77,24 +85,25 @@ def start_build(index: int, replacements):
         text = text.replace(old, new)
     path.write_text(text)
     jobs = []
-    for src in ("conv_kernels.cu", "resnet_block.cu"):
+    for src in sources:
         obj = d / (src + ".o")
         cmd = [NVCC, *FLAGS, "-I", str(d), "-c", "-o", str(obj), str(d / src)]
         jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     return d, jobs
 
 
-def finish_build(d: Path, jobs) -> ctypes.CDLL:
+def finish_build(d: Path, jobs, entries=None) -> ctypes.CDLL:
+    """Wait for nvcc, link the objects into one library and load it, with
+    the argtypes of `entries` (default `ENTRIES`)."""
     for _, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {d.name}:\n{out[-3000:]}")
-    lib_path = d / "libk1.so"
+    lib_path = d / "libvariant.so"
     subprocess.run([NVCC, *FLAGS, "-shared", "-o", str(lib_path), *(str(obj) for obj, _ in jobs)], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ragb_resnet_conv3x3_stats.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
-    lib.ragb_fused_gn_silu_conv3x3.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    for name, argtypes in (entries or ENTRIES).items():
+        getattr(lib, name).argtypes = argtypes
     return lib
 
 

@@ -1,7 +1,8 @@
 """Show that `chip_smoke.py`'s bounds on the attention forward (K3), on the
 backward kernels (K4-K7), on the int8 matmul (K10), on the Hopper conv
 engine of K9, K11, K1 (the resnet conv forward) and K2 (the sub-pixel
-upsample conv) and on the Winograd conv (K8) bite.
+upsample conv), on K6's dskip (the engine's one-tap mode) and on the
+Winograd conv (K8) bite.
 
     python3 scripts/planted_faults_bwd.py
 
@@ -203,8 +204,8 @@ FAULTS = [
     ("Hopper conv engine, K9: the padded bottom row read from memory", "conv_sm90.cuh",
      "(cuuint64_t)Hin, (cuuint64_t)B};", "(cuuint64_t)(Hin + DOWN), (cuuint64_t)B};", ("downsample_conv3x3_stats",)),
     ("Hopper conv engine: the last tap left out of the K loop", "conv_sm90.cuh",
-     "static constexpr int TAPS = UP ? 4 : DX ? 16 : 9;", "static constexpr int TAPS = UP ? 4 : DX ? 16 : 8;",
-     CONV_SM90_KERNELS),
+     "static constexpr int TAPS = UP ? 4 : DX ? 16 : ONE ? 1 : 9;",
+     "static constexpr int TAPS = UP ? 4 : DX ? 16 : ONE ? 1 : 8;", CONV_SM90_KERNELS),
     # the weights' MN-major B operand: its LBO (the distance between the two
     # 64-channel boxes of N) halved, so channels 64..127 read rows 32..63 of
     # the first box
@@ -216,20 +217,47 @@ FAULTS = [
     ("Hopper conv engine: one B ring stage's parity read from the wrong phase", "conv_sm90.cuh",
      "mbar_wait_or_trap(b_full(bs), (it / BST) & 1);", "mbar_wait_or_trap(b_full(bs), ((it / BST) & 1) ^ (bs == BST - 1));",
      CONV_SM90_KERNELS),
+    # K6's dskip on the conv engine's one-tap mode (CONV_1X1): the grid leaves
+    # out the last, partial 128-channel tile of a ragged Cs (Cs = 40: no
+    # block at all, the launch fails; Cs = 200: 72 channels never written)
+    ("resnet conv backward: dskip's ragged last Cs tile lost", "conv_sm90.cuh",
+     "dim3 grid((UP ? 4 : 1) * ((N + L::BN - 1) / L::BN), tiles_w * tiles_h, B);",
+     "dim3 grid((UP ? 4 : 1) * ((N + (L::ONE && N % L::BN ? 0 : L::BN - 1)) / L::BN), tiles_w * tiles_h, B);",
+     ("resnet_conv3x3_stats_bwd", "dskip")),
+    # K8 (resnet_block_wino.cu): the input transform, the folded products, the
+    # output transform
     ("winograd conv: a sign flipped in the input transform", "resnet_block_wino.cu",
-     "cv[r][0] = d0 - d2;", "cv[r][0] = d0 + d2;", ("resnet_conv3x3_stats_wino",), ("kernels", "stage1")),
-    ("winograd conv: one variant's product left out", "resnet_block_wino.cu",
-     "mma_16816(acc[j][mt][nt], af[mt],", "if (v != 5) mma_16816(acc[j][mt][nt], af[mt],",
+     "out[1][j] = pack_bf16x2(c1[2 * j] + c2[2 * j],", "out[1][j] = pack_bf16x2(c1[2 * j] - c2[2 * j],",
      ("resnet_conv3x3_stats_wino",), ("kernels", "stage1")),
-    # one more rounding than the JAX kernel makes: the fp32 products rounded to
-    # bf16 before the output transform. Less than an ulp of the largest y, so
-    # only phase 3's error over the whole tensor sees it; the stage-1 route
+    ("winograd conv: one column variant's products left out of a row", "resnet_block_wino.cu",
+     "wino_products<P>(acc[NU], v_stage(st), u_stage(st));",
+     "if (NU != 2 || P == 0) wino_products<P>(acc[NU], v_stage(st), u_stage(st));",
+     ("resnet_conv3x3_stats_wino",), ("kernels", "stage1")),
+    # one more rounding than the JAX kernel makes: the fp32 products Z rounded
+    # to bf16 before the column transform. Less than an ulp of the largest y,
+    # so only phase 3's error over the whole tensor sees it; the stage-1 route
     # check, where every conv's bf16 rounding adds up, is only read
     ("winograd conv: the products rounded to bf16 before the output transform", "resnet_block_wino.cu",
-     "float* row = mbuf + ((warp * 2 + j) * WTILES + mt * 16 + g) * M_LD + nt * 8 + t2;",
-     "for (int e = 0; e < 4; ++e) acc[j][mt][nt][e] = __bfloat162float(__float2bfloat16(acc[j][mt][nt][e])); "
-     "float* row = mbuf + ((warp * 2 + j) * WTILES + mt * 16 + g) * M_LD + nt * 8 + t2;",
+     "const float z0 = acc[0][i + e], z1 = acc[1][i + e], z2 = acc[2][i + e], z3 = acc[3][i + e];",
+     "const float z0 = __bfloat162float(__float2bfloat16(acc[0][i + e])), "
+     "z1 = __bfloat162float(__float2bfloat16(acc[1][i + e])), z2 = __bfloat162float(__float2bfloat16(acc[2][i + e])), "
+     "z3 = __bfloat162float(__float2bfloat16(acc[3][i + e]));",
      ("resnet_conv3x3_stats_wino",), ("kernels",), ("stage1",)),
+    # tile 17's V rows land in tile 18's: tile 18 gets 17's transform and 17
+    # keeps the stage's stale rows
+    ("winograd conv: a V row stored to the wrong tile", "resnet_block_wino.cu",
+     "const uint32_t off = t * 128 + ((lc ^ (t & 7)) << 4) + 8 * half;",
+     "const int tv = t == 17 ? 18 : t; const uint32_t off = tv * 128 + ((lc ^ (tv & 7)) << 4) + 8 * half;",
+     ("resnet_conv3x3_stats_wino",)),
+    # row p = 1 adds V3 U3 where the fold subtracts it
+    ("winograd conv: imm-scale-b's sign dropped for U3", "resnet_block_wino.cu",
+     "wgmma_ss_tb64<S>(z, wgmma_desc(vst + (P + 2) * Wino::PLANE", "wgmma_ss_tb64<1>(z, wgmma_desc(vst + (P + 2) * Wino::PLANE",
+     ("resnet_conv3x3_stats_wino",)),
+    # the projection's q = 1 column added to Z[p][0] as well as taken out of
+    # Z[p][3]: y[p][0] carries the wrong pixel's projection
+    ("winograd conv: the projection's second column into the first column's accumulator", "resnet_block_wino.cu",
+     "wgmma_ss_tb64<Q == 0 ? 1 : -1>(acc[3 * Q],", "wgmma_ss_tb64<1>(acc[0],",
+     ("resnet_conv3x3_stats_wino",)),
 ]
 
 

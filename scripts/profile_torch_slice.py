@@ -70,13 +70,9 @@ LORA_CELLS = [(2, 512), (1, 1024)]   # (gt, text_alpha) pairs per step, image si
 LORA_RANK, LORA_ALPHA, LORA_LR = 128, 192.0, 3e-5
 
 # kernel classes of the device-time breakdown, first match wins
-def _conv_taps(mode: int, epilogue: int):
-    return re.compile(rf"conv_taps_kernel<(\(int\))?{mode}, ?(\(int\))?{epilogue}>")
-
-
 def _conv_engine(mode: int):
     """`conv_sm90_kernel<MODE>` (csrc/conv_sm90.cuh): 0 K11, 1 K9, 2 K6's data gradient, 3 K1 and K12, 4 K2,
-    5 K7's data gradient."""
+    5 K7's data gradient, 6 K6's dskip."""
     return re.compile(rf"conv_sm90_kernel<(\(int\))?{mode}>")
 
 
@@ -88,10 +84,11 @@ KERNEL_CLASSES = [
     ("K7 weight gradient (wgrad_sm90_kernel<2>)", re.compile(r"wgrad_sm90_kernel<(\(int\))?2>")),
     ("K6 weight gradient (wgrad_sm90_kernel)", re.compile(r"wgrad_sm90_kernel")),
     ("K6 weight-gradient slice sum, K7's too (sum_slices_kernel)", re.compile(r"sum_slices_kernel")),
-    ("K6 skip-projection gradient (conv_taps_kernel<2, 0>)", _conv_taps(2, 0)),
+    ("K6 dskip on the conv engine (conv_sm90_kernel<6>)", _conv_engine(6)),
     ("K6/K7 dye pass and partial reduces", re.compile(r"dye_kernel|reduce_rows_kernel")),
     ("K1/K2/K6/K8/K9 stats reduce", re.compile(r"stats_reduce_kernel")),
     ("K8 Winograd conv (wino_conv_kernel)", re.compile(r"wino_conv_kernel")),
+    ("K8 activation pass (wino_act_kernel)", re.compile(r"wino_act_kernel")),
     ("K9/K11 Hopper conv engine (conv_sm90_kernel)", re.compile(r"conv_sm90_kernel")),
     ("K3 flash attention (flash_fwd_wgmma_kernel)", re.compile(r"flash_fwd")),
     ("K3 key-split merge (flash_merge_kernel)", re.compile(r"flash_merge_kernel")),

@@ -67,7 +67,7 @@ SHAPES_K7 = [((4, 64, 64, 512), 256), ((4, 64, 64, 512), 512), ((4, 128, 128, 51
 DX_BOXES = [
     ("A_TAPS = DOWN ? 1 : DX ? 4 : TAPS;", "A_TAPS = DOWN || DX ? 1 : TAPS;"),
     ("AW = DOWN ? TW : SW, AH = DOWN ? TH : SH;", "AW = DOWN || DX ? TW : SW, AH = DOWN || DX ? TH : SH;"),
-    ("A_STAGES = DOWN ? 4 : ACT || DX ? 3 : 2;", "A_STAGES = DOWN || DX ? 4 : ACT ? 3 : 2;"),
+    ("A_STAGES = DOWN ? 4 : ACT || DX || ONE ? 3 : 2;", "A_STAGES = DOWN || DX ? 4 : ACT || ONE ? 3 : 2;"),
     ("if (DX) return make_int2(2 * w0 - tap / 4 % 2, 2 * h0 - tap / 8);",
      "if (DX) return make_int2(2 * w0 - 1 + tap % 4, 2 * h0 - 1 + tap / 4);"),
     ("if (DOWN) return MB * w * TW;", "if (DOWN || DX) return MB * w * TW;"),

@@ -62,7 +62,7 @@ SHAPES_K12 = [((1, 128, 128, 512), 512), ((2, 512, 512, 128), 128)]
 SHAPES_K2 = [((2, 64, 64, 512), 512), ((1, 256, 256, 256), 256), ((4, 128, 128, 512), 512),
              ((2, 37, 50, 72), 136), ((4, 64, 64, 512), 512), ((4, 256, 256, 256), 256), ((2, 64, 64, 256), 512)]
 K2_SPLIT = (((2, 64, 64, 256), 512), ((2, 64, 64, 512), 512))
-# chip_smoke.py's K8 shapes: K8 (the wrapper as the path calls it, its weight fold included) beside K1
+# chip_smoke.py's K8 shapes: K8 (U's tiles given, as a fused ResnetBlock keeps them) beside K1
 SHAPES_K8 = [((2, 128, 128, 512), 512, None), ((1, 512, 512, 128), 128, "identity"), ((2, 128, 128, 256), 512, 256)]
 TILE = (4, 64)                  # the conv engine's output tile (rows, columns) and 128 output channels
 SMS = 132
@@ -288,7 +288,9 @@ def main(argv=None) -> int:
     for shape, n, skip in SHAPES_K8 if every else ():
         x, a, b, w, bias, sk, ws, wsb = k1_inputs(gen, randn, shape, n, skip)
         args = (x, a, b, w, bias, sk, ws, wsb, "silu")
-        run8, run1 = lambda: rb.wino_conv3x3_stats_cuda(*args), lambda: rb.conv3x3_stats_cuda(*args)
+        # U's tiles given, as a fused ResnetBlock keeps them (a package without them folds U in the call)
+        kw = {"u": rb.wino_tiles(w, x.dtype)} if hasattr(rb, "wino_tiles") else {}
+        run8, run1 = lambda: rb.wino_conv3x3_stats_cuda(*args, **kw), lambda: rb.conv3x3_stats_cuda(*args)
         print(f"K8 against K1 {shape}->{n} silu skip={skip}: K8 {idle_ms(run8):.4f} ms (back to back "
               f"{queued_ms(run8):.4f}), K1 {idle_ms(run1):.4f} ms (back to back {queued_ms(run1):.4f})", flush=True)
         del x, sk, args

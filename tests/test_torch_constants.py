@@ -76,7 +76,9 @@ def test_wino_weights_keep_g_per_device(monkeypatch):
     want = torch.einsum("xu,yv,uvcn->xycn", g, g, w)
     rb.wino_weights(w)
     counter = _CountTensor(monkeypatch)
-    assert torch.equal(rb.wino_weights(w), want)
+    assert torch.equal(rb.wino_tiles(w), want)
+    folded = rb.wino_weights(w)                        # JAX's row fold of the same tiles
+    assert torch.equal(folded[1, :, :8], want[1]) and torch.equal(folded[1, :, 8:16], -want[2])
     assert counter.calls == 0
 
 

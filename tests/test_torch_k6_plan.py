@@ -1,12 +1,14 @@
 """K6's host-side plan (`conv3x3_stats_bwd_plan`): the (da, db) partials
 count the Hopper conv engine's tiles, the split-K weight gradient's slices
 stay within bounds and leave no slice without a row, and the scratch shapes
-are the ones the kernels index. CPU only: the plan is plain Python."""
+are the ones the kernels index; dskip's persistent grid covers each output
+tile and channel once. CPU only: the plan is plain Python."""
 import inspect
 import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from ragb_vae_tpu_torch.ops.kernels import resnet_block as rb
 
@@ -99,3 +101,76 @@ def test_plan_fills_the_card_at_the_decoders_last_level():
 def test_plan_is_cached_per_shape():
     a = rb.conv3x3_stats_bwd_plan(2, 37, 50, 128, 256, 128, (4, 64))
     assert rb.conv3x3_stats_bwd_plan(2, 37, 50, 128, 256, 128, (4, 64)) is a
+
+
+# K6's dskip on the conv engine's one-tap mode (CONV_1X1): about one block an
+# SM per 128-channel tile of Cs, each walking the (image, tile) items of the
+# engine's 4 x 64 tile; restated from the launcher in conv_sm90.cuh
+SKIP_SHAPES = [((12, 256, 256, 256), 128), ((12, 128, 128, 512), 256), ((4, 256, 256, 256), 512),
+               ((4, 512, 512, 128), 256), ((2, 37, 50, 136), 200), ((2, 37, 50, 128), 40), ((1, 1, 1, 8), 8)]
+
+
+def _skip_grid(bsz, h, w, c_skip, sms=132):
+    """(N tiles, blocks per N tile, items): the launcher's grid for dskip."""
+    th, tw = _engine_tile()
+    items = bsz * -(-h // th) * -(-w // tw)
+    n_tiles = -(-c_skip // 128)
+    per_tile = sms // n_tiles if 0 < n_tiles <= sms else 1
+    return n_tiles, min(items, per_tile), items
+
+
+def test_dskip_launcher_is_the_one_restated():
+    text = (CSRC / "conv_sm90.cuh").read_text()
+    assert "const int per_tile = grid.x > 0 && sms >= (int)grid.x ? sms / (int)grid.x : 1;" in text
+    assert "grid.y = (unsigned)(items < per_tile ? items : per_tile);" in text
+    assert "for (int item = blockIdx.y; item < items; item += gridDim.y) {" in text
+
+
+@pytest.mark.parametrize("shape,c_skip", SKIP_SHAPES)
+def test_dskip_blocks_cover_every_tile_and_channel_once(shape, c_skip):
+    """Each block (n tile, j) walks items j, j + gridDim.y, ...: every output
+    pixel of every image and every channel of a ragged Cs lies in exactly
+    one block's items once (the last N tile's channels past Cs are masked
+    by the TMA store); restated as a torch count over the output."""
+    bsz, h, w, n = shape
+    th, tw = _engine_tile()
+    n_tiles, blocks, items = _skip_grid(bsz, h, w, c_skip)
+    assert n_tiles == -(-c_skip // 128) and 1 <= blocks <= 132
+    tiles_w, tiles = -(-w // tw), -(-h // th) * -(-w // tw)
+    cover = torch.zeros((bsz, tiles, n_tiles), dtype=torch.int32)      # (image, tile, N tile) of the items walked
+    for nt in range(n_tiles):
+        for j in range(blocks):
+            for item in range(j, items, blocks):
+                b, t = divmod(item, tiles)
+                cover[b, t, nt] += 1
+    assert bool((cover == 1).all())
+    pixels = torch.zeros((h, w), dtype=torch.int32)       # the tiles' pixels, clipped at the image's edges
+    for t in range(tiles):
+        h0, w0 = (t // tiles_w) * th, (t % tiles_w) * tw
+        pixels[h0:h0 + th, w0:w0 + tw] += 1
+    channels = torch.zeros(n_tiles * 128, dtype=torch.int32)
+    for nt in range(n_tiles):
+        channels[nt * 128:(nt + 1) * 128] += 1
+    assert bool((pixels == 1).all()) and bool((channels[:c_skip] == 1).all()) and n_tiles * 128 - c_skip < 128
+    # the contraction over dye's N channels: 64-channel k-steps, the last
+    # ragged one zero-filled by TMA
+    assert -(-n // 64) * 64 >= n
+
+
+def test_dskip_plain_version_is_the_projection_cotangent():
+    """`skip_grad_plain(dye, ws)` is K6's dskip: the skip's cotangent that
+    autograd through the plain forward gives, with dye = gy + ds0 + 2 y ds1
+    (fp32 on the CPU, so only the order of sums differs)."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 4, 6, 16), generator=gen)
+    skip = torch.randn((2, 4, 6, 24), generator=gen)
+    a, b = 1.0 + 0.1 * torch.randn((2, 16), generator=gen), 0.1 * torch.randn((2, 16), generator=gen)
+    w, bias = 0.1 * torch.randn((3, 3, 16, 32), generator=gen), 0.1 * torch.randn(32, generator=gen)
+    ws, wsb = 0.2 * torch.randn((24, 32), generator=gen), 0.1 * torch.randn(32, generator=gen)
+    y, _ = rb.conv3x3_stats_plain(x, a, b, w, bias, skip, ws, wsb)
+    gy, gstats = torch.randn(y.shape, generator=gen), 0.1 * torch.randn((2, 2, 32), generator=gen)
+    dskip = rb.conv3x3_stats_bwd_plain(x, a, b, w, bias, skip, ws, wsb, y, gy, gstats)[5]
+    dye = gy + gstats[:, None, None, 0] + 2.0 * y * gstats[:, None, None, 1]
+    torch.testing.assert_close(rb.skip_grad_plain(dye, ws), dskip, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rb.skip_grad_cuda(dye.to(torch.bfloat16), ws)

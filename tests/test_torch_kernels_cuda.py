@@ -643,10 +643,13 @@ def test_new_conv_wrappers_refuse_what_the_kernels_do_not_take():
 # statistics), at ragged tiles and odd channel counts the kernel takes (H and W
 # even, C and N multiples of 8) besides the aligned shapes the route sends it
 @pytest.mark.parametrize("shape,n,skip,act", [
-    ((1, 36, 24, 128), 128, None, "silu"),           # ragged 8 x 16 tiles
+    ((1, 36, 24, 128), 128, None, "silu"),           # ragged 8 x 32 tiles
     ((2, 18, 48, 256), 128, "proj", "silu"),
-    ((1, 10, 14, 64), 40, "identity", "identity"),
+    ((1, 10, 14, 64), 40, "identity", "identity"),   # N short of the 64-channel tile
     ((2, 16, 32, 128), 256, "proj", "identity"),
+    # every edge ragged: C and Cs not multiples of the 64-channel chunk, N
+    # past one 64-channel tile, H and W off the 8 x 32 tile
+    ((2, 22, 70, 72), 136, "proj40", "silu"),
 ])
 def test_wino_conv3x3_stats_kernel(shape, n, skip, act):
     gen = torch.Generator("cuda").manual_seed(0)
@@ -659,8 +662,10 @@ def test_wino_conv3x3_stats_kernel(shape, n, skip, act):
     sk = ws = wsb = None
     if skip == "identity":
         sk = _randn(gen, (bsz, h, w, n))
-    elif skip == "proj":
-        sk, ws, wsb = x, _randn(gen, (c, n), 1.0 / math.sqrt(c)), 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    elif skip is not None:
+        sk = x if skip == "proj" else _randn(gen, (bsz, h, w, int(skip[4:])))
+        ws = _randn(gen, (sk.shape[3], n), 1.0 / math.sqrt(sk.shape[3]))
+        wsb = 0.1 * torch.randn((n,), generator=gen, device="cuda")
     args = (x, a, b, wt, bias, sk, ws, wsb, act)
     rb.reset_launch_counts()
     y, s = rb.wino_conv3x3_stats_cuda(*args)
@@ -669,9 +674,63 @@ def test_wino_conv3x3_stats_kernel(shape, n, skip, act):
     assert rb.WINO_LAUNCHES == 1 and rb.CONV_LAUNCHES == 0
     rf = y_p.float()
     assert (y.float() - rf).abs().max() <= 1e-2 * rf.abs().max()
-    assert (s - s_p).abs().max() <= 1e-4 * h * w * rf.square().mean()
+    # over the whole tensor, y differs from the plain version only where the
+    # order of fp32 sums flips a rounding
+    assert (y.float() - rf).norm() <= 3e-4 * rf.norm()
+    # the statistics against the plain version's, allowed beside the sums'
+    # own order what those flips of y move them by (each channel's sum of
+    # |y - y_p| and of |y^2 - y_p^2|): a lost tile or partial still fails
+    yd, pd = y.double(), y_p.double()
+    flips = torch.stack([(yd - pd).abs().sum(dim=(1, 2)), (yd.square() - pd.square()).abs().sum(dim=(1, 2))], dim=1)
+    assert ((s.double() - s_p.double()).abs() <= 1e-4 * h * w * rf.square().mean() + flips).all()
+    # and against fp64 sums of the kernel's own y
+    own = torch.stack([yd.sum(dim=(1, 2)), yd.square().sum(dim=(1, 2))], dim=1)
+    assert (s.double() - own).abs().max() <= 1e-4 * h * w * rf.square().mean()
     y2, s2 = rb.wino_conv3x3_stats_cuda(*args)
     assert torch.equal(y, y2) and torch.equal(s, s2)     # bitwise reproducible
+    y3, s3 = rb.wino_conv3x3_stats_cuda(*args, u=rb.wino_tiles(wt, torch.bfloat16))
+    assert torch.equal(y, y3) and torch.equal(s, s3)     # the cached tiles are the given ones
+
+
+def test_wino_tiles_are_folded_once_per_weight_version(monkeypatch):
+    """A fused ResnetBlock on the Winograd route passes K8 the tiles it keeps
+    per weight, under autograd too (two calls, one fold, the same y), and an
+    in-place step folds them again."""
+    from ragb_vae_tpu_torch.models.vae import ResnetBlock
+
+    monkeypatch.setattr(rb, "CONV_ALGO", "winograd")
+    torch.manual_seed(2)
+    block = ResnetBlock(128, 128, num_groups=32, fused=True).cuda()      # the route's widths: multiples of 128
+    block.compute_dtype = torch.bfloat16
+    x = torch.randn((1, 8, 32, 128), device="cuda").to(torch.bfloat16)
+    rb.reset_launch_counts()
+    y, _ = block(x)
+    first = block.__dict__["_derived_cache"]["conv1.u"][1]
+    hwio = lambda: block.conv1.weight.detach().permute(2, 3, 1, 0).to(torch.bfloat16)
+    assert torch.equal(first, rb.wino_tiles(hwio()))
+    assert rb.WINO_LAUNCHES == 2 and block(x)[0].equal(y)
+    assert block.__dict__["_derived_cache"]["conv1.u"][1] is first
+    with torch.no_grad():
+        block.conv1.weight.mul_(2.0)
+    block(x)
+    again = block.__dict__["_derived_cache"]["conv1.u"][1]
+    assert again is not first and torch.equal(again, rb.wino_tiles(hwio()))
+
+
+# K6's dskip alone (the conv engine's one-tap mode) against the exact fp32
+# dye @ ws^T rounded once: one bf16 ulp of the largest value; Cs ragged
+# against the 128-channel tile and N against the 64-channel chunk
+@pytest.mark.parametrize("shape,c_skip", [((2, 37, 50, 136), 40), ((1, 16, 64, 256), 200), ((4, 64, 64, 256), 512)])
+def test_skip_grad_kernel_against_exact(shape, c_skip):
+    gen = torch.Generator("cuda").manual_seed(3)
+    dye = _randn(gen, shape)
+    ws = _randn(gen, (c_skip, shape[3]), 1.0 / math.sqrt(shape[3]))
+    rb.reset_launch_counts()
+    got = rb.skip_grad_cuda(dye, ws)
+    want = rb.skip_grad_plain(dye, ws)                 # the fp32 product rounded once
+    torch.cuda.synchronize()
+    assert rb.SKIP_GRAD_LAUNCHES == 1 and got.shape == shape[:3] + (c_skip,)
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
 
 
 def test_winograd_route_launches_k8_and_differentiates_through_k6(monkeypatch):

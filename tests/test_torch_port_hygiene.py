@@ -32,7 +32,7 @@ ROOT = Path(ragb_vae_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragb_vae_tpu")
 PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py",
-    "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py", "k1_stage_variants.py")]
+    "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py", "k1_stage_variants.py", "k8_variants.py")]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -110,7 +110,7 @@ def test_winograd_source_is_built_and_names_its_kernel():
     assert "resnet_block_wino.cu" in {p.name for p in _build._sources()}
     assert {"ragb_resnet_conv3x3_stats_wino", "ragb_wino_tile_shape"} <= set(_build._SIGNATURES)
     text = (ROOT / "csrc" / "resnet_block_wino.cu").read_text()
-    assert "`_wino_kernel`" in text and "mma_16816" in text
+    assert "`_wino_kernel`" in text and "wgmma_ss_tb64<" in text and "mma_16816" not in text
     assert 'int ragb_resnet_conv3x3_stats_wino(' in text
     # one block owns its output tile; the product is the kernel's own
     assert "atomicAdd" not in text and "cublas" not in text.lower() and "cudnn" not in text.lower()
@@ -170,7 +170,8 @@ def test_the_cuda_branch_scan_sees_a_planted_call(tmp_path):
 
 
 def test_backward_sources_are_built_with_the_forward():
-    assert {"resnet_block_bwd.cu", "conv_taps.cuh"} <= {p.name for p in (ROOT / "csrc").iterdir()}
+    names = {p.name for p in (ROOT / "csrc").iterdir()}
+    assert "resnet_block_bwd.cu" in names and "conv_taps.cuh" not in names
     from ragb_vae_tpu_torch.ops.kernels import _build
 
     assert {"ragb_resnet_conv3x3_stats_bwd", "ragb_subpixel_upsample_conv3x3_stats_bwd"} <= set(_build._SIGNATURES)
@@ -179,7 +180,8 @@ def test_backward_sources_are_built_with_the_forward():
 def test_attention_backward_source_is_built_and_names_both_kernels():
     from ragb_vae_tpu_torch.ops.kernels import _build
 
-    assert {"flash_attention_bwd.cu", "mma.cuh"} <= {p.name for p in _build._sources()}
+    names = {p.name for p in _build._sources()}
+    assert "flash_attention_bwd.cu" in names and "mma.cuh" not in names
     names = ("ragb_flash_attention_dq", "ragb_flash_attention_dkv", "ragb_flash_attention_bwd")
     assert set(names) <= set(_build._SIGNATURES)
     text = (ROOT / "csrc" / "flash_attention_bwd.cu").read_text()
@@ -390,10 +392,10 @@ def test_planted_fault_replaces_one_line_of_its_source(fault):
 
 def test_k6_faults_share_a_selector():
     """`--only 'resnet conv backward'` selects every K6 fault: the three that
-    came with the first design (two of them now planted in the new sources)
-    and the new kernels' six."""
+    came with the first design (two of them now planted in the new sources),
+    the data and weight gradients' six and dskip's one."""
     k6 = [f for f in _planted_faults() if "resnet conv backward" in f[0]]
-    assert len(k6) == 8
+    assert len(k6) == 9
     assert {f[1] for f in k6} == {"wgrad_sm90.cuh", "conv_sm90.cuh", "resnet_block_bwd.cu",
                                   "ops/kernels/resnet_block.py"}
 
@@ -544,21 +546,22 @@ def _k6_entry() -> str:
 
 
 @pytest.mark.parametrize("call", ["launch_conv_sm90<CONV_BWD>(", "launch_wgrad_sm90<3>(", "launch_wgrad_sm90<1>(",
-                                  "launch_dye("])
+                                  "launch_dye(", "launch_conv_sm90<CONV_1X1>("])
 def test_k6_entry_runs_the_hopper_kernels(call):
     """K6's data gradient runs on the conv engine (BWD epilogue), its weight
-    gradient and dws on the TMA + wgmma weight-gradient kernel."""
+    gradient and dws on the TMA + wgmma weight-gradient kernel, dskip on the
+    engine's one-tap mode."""
     assert call in _k6_entry()
 
 
 @pytest.mark.parametrize("token", ["launch_conv<MODE_CONV3", "EPI_BWD_ACT", "launch_wgrad<", "wgrad_kernel<",
                                    "WG_CONV3", "WG_CONV1", "wmma", "mma_sync", "mma.sync"])
 def test_k6_entry_launches_no_wmma_kernel(token):
-    """Nothing on K6's path is a wmma kernel but dskip's 1x1 conv, which
-    stays on conv_taps.cuh's MODE_CONV1 (the one launch_conv left)."""
+    """Nothing on K6's path is a wmma kernel: dskip's 1x1 conv, the last
+    launch_conv, is the engine's one-tap mode."""
     entry = _k6_entry()
     assert token not in entry
-    assert entry.count("launch_conv<") == 1 and "launch_conv<MODE_CONV1, EPI_FWD>(" in entry
+    assert "launch_conv<" not in entry and "MODE_CONV1" not in entry and "launch_conv_sm90<CONV_1X1>(" in entry
 
 
 @pytest.mark.parametrize("token", ["WG_CONV3", "WG_CONV1", "EPI_BWD_ACT", "act_x"])
@@ -641,14 +644,17 @@ def test_no_wmma_conv3_mode_is_left(path):
     assert "MODE_CONV3" not in _code(path)
 
 
-@pytest.mark.parametrize("pattern", [r"\bMODE_CONV3\b", r"\bunused\[", r"\bskip_mode\b", r"\bSKIP_PROJ\b",
-                                     r"\bSKIP_ADD\b", r"\bsilu\b", r"\bws\b", r"\bwsb\b", r"\bexpf\(",
-                                     r"\bp\.a\[", r"\bCs\b"])
-def test_wmma_template_lost_k1s_prologue_and_projection(pattern):
-    """What only K1 and K12 read in conv_taps.cuh is gone: the GroupNorm +
-    SiLU load transform, the projection loop, the skip handling and their
-    ConvArgs fields (the Winograd kernel keeps its own argument struct)."""
-    assert not re.search(pattern, _code(ROOT / "csrc" / "conv_taps.cuh")), pattern
+@pytest.mark.parametrize("pattern", [r"\bMODE_CONV3\b", r"\bMODE_CONV1\b", r"\bEPI_FWD\b", r"\bConvArgs\b",
+                                     r"\bconv_taps_kernel\b", r"\bTapGeometry\b", r"\bconv_smem_bytes\b",
+                                     r"\blaunch_conv<", r"\bWinoArgs\b", r"\bnvcuda\b", r"<mma\.h>"])
+def test_wmma_template_is_gone(pattern):
+    """The wmma template (conv_taps.cuh: its 1x1 mode was K6's dskip, its
+    other modes K1's, K2's, K7's and K12's first designs), its argument
+    struct and the first Winograd kernel's are gone from every source, and
+    nothing includes <mma.h>."""
+    assert not (ROOT / "csrc" / "conv_taps.cuh").exists() and not (ROOT / "csrc" / "mma.cuh").exists()
+    for path in sorted((ROOT / "csrc").iterdir()):
+        assert not re.search(pattern, _code(path)), (path.name, pattern)
 
 
 def test_k1_wrapper_sizes_its_partials_from_the_engine_tile():
@@ -703,12 +709,17 @@ def test_k1_faults_share_a_selector():
     assert all(f[4] == ("resnet_conv3x3_stats ",) for f in k1)
 
 
-def _stage_variants():
+def _stage_variants(script: str = "k1_stage_variants"):
     import importlib.util
+    import sys
 
-    spec = importlib.util.spec_from_file_location("k1_stage_variants", ROOT.parent / "scripts" / "k1_stage_variants.py")
+    path = list(sys.path)
+    spec = importlib.util.spec_from_file_location(script, ROOT.parent / "scripts" / f"{script}.py")
     module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        sys.path[:] = path
     return module.VARIANTS
 
 
@@ -718,6 +729,16 @@ def test_stage_variant_replaces_text_that_occurs_once(variant):
     that occurs exactly once in `conv_sm90.cuh`: a variant whose text drifted
     out of the source would stop the script on the card."""
     text = SM90_CONV.read_text()
+    for old, new in variant[1]:
+        assert text.count(old) == 1 and old != new, variant[0]
+
+
+@pytest.mark.parametrize("variant", _stage_variants("k8_variants"), ids=lambda v: v[0])
+def test_k8_variant_replaces_text_that_occurs_once(variant):
+    """`scripts/k8_variants.py` builds each variant (with k1_stage_variants'
+    builder) by replacing text that occurs exactly once in
+    `resnet_block_wino.cu`."""
+    text = (ROOT / "csrc" / "resnet_block_wino.cu").read_text()
     for old, new in variant[1]:
         assert text.count(old) == 1 and old != new, variant[0]
 
@@ -820,3 +841,73 @@ def test_k7_faults_share_a_selector():
     assert {f[1] for f in faults} == {"conv_sm90.cuh", "wgrad_sm90.cuh"}
     assert all(f[4] in (("subpixel_upsample_conv3x3_stats ",), ("subpixel_upsample_conv3x3_stats_bwd",))
                for f in faults)
+
+
+# ---------------------------------------------------------------------------
+# K6's dskip on the conv engine's one-tap mode, K8 on wgmma: no wmma or
+# mma.sync is left in the port
+# ---------------------------------------------------------------------------
+WINO_SRC = ROOT / "csrc" / "resnet_block_wino.cu"
+
+
+@pytest.mark.parametrize("token", ["wmma", "mma_sync", "mma.sync", "mma_16816", "ldmatrix", "cp_async16",
+                                   "cp.async.ca", "cp.async.cg", '#include "mma.cuh"', '#include "conv_taps.cuh"'])
+@pytest.mark.parametrize("path", sorted((ROOT / "csrc").glob("*.cu*")), ids=lambda p: p.name)
+def test_no_legacy_tensor_core_path_is_left(path, token):
+    """Every kernel of the port runs on wgmma fed by TMA: no wmma or mma.sync
+    fragment, ldmatrix or cp.async staging is left in any source."""
+    assert token not in _code(path)
+
+
+@pytest.mark.parametrize("token", ["wgmma_ss_tb64<", "tma_load_4d(", "tma_load_3d(", "tma_store_4d(",
+                                   "mbar_wait_or_trap(", "mbar_arrive_expect_tx(", "setmaxnreg_dec<",
+                                   "setmaxnreg_inc<", "named_barrier_sync(", "fence_proxy_async(",
+                                   "stats_reduce_kernel<<<", "wino_act_kernel<<<"])
+def test_winograd_kernel_uses_the_hopper_primitives(token):
+    """K8 is built on csrc/sm90.cuh: TMA loads of the activated slab, U's
+    tiles and the skip into mbarrier rings, a producer thread and two
+    consumer warpgroups, wgmma products, TMA stores, the fixed-order
+    statistics reduce; the activation is a pass of its own."""
+    code = _code(WINO_SRC)
+    assert '#include "conv_sm90.cuh"' in code and token in code
+
+
+@pytest.mark.parametrize("token", ["wgmma_ss_tb64<S>(", "wgmma_ss_tb64<Q == 0 ? 1 : -1>(", "IntC<0>", "IntC<1>",
+                                   "mu * 4 + (s & 3)", "{1, 2, 2, 1}"])
+def test_winograd_kernel_folds_the_output_rows_into_its_products(token):
+    """K8 takes the JAX package's row fold: warpgroup p's products of a step
+    are V[p + i] U[p + i] with the signs of -U2 and -U3 from wgmma's
+    imm-scale-b (p a compile-time constant of the warpgroup's code), U's 16
+    unsigned tiles by (mu, nu), and the projection's skip pixels (2 ty + p,
+    2 tx + q) read at traversal strides."""
+    assert token in _code(WINO_SRC)
+
+
+def test_signed_wgmma_passes_its_sign_as_imm_scale_b():
+    """wgmma_ss_tb64's sign is the instruction's imm-scale-b, an immediate,
+    with B MN-major (imm-trans-b 1)."""
+    code = _code(ROOT / "csrc" / "sm90.cuh")
+    body = code[code.index("void wgmma_ss_tb64("):]
+    body = body[:body.index("}\n")]
+    assert "p, 1, %35, 0, 1;" in body and '"n"(SB)' in body and "m64n64k16.f32.bf16.bf16" in body
+
+
+@pytest.mark.parametrize("token", ["CONV_1X1", "L::ONE", "tma_store_commit()", "tma_store_wait_read()",
+                                   "wgmma_ss<BN>(", "item += gridDim.y"])
+def test_conv_engine_carries_k6_dskip(token):
+    """dskip is the engine's one-tap mode: ws as it lies is the K-major B
+    operand (wgmma_ss, not the weights' MN-major wgmma_ss_tb), and a block
+    walks its tiles with a TMA store in flight beside the next tile's
+    products."""
+    assert token in _code(SM90_CONV)
+
+
+def test_k6_wrapper_passes_ws_as_it_lies():
+    """dskip reads ws (Cs, N) itself as ws^T's K-major operand: the wrapper
+    makes no transposed copy."""
+    import inspect
+
+    from ragb_vae_tpu_torch.ops.kernels import resnet_block as rb
+
+    src = inspect.getsource(rb.conv3x3_stats_bwd_cuda)
+    assert "wst" not in src and "ws.to(x.dtype).t()" not in src and "ws = ws.to(x.dtype).contiguous()" in src

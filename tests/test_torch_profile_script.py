@@ -1,6 +1,7 @@
 """`scripts/profile_torch_slice.py`'s device-time breakdown sorts each
-kernel of the port into its own class (K8, K3's merge, the conv engine's
-modes: K1 / K12, K2, K6's and K7's data gradients and K9 / K11 apart, K10's
+kernel of the port into its own class (K8 and its activation pass, K3's
+merge, the conv engine's modes: K1 / K12, K2, K6's data gradient and dskip,
+K7's data gradient and K9 / K11 apart, K10's
 two kernels, K6's and K7's weight gradients and their slice sum included),
 and its `--conv-algo` switch names the resnet-conv routes.
 CPU only: the script's measurements need the card, its classifier does not."""
@@ -21,7 +22,10 @@ def profile():
 
 
 @pytest.mark.parametrize("kernel,cls", [
-    ("void (anonymous namespace)::wino_conv_kernel((anonymous namespace)::WinoArgs)", "K8 Winograd conv"),
+    ("void (anonymous namespace)::wino_conv_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, float*, int, int, int, int, int, int, int)", "K8 Winograd conv"),
+    ("void (anonymous namespace)::wino_act_kernel(uint4 const*, float const*, float const*, uint4*, unsigned long, "
+     "int, unsigned long, int)", "K8 activation pass"),
     ("void (anonymous namespace)::flash_fwd_wgmma_kernel<128>(CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, float*, float*, float*, float*, int, int, float, int)", "K3 flash attention"),
     ("void (anonymous namespace)::flash_fwd_wgmma_kernel<512>(CUtensorMap_st)", "K3 flash attention"),
@@ -59,7 +63,9 @@ def profile():
      "float*, int, int, int, int, int)", "K7 data gradient on the conv engine"),
     ("void (anonymous namespace)::dye_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
      "__nv_bfloat16*, float*, int, int, int)", "K6/K7 dye pass and partial reduces"),
-    ("void (anonymous namespace)::conv_taps_kernel<2, 0>(ConvArgs)", "K6 skip-projection gradient"),
+    ("void (anonymous namespace)::conv_sm90_kernel<6>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, float const*, int, int, int, "
+     "float*, int, int, int, int, int, int)", "K6 dskip on the conv engine"),
     ("void (anonymous namespace)::flash_dq_kernel<128>(...)", "K4 attention dQ"),
     ("void (anonymous namespace)::flash_dq_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, float const*, float const*, int, int, float)", "K4 attention dQ"),

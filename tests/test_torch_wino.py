@@ -52,14 +52,17 @@ def _jax_call(ops, activation):
 
 
 def test_wino_weights_match_jax():
+    """`wino_weights` is the JAX package's row fold (2, 4, 3C, N) bit for bit;
+    K8's 16 unsigned tiles fold to it, and the cast comes after the fp32 fold."""
     w = np.random.default_rng(1).standard_normal((3, 3, 8, 12)).astype(np.float32)
-    u = trb.wino_weights(_t(w))
-    assert u.shape == (4, 4, 8, 12) and u.dtype == torch.float32
-    # the JAX package also folds A^T's rows into the contraction
-    folded = torch.stack([torch.cat([u[0], u[1], u[2]], dim=1), torch.cat([u[1], -u[2], -u[3]], dim=1)])
+    folded = trb.wino_weights(_t(w))
+    assert folded.shape == (2, 4, 24, 12) and folded.dtype == torch.float32
     np.testing.assert_array_equal(folded.numpy(), np.asarray(jrb._wino_weights(jnp.asarray(w))))
-    # the cast comes after the fp32 fold
-    assert trb.wino_weights(_t(w), torch.bfloat16).equal(u.to(torch.bfloat16))
+    u = trb.wino_tiles(_t(w))
+    assert u.shape == (4, 4, 8, 12) and u.dtype == torch.float32
+    assert folded.equal(torch.stack([torch.cat([u[0], u[1], u[2]], dim=1), torch.cat([u[1], -u[2], -u[3]], dim=1)]))
+    assert trb.wino_weights(_t(w), torch.bfloat16).equal(folded.to(torch.bfloat16))
+    assert trb.wino_tiles(_t(w), torch.bfloat16).equal(u.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("activation,skip", [("silu", None), ("silu", "identity"), ("identity", "proj")])
@@ -175,3 +178,30 @@ def test_wino_cuda_wrapper_refuses_cpu_tensors_and_odd_sizes():
         trb.wino_conv3x3_stats_cuda(x, a, b, w, bias)
     with pytest.raises(ValueError, match="even"):
         trb.wino_conv3x3_stats_plain(x[:, :1], a, b, w, bias)
+
+
+def test_wino_tiles_are_folded_once_per_weight_and_version():
+    """A fused ResnetBlock keeps its convs' Winograd tiles per weight and
+    version, under autograd too (U is detached), and folds them again after
+    an in-place step, a cast of the module (which keeps the Parameter and
+    its version), a new `.data` and a loaded state dict."""
+    from ragb_vae_tpu_torch.models.vae import ResnetBlock
+
+    torch.manual_seed(6)
+    block = ResnetBlock(8, 16, num_groups=4, fused=True)
+    tiles = lambda: block._wino_tiles("conv1", block.conv1, torch.bfloat16)
+    want = lambda: trb.wino_tiles(block.conv1.weight.detach().permute(2, 3, 1, 0).to(torch.bfloat16))
+    first = tiles()
+    assert tiles() is first and first.equal(want()) and first.is_contiguous() and not first.requires_grad
+    with torch.no_grad():
+        block.conv1.weight.mul_(2.0)
+    again = tiles()
+    assert again is not first and again.equal(want())
+    block.to(torch.float64)
+    cast = tiles()
+    assert cast is not again and cast.equal(want())
+    block.conv1.weight.data = torch.randn_like(block.conv1.weight)
+    assert tiles().equal(want())
+    state = {k: torch.randn_like(v) for k, v in block.state_dict().items()}
+    block.load_state_dict(state)
+    assert tiles().equal(want())
