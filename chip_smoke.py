@@ -21,8 +21,11 @@ clock; any failure exits non-zero without the final line):
              beside `torch.matmul` of the same product.
 4. slice   - builds FluxTextAlphaModel at full published width (FLUX.1-Kontext
              transformer, FLUX `ae` RGBA VAE) with random weights from a seed,
-             serves 3 requests through InferenceServer, checks each answer and
-             that every kernel launched during that run.
+             serves 3 requests as uint8 PNGs over HTTP through the serving
+             daemon (`serving_daemon.make_httpd` on 127.0.0.1 over an
+             InferenceServer), reads /healthz before and after, checks each
+             answer and that every kernel launched during that run, then
+             shuts the daemon down and drains it.
 6. lora    - (runs before phase 5, on the serving phase's model) attaches
              rank-128 LoRA adapters to the full-width FLUX.1-Kontext
              transformer (frozen bf16 base, fp32 adapters, per-block
@@ -1220,6 +1223,88 @@ def _serve_three(phase: str, model, counters: dict, sizes=((512, 512), (512, 512
     return counts, peak, server.stats["batches"]
 
 
+def _serve_three_http(phase: str, model, counters: dict, sizes=((512, 512), (512, 512), (600, 400))):
+    """`_serve_three` through the serving daemon: the three requests, seeds
+    0-2, are sent at once as uint8 PNGs to `/predict` of the daemon's own HTTP
+    server (`serving_daemon.make_httpd`, 127.0.0.1, a free port) over an
+    InferenceServer of 4 sampler steps; `/healthz` is read before and after;
+    the daemon is shut down and drained before the checks.
+    -> (counts, peak bytes, batches)."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from ragb_vae_tpu_torch import serving_daemon
+    from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
+
+    def png(arr):
+        buf = io.BytesIO()
+        Image.fromarray(arr, "RGBA").save(buf, format="PNG")
+        return buf.getvalue()
+
+    def call(url, data=None):
+        """-> (status, body, seconds) of a GET (no data) or POST."""
+        t = time.perf_counter()
+        req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=900) as resp:
+                return resp.status, resp.read(), time.perf_counter() - t
+        except urllib.error.HTTPError as err:
+            return err.code, err.read(), time.perf_counter() - t
+
+    rng = np.random.default_rng(SEED)
+    images = [(rng.uniform(size=(*size, 4)) * 255.0 + 0.5).astype(np.uint8) for size in sizes]
+    bodies = [png(img) for img in images]
+    server = InferenceServer(model, ServeConfig(max_batch=2, steps=SERVE_STEPS, auto_batch=False)).start()
+    httpd = serving_daemon.make_httpd(server, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    # a short poll: shutdown() waits for the serving loop's next poll
+    thread = threading.Thread(target=httpd.serve_forever, kwargs={"poll_interval": 0.05},
+                              name="chip-smoke-httpd", daemon=True)
+    thread.start()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    try:
+        before = call(f"{base}/healthz")
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            answers = list(pool.map(lambda i: call(f"{base}/predict?seed={i}", bodies[i]), range(len(bodies))))
+        after = call(f"{base}/healthz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        drained = server.drain(timeout=60)
+    counts = {name: read() for name, read in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if thread.is_alive() or not drained:
+        raise SystemExit(f"[{phase}] the daemon did not shut down and drain (drained={drained})")
+    health = [json.loads(b) if code == 200 else {"status": code} for code, b, _ in (before, after)]
+    for img, (code, body, t) in zip(images, answers):
+        if code != 200:
+            raise SystemExit(f"[{phase}] request {img.shape[0]}x{img.shape[1]} failed: {code} {body[:300]!r}")
+        got = Image.open(io.BytesIO(body))
+        if got.mode != "RGBA" or got.size != (img.shape[1], img.shape[0]):
+            raise SystemExit(f"[{phase}] answer {got.mode} {got.size} for a {img.shape[1]}x{img.shape[0]} request")
+        out = np.asarray(got, np.float32) / 255.0
+        if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
+            raise SystemExit(f"[{phase}] output not finite or outside [0, 1]")
+        log(phase, f"request {img.shape[0]}x{img.shape[1]} over HTTP: client latency {t:.3f} s, "
+            f"{len(body)} B PNG, out range [{out.min():.3f}, {out.max():.3f}] mean {out.mean():.4f}")
+    log(phase, f"/healthz before {health[0]}")
+    log(phase, f"/healthz after {health[1]} drained={drained}")
+    log(phase, f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+    if health[0].get("served") != 0 or health[1].get("served") != len(images):
+        raise SystemExit(f"[{phase}] /healthz served {health[0].get('served')} -> {health[1].get('served')}, "
+                         f"expected 0 -> {len(images)}")
+    if not all(n > 0 for n in counts.values()):
+        raise SystemExit(f"[{phase}] a kernel of the path never launched: {counts}")
+    return counts, peak, health[1]["batches"]
+
+
 def phase_slice():
     """-> (launch counts, the model, for the later phases to train and to
     quantise, its peak memory)."""
@@ -1240,7 +1325,7 @@ def phase_slice():
         f"RGBA VAE in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
-    counts, peak, _ = _serve_three("slice", model, {
+    counts, peak, _ = _serve_three_http("slice", model, {
         "resnet_conv3x3_stats": lambda: rb.CONV_LAUNCHES,
         "subpixel_upsample_conv3x3_stats": lambda: rb.UPSAMPLE_LAUNCHES,
         "flash_attention_fwd": lambda: fa.LAUNCHES,

@@ -1,11 +1,12 @@
-"""RgbaVAE: the RGBA-widened AutoencoderKL.
+"""RgbaVAE: the RGBA-widened AutoencoderKL with the AlphaVAE inline loss.
 
 Counterpart of `ragb_vae_tpu/models/rgba_vae.py` (encode, decode, forward,
-reconstruct, the fused switch, `remat`, tiling and `from_pretrained_rgb`; the
-inline loss and batch slicing are not ported: training uses
-`models/losses.py`, as the JAX training loop does). Where the JAX class
-passes parameters explicitly, this one owns an `AutoencoderKL` module
-(`.module`) whose state dict carries the diffusers keys.
+reconstruct, the fused switch, `remat`, tiling, `from_pretrained_rgb`, the
+loss weights and `loss`; batch slicing is not ported). The training step
+does not call `loss`: it uses `models/losses.py`, as the JAX training loop
+does. Where the JAX class passes parameters explicitly, this one owns an
+`AutoencoderKL` module (`.module`) whose state dict carries the diffusers
+keys.
 
 `dtype` is the parameters' dtype and `compute_dtype` (default: the same)
 the dtype of activations and kernel operands: serving holds bf16
@@ -14,35 +15,70 @@ parameters, training fp32 parameters with bf16 compute.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from ragb_vae_tpu_torch.device import resolve_device
+from ragb_vae_tpu_torch.models.losses import (
+    DEFAULT_EB,
+    DEFAULT_EB2,
+    alphavae_reconstruction_loss,
+    reduce_loss,
+)
 from ragb_vae_tpu_torch.models.vae import AutoencoderKL
 from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
 from ragb_vae_tpu_torch.models.vae_tiling import needs_tiling, tiled_decode, tiled_encode_moments
 from ragb_vae_tpu_torch.models.weights import load_autoencoder_params
 from ragb_vae_tpu_torch.ops.gaussian import DiagonalGaussian
-from ragb_vae_tpu_torch.ops.rgba import ensure_alpha, from_vae_range, to_vae_range
+from ragb_vae_tpu_torch.ops.rgba import (
+    composite_over_black,
+    composite_over_white,
+    ensure_alpha,
+    from_vae_range,
+    to_vae_range,
+)
 
 Tensor = torch.Tensor
 
 
 class RgbaVAE:
-    """Holds the AutoencoderKL module; NHWC images in [0, 1] at the edges."""
+    """Holds the AutoencoderKL module and the weights of `loss`; NHWC images
+    in [0, 1] at the edges."""
 
     def __init__(
         self,
         config: AutoencoderConfig,
         *,
+        beta: float = 0.25,
+        alpha_loss_weight: float = 1.0,
+        alpha_l1_weight: float = 0.0,
+        rgb_loss_weight: float = 1.0,
+        white_bg_weight: float = 0.0,
+        black_bg_weight: float = 0.0,
+        loss_reduce_mean: bool = False,
+        use_naive_mse: bool = False,
+        eb: Sequence[float] = DEFAULT_EB,
+        eb2: Sequence[float] = DEFAULT_EB2,
         dtype: torch.dtype = torch.float32,
         compute_dtype: Optional[torch.dtype] = None,
         fused: bool = False,
         remat: Union[bool, str] = "none",
         device: Union[str, torch.device, None] = None,
     ):
+        if len(eb) != 3 or len(eb2) != 3:
+            raise ValueError("custom_eb and custom_eb2 must each provide three channel weights.")
         self.config = config
+        self.beta = beta
+        self.alpha_loss_weight = alpha_loss_weight
+        self.alpha_l1_weight = alpha_l1_weight
+        self.rgb_loss_weight = rgb_loss_weight
+        self.white_bg_weight = white_bg_weight
+        self.black_bg_weight = black_bg_weight
+        self.loss_reduce_mean = loss_reduce_mean
+        self.use_naive_mse = use_naive_mse
+        self.eb = tuple(eb)
+        self.eb2 = tuple(eb2)
         self.dtype = dtype
         self.compute_dtype = compute_dtype or dtype
         self.fused = fused
@@ -87,6 +123,16 @@ class RgbaVAE:
         subfolder: Optional[str] = "vae",
         *,
         alpha_bias_init: float = 0.0,
+        beta: float = 0.25,
+        alpha_loss_weight: float = 1.0,
+        alpha_l1_weight: float = 0.0,
+        rgb_loss_weight: float = 1.0,
+        white_bg_weight: float = 0.0,
+        black_bg_weight: float = 0.0,
+        loss_reduce_mean: bool = False,
+        use_naive_mse: bool = False,
+        custom_eb: Optional[Sequence[float]] = None,
+        custom_eb2: Optional[Sequence[float]] = None,
         dtype: torch.dtype = torch.float32,
         compute_dtype: Optional[torch.dtype] = None,
         remat: Union[bool, str] = "none",
@@ -94,12 +140,19 @@ class RgbaVAE:
     ) -> "RgbaVAE":
         """Load an RGB (or already RGBA) diffusers checkpoint, widened to RGBA,
         onto `device`: the card unless the caller names the CPU; a missing
-        card raises."""
+        card raises. The loss weights are `loss`'s (JAX's names and defaults)."""
         device = resolve_device(device)
         config, state = load_autoencoder_params(
             model_name_or_path, subfolder, adapt_to_rgba=True, alpha_bias_init=alpha_bias_init
         )
-        model = cls(config, dtype=dtype, compute_dtype=compute_dtype, remat=remat, device="meta")
+        model = cls(
+            config, beta=beta, alpha_loss_weight=alpha_loss_weight, alpha_l1_weight=alpha_l1_weight,
+            rgb_loss_weight=rgb_loss_weight, white_bg_weight=white_bg_weight,
+            black_bg_weight=black_bg_weight, loss_reduce_mean=loss_reduce_mean,
+            use_naive_mse=use_naive_mse,
+            eb=DEFAULT_EB if custom_eb is None else custom_eb,
+            eb2=DEFAULT_EB2 if custom_eb2 is None else custom_eb2,
+            dtype=dtype, compute_dtype=compute_dtype, remat=remat, device="meta")
         model.module.load_state_dict(
             {k: v.to(device=device, dtype=dtype) for k, v in state.items()}, strict=True, assign=True
         )
@@ -151,3 +204,32 @@ class RgbaVAE:
     def reconstruct(self, x: Tensor, **kw) -> Tensor:
         recon, _ = self.forward(x, **kw)
         return recon
+
+    def loss(self, recon: Tensor, target: Tensor, posterior: DiagonalGaussian) -> Tensor:
+        """Weighted sum of the Eq. 9 reconstruction (or the naive RGB MSE), the
+        white / black background composites' MSE, alpha MSE / L1 and
+        beta * KL, in fp32. `recon` and `target` are RGB(A) in [0, 1]."""
+        target_rgba = ensure_alpha(target).float()
+        recon_rgba = ensure_alpha(recon).float()
+        total = torch.zeros((), dtype=torch.float32, device=recon_rgba.device)
+        if self.rgb_loss_weight > 0.0:
+            if self.use_naive_mse:
+                base = reduce_loss((recon_rgba[..., :3] - target_rgba[..., :3]) ** 2,
+                                   reduce_mean=self.loss_reduce_mean)
+            else:
+                base = alphavae_reconstruction_loss(
+                    recon_rgba * 2.0 - 1.0, target_rgba * 2.0 - 1.0,
+                    eb=self.eb, eb2=self.eb2, reduce_mean=self.loss_reduce_mean)
+            total = total + self.rgb_loss_weight * base
+        if self.white_bg_weight > 0.0:
+            total = total + self.white_bg_weight * torch.mean(
+                (composite_over_white(recon_rgba) - composite_over_white(target_rgba)) ** 2)
+        if self.black_bg_weight > 0.0:
+            total = total + self.black_bg_weight * torch.mean(
+                (composite_over_black(recon_rgba) - composite_over_black(target_rgba)) ** 2)
+        alpha_diff = recon_rgba[..., 3:] - target_rgba[..., 3:]
+        if self.alpha_loss_weight > 0.0:
+            total = total + self.alpha_loss_weight * torch.mean(alpha_diff**2)
+        if self.alpha_l1_weight > 0.0:
+            total = total + self.alpha_l1_weight * torch.mean(torch.abs(alpha_diff))
+        return total + self.beta * torch.mean(posterior.kl())

@@ -26,12 +26,18 @@ means nothing to `torch.optim`. It is written last and marks the checkpoint
 complete. The adapters and `metadata.json` interchange with the JAX package
 in both directions.
 
+SIGTERM ends the run at the next step boundary: the step is saved as a
+resumable `checkpoint-{N}`, no `final` is written, the result carries
+`"preempted": 1.0` and `resume_from: auto` continues from there
+(`handle_preemption: false`, `--no-handle_preemption` or
+`RAGB_NO_PREEMPTION=1` turn the guard off). Every `log_every` steps the loss
+and the learning rate go to `<ckpt_dir>/metrics.jsonl`, as the JAX stage
+writes them.
+
 `--device` names where the stage runs (default `cuda`; a missing card raises).
 
-Not ported yet (each raises, or is left out): `--shard_base_params`,
-`--tensor_parallel` and `--sequence_parallel` above 1,
-more than one process, the preemption guard and the metrics logger (`log_fn`
-receives what the logger would).
+Not ported yet (each raises): `--shard_base_params`, `--tensor_parallel` and
+`--sequence_parallel` above 1, more than one process.
 """
 from __future__ import annotations
 
@@ -59,6 +65,8 @@ from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
 from ragb_vae_tpu_torch.parallel.grad_accum import accumulated_grads
 from ragb_vae_tpu_torch.training.rgba_vae_stage import _to_uint8, pad_to_multiple, padding_weights
 from ragb_vae_tpu_torch.training.vae_step import ClippedAdamW, global_norm
+from ragb_vae_tpu_torch.utils.metrics_logger import MetricsLogger
+from ragb_vae_tpu_torch.utils.preemption import PreemptionGuard, preemption_enabled
 
 Tensor = torch.Tensor
 TRAIN_STATE_FILE = "train_state.pt"
@@ -124,6 +132,10 @@ def parse_args(args: Optional[List[str]] = None, *, allow_missing: bool = False)
                              "quantised at load); gradients flow only to the fp32 adapters.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Device to train on. 'cuda' without a CUDA device is an error.")
+    # left out of the namespace unless given, as in the JAX stage's: absent means on
+    parser.add_argument("--handle_preemption", action=argparse.BooleanOptionalAction, default=argparse.SUPPRESS,
+                        help="On SIGTERM, save a resumable checkpoint-N at the next step and stop "
+                             "(default on; RAGB_NO_PREEMPTION=1 also turns it off).")
     parser.add_argument("--shard_base_params", action="store_true", help="Not ported yet.")
     parser.add_argument("--tensor_parallel", type=int, default=1, help="Above 1: not ported yet.")
     parser.add_argument("--sequence_parallel", type=int, default=1, help="Above 1: not ported yet.")
@@ -268,7 +280,7 @@ def train(
     example with random weights); adapters of `args.rank` are attached when
     it has none. `log_fn(step, metrics)` is called at every `log_every`-th
     step with the loss, the gradient norm before the clip and the learning
-    rate."""
+    rate; the loss and the learning rate also go to `<ckpt_dir>/metrics.jsonl`."""
     _check_ported(args)
     device = resolve_device(device if device is not None else getattr(args, "device", "cuda"))
     weight_quant = getattr(args, "weight_quant", "none")
@@ -368,6 +380,7 @@ def train(
                    save_dir / TRAIN_STATE_FILE)
         print(f"[ckpt] saved LoRA weights to {save_dir}")
 
+    metrics_logger = MetricsLogger(args.ckpt_dir)
     total_steps = 0
     resume_dir = getattr(args, "resume_from", None)
     if resume_dir == "auto":
@@ -398,39 +411,57 @@ def train(
 
     last_loss = float("nan")
     loss = None
+    preempted = False
     t0 = time.time()
     start_steps = total_steps
     epoch = 0
-    while total_steps < args.max_train_steps:
-        train_dl.set_epoch(epoch)
-        for batch in cuda_prefetch(_padded_batches(train_dl, n_micro), device):
-            loss, _, grad_norm = train_step(batch, generator, total_steps)
-            total_steps += 1
+    guard = PreemptionGuard(
+        enabled=preemption_enabled({"handle_preemption": getattr(args, "handle_preemption", True)}))
+    with guard:
+        while total_steps < args.max_train_steps and not preempted:
+            train_dl.set_epoch(epoch)
+            for batch in cuda_prefetch(_padded_batches(train_dl, n_micro), device):
+                loss, _, grad_norm = train_step(batch, generator, total_steps)
+                total_steps += 1
 
-            if total_steps % args.log_every == 0:
-                last_loss = float(loss)
-                if not math.isfinite(last_loss):
-                    raise FloatingPointError(f"Non-finite loss at step {total_steps}.")
-                lr_now = lr_schedule(total_steps)
-                rate = (total_steps - start_steps) / max(time.time() - t0, 1e-9)
-                print(f"[step {total_steps}] loss={last_loss:.4f} lr={lr_now:.6f} "
-                      f"({rate:.2f} steps/s)", flush=True)
-                if log_fn is not None:
-                    log_fn(total_steps, {"train/loss": last_loss, "lr": lr_now,
-                                         "train/grad_norm": float(grad_norm)})
-            if args.save_every and total_steps % args.save_every == 0:
-                save_lora(total_steps, f"checkpoint-{total_steps}")
-            if args.val_every and total_steps % args.val_every == 0:
-                run_validation(str(total_steps))
-            if total_steps >= args.max_train_steps:
-                break
-        epoch += 1
+                if total_steps % args.log_every == 0:
+                    last_loss = float(loss)
+                    if not math.isfinite(last_loss):
+                        raise FloatingPointError(f"Non-finite loss at step {total_steps}.")
+                    lr_now = lr_schedule(total_steps)
+                    metrics_logger.log({"train/loss": last_loss, "lr": lr_now}, step=total_steps)
+                    rate = (total_steps - start_steps) / max(time.time() - t0, 1e-9)
+                    print(f"[step {total_steps}] loss={last_loss:.4f} lr={lr_now:.6f} "
+                          f"({rate:.2f} steps/s)", flush=True)
+                    if log_fn is not None:
+                        log_fn(total_steps, {"train/loss": last_loss, "lr": lr_now,
+                                             "train/grad_norm": float(grad_norm)})
+                saved = bool(args.save_every) and total_steps % args.save_every == 0
+                if saved:
+                    save_lora(total_steps, f"checkpoint-{total_steps}")
+                if args.val_every and total_steps % args.val_every == 0:
+                    run_validation(str(total_steps))
+                if guard.should_stop():
+                    # leave with a resumable checkpoint-N for `resume_from: auto`
+                    preempted = True
+                    print(f"[LoRA] preempted at step {total_steps} ({guard.describe()}) "
+                          "- checkpointing and exiting", flush=True)
+                    if not saved:
+                        save_lora(total_steps, f"checkpoint-{total_steps}")
+                    break
+                if total_steps >= args.max_train_steps:
+                    break
+            epoch += 1
 
-    save_lora(args.max_train_steps, "final")
-    print("Done.")
+    if not preempted:
+        save_lora(args.max_train_steps, "final")
+    print("Preempted." if preempted else "Done.")
     if not math.isfinite(last_loss) and loss is not None:
         last_loss = float(loss)
-    return {"train/loss": last_loss, "global_step": float(total_steps)}
+    out = {"train/loss": last_loss, "global_step": float(total_steps)}
+    if preempted:
+        out["preempted"] = 1.0
+    return out
 
 
 def build_args_from_cfg(cfg: Dict[str, Any]) -> argparse.Namespace:
@@ -486,6 +517,7 @@ def build_args_from_cfg(cfg: Dict[str, Any]) -> argparse.Namespace:
         ("tensor_parallel", "tensor_parallel", int),
         ("sequence_parallel", "sequence_parallel", int),
         ("weight_quant", "weight_quant", str),
+        ("handle_preemption", "handle_preemption", bool),
         ("seed", "seed", int),
     )
     for src, dst, cast in train_keys:

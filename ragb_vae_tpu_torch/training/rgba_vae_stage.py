@@ -417,6 +417,12 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
     subfolder = default_subfolder if subfolder is None else subfolder
     model = RgbaVAE.from_pretrained_rgb(
         rgb_ckpt, subfolder=subfolder, alpha_bias_init=model_cfg.get("alpha_bias_init", 0.0),
+        beta=model_cfg.get("beta", 0.25),
+        alpha_loss_weight=model_cfg.get("alpha_loss_weight", 1.0),
+        alpha_l1_weight=model_cfg.get("alpha_l1_weight", 0.0),
+        rgb_loss_weight=model_cfg.get("rgb_loss_weight", 1.0),
+        white_bg_weight=model_cfg.get("white_bg_loss_weight", 0.0),
+        black_bg_weight=model_cfg.get("black_bg_loss_weight", 0.0),
         dtype=torch.float32, compute_dtype=compute_dtype,
         remat=_remat(train_cfg.get("vae_gradient_checkpointing", False)), device=device)
     if train_cfg.get("vae_tiling", True):

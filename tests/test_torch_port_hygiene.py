@@ -32,7 +32,9 @@ ROOT = Path(ragb_vae_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragb_vae_tpu")
 PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py",
-    "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py", "k1_stage_variants.py", "k8_variants.py")]
+    "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py", "k1_stage_variants.py", "k8_variants.py",
+    "serve_torch.py", "convert_qwen_vae_to_rgba_torch.py", "prepare_rgba_vae_init_torch.py",
+    "dataset_sanity_check_torch.py", "rgb_vae_sanity_check_torch.py", "time_serving_daemon.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -53,6 +55,43 @@ def _imported_modules(path: Path):
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_SCRIPTS, ids=lambda p: p.name)
+def test_port_scripts_import_no_jax_script_by_its_bare_name(path):
+    """The scripts put `scripts/` on sys.path and import each other by bare
+    name; a sibling that is not a port script is a JAX script (for example
+    `convert_qwen_vae_to_rgba`), which the scan above would not see."""
+    jax_scripts = {p.stem for p in (ROOT.parent / "scripts").glob("*.py")} - {p.stem for p in PORT_SCRIPTS}
+    bad = [m for m in _imported_modules(path) if m in jax_scripts]
+    assert not bad, f"{path} imports the JAX scripts {bad}"
+
+
+def test_scan_covers_the_front_door():
+    scanned = {str(p.relative_to(ROOT.parent)) for p in SOURCES}
+    assert {"ragb_vae_tpu_torch/serving_daemon.py", "ragb_vae_tpu_torch/_cli.py", "scripts/serve_torch.py",
+            "inference_rgba_flux_torch.py"} <= scanned
+
+
+TORCH_ENTRY_POINTS = ("ragb-train-torch", "ragb-infer-torch", "ragb-serve-torch")
+
+
+def _project_scripts() -> dict:
+    import tomllib
+
+    return tomllib.loads((ROOT.parent / "pyproject.toml").read_text())["project"]["scripts"]
+
+
+def test_torch_entry_points_are_the_ones_listed():
+    assert {k for k in _project_scripts() if k.endswith("-torch")} == set(TORCH_ENTRY_POINTS)
+    assert {"ragb-train", "ragb-infer", "ragb-serve"} <= set(_project_scripts())   # the JAX ones stay
+
+
+@pytest.mark.parametrize("name", TORCH_ENTRY_POINTS)
+def test_torch_entry_point_resolves_to_a_function_of_the_port_cli(name):
+    module, _, attr = _project_scripts()[name].partition(":")
+    assert module == "ragb_vae_tpu_torch._cli"
+    assert callable(getattr(importlib.import_module(module), attr))
 
 
 def test_every_module_imports_without_a_toolkit():
