@@ -9,7 +9,12 @@ clock; any failure exits non-zero without the final line):
 
 1. device  - a CUDA device must exist; prints the card's name and power limit
              and turns TF32 off.
-2. build   - compiles the hand-written kernels from `ragb_vae_tpu_torch/csrc`.
+2. build   - compiles the hand-written kernels from `ragb_vae_tpu_torch/csrc`
+             and, beside them with g++, the native PNG codec
+             (`csrc/rgba_io.cpp`, libpng); prints whether the codec built and
+             the host ms of a 512^2 RGBA PNG decode and encode, native against
+             PIL (a missing libpng is reported, not a failure: the loaders
+             then keep PIL, as the JAX package does).
 3. kernels - each kernel against its plain PyTorch version and against an
              exact fp32 reference (the attention's log-sum-exp included; the
              Winograd conv against the exact direct conv), in
@@ -31,7 +36,7 @@ clock; any failure exits non-zero without the final line):
              transformer (frozen bf16 base, fp32 adapters, per-block
              recompute), writes a small (gt, text_alpha) PNG tree at 512^2 and
              runs the LoRA stage's own loop through `train_from_config` for 2
-             optimizer steps of 4 pairs in 2 micro-batches, saves, reloads the
+             optimizer steps of 2 pairs in 2 micro-batches, saves, reloads the
              adapters, checks losses, gradients, what moved and that the
              attention forward and both backward kernels launched, then holds
              the adapters' gradient tree through the kernels against the plain
@@ -58,7 +63,14 @@ clock; any failure exits non-zero without the final line):
              512^2 (8 images in 2 micro-batches of 4) and one eval step, checks
              losses, gradients, parameter movement and that the forward and
              backward kernels launched, then holds the whole gradient tree
-             through the kernels against the plain route at 128^2.
+             through the kernels against the plain route at 128^2. Then the
+             optimizer offload at the same width: two ZeRO-2 steps
+             (`make_train_step(mesh=)` on a 1-process data axis) with the
+             AdamW moments in pinned host memory between steps, against two
+             `ClippedAdamW` steps and two ZeRO-2 steps without offload from
+             the same start on the same 128^2 images and noise; the moments
+             must lie in pinned host memory between steps, and the device
+             memory (peak and resident) with and without offload is printed.
 9. stage1  - the stage-1 loop through `run_stage` on configs/flux_vae.yaml,
              overlaid at full FLUX `ae` width (a seeded random RGB checkpoint
              and LPIPS weights written as files, a PNG tree with a w512-h512
@@ -67,7 +79,12 @@ clock; any failure exits non-zero without the final line):
              forward through both conv routes, then 2 steps, validation
              through the tiled encode and decode, the periodic and the final
              save, the step-2 checkpoint's weights reloaded bit for bit, and
-             `resume_from: auto` for step 3 from the saved AdamW state.
+             `resume_from: auto` for step 3 from the saved AdamW state. The
+             loop runs inside a real NCCL process group of world size 1 (a
+             FileStore in the phase's temp dir), so its step is the ZeRO-2
+             step and its checkpoints go through the gathered optimizer
+             state; NCCL's reduce-scatter, all-gather and all-reduce are
+             first run once on the card and checked.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -75,12 +92,14 @@ The last two lines are a JSON summary of the kernels and
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -347,10 +366,66 @@ def phase_device() -> str:
 # phase 2: build
 # ---------------------------------------------------------------------------
 def phase_build() -> None:
+    """nvcc for the kernels and, on a thread beside it, g++ for the codec."""
+    from ragb_vae_tpu_torch.data import native_io
+
     t0 = time.perf_counter()
+    codec = {}
+
+    def build_codec():
+        codec["available"] = native_io.available()
+        codec["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build_codec)
+    thread.start()
     _build.build()
     _build.library()
     log("build", f"{_build.library_path().name} ready in {time.perf_counter() - t0:.1f} s")
+    thread.join()
+    if not codec["available"]:
+        why = [line for line in str(native_io.load_error).splitlines() if "error" in line] or [native_io.load_error]
+        log("build", f"native PNG codec NOT available on this host (the loaders keep PIL): {why[0].strip()}")
+        return
+    log("build", f"native PNG codec {_build.rgba_io_path().name} ready in {codec['s']:.1f} s")
+    _codec_times(native_io)
+
+
+def _codec_times(native_io) -> None:
+    """Host ms (median of 5) of one 512^2 RGBA PNG decoded to float32 and
+    encoded from it, by the native codec and by the PIL path of
+    `data/image_io.py`; the two decodes must agree to one 8-bit level."""
+    from PIL import Image
+
+    from ragb_vae_tpu_torch.data.image_io import pil_to_array
+
+    rng = np.random.default_rng(SEED + 13)
+    low = (rng.uniform(size=(16, 16, 4)) * 255).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "in.png"
+        Image.fromarray(low, mode="RGBA").resize((512, 512), resample=3).save(path)
+
+        def pil_decode():
+            with Image.open(path) as img:
+                return pil_to_array(img.convert("RGBA"))
+
+        def pil_encode(arr):
+            Image.fromarray((np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8), mode="RGBA").save(Path(tmp) / "p.png")
+
+        def median_ms(fn, *args):
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                fn(*args)
+                times.append(1e3 * (time.perf_counter() - t))
+            return statistics.median(times)
+
+        native, pil = native_io.decode_png(path), pil_decode()
+        if np.abs(native - pil).max() > 1.0 / 255:
+            raise SystemExit("[build] the native PNG decode disagrees with PIL's")
+        encode_native = median_ms(native_io.encode_png, Path(tmp) / "n.png", native)
+        log("build", f"512^2 RGBA PNG ({path.stat().st_size} bytes), host ms: decode native "
+            f"{median_ms(native_io.decode_png, path):.2f} / PIL {median_ms(pil_decode):.2f}; encode native "
+            f"{encode_native:.2f} / PIL {median_ms(pil_encode, native):.2f}")
 
 
 # ---------------------------------------------------------------------------
@@ -1513,7 +1588,81 @@ def phase_train() -> dict:
         raise SystemExit(f"[train] a kernel of the path never launched: {counts}")
     del before, optimizer, train_step
     _grad_tree_check(model, ref, lpips_fn, loss_cfg, step_cfg)
+    del model, ref, lpips_fn
+    torch.cuda.empty_cache()
+    _offload_check()
     return counts
+
+
+# The optimizer offload: two ZeRO-2 steps with the moments in pinned host
+# memory against two ClippedAdamW steps from the same start. The gradients
+# are the same computation on both routes; the routes differ in the global
+# norm's summation order (one flat buffer against a norm of norms), which
+# moves the clip scale by ~1e-7 relative, and AdamW is elementwise. Each
+# parameter tensor is held as the CPU tests hold world 2 against world 1:
+# mean error within OFFLOAD_RTOL of its largest entry plus 1e-3 of one
+# update (lr), no entry beyond one update.
+OFFLOAD_RTOL = 1e-5
+OFFLOAD_LR = 1e-4
+
+
+def _offload_check() -> None:
+    from ragb_vae_tpu_torch.models.losses import AlphaVaeLossConfig
+    from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
+    from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
+    from ragb_vae_tpu_torch.parallel.mesh import Mesh
+    from ragb_vae_tpu_torch.training.vae_step import (
+        VaeStepConfig, init_train_state, make_optimizer, make_train_step, trainable_parameters)
+
+    cfg = AutoencoderConfig.flux()
+    cfg.in_channels = cfg.out_channels = 4
+    torch.manual_seed(SEED + 11)
+    model = RgbaVAE(cfg, dtype=torch.float32, compute_dtype=torch.bfloat16, fused=True, remat="half",
+                    device="cuda")
+    start = {k: v.detach().cpu() for k, v in model.module.state_dict().items()}
+    gen = torch.Generator("cuda").manual_seed(SEED + 12)
+    batches = [({"images": torch.rand((2, 128, 128, 4), generator=gen, device="cuda")},
+                torch.randn((2, 16, 16, cfg.latent_channels), generator=gen, device="cuda")) for _ in range(2)]
+    routes = {}
+    for label, mesh, offload in (("ClippedAdamW", None, False), ("ZeRO-2", Mesh(), False),
+                                 ("ZeRO-2 offload", Mesh(), True)):
+        model.module.load_state_dict(start)
+        optimizer = make_optimizer(trainable_parameters(model), OFFLOAD_LR, max_grad_norm=1.0)
+        state = init_train_state(model, optimizer, mesh=mesh, offload=offload)
+        step = make_train_step(model, optimizer if mesh is None else state, AlphaVaeLossConfig(reduce_mean=True),
+                               VaeStepConfig(kl_scale=1e-6), mesh=mesh, offload_opt_state=offload)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pinned = []
+        for batch, eps in batches:
+            metrics = step(batch, eps=eps)
+            torch.cuda.synchronize()
+            if mesh is not None:
+                pinned.append(all(t.device.type == "cpu" and t.is_pinned() for t in state.moments().values()))
+        peak, resident = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        routes[label] = {"params": {k: v.detach().cpu() for k, v in model.module.state_dict().items()},
+                         "loss": metrics["train/loss"].item(), "pinned": pinned, "peak": peak, "resident": resident}
+        del optimizer, state, step
+        torch.cuda.empty_cache()
+    want = routes["ClippedAdamW"]
+    worst = (0.0, "")
+    for k, w in want["params"].items():
+        err = (routes["ZeRO-2 offload"]["params"][k].double() - w.double()).abs()
+        ratio = max(err.mean().item() / (OFFLOAD_RTOL * w.abs().max().item() + 1e-3 * OFFLOAD_LR),
+                    err.max().item() / OFFLOAD_LR)
+        worst = max(worst, (ratio, k))
+    on, off = routes["ZeRO-2 offload"], routes["ZeRO-2"]
+    log("train", f"offload at full ae width ({sum(v.numel() for v in start.values()) / 1e6:.1f} M params), 2 steps "
+        f"of 2 images at 128^2: losses ClippedAdamW {want['loss']:.6f}, ZeRO-2 {off['loss']:.6f}, ZeRO-2 offload "
+        f"{on['loss']:.6f}; worst parameter against ClippedAdamW {worst[0]:.3g} x its bound ({worst[1]}; mean "
+        f"error <= {OFFLOAD_RTOL} of the largest entry + 1e-3 lr, max <= lr); moments pinned on the host between "
+        f"steps {on['pinned']}")
+    log("train", f"device memory, ZeRO-2 without / with offload: peak {off['peak'] / 2**30:.3f} / "
+        f"{on['peak'] / 2**30:.3f} GiB, resident after the step {off['resident'] / 2**30:.3f} / "
+        f"{on['resident'] / 2**30:.3f} GiB (moments 2 x {sum(v.numel() for v in start.values()) * 4 / 2**30:.3f} GiB)")
+    if worst[0] > 1.0 or not (all(on["pinned"]) and on["pinned"]) or any(off["pinned"]):
+        raise SystemExit("[train] the offloaded ZeRO-2 steps disagree with ClippedAdamW's, or the moments were "
+                         "not in pinned host memory between steps")
 
 
 # ---------------------------------------------------------------------------
@@ -1543,6 +1692,7 @@ LORA_CONFIG = {                # configs/flux_kontext_textalpha_lora.yaml
 BLOCKS = 19 + 38               # attention calls per transformer forward
 TRAIN_STEPS = 1                # optimizer steps of the VAE phase (the stage1 phase takes 3 more)
 STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO = 2, 4, 2     # of the LoRA and the QLoRA phase: steps, pairs per step, micro-batches
+LORA_PAIRS = 2                 # the LoRA phase's pairs per step (the QLoRA phase's probe loss needs 4 to fall)
 ALL_PHASES = ("kernels", "slice", "lora", "int8", "convs", "train", "stage1")
 
 
@@ -1553,6 +1703,32 @@ def _lora_counts() -> dict:
         "flash_attention_dq": fa.DQ_LAUNCHES,
         "flash_attention_dkv": fa.DKV_LAUNCHES,
     }
+
+
+class _GradRecord:
+    """Wraps `ZeroAdamW.step` for a `with` block: before each step reduces
+    and frees the gradients, notes which of its parameters have none or a
+    non-finite one (the stage's optimizer lives inside `train_from_config`)."""
+
+    def __enter__(self):
+        from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW
+
+        self.cls, self.real, self.bad = ZeroAdamW, ZeroAdamW.step, []
+        record = self
+
+        def step(opt, *args, **kwargs):
+            record.bad.append({id(p) for p in opt.params
+                               if p.grad is None or not bool(torch.isfinite(p.grad).all())})
+            return record.real(opt, *args, **kwargs)
+
+        ZeroAdamW.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.real
+
+    def without_gradient(self, named) -> list:
+        return [n for n, p in named.items() if not self.bad or id(p) in self.bad[-1]]
 
 
 def _write_pair_tree(root: Path, n: int, size: int) -> None:
@@ -1645,12 +1821,12 @@ def _lora_grad_tree_check(model) -> None:
         raise SystemExit("[lora] the kernels' adapter gradients disagree with the plain route's")
 
 
-def _stage_config(data_root: Path, ckpt_dir: Path, **training) -> dict:
+def _stage_config(data_root: Path, ckpt_dir: Path, pairs: int = STAGE_PAIRS, **training) -> dict:
     """The LoRA stage's configuration for `train_from_config` over the PNG tree at `data_root`."""
     return {
         "model": {"pretrained_model_name_or_path": f"random weights, seed {SEED}",
                   "rgba_vae_path": f"random weights, seed {SEED}"},
-        "data": {"root": str(data_root), "batch_size": STAGE_PAIRS, "num_workers": 4},
+        "data": {"root": str(data_root), "batch_size": pairs, "num_workers": 4},
         "training": {**LORA_CONFIG, **training, "max_train_steps": STAGE_STEPS, "grad_accum_steps": STAGE_MICRO,
                      "log_every": 1, "ckpt_every_steps": 1000, "val_every_steps": 1000, "ckpt_dir": str(ckpt_dir)},
     }
@@ -1686,7 +1862,7 @@ def phase_lora(model, work: Path) -> dict:
         f"fp32 parameters on {len(lora) // 2} linears) to the frozen bf16 base in "
         f"{time.perf_counter() - t0:.1f} s; recompute={model.transformer.remat}")
 
-    steps, pairs, n_micro = STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO
+    steps, pairs, n_micro = STAGE_STEPS, LORA_PAIRS, STAGE_MICRO
     marks, logged = [], []
 
     def log_fn(step, metrics):
@@ -1698,7 +1874,8 @@ def phase_lora(model, work: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_all_counts()
     marks.append(time.perf_counter())
-    result = train_from_config(_stage_config(work / "data", ckpt), model=model, log_fn=log_fn)
+    with _GradRecord() as grads:
+        result = train_from_config(_stage_config(work / "data", ckpt, LORA_PAIRS), model=model, log_fn=log_fn)
     torch.cuda.synchronize()
     counts = _lora_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1711,7 +1888,7 @@ def phase_lora(model, work: Path) -> dict:
         raise SystemExit(f"[lora] {len(logged)} steps logged, {result['global_step']} taken, {steps} asked")
     if not all(math.isfinite(m["train/loss"]) and m["train/grad_norm"] > 0.0 for m in logged):
         raise SystemExit(f"[lora] a loss is not finite or a gradient norm is zero: {logged}")
-    bad = [n for n, p in lora.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    bad = grads.without_gradient(lora)
     if bad:
         raise SystemExit(f"[lora] adapters without a finite gradient: {bad[:5]}")
     still = [n for n, p in lora.items() if n.endswith("lora_B") and torch.equal(p.detach(), lora_before[n])]
@@ -1986,8 +2163,9 @@ def phase_int8(model, bf16_peak: int, work: Path) -> dict:
     ckpt = work / "ckpt_qlora"
     torch.cuda.reset_peak_memory_stats()
     reset_all_counts()
-    result, skipped = _train_without_saving(model, _stage_config(work / "data", ckpt, weight_quant="int8"),
-                                            lambda step, m: logged.append(m))
+    with _GradRecord() as grads:
+        result, skipped = _train_without_saving(model, _stage_config(work / "data", ckpt, weight_quant="int8"),
+                                                lambda step, m: logged.append(m))
     torch.cuda.synchronize()
     q_counts = {"int8_matmul": i8.LAUNCHES, **_lora_counts()}
     q_peak = torch.cuda.max_memory_allocated()
@@ -1996,7 +2174,7 @@ def phase_int8(model, bf16_peak: int, work: Path) -> dict:
     loss_after = probe_loss()
     for i, m in enumerate(logged):
         log("int8", f"QLoRA step {i}: loss={m['train/loss']:.6f} grad_norm={m['train/grad_norm']:.4f} lr={m['lr']:.3g}")
-    bad = [n for n, p in lora.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    bad = grads.without_gradient(lora)
     moved = [k for k, a, b in zip(base, base_before, checks()) if a != b]
     micro = steps * n_micro
     want_k10 = (2 * in_blocks + len(linears) - in_blocks) * micro    # the blocks run again in the backward
@@ -2162,6 +2340,31 @@ def _routes_agree(cfg: dict) -> None:
         raise SystemExit("[stage1] the Winograd route's reconstruction disagrees with the other routes'")
 
 
+def _nccl_world1(work: Path) -> None:
+    """Join a world-1 NCCL group through a FileStore in `work` (as the stage
+    would under `torchrun --nproc_per_node 1`), and run NCCL's reduce-scatter,
+    all-gather and all-reduce once on the card: the port's collectives return
+    their input at world 1 without calling NCCL, so these are the calls they
+    make at world 2 and up."""
+    import torch.distributed as dist
+
+    from ragb_vae_tpu_torch.parallel.mesh import create_mesh, maybe_init_distributed
+
+    t0 = time.perf_counter()
+    maybe_init_distributed("cuda", init_method=f"file://{work / 'rendezvous'}", world_size=1, rank=0,
+                           timeout=datetime.timedelta(seconds=120))
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    scattered, gathered, total = torch.empty_like(x), torch.empty_like(x), x.sum()
+    dist.reduce_scatter_tensor(scattered, x)
+    dist.all_gather_into_tensor(gathered, x)
+    dist.all_reduce(total, op=dist.ReduceOp.MAX)
+    torch.cuda.synchronize()
+    if not (torch.equal(scattered, x) and torch.equal(gathered, x) and total.item() == 28.0):
+        raise SystemExit("[stage1] NCCL's collectives at world 1 returned wrong values")
+    log("stage1", f"{dist.get_backend()} process group of world size {create_mesh().size} joined, its "
+        f"reduce-scatter, all-gather and all-reduce checked on the card in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_stage1(work: Path) -> dict:
     """`run_stage` on configs/flux_vae.yaml at full FLUX `ae` width with
     `CONV_ALGO = "winograd"`: 2 steps, validation through the tiled path,
@@ -2205,6 +2408,7 @@ def phase_stage1(work: Path) -> dict:
         return fold(w, *args)
 
     stage.make_train_step, stage.save_checkpoints, rb.conv3x3_stats_cuda = timed_make_step, keep_saved, direct_named
+    _nccl_world1(work)
     try:
         _routes_agree(cfg)
         fell_through.clear()
@@ -2232,6 +2436,7 @@ def phase_stage1(work: Path) -> dict:
         stage.make_train_step, stage.save_checkpoints, rb.conv3x3_stats_cuda = make_step, save, direct
         rb.wino_tiles = fold
         rb.CONV_ALGO = "direct"
+        torch.distributed.destroy_process_group()
 
     ckpt = Path(cfg["training"]["ckpt_dir"])
     logged = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]

@@ -10,7 +10,9 @@ import argparse
 def run_training(argv=None) -> dict:
     """Parse the training flags, load the `{data, training, model}` YAML
     (with `${env:VAR}` expansion) and run the stage that `training.stage`
-    names (`--stage` overrides it) on `--device`. -> the stage's last metrics."""
+    names (`--stage` overrides it) on `--device`. -> the stage's last metrics.
+    Under `torchrun --nproc_per_node N` each process joins the group and
+    trains on `cuda:LOCAL_RANK`, data parallel (ZeRO-2)."""
     parser = argparse.ArgumentParser(description="Train ragb-vae stages on PyTorch.")
     parser.add_argument("--config", required=True, help="Path to the YAML config.")
     parser.add_argument("--stage", default=None, help="Override training.stage from the config.")
@@ -19,9 +21,11 @@ def run_training(argv=None) -> dict:
 
     from ragb_vae_tpu_torch.config import load_config
     from ragb_vae_tpu_torch.device import resolve_device
+    from ragb_vae_tpu_torch.parallel.mesh import local_device, maybe_init_distributed
     from ragb_vae_tpu_torch.training import run_stage
 
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
+    maybe_init_distributed(device)
     cfg = load_config(args.config)
     if args.stage:
         cfg.setdefault("training", {})["stage"] = args.stage

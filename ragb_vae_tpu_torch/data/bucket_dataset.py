@@ -3,14 +3,16 @@
 Counterpart of `ragb_vae_tpu/data/bucket_dataset.py`. Each entry is one
 image, served under the key "composite" (the stage-1 loop treats a lone image
 as a composite) as an (H, W, 4) float32 array in [0, 1]; `bucket_to_indices`
-groups the entries for `BucketBatchSampler`. Images decode through PIL one at
-a time (the JAX package's native batch PNG decode is not ported).
+groups the entries for `BucketBatchSampler`. `getitems` decodes a batch of
+PNGs of one size in one native call (`data/native_io.py`), anything else one
+image at a time.
 """
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Any, Dict, List, Sequence, Union
 
+from ragb_vae_tpu_torch.data import native_io
 from ragb_vae_tpu_torch.data.image_io import load_rgba
 
 
@@ -46,9 +48,8 @@ class MixedBucketDataset:
             raise ValueError("image_path is required for each entry.")
         return Path(entry.get("root_dir", self.root_dir)) / entry["image_path"]
 
-    def __getitem__(self, index: int) -> Dict[str, Any]:
-        entry = self.entries[index]
-        sample: Dict[str, Any] = {"composite": load_rgba(self._path(entry))}
+    def _make_sample(self, entry: Dict[str, Any], composite) -> Dict[str, Any]:
+        sample: Dict[str, Any] = {"composite": composite}
         if self.include_metadata:
             sample.update({
                 "bucket": entry.get("bucket"),
@@ -58,3 +59,26 @@ class MixedBucketDataset:
                 "variant": entry.get("variant"),
             })
         return self.transform(sample) if self.transform is not None else sample
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        entry = self.entries[index]
+        return self._make_sample(entry, load_rgba(self._path(entry)))
+
+    def getitems(self, indices: Sequence[int], *, map_fn=None) -> List[Dict[str, Any]]:
+        """The samples of `indices`: one native batch decode when every image
+        is a PNG of one size (a bucket-pure batch), else one decode per item,
+        through `map_fn` (the loader's thread pool) when given."""
+        entries = [self.entries[i] for i in indices]
+        try:
+            paths = [self._path(e) for e in entries]
+            if len(paths) > 1 and native_io.available() and all(p.suffix.lower() == ".png" for p in paths):
+                sizes = {native_io.png_size(p) for p in paths}
+                if len(sizes) == 1:
+                    (w, h), = sizes
+                    batch = native_io.decode_batch(paths, h, w)
+                    return [self._make_sample(e, batch[j]) for j, e in enumerate(entries)]
+        except Exception:
+            pass  # odd PNGs, native failures: one item at a time below
+        if map_fn is not None and len(indices) > 1:
+            return list(map_fn(self.__getitem__, indices))
+        return [self[i] for i in indices]

@@ -1,7 +1,8 @@
-"""Host-side image IO: PIL decode -> numpy HWC float32 in [0, 1].
+"""Host-side image IO: PNG / PIL decode -> numpy HWC float32 in [0, 1].
 
-Counterpart of `ragb_vae_tpu/data/image_io.py` through PIL alone (the
-JAX package's optional native PNG codec is not ported yet).
+Counterpart of `ragb_vae_tpu/data/image_io.py`. PNGs take the native codec
+(`data/native_io.py`, libpng in C++) when it is built; other files, and any
+native failure, go through PIL, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ from typing import Union
 
 import numpy as np
 from PIL import Image, UnidentifiedImageError
+
+from ragb_vae_tpu_torch.data import native_io
 
 
 def pil_to_array(img: Image.Image) -> np.ndarray:
@@ -25,6 +28,11 @@ def pil_to_array(img: Image.Image) -> np.ndarray:
 def load_rgba(path: Union[str, Path]) -> np.ndarray:
     """Decode an image file as RGBA -> (H, W, 4) float32 in [0,1]."""
     path = Path(path)
+    if path.suffix.lower() == ".png" and native_io.available():
+        try:
+            return native_io.decode_png(path)
+        except Exception:
+            pass  # PIL below (interlaced or odd PNGs)
     try:
         with Image.open(path) as img:
             rgba = img.convert("RGBA")
@@ -34,8 +42,14 @@ def load_rgba(path: Union[str, Path]) -> np.ndarray:
 
 
 def save_rgba(array: np.ndarray, path: Union[str, Path]) -> None:
-    """(H, W, 4) float in [0,1] -> image file (PNG by suffix)."""
+    """(H, W, 4) float in [0,1] -> image file (PNG by suffix); a PNG takes the
+    native encode, which writes the bytes PIL's path would quantise to."""
     arr = np.clip(np.asarray(array, dtype=np.float32), 0.0, 1.0)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
+    if path.suffix.lower() == ".png" and native_io.available():
+        try:
+            return native_io.encode_png(path, arr)
+        except Exception:
+            pass  # PIL below
     Image.fromarray((arr * 255).astype(np.uint8), mode="RGBA").save(path)

@@ -6,8 +6,10 @@ so threads decode in parallel without forked workers) and keeps a bounded
 queue of finished batches ahead of the consumer. `cuda_prefetch` takes the
 place of the JAX package's `device_prefetch`: it copies each batch into
 pinned host buffers and on to the card on a side stream, one batch ahead, so
-the copy runs under the previous step's compute. Multi-host input sharding
-(`process_shard=`) is not ported yet.
+the copy runs under the previous step's compute. A dataset with a
+`getitems(indices, map_fn=)` fetches a batch itself (the native batch PNG
+decode of `MixedBucketDataset`). `process_shard=(index, count)` gives each
+process its contiguous slice of every batch of one shared index stream.
 """
 from __future__ import annotations
 
@@ -61,7 +63,13 @@ class DataLoader:
 
     Give either `batch_sampler` (an iterable of index lists, re-iterated each
     epoch) or `batch_size` (with `shuffle` / `drop_last` over
-    range(len(dataset)))."""
+    range(len(dataset))).
+
+    `process_shard=(index, count)`: every process walks the same seeded
+    global index stream (so all agree on batch boundaries and buckets) and
+    fetches only its contiguous `1/count` of each batch, which then carries
+    `global_batch_size`. A global batch that `count` does not divide raises
+    (sharded train loaders force drop_last)."""
 
     def __init__(
         self,
@@ -77,8 +85,6 @@ class DataLoader:
         seed: Optional[int] = None,
         process_shard: Optional[Sequence[int]] = None,
     ) -> None:
-        if process_shard is not None:
-            raise NotImplementedError("DataLoader: process_shard (multi-host input sharding) is not ported yet")
         if (batch_sampler is None) == (batch_size is None):
             raise ValueError("Provide exactly one of batch_sampler or batch_size.")
         self.dataset = dataset
@@ -90,6 +96,12 @@ class DataLoader:
         self.collate_fn = collate_fn or default_collate
         self.prefetch_batches = max(0, int(prefetch_batches))
         self.seed = seed
+        self.process_shard = None
+        if process_shard is not None:
+            index, count = int(process_shard[0]), int(process_shard[1])
+            if not (count >= 1 and 0 <= index < count):
+                raise ValueError(f"invalid process_shard {process_shard!r}")
+            self.process_shard = (index, count) if count > 1 else None
         self._epoch = 0
         self._pool = ThreadPoolExecutor(max_workers=self.num_workers) if self.num_workers else None
 
@@ -118,11 +130,26 @@ class DataLoader:
             yield indices[start : start + self.batch_size].tolist()
 
     def _fetch(self, batch_indices: List[int]) -> Item:
-        if self._pool is not None and len(batch_indices) > 1:
-            items = list(self._pool.map(self.dataset.__getitem__, batch_indices))
-        else:
-            items = [self.dataset[i] for i in batch_indices]
-        return self.collate_fn(items)
+        global_n = len(batch_indices)
+        if self.process_shard is not None:
+            index, count = self.process_shard
+            if global_n % count:
+                raise ValueError(f"global batch of {global_n} not divisible by {count} processes — "
+                                 "use drop_last or a divisible batch_size")
+            per = global_n // count
+            batch_indices = batch_indices[index * per : (index + 1) * per]
+        batch = self.collate_fn(self._fetch_items(batch_indices))
+        if self.process_shard is not None:
+            batch["global_batch_size"] = global_n
+        return batch
+
+    def _fetch_items(self, batch_indices: List[int]) -> List[Item]:
+        pool_map = self._pool.map if self._pool is not None else None
+        if hasattr(self.dataset, "getitems"):
+            return list(self.dataset.getitems(batch_indices, map_fn=pool_map))
+        if pool_map is not None and len(batch_indices) > 1:
+            return list(pool_map(self.dataset.__getitem__, batch_indices))
+        return [self.dataset[i] for i in batch_indices]
 
     def __iter__(self) -> Iterator[Item]:
         if self.prefetch_batches <= 0:

@@ -86,6 +86,7 @@ def _resolve_inputs(spec: str):
 
 
 def run(args: argparse.Namespace) -> None:
+    from ragb_vae_tpu_torch.data import native_io
     from ragb_vae_tpu_torch.data.image_io import load_rgba, save_rgba
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
 
@@ -130,14 +131,20 @@ def run(args: argparse.Namespace) -> None:
         for start in range(0, len(items), step):
             chunk = items[start : start + step]
             preds = run_sample(np.stack([arr for _, arr in chunk]))
-            for (path, _), pred in zip(chunk, preds):
+            outs = []
+            for path, _ in chunk:
                 out = out_dir / (Path(path).stem + "_text_alpha.png")
                 n = 1
                 while out in used:
                     out = out_dir / (Path(path).stem + f"_text_alpha_{n}.png")
                     n += 1
                 used.add(out)
-                save_rgba(pred, out)
+                outs.append(out)
+            if native_io.available():
+                native_io.encode_batch(outs, np.clip(preds, 0.0, 1.0))   # threaded C++ encode
+            else:
+                for out, pred in zip(outs, preds):
+                    save_rgba(pred, out)
             done += len(chunk)
     print(f"Saved {done} predictions to {out_dir}")
 

@@ -66,6 +66,7 @@ from ragb_vae_tpu_torch.models.scheduler import (
 from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
 from ragb_vae_tpu_torch.models.weights import load_autoencoder_params, load_torch_state, save_torch_state
 from ragb_vae_tpu_torch.ops.packing import pack_latents, prepare_latent_image_ids, unpack_latents
+from ragb_vae_tpu_torch.parallel.mesh import Mesh, randn_rows
 
 Tensor = torch.Tensor
 
@@ -383,24 +384,28 @@ class FluxTextAlphaModel:
         text_alpha: Tensor,
         generator: Optional[torch.Generator],
         weights: Optional[Tensor] = None,
+        mesh: Optional[Mesh] = None,
     ) -> Tuple[Tensor, Dict[str, Tensor]]:
         """gt / text_alpha: (B, H, W, 4) RGBA in [0, 1]. `weights` (B,) makes
         the loss a weighted batch mean (weight 0 marks a padding sample).
         Four draws from `generator`, in this order: the condition's posterior
-        eps, the target's, the noise, the timestep density. Both encodes run
-        without a gradient (the VAE is frozen)."""
+        eps, the target's, the noise, the timestep density; over a `mesh`
+        (the rows are this process's), each is drawn for every process's rows
+        and this process keeps its own. Both encodes run without a gradient
+        (the VAE is frozen)."""
         gt, text_alpha = gt.to(self.device), text_alpha.to(self.device)
         bsz = gt.shape[0]
         lat_shape = (bsz,) + self.latent_shape(gt.shape[1], gt.shape[2])
-        kw = {"generator": generator, "device": self.device, "dtype": torch.float32}
-        eps_cond = torch.randn(lat_shape, **kw)
-        eps_target = torch.randn(lat_shape, **kw)
+        mesh = mesh or Mesh()
+        eps_cond = randn_rows(lat_shape, generator, mesh, device=self.device)
+        eps_target = randn_rows(lat_shape, generator, mesh, device=self.device)
         with torch.no_grad():
             cond_latent = self.encode_latents(gt, eps_cond)
             target_latent = self.encode_latents(text_alpha, eps_target)
-        noise = torch.randn(lat_shape, **kw)
+        noise = randn_rows(lat_shape, generator, mesh, device=self.device)
         u = compute_density_for_timestep_sampling(
-            generator, bsz, weighting_scheme="logit_normal", device=self.device)
+            generator, bsz, weighting_scheme="logit_normal", device=self.device,
+            draw=randn_rows((bsz,), generator, mesh, device=self.device))
         return self.compute_loss_from_latents(cond_latent, target_latent, noise, u, weights=weights)
 
     def compute_loss_from_latents(

@@ -10,10 +10,16 @@ The library lands in `<repo>/build/kernels/`, named by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one is reused. A
 build writes to a temporary name and `os.replace`s it into place, so two
 processes building at once never load a half-written file.
+
+`build_rgba_io()` builds the one host library of the port, the PNG codec of
+`csrc/rgba_io.cpp` (C++ over libpng, no CUDA), with `g++` into
+`<repo>/build/host/` by the same rules, under a file lock so that
+processes starting together build it once.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -25,6 +31,10 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+RGBA_IO_SOURCE = CSRC_DIR / "rgba_io.cpp"
+HOST_CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+HOST_LIBS = ["-lpng", "-lpthread"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -152,3 +162,35 @@ def stream_ptr(device) -> int:
 
     index = device.index if device.index is not None else torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def rgba_io_path() -> Path:
+    h = hashlib.sha256(RGBA_IO_SOURCE.read_bytes())
+    h.update(" ".join(HOST_CXX_FLAGS + HOST_LIBS).encode())
+    return HOST_BUILD_DIR / f"libragb_io_{h.hexdigest()[:16]}.so"
+
+
+def build_rgba_io() -> Path:
+    """Compile `csrc/rgba_io.cpp` with g++ unless a library of this hash
+    exists; return its path. Raises RuntimeError when g++ or libpng's
+    headers are missing or the compile fails."""
+    target = rgba_io_path()
+    if target.exists():
+        return target
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++) for csrc/rgba_io.cpp")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(HOST_BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # one builder; the others wait and reuse
+        if target.exists():
+            return target
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=HOST_BUILD_DIR)
+        os.close(fd)
+        cmd = [cxx, *HOST_CXX_FLAGS, str(RGBA_IO_SOURCE), "-o", tmp, *HOST_LIBS]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, target)
+    return target

@@ -1,0 +1,162 @@
+"""Process group and the 1-D "data" axis of the training loops.
+
+Counterpart of the process side of `ragb_vae_tpu/parallel/mesh.py`. The JAX
+package runs one program over a device mesh; the port runs one process per
+device under `torchrun` and a `torch.distributed` process group, the setup of
+the reference (Accelerate / DeepSpeed). `Mesh` is that group seen as the data
+axis: its size and this process's rank. Without a group it is a data axis of
+size 1, and every collective below returns its input untouched at size 1.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The data axis over the default process group: `size` processes, this
+    one `rank`."""
+
+    size: int = 1
+    rank: int = 0
+
+
+def _env_int(name: str) -> Optional[int]:
+    value = os.environ.get(name)
+    return None if value in (None, "") else int(value)
+
+
+def local_device(device) -> torch.device:
+    """`cuda` -> `cuda:LOCAL_RANK` under torchrun (`cuda:0` without it); any
+    other device, or a CUDA device with an index, as given."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", _env_int("LOCAL_RANK") or 0)
+    return device
+
+
+def maybe_init_distributed(
+    device="cuda",
+    *,
+    init_method: Optional[str] = None,
+    world_size: Optional[int] = None,
+    rank: Optional[int] = None,
+    timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+) -> bool:
+    """Join the process group that torchrun describes (`WORLD_SIZE`, `RANK`,
+    `LOCAL_RANK`, `MASTER_ADDR` / `MASTER_PORT`), or the one the arguments
+    name (`init_method` such as `file://...` or `tcp://localhost:PORT`): NCCL
+    for a CUDA `device`, which binds `cuda:LOCAL_RANK`, gloo for the CPU.
+    Returns whether a group exists afterwards; does nothing when one already
+    does or when neither the environment nor the arguments name one."""
+    if dist.is_initialized():
+        return True
+    world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
+    if world_size is None:
+        return False
+    if world_size > 1 and init_method is None and not os.environ.get("MASTER_ADDR"):
+        raise ValueError(f"WORLD_SIZE={world_size}: more than one process needs a rendezvous — run under "
+                         "torchrun (it sets MASTER_ADDR / MASTER_PORT) or pass init_method=")
+    rank = _env_int("RANK") if rank is None else rank
+    device = local_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        init_method=init_method or "env://", world_size=world_size, rank=rank or 0, timeout=timeout)
+    return True
+
+
+def create_mesh() -> Mesh:
+    """The data axis over the default group, or of size 1 when none exists."""
+    if dist.is_available() and dist.is_initialized():
+        return Mesh(size=dist.get_world_size(), rank=dist.get_rank())
+    return Mesh()
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def is_main() -> bool:
+    return process_index() == 0
+
+
+def barrier(mesh: Optional[Mesh] = None) -> None:
+    """Wait for every process of the axis (nothing at size 1)."""
+    mesh = mesh or create_mesh()
+    if mesh.size > 1:
+        dist.barrier()
+
+
+def pad_batch_to_mesh(batch_size: int, mesh: Mesh) -> int:
+    """Smallest batch >= batch_size divisible by the data-axis size."""
+    return -(-batch_size // mesh.size) * mesh.size
+
+
+# ---------------------------------------------------------------------------
+# Collectives over the data axis (each returns its input at size 1)
+# ---------------------------------------------------------------------------
+def all_reduce(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In place: the reduction of `t` over the axis."""
+    if mesh.size > 1:
+        dist.all_reduce(t, op=op)
+    return t
+
+
+def reduce_scatter(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the axis of `flat` (length a multiple of the size), of
+    which this rank keeps its contiguous 1/size."""
+    if mesh.size == 1:
+        return flat
+    out = flat.new_empty(flat.numel() // mesh.size)
+    dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM)
+    return out
+
+
+def all_gather(shard: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's `shard` end to end, in rank order."""
+    if mesh.size == 1:
+        return shard
+    out = shard.new_empty(shard.numel() * mesh.size)
+    dist.all_gather_into_tensor(out, shard.contiguous())
+    return out
+
+
+def global_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's rows of `t` (B, ...) end to end: (size * B, ...)."""
+    if mesh.size == 1:
+        return t
+    return all_gather(t.reshape(-1), mesh).reshape((mesh.size * t.shape[0],) + tuple(t.shape[1:]))
+
+
+def local_rows(t, mesh: Mesh):
+    """This rank's contiguous 1/size of the rows of `t` (the global batch)."""
+    per = t.shape[0] // mesh.size
+    if per * mesh.size != t.shape[0]:
+        raise ValueError(f"global batch {t.shape[0]} not divisible by {mesh.size} processes")
+    return t[mesh.rank * per : (mesh.rank + 1) * per]
+
+
+def randn_rows(shape, generator: Optional[torch.Generator], mesh: Mesh, *, device) -> torch.Tensor:
+    """This rank's rows of a standard normal of the GLOBAL shape
+    (size * shape[0], *shape[1:]), drawn from `generator`: every rank draws the
+    whole batch's noise from the one seeded stream and keeps its own rows, so
+    a run over N processes draws what the run over one draws. At size 1 it is
+    one `randn(shape)`."""
+    shape = tuple(shape)
+    full = torch.randn((mesh.size * shape[0],) + shape[1:], generator=generator, device=device,
+                       dtype=torch.float32)
+    return local_rows(full, mesh)

@@ -1,4 +1,4 @@
-"""FLUX-Kontext text-alpha LoRA training stage on one device.
+"""FLUX-Kontext text-alpha LoRA training stage, on one process or data-parallel.
 
 Counterpart of `ragb_vae_tpu/training/flux_kontext_textalpha_lora.py`: the
 same argparse surface and YAML -> args overlay with its synonyms
@@ -36,8 +36,18 @@ writes them.
 
 `--device` names where the stage runs (default `cuda`; a missing card raises).
 
+Under `torchrun` (or any initialised process group) the stage runs on the
+data axis, one device a process: the base and the adapters are replicated,
+each process fetches its slice of every batch (`process_shard`), the update
+is ZeRO-2 over the adapters (`parallel/zero_step.py`, on one process too),
+every process draws the whole batch's noise from the one seeded generator
+and keeps its rows (so N processes compute what one computes), a SIGTERM on
+any process stops all at the same step, and process 0 alone writes the
+checkpoints (after the optimizer state is gathered from all), the metrics
+log and the validation pairs, which every process samples alike.
+
 Not ported yet (each raises): `--shard_base_params`, `--tensor_parallel` and
-`--sequence_parallel` above 1, more than one process.
+`--sequence_parallel` above 1.
 """
 from __future__ import annotations
 
@@ -55,6 +65,8 @@ from ragb_vae_tpu_torch.data.loader import DataLoader, cuda_prefetch
 from ragb_vae_tpu_torch.data.sampler import BucketBatchSampler
 from ragb_vae_tpu_torch.data.text_alpha_dataset import TextAlphaBucketDataset
 from ragb_vae_tpu_torch.device import resolve_device
+from ragb_vae_tpu_torch.parallel.mesh import Mesh, barrier, create_mesh, local_device, maybe_init_distributed
+from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW, weighted_mean_over_ranks
 from ragb_vae_tpu_torch.models.flux_kontext_textalpha import (
     LORA_WEIGHT_FILES,
     FluxTextAlphaModel,
@@ -219,9 +231,10 @@ def make_lora_optimizer(
 
 def make_lora_train_step(
     model: FluxTextAlphaModel,
-    optimizer: ClippedAdamW,
+    optimizer: Union[ClippedAdamW, ZeroAdamW],
     n_micro: int,
     lr_schedule: Optional[Callable[[int], float]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Build `step(batch, generator, step_index) -> (loss, stats, grad_norm)`.
 
@@ -230,24 +243,32 @@ def make_lora_train_step(
     micro-batches, each weighted by the sum of its weights (so padding rows
     change neither the loss nor the gradients wherever they fall); then the
     clip and the AdamW update of the adapters, at `lr_schedule(step_index)`
-    with `step_index` the number of updates made before this one."""
+    with `step_index` the number of updates made before this one. With a
+    `mesh`, `batch` is this process's rows, `optimizer` a `ZeroAdamW` over
+    the adapters, and the loss and stats are weighted means over all rows."""
     params = list(lora_parameters(model.transformer).values())
+    over_mesh = {} if mesh is None else {"mesh": mesh}
 
     def step(batch: Dict[str, Tensor], generator: Optional[torch.Generator], step_index: int = 0):
         def loss_fn(micro: Dict[str, Tensor], index: int):
             return model.compute_loss(micro["gt"], micro["text_alpha"], generator,
-                                      weights=micro.get("weights"))
+                                      weights=micro.get("weights"), **over_mesh)
 
         loss, stats = accumulated_grads(
             loss_fn, params, batch, n_micro,
             micro_weight_fn=(lambda mb: mb["weights"].sum()) if "weights" in batch else None,
         )
-        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
         if lr_schedule is not None:
             for group in optimizer.param_groups:
                 group["lr"] = lr_schedule(step_index)
-        optimizer.clipped_step(grad_norm)
-        return loss, stats, grad_norm
+        if mesh is None:
+            grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+            optimizer.clipped_step(grad_norm)
+            return loss, stats, grad_norm
+        w_local = batch["weights"].sum() if "weights" in batch else None
+        grad_norm = optimizer.step(w_local)
+        reduced = weighted_mean_over_ranks({"loss": loss, **stats}, w_local, mesh)
+        return reduced.pop("loss"), reduced, grad_norm
 
     return step
 
@@ -282,7 +303,10 @@ def train(
     step with the loss, the gradient norm before the clip and the learning
     rate; the loss and the learning rate also go to `<ckpt_dir>/metrics.jsonl`."""
     _check_ported(args)
-    device = resolve_device(device if device is not None else getattr(args, "device", "cuda"))
+    device = local_device(resolve_device(device if device is not None else getattr(args, "device", "cuda")))
+    maybe_init_distributed(model.device if model is not None else device)
+    mesh = create_mesh()
+    is_main = mesh.rank == 0
     weight_quant = getattr(args, "weight_quant", "none")
     dtype = torch.bfloat16 if args.mixed_precision in ("bf16", "fp16") else torch.float32
 
@@ -310,13 +334,18 @@ def train(
 
     train_ds = TextAlphaBucketDataset(Path(args.data_root), split=args.train_split)
     val_ds = TextAlphaBucketDataset(Path(args.data_root), split=args.val_split) if args.val_split else None
+    if mesh.size > 1 and args.batch_size % mesh.size:
+        raise ValueError(f"data.batch_size={args.batch_size} must divide by {mesh.size} "
+                         "processes for multi-host input sharding")
     train_dl = DataLoader(
         train_ds,
         batch_sampler=BucketBatchSampler(
             train_ds.bucket_to_indices, batch_size=args.batch_size, shuffle=True,
-            drop_last=args.drop_last, interleave=args.interleave_buckets, seed=args.seed,
+            # several processes: uniform per-process slices of one index stream
+            drop_last=args.drop_last or mesh.size > 1, interleave=args.interleave_buckets, seed=args.seed,
         ),
         num_workers=args.num_workers,
+        process_shard=(mesh.rank, mesh.size) if mesh.size > 1 else None,
     )
     val_dl = None
     if val_ds is not None:
@@ -330,16 +359,16 @@ def train(
         )
 
     lr_schedule = cosine_decay_schedule(args.learning_rate, args.max_train_steps)
-    optimizer = make_lora_optimizer(
+    optimizer = ZeroAdamW(make_lora_optimizer(
         list(lora.values()), args.learning_rate,
         betas=(args.adam_beta1, args.adam_beta2), eps=args.adam_eps,
         weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
-    )
+    ), mesh)
     n_micro = max(1, args.grad_accum_steps)
-    train_step = make_lora_train_step(model, optimizer, n_micro, lr_schedule)
+    train_step = make_lora_train_step(model, optimizer, n_micro, lr_schedule, mesh=mesh)
 
-    print(f"[Batch] effective_per_step={args.batch_size} (grad_accum={n_micro} -> "
-          f"{args.batch_size / n_micro:g} rows per micro-batch) device={device}")
+    print(f"[Batch] effective_per_step={args.batch_size} (grad_accum={n_micro}, {mesh.size} process(es) -> "
+          f"{args.batch_size / (n_micro * mesh.size):g} rows per micro-batch) device={device}")
     print(f"[Train] {len(train_ds)} samples across {len(train_ds.bucket_to_indices)} buckets.")
     print(f"[Val]   {len(val_ds)} samples." if val_ds is not None
           else "[Val]   (disabled: no val_split provided)")
@@ -351,7 +380,8 @@ def train(
         if val_dl is None:
             return
         out_dir = Path(args.val_output_dir) / f"step-{step_label}"
-        out_dir.mkdir(parents=True, exist_ok=True)
+        if is_main:
+            out_dir.mkdir(parents=True, exist_ok=True)
         saved = 0
         for batch in val_dl:
             if saved >= args.val_max_samples:
@@ -363,11 +393,16 @@ def train(
             names = batch.get("sample_name", ["val"])
             for i in range(min(decoded.shape[0], args.val_max_samples - saved)):
                 name = names[i] if i < len(names) else f"val_{saved}"
-                _save_pair(gt_np[i], decoded[i], out_dir / f"{name}_pair.png")
+                if is_main:   # every process sampled the same pairs
+                    _save_pair(gt_np[i], decoded[i], out_dir / f"{name}_pair.png")
                 saved += 1
         print(f"[val-{step_label}] saved {saved} GT|pred pairs to {out_dir}")
 
     def save_lora(step: int, subdir: str) -> None:
+        optimizer_state = optimizer.state_dict()   # a collective: every process gathers
+        if not is_main:
+            barrier(mesh)
+            return
         save_dir = Path(args.ckpt_dir) / subdir
         model.save_lora_weights(save_dir)
         write_lora_metadata(
@@ -376,11 +411,12 @@ def train(
             dtype="bfloat16" if dtype == torch.bfloat16 else "float32", step=step,
         )
         # written last: this file marks the checkpoint complete for `auto`
-        torch.save({"optimizer": optimizer.state_dict(), "generator": generator.get_state()},
+        torch.save({"optimizer": optimizer_state, "generator": generator.get_state()},
                    save_dir / TRAIN_STATE_FILE)
         print(f"[ckpt] saved LoRA weights to {save_dir}")
+        barrier(mesh)
 
-    metrics_logger = MetricsLogger(args.ckpt_dir)
+    metrics_logger = MetricsLogger(args.ckpt_dir if is_main else None)
     total_steps = 0
     resume_dir = getattr(args, "resume_from", None)
     if resume_dir == "auto":
@@ -441,7 +477,7 @@ def train(
                     save_lora(total_steps, f"checkpoint-{total_steps}")
                 if args.val_every and total_steps % args.val_every == 0:
                     run_validation(str(total_steps))
-                if guard.should_stop():
+                if guard.should_stop(sync=True):
                     # leave with a resumable checkpoint-N for `resume_from: auto`
                     preempted = True
                     print(f"[LoRA] preempted at step {total_steps} ({guard.describe()}) "

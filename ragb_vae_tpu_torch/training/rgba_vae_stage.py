@@ -1,4 +1,4 @@
-"""RGBA-VAE training stage (stage 1) on one device.
+"""RGBA-VAE training stage (stage 1), on one process or data-parallel over many.
 
 Counterpart of `ragb_vae_tpu/training/rgba_vae_stage.py`: the loop
 `train_rgba_vae(cfg)` over a `{data, training, model}` config. It loads the
@@ -19,14 +19,24 @@ run stood instead of replaying it (the JAX package folds the step into its
 key for the same end). A checkpoint without that state (one the JAX package
 wrote) reseeds the generator from (seed, step).
 
-Not ported yet (each raises): more than one process, `zero_impl: shard_map`,
-`optimizer_offload`. `vae_slicing` (the JAX package's `lax.map` over the
-batch) has no counterpart and is reported once when it is on.
+Under `torchrun` (or any initialised process group) the loop is data
+parallel over the processes, one device each: the step is ZeRO-2
+(`parallel/zero_step.py`; `zero_impl: gspmd` and `shard_map` both take it,
+as their numerics are equal in the JAX package), the bucket loader hands each
+process its slice of every batch (`data.shard_by_process`), the other loaders
+hand each the whole batch and the loop keeps its rows, validation splits its
+batch and gathers the outputs, a SIGTERM on any process stops all at the
+same step, and checkpoints are gathered to process 0, which alone writes
+them and the metrics log and images. `optimizer_offload` keeps AdamW's
+moments in host memory between steps, on one process too. Every process
+draws the whole batch's noise from the one seeded generator and keeps its
+rows, so N processes compute what one computes on the same global batches.
+`vae_slicing` (the JAX package's `lax.map` over the batch) has no
+counterpart and is reported once when it is on.
 """
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Union
@@ -47,6 +57,16 @@ from ragb_vae_tpu_torch.models.losses import AlphaVaeLossConfig
 from ragb_vae_tpu_torch.models.lpips import maybe_build_lpips
 from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
 from ragb_vae_tpu_torch.ops.rgba import composite_over_checkerboard
+from ragb_vae_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    create_mesh,
+    local_device,
+    local_rows,
+    maybe_init_distributed,
+    process_count,
+    process_index,
+)
 from ragb_vae_tpu_torch.training import checkpoint as ckpt_lib
 from ragb_vae_tpu_torch.training.vae_step import (
     VaeStepConfig,
@@ -93,13 +113,33 @@ def build_dataloader(cfg: Dict[str, Any], *, split: Optional[str] = None) -> Dat
     `source: bucket` with `bucket_datasets` (mixed manifests through
     `MixedBucketDataset` and `BucketBatchSampler`) or without (component
     pairs), or the multilayer tree. The train split gets the random
-    background blend when `background_blend_prob` > 0."""
+    background blend when `background_blend_prob` > 0.
+
+    Over several processes (`data.shard_by_process`, default on) the train
+    loader is sharded as in the JAX package: every process walks the same
+    seeded index stream (a missing `data.seed` becomes 0), `batch_size` must
+    divide by the processes, drop_last is forced, and the bucket loader
+    fetches only this process's slice of each batch; the component and
+    multilayer loaders (whose collate pads to the batch's largest image)
+    fetch the whole batch and the loop keeps this process's rows."""
     data_cfg = cfg.get("data", {})
     split = split or "train"
     train_mode = split == "train"
     val_shuffle = bool(data_cfg.get("val_shuffle", False))
     seed = data_cfg.get("seed")
     drop_last = bool(data_cfg.get("drop_last", False))
+    shard_kwargs: Dict[str, Any] = {}
+    if train_mode and bool(data_cfg.get("shard_by_process", True)) and process_count() > 1:
+        n_proc = process_count()
+        if int(data_cfg.get("batch_size", 4)) % n_proc:
+            raise ValueError(f"data.batch_size={data_cfg.get('batch_size')} must divide by "
+                             f"{n_proc} processes for multi-host input sharding")
+        shard_kwargs = {"process_shard": (process_index(), n_proc)}
+        drop_last = True
+        if seed is None:
+            seed = 0
+            print("[data] multi-host input sharding with no data.seed — "
+                  "defaulting to seed=0 so all hosts iterate one index stream")
 
     if data_cfg.get("source", "multilayer") == "bucket":
         dataset_kwargs = data_cfg.get("dataset_kwargs", {"include_metadata": False})
@@ -141,14 +181,15 @@ def build_dataloader(cfg: Dict[str, Any], *, split: Optional[str] = None) -> Dat
             dataset.bucket_to_indices, batch_size=data_cfg.get("batch_size", 4), shuffle=shuffle,
             drop_last=drop_last, interleave=bool(data_cfg.get("interleave_buckets", False)), seed=seed)
         return DataLoader(dataset, batch_sampler=sampler, num_workers=data_cfg.get("num_workers", 4),
-                          collate_fn=default_collate)
+                          collate_fn=default_collate, **shard_kwargs)
 
     dataset = MultiLayerDataset(
         rendered_root=Path(data_cfg["rendered_root"]), json_root=Path(data_cfg["json_root"]),
         alpha_threshold=data_cfg.get("alpha_threshold", 100), max_samples=data_cfg.get("max_samples"))
     return DataLoader(dataset, batch_size=data_cfg.get("batch_size", 1),
                       shuffle=train_mode or (split == "val" and val_shuffle),
-                      num_workers=data_cfg.get("num_workers", 4), collate_fn=multilayer_collate, seed=seed)
+                      num_workers=data_cfg.get("num_workers", 4), collate_fn=multilayer_collate, seed=seed,
+                      drop_last=bool(shard_kwargs))
 
 
 def build_training_batch(
@@ -199,18 +240,29 @@ def padding_weights(n_real: int, n_total: int) -> np.ndarray:
 
 
 def _step_batches(loader: DataLoader, *, skip: int, rng: np.random.Generator,
-                  background_sample_prob: float, n_micro: int) -> Iterator[Dict[str, np.ndarray]]:
+                  background_sample_prob: float, n_micro: int, mesh: Mesh) -> Iterator[Dict[str, np.ndarray]]:
     """The loader's batches after the first `skip` (which are still drawn,
     so every random stream stands where the uninterrupted run's would),
-    padded to the micro-batches with their loss weights and the count of
-    real rows."""
+    padded to the micro-batches with their loss weights, as this process's
+    rows, and the count of real rows over all processes. A sharded loader's
+    batch (it carries `global_batch_size`) is this process's slice and is
+    padded here; any other is the whole batch, padded to the processes'
+    micro-batches, of which this process keeps its rows."""
     for index, batch in enumerate(loader):
         if index < skip:
             continue
-        inputs = build_training_batch(batch, background_sample_prob=background_sample_prob, rng=rng)
+        inputs = np.asarray(build_training_batch(batch, background_sample_prob=background_sample_prob, rng=rng),
+                            dtype=np.float32)
         n_real = inputs.shape[0]
-        inputs = pad_to_multiple(np.asarray(inputs, dtype=np.float32), n_micro)
-        yield {"images": inputs, "weights": padding_weights(n_real, inputs.shape[0]), "n_real": n_real}
+        if "global_batch_size" in batch:
+            inputs = pad_to_multiple(inputs, n_micro)
+            weights = padding_weights(n_real, inputs.shape[0])
+            n_real *= mesh.size
+        else:
+            inputs = pad_to_multiple(inputs, mesh.size * n_micro)
+            weights = local_rows(padding_weights(n_real, inputs.shape[0]), mesh)
+            inputs = local_rows(inputs, mesh)
+        yield {"images": inputs, "weights": weights, "n_real": n_real}
 
 
 # ---------------------------------------------------------------------------
@@ -288,12 +340,16 @@ def evaluate_rgba_vae(
     global_step: Optional[int] = None,
     eval_step=None,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, float]:
     """Mean PSNR over each `val_background_colors` composite and the alpha
     MAE over at most `val_max_batches` batches, and the visual grid of the
-    first `val_visual_rows` batches' first samples."""
+    first `val_visual_rows` batches' first samples (written by process 0).
+    With a `mesh` each batch, the same on every process, is padded to the
+    processes and split over them, and every process gets all the metrics."""
     specs = list(eval_cfg.get("val_background_colors", ["white", "black"]))
-    eval_step = eval_step or make_eval_step(model, background_specs=specs)
+    n_proc = 1 if mesh is None else mesh.size
+    eval_step = eval_step or make_eval_step(model, mesh=mesh, background_specs=specs)
     device = next(model.module.parameters()).device
     max_batches = eval_cfg.get("val_max_batches")
     viz_rows = int(eval_cfg.get("val_visual_rows", 8))
@@ -302,10 +358,11 @@ def evaluate_rgba_vae(
     viz: List[Dict[str, np.ndarray]] = []
     for batch_idx, batch in enumerate(dataloader):
         inputs = np.asarray(build_training_batch(batch), dtype=np.float32)
-        out = eval_step(torch.from_numpy(inputs).to(device), generator=generator)
+        n_real = inputs.shape[0]
+        out = eval_step(torch.from_numpy(pad_to_multiple(inputs, n_proc)).to(device), generator=generator)
         for spec in specs:
-            psnr[str(spec)].append(out[f"psnr_{spec}"].float().cpu().numpy())
-        alpha_l1.append(out["alpha_mae"].float().cpu().numpy())
+            psnr[str(spec)].append(out[f"psnr_{spec}"].float().cpu().numpy()[:n_real])
+        alpha_l1.append(out["alpha_mae"].float().cpu().numpy()[:n_real])
         if len(viz) < viz_rows:
             viz.append({"gt": np.clip(inputs[0], 0.0, 1.0), "recon": out["recon"][0].float().cpu().numpy()})
         if max_batches is not None and batch_idx + 1 >= max_batches:
@@ -317,7 +374,7 @@ def evaluate_rgba_vae(
             print(f"[RGBA-VAE][val] epoch {epoch} PSNR ({spec} background): {metrics[f'val/psnr_{spec}']:.2f} dB")
         metrics["val/alpha_mae"] = float(np.concatenate(alpha_l1).mean())
         print(f"[RGBA-VAE][val] epoch {epoch} alpha MAE: {metrics['val/alpha_mae']:.4f}")
-    if viz:
+    if viz and (mesh is None or mesh.rank == 0):   # one writer on a shared filesystem
         save_validation_grid(viz, epoch=epoch, step=global_step,
                              output_dir=eval_cfg.get("val_output_dir", "outputs"))
     return metrics
@@ -331,19 +388,25 @@ def save_checkpoints(
     cfg: Dict[str, Any],
     *,
     step: Optional[int] = None,
-    optimizer: Optional[torch.optim.Optimizer] = None,
+    optimizer=None,
     generator: Optional[torch.Generator] = None,
     writer: Optional[ckpt_lib.AsyncCheckpointWriter] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Path:
     """`ckpt_dir/step_{N}` (or `ckpt_dir` without a step): weights, metadata
     and train state, on `writer`'s thread when one is given; then prune to
-    `ckpt_keep_last`, after the save has landed."""
+    `ckpt_keep_last`, after the save has landed. Over several processes
+    every one must call it: the optimizer state is gathered from all (a
+    collective), process 0 alone writes, and a barrier follows."""
     train_cfg = cfg.get("training", {})
     ckpt_dir = Path(train_cfg.get("ckpt_dir", "checkpoints"))
     target = ckpt_lib.checkpoint_dir(ckpt_dir, step)
     keep_last = int(train_cfg.get("ckpt_keep_last", 0) or 0)
-    kwargs = dict(config=model.config, state=model.module.state_dict(),
-                  optimizer_state=None if optimizer is None else optimizer.state_dict(),
+    optimizer_state = None if optimizer is None else optimizer.state_dict()
+    if mesh is not None and mesh.rank != 0:
+        barrier(mesh)
+        return target
+    kwargs = dict(config=model.config, state=model.module.state_dict(), optimizer_state=optimizer_state,
                   generator_state=None if generator is None else generator.get_state(), step=step or 0)
 
     def prune():
@@ -357,6 +420,8 @@ def save_checkpoints(
         ckpt_lib.save_train_checkpoint(target, **kwargs)
         prune()
     print(f"Saved RGBA-VAE checkpoints to {target}" + (f" (step {step})" if step else ""))
+    if mesh is not None:
+        barrier(mesh)
     return target
 
 
@@ -371,21 +436,6 @@ def _compute_dtype(mixed_precision) -> torch.dtype:
     if mixed_precision in ("no", "none", "fp32", "float32"):
         return torch.float32
     return dtype_from_str(mixed_precision)
-
-
-def _check_ported(train_cfg: Dict[str, Any]) -> None:
-    missing = []
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
-            torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        missing.append("more than one process")
-    if str(train_cfg.get("zero_impl", "gspmd")).lower() == "shard_map":
-        missing.append("zero_impl: shard_map")
-    if train_cfg.get("optimizer_offload"):
-        missing.append("optimizer_offload")
-    if missing:
-        raise NotImplementedError(f"{', '.join(missing)}: not ported yet to the PyTorch package "
-                                  "(use ragb_vae_tpu.training.rgba_vae_stage).")
 
 
 def _remat(value) -> Union[bool, str]:
@@ -405,8 +455,22 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
     model_cfg = cfg.get("model", {})
     train_cfg = cfg.get("training", {})
     data_cfg = cfg.get("data", {})
-    _check_ported(train_cfg)
-    device = resolve_device("cuda" if device is None else device)
+    device = local_device(resolve_device("cuda" if device is None else device))
+    maybe_init_distributed(device)
+    mesh = create_mesh()
+    if mesh.size > 1 and float(data_cfg.get("background_sample_prob", 0.0)) > 0.0:
+        raise ValueError("data.background_sample_prob > 0 is not supported on multi-host "
+                         "runs (hosts would disagree on the training-batch row count); "
+                         "set it to 0 or run single-host.")
+    zero_impl = str(train_cfg.get("zero_impl", "gspmd")).lower()
+    optimizer_offload = bool(train_cfg.get("optimizer_offload", False))
+    if zero_impl == "shard_map":
+        if int(train_cfg.get("gradient_accumulation_steps", 1)) != 1:
+            raise ValueError("zero_impl: shard_map does not implement gradient accumulation;"
+                             " use the default gspmd implementation.")
+        if optimizer_offload:
+            raise ValueError("optimizer_offload is implemented for the default gspmd step;"
+                             " drop zero_impl: shard_map to combine it with ZeRO sharding.")
     compute_dtype = _compute_dtype(train_cfg.get("mixed_precision", "no"))
 
     rgb_ckpt = model_cfg.get("rgb_checkpoint")
@@ -443,9 +507,10 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
     epochs = int(train_cfg.get("epochs", 1))
     max_grad_norm = train_cfg.get("max_grad_norm")
     params = trainable_parameters(model)
-    optimizer = make_optimizer(params, float(train_cfg.get("learning_rate", 1e-4)), betas=(0.5, 0.9),
-                               max_grad_norm=float(max_grad_norm) if max_grad_norm is not None else None)
-    init_train_state(model, optimizer)
+    optimizer = init_train_state(
+        model, make_optimizer(params, float(train_cfg.get("learning_rate", 1e-4)), betas=(0.5, 0.9),
+                              max_grad_norm=float(max_grad_norm) if max_grad_norm is not None else None),
+        mesh=mesh, offload=optimizer_offload)
 
     lpips_scale = float(train_cfg.get("lpips_scale", 0.0) or 0.0)
     lpips_fn = None
@@ -482,7 +547,7 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
             ref_model.enable_fused()
 
     sample_vis_count = int(train_cfg.get("sample_vis_count", 0) or 0)
-    if sample_vis_count > 0:
+    if sample_vis_count > 0 and mesh.rank == 0:
         try:
             visualize_dataloader_samples(
                 train_loader, limit=sample_vis_count,
@@ -491,9 +556,10 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
         except Exception as exc:
             print(f"[RGBA-VAE] dataloader preview failed: {exc}")
 
-    train_step = make_train_step(model, optimizer, loss_cfg, step_cfg, ref_model=ref_model, lpips_fn=lpips_fn)
+    train_step = make_train_step(model, optimizer, loss_cfg, step_cfg, mesh=mesh, ref_model=ref_model,
+                                 lpips_fn=lpips_fn, offload_opt_state=optimizer_offload)
     specs = list(train_cfg.get("val_background_colors", ["white", "black"]))
-    eval_step = make_eval_step(model, background_specs=specs) if val_loader is not None else None
+    eval_step = make_eval_step(model, mesh=mesh, background_specs=specs) if val_loader is not None else None
 
     seed = int(train_cfg.get("seed", 0))
     generator = torch.Generator(device).manual_seed(seed)
@@ -528,12 +594,14 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
     max_steps = train_cfg.get("max_steps")
     n_micro = step_cfg.gradient_accumulation_steps
 
-    log_batch_and_buckets(batch_size=int(data_cfg.get("batch_size", 1)), grad_accum=n_micro, num_devices=1,
-                          train_loader=train_loader)
+    log_batch_and_buckets(batch_size=int(data_cfg.get("batch_size", 1)), grad_accum=n_micro,
+                          num_devices=mesh.size, train_loader=train_loader)
     print(f"[Params] trainable parameters: {sum(p.numel() for p in params):,}")
 
     host_rng = np.random.default_rng(seed)
-    metrics_logger = MetricsLogger(train_cfg.get("metrics_dir", train_cfg.get("ckpt_dir")))
+    # one writer on a shared filesystem: the metrics are the same on every process
+    metrics_logger = MetricsLogger(
+        train_cfg.get("metrics_dir", train_cfg.get("ckpt_dir")) if mesh.rank == 0 else None)
     global_step = start_step
     performed_validation = False
     pending: Optional[Dict[str, torch.Tensor]] = None
@@ -554,7 +622,7 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
     def validate(epoch: int) -> None:
         last_metrics.update(evaluate_rgba_vae(model, val_loader, epoch=epoch, eval_cfg=train_cfg,
                                               global_step=global_step, eval_step=eval_step,
-                                              generator=generator))
+                                              generator=generator, mesh=mesh))
 
     # a resumed run starts inside the schedule: the epoch and the batch
     # within it follow from the restored step
@@ -572,7 +640,7 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
         for epoch in range(start_epoch, epochs):
             train_loader.set_epoch(epoch)
             batches = _step_batches(train_loader, skip=skip_batches if epoch == start_epoch else 0, rng=host_rng,
-                                    background_sample_prob=background_sample_prob, n_micro=n_micro)
+                                    background_sample_prob=background_sample_prob, n_micro=n_micro, mesh=mesh)
             for batch in cuda_prefetch(batches, device):
                 images_seen += batch.pop("n_real")
                 with annotate("rgba_vae_train_step", step=global_step):
@@ -592,8 +660,8 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
                     performed_validation = True
                 if ckpt_every_steps > 0 and global_step % ckpt_every_steps == 0:
                     save_checkpoints(model, cfg, step=global_step, optimizer=optimizer, generator=generator,
-                                     writer=ckpt_writer)
-                if guard.should_stop():
+                                     writer=ckpt_writer, mesh=mesh)
+                if guard.should_stop(sync=True):
                     # leave now; the save below commits this step for `resume_from: auto`
                     preempted = stop = True
                     print(f"[RGBA-VAE] preempted at step {global_step} ({guard.describe()}) "
@@ -608,7 +676,7 @@ def train_rgba_vae(cfg: Dict[str, Any], device: Union[str, torch.device, None] =
     last_metrics = materialize(global_step, epochs - 1) or last_metrics
     if run_validation and not performed_validation and not preempted:
         validate(epochs - 1)
-    save_checkpoints(model, cfg, step=global_step, optimizer=optimizer, generator=generator)
+    save_checkpoints(model, cfg, step=global_step, optimizer=optimizer, generator=generator, mesh=mesh)
     last_metrics["global_step"] = float(global_step)
     if preempted:
         last_metrics["preempted"] = 1.0

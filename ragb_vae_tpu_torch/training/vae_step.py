@@ -11,6 +11,14 @@ The compute dtype is the model's (`RgbaVAE(compute_dtype=...)`): training
 keeps fp32 parameters for AdamW and runs activations and kernel operands in
 bf16 on the card. The posterior noise comes from one `torch.Generator` per
 step, drawn per microbatch in order, or is handed in as `eps`.
+
+With a `mesh` (`parallel/mesh.py`, the data axis over a process group) the
+step is ZeRO-2 (`parallel/zero_step.py`): each process runs the loss and its
+backward on its rows, and the gradients, the clip and AdamW are reduced and
+partitioned over the processes, AdamW's moments optionally in host memory
+between steps (`offload_opt_state`). Each micro-batch's noise is then drawn
+at the global micro-batch's shape from the one generator and each process
+keeps its own rows, so N processes draw what one draws.
 """
 from __future__ import annotations
 
@@ -23,9 +31,11 @@ from ragb_vae_tpu_torch.models.losses import AlphaVaeLossConfig
 from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
 from ragb_vae_tpu_torch.ops.gaussian import split_batch
 from ragb_vae_tpu_torch.ops.metrics import alpha_mae, psnr
-from ragb_vae_tpu_torch.ops.rgba import composite_over_background, ensure_alpha, to_vae_range
+from ragb_vae_tpu_torch.ops.rgba import composite_over_background, ensure_alpha, from_vae_range, to_vae_range
 from ragb_vae_tpu_torch.ops.triplet import detail_augmented_triplet
 from ragb_vae_tpu_torch.parallel.grad_accum import accumulated_grads
+from ragb_vae_tpu_torch.parallel.mesh import Mesh, global_rows, local_rows, randn_rows
+from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW, weighted_mean_over_ranks
 
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
@@ -89,13 +99,19 @@ def make_optimizer(
                         weight_decay=weight_decay, max_grad_norm=max_grad_norm)
 
 
-def init_train_state(model: RgbaVAE, optimizer: ClippedAdamW, *, mesh=None, offload: bool = False) -> dict:
+def init_train_state(model: RgbaVAE, optimizer: ClippedAdamW, *, mesh: Optional[Mesh] = None,
+                     offload: bool = False):
     """Create the AdamW moments (zeros) and step counts for every trainable
     parameter now instead of at the first update, so the optimizer's state
     dict is complete before any step (as `tx.init(params)` is); returns that
-    state dict."""
-    if mesh is not None or offload:
-        raise NotImplementedError("init_train_state: mesh / offload are not ported yet")
+    state dict. With a `mesh`: the ZeRO-2 optimizer over `optimizer`
+    (`ZeroAdamW`, this process's slice of the moments, in host memory
+    between steps when `offload`), which `make_train_step(mesh=)` takes and
+    whose `state_dict()` is the single-device one."""
+    if mesh is not None:
+        return ZeroAdamW(optimizer, mesh, offload=offload)
+    if offload:
+        raise ValueError("offload requires a mesh")
     for p in trainable_parameters(model):
         if not optimizer.state[p]:
             optimizer.state[p] = {
@@ -116,6 +132,7 @@ def vae_loss_fn(
     lpips_fn: Optional[PerceptualLoss] = None,
     eps: Optional[Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Loss assembly of the AlphaVAE stage.
 
@@ -123,7 +140,8 @@ def vae_loss_fn(
     (optional): (B,) per-sample loss weights; zeros mark padding samples,
     which then change neither the loss nor the gradients. `eps` is the
     posterior's standard-normal draw (B, h, w, latent); without it, it is
-    drawn from `generator`.
+    drawn from `generator`, over a `mesh` as this process's rows of the
+    draw for every process's rows.
     """
     dtype = model.compute_dtype
     target = torch.clamp(batch["images"], 0.0, 1.0)
@@ -132,6 +150,8 @@ def vae_loss_fn(
     triplet = detail_augmented_triplet(target_vae)
 
     posterior, posterior_black, posterior_white = split_batch(model.encode(triplet), 3)
+    if eps is None and mesh is not None:
+        eps = randn_rows(posterior.mean.shape, generator, mesh, device=posterior.mean.device)
     z = posterior.sample(eps, generator=generator, dtype=dtype)
     pred = model.decode(z)
 
@@ -165,11 +185,11 @@ def vae_loss_fn(
 
 def make_train_step(
     model: RgbaVAE,
-    optimizer: ClippedAdamW,
+    optimizer,
     loss_cfg: AlphaVaeLossConfig,
     step_cfg: VaeStepConfig,
     *,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     ref_model: Optional[RgbaVAE] = None,
     lpips_fn: Optional[PerceptualLoss] = None,
     offload_opt_state: bool = False,
@@ -182,14 +202,28 @@ def make_train_step(
     exactly invariant across the split), clips, and updates the model's
     parameters and the optimizer's state in place. The metrics are scalar
     tensors on the model's device, "train/grad_norm" (before the clip)
-    included. `eps`, when given, is the whole batch's posterior noise and is
+    included. `eps`, when given, is the batch's posterior noise and is
     split like the batch. `ref_model` is the frozen reference of the ref-KL
     term.
+
+    With a `mesh`, `batch` holds this process's rows, the update is ZeRO-2
+    over the processes (`optimizer` is the `ZeroAdamW` of
+    `init_train_state(mesh=)`, or the `ClippedAdamW` it wraps) and the
+    metrics are weighted means over every process's rows.
+    `offload_opt_state` keeps the moments in host memory between steps; it
+    needs a mesh (a 1-process one will do), as in the JAX package.
     """
-    if mesh is not None or offload_opt_state:
-        raise NotImplementedError("make_train_step: mesh / offload_opt_state are not ported yet")
+    if mesh is None and offload_opt_state:
+        raise ValueError("offload_opt_state requires a mesh")
     params = trainable_parameters(model)
     num_micro = step_cfg.gradient_accumulation_steps
+    zero = None
+    if mesh is not None:
+        zero = optimizer if isinstance(optimizer, ZeroAdamW) else ZeroAdamW(optimizer, mesh,
+                                                                             offload=offload_opt_state)
+        if zero.offload != bool(offload_opt_state):
+            raise ValueError(f"offload_opt_state={offload_opt_state} but the optimizer was built with "
+                             f"offload={zero.offload}")
 
     def step(batch: Batch, *, generator: Optional[torch.Generator] = None,
              eps: Optional[Tensor] = None) -> Dict[str, Tensor]:
@@ -198,7 +232,7 @@ def make_train_step(
         def loss(micro: Batch, index: int):
             return vae_loss_fn(
                 model, micro, loss_cfg=loss_cfg, step_cfg=step_cfg, ref_model=ref_model,
-                lpips_fn=lpips_fn, generator=generator,
+                lpips_fn=lpips_fn, generator=generator, mesh=mesh,
                 eps=None if eps_micro is None else eps_micro[index],
             )
 
@@ -206,9 +240,14 @@ def make_train_step(
             loss, params, batch, num_micro,
             micro_weight_fn=(lambda mb: mb["weights"].sum()) if "weights" in batch else None,
         )
-        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+        if zero is not None:
+            w_local = batch["weights"].sum() if "weights" in batch else None
+            grad_norm = zero.step(w_local)
+            metrics = weighted_mean_over_ranks(metrics, w_local, mesh)
+        else:
+            grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+            optimizer.clipped_step(grad_norm)
         metrics["train/grad_norm"] = grad_norm
-        optimizer.clipped_step(grad_norm)
         return metrics
 
     return step
@@ -226,26 +265,40 @@ def resolve_background_spec(spec):
     return spec
 
 
-def make_eval_step(model: RgbaVAE, *, mesh=None, background_specs: Sequence = ("white", "black")):
+def make_eval_step(model: RgbaVAE, *, mesh: Optional[Mesh] = None,
+                   background_specs: Sequence = ("white", "black")):
     """Build the validation step `step(images, *, generator=None, eps=None)`:
     a sampled forward, PSNR over each background composite, alpha MAE.
     Returns per-sample vectors ("psnr_<spec>", "alpha_mae") and the
-    reconstruction ("recon"), so the caller aggregates across batches."""
-    if mesh is not None:
-        raise NotImplementedError("make_eval_step: mesh is not ported yet")
+    reconstruction ("recon"), so the caller aggregates across batches.
+
+    With a `mesh`, `images` (and `eps`) is the whole batch on every process
+    (its rows a multiple of the processes); each process runs its rows, the
+    noise drawn as in the train step, and every output is gathered back to
+    the whole batch on every process."""
     backgrounds = [(str(s), resolve_background_spec(s)) for s in background_specs]
 
     @torch.no_grad()
     def step(images: Tensor, *, generator: Optional[torch.Generator] = None,
              eps: Optional[Tensor] = None) -> Dict[str, Tensor]:
         images = ensure_alpha(torch.clamp(images, 0.0, 1.0))
-        recon, _ = model.forward(images, eps=eps, generator=generator)
+        if mesh is not None:
+            images = local_rows(images, mesh)
+            eps = None if eps is None else local_rows(eps, mesh)
+        # RgbaVAE.forward, with the noise drawn once the latent shape is known
+        posterior = model.encode(to_vae_range(images).to(model.compute_dtype))
+        if eps is None and mesh is not None:
+            eps = randn_rows(posterior.mean.shape, generator, mesh, device=posterior.mean.device)
+        z = posterior.sample(eps, generator=generator, dtype=model.compute_dtype)
+        recon = torch.clamp(from_vae_range(model.decode(z).float()), 0.0, 1.0)
         out = {}
         for name, bg in backgrounds:
             out[f"psnr_{name}"] = psnr(composite_over_background(recon, bg),
                                        composite_over_background(images, bg))
         out["alpha_mae"] = alpha_mae(recon, images)
         out["recon"] = recon
+        if mesh is not None:
+            out = {k: global_rows(v.contiguous(), mesh) for k, v in out.items()}
         return out
 
     return step

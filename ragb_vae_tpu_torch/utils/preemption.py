@@ -1,9 +1,9 @@
-"""Graceful preemption: SIGTERM -> checkpoint -> clean exit, one process.
+"""Graceful preemption: SIGTERM -> checkpoint -> clean exit.
 
-Counterpart of `ragb_vae_tpu/utils/preemption.py` without its cross-process
-flag (the port's loop runs one process). The loop polls `should_stop()` once
-per step; when a signal has landed it leaves, writes a complete checkpoint at
-that step, and `resume_from: auto` continues from there.
+Counterpart of `ragb_vae_tpu/utils/preemption.py`. The loop polls
+`should_stop(sync=True)` once per step; when a signal has landed on any
+process, every process leaves at that step, writes its part of a complete
+checkpoint, and `resume_from: auto` continues from there.
 """
 from __future__ import annotations
 
@@ -11,6 +11,9 @@ import os
 import signal
 import threading
 from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 _DEFAULT_SIGNALS = (signal.SIGTERM,)
 
@@ -45,8 +48,21 @@ class PreemptionGuard:
     def request_stop(self) -> None:
         self._event.set()
 
-    def should_stop(self) -> bool:
-        return self._event.is_set()
+    def should_stop(self, sync: bool = False) -> bool:
+        """Poll the flag; with `sync=True` OR it over the processes of the
+        default group (one all-reduce MAX of a scalar; nothing at one
+        process or without a group), so processes signalled unevenly still
+        stop at the same step. The agreed flag is then set locally."""
+        local = self._event.is_set()
+        if not sync or not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+            return local
+        device = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else "cpu"
+        flag = torch.tensor([int(local)], dtype=torch.int32, device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        agreed = bool(flag.item())
+        if agreed:
+            self._event.set()
+        return agreed
 
     def describe(self) -> str:
         if self._received is None:

@@ -8,7 +8,11 @@ the stage `training.stage` names (`--stage` overrides it) through
 `ragb_vae_tpu_torch.training.run_stage`, on `--device`: the card by default;
 a missing card raises. `--device cpu` runs on the CPU. The installed
 `ragb-train-torch` entry point runs the same code
-(`ragb_vae_tpu_torch._cli.run_training`).
+(`ragb_vae_tpu_torch._cli.run_training`). Data parallel over N processes:
+
+    torchrun --nproc_per_node N scripts/train_torch.py --config CFG.yaml
+
+(each process on `cuda:LOCAL_RANK`; `--device cpu` joins a gloo group).
 """
 from __future__ import annotations
 

@@ -25,6 +25,16 @@ PIXEL_RTOL = 1e-6
 BUCKETS = {"w64-h64": list(range(10)), "w128-h64": list(range(10, 17)), "w64-h128": [17]}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("key", ["w1024-h768", "w64-h64", "1024x768", "w10-h", "W10-h10"])
 def test_bucket_keys_parse_as_in_jax(key):
     assert bool(tbuckets.BUCKET_RE.match(key)) == bool(jbuckets.BUCKET_RE.match(key))
@@ -135,8 +145,14 @@ def test_loader_with_a_batch_size_and_its_errors(tree):
     assert len(DataLoader(one_bucket, batch_size=2)) == 3
     with pytest.raises(ValueError, match="exactly one"):
         DataLoader(ds)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        DataLoader(ds, batch_size=2, process_shard=(0, 2))
+    # process_shard: each of two processes fetches its half of every batch
+    halves = [list(DataLoader(one_bucket, batch_size=2, shuffle=True, seed=1, drop_last=True,
+                              process_shard=(r, 2))) for r in range(2)]
+    for whole, first, second in zip(loader, *halves):
+        assert first["global_batch_size"] == second["global_batch_size"] == 2
+        np.testing.assert_array_equal(np.concatenate([first["gt"], second["gt"]]), whole["gt"])
+    with pytest.raises(ValueError, match="not divisible"):
+        list(DataLoader(one_bucket, batch_size=3, process_shard=(0, 2)))
 
 
 def test_loader_passes_on_a_worker_error_and_stops_its_thread_on_an_early_exit(tree):

@@ -27,6 +27,16 @@ from ragb_vae_tpu_torch.ops import packing as tpack
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def random_flux_params(jcfg, seed=0):
     """Random numpy weights in the JAX transformer's tree structure (from
     eval_shape): kernels at lecun scale, everything else small and non-zero."""

@@ -22,6 +22,16 @@ from ragb_vae_tpu_torch.ops.kernels import int8_matmul as tim
 jim = importlib.import_module("ragb_vae_tpu.ops.pallas.int8_matmul")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def _interpret_mode():
     jim.INTERPRET = True

@@ -44,6 +44,16 @@ GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-6
 RANK, ALPHA = 4, 6.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def random_lora_flux_params(jcfg, seed=0):
     """Random numpy weights in the tree of the JAX transformer WITH adapters:
     kernels at lecun scale, lora_a / lora_b and everything else small and

@@ -34,11 +34,11 @@ def _stop_after(monkeypatch, n: int) -> None:
     real = PreemptionGuard.should_stop
     calls = {"n": 0}
 
-    def should_stop(self):
+    def should_stop(self, sync=False):
         calls["n"] += 1
         if calls["n"] >= n:
             self.request_stop()
-        return real(self)
+        return real(self, sync)
 
     monkeypatch.setattr(PreemptionGuard, "should_stop", should_stop)
 

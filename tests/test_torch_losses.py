@@ -26,6 +26,16 @@ from ragb_vae_tpu_torch.ops import triplet as tt
 RTOL, ATOL = 1e-5, 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

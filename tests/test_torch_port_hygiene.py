@@ -97,9 +97,12 @@ def test_torch_entry_point_resolves_to_a_function_of_the_port_cli(name):
 def test_every_module_imports_without_a_toolkit():
     from ragb_vae_tpu_torch.ops.kernels import _build
 
+    from ragb_vae_tpu_torch.data import native_io
+
     for info in pkgutil.walk_packages([str(ROOT)], prefix="ragb_vae_tpu_torch."):
         importlib.import_module(info.name)
     assert _build._lib is None  # nothing was compiled or loaded by importing
+    assert not native_io._load_attempted  # nor the PNG codec
 
 
 CU_FILES = sorted((ROOT / "csrc").glob("*.cu"))
@@ -950,3 +953,39 @@ def test_k6_wrapper_passes_ws_as_it_lies():
 
     src = inspect.getsource(rb.conv3x3_stats_bwd_cuda)
     assert "wst" not in src and "ws.to(x.dtype).t()" not in src and "ws = ws.to(x.dtype).contiguous()" in src
+
+
+def test_scan_covers_the_parallel_axes_and_the_png_codec():
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES if p.is_relative_to(ROOT)}
+    assert {f"parallel/{name}.py" for name in ("mesh", "sharding", "zero_step")} <= scanned
+    assert {"data/native_io.py", "ops/kernels/_build.py", "utils/preemption.py"} <= scanned
+    assert "build_rgba_io" in (ROOT / "ops" / "kernels" / "_build.py").read_text()
+
+
+def _string_constants(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+
+
+def test_nothing_of_the_port_builds_into_the_jax_package():
+    """The port builds its kernels and its PNG codec under `<repo>/build/`
+    only: the JAX package's `native/Makefile` writes its library into
+    `ragb_vae_tpu/data/`, which the port must never build, load or write."""
+    from ragb_vae_tpu_torch.ops.kernels import _build
+
+    build = ROOT.parent / "build"
+    for target in (_build.BUILD_DIR, _build.HOST_BUILD_DIR, _build.library_path(), _build.rgba_io_path()):
+        assert target.resolve().is_relative_to(build), target
+        assert not target.resolve().is_relative_to(ROOT.parent / "ragb_vae_tpu")
+    assert _build.RGBA_IO_SOURCE.resolve().is_relative_to(ROOT / "csrc")
+    for path in SOURCES:
+        bad = [s for s in _string_constants(path) if "_libragb_io" in s or "Makefile" in s
+               or s in ("make", "native")]
+        assert not bad, f"{path} names the JAX package's native build: {bad}"
+
+
+def test_the_scan_catches_a_build_into_the_jax_package(tmp_path):
+    planted = tmp_path / "planted.py"
+    planted.write_text('import subprocess\nsubprocess.run(["make", "-C", "native"])\n')
+    assert [s for s in _string_constants(planted) if s in ("make", "native")] == ["make", "native"]

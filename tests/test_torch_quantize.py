@@ -25,6 +25,16 @@ from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformer2D, FluxTr
 from tests.test_torch_flux import _inputs, random_flux_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _flat(tree):
     return {jax.tree_util.keystr(p): np.asarray(v) for p, v in jax.tree_util.tree_leaves_with_path(tree)}
 

@@ -19,6 +19,16 @@ Y_TOL = 1e-4
 STATS_RTOL, STATS_ATOL = 1e-4, 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def _interpret():
     jrb.INTERPRET = True

@@ -29,6 +29,16 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(seed, channels=4):
     rng = np.random.default_rng(seed)
     recon = rng.uniform(size=(2, 16, 16, channels)).astype(np.float32)

@@ -24,6 +24,16 @@ from tests.data_fixtures import make_multilayer_tree
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _script(name):
     """Import `scripts/<name>.py` as a module; sys.path as it was after."""
     saved = list(sys.path)

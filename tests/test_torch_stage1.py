@@ -11,7 +11,7 @@
   boundary and across a resume (pixels to 1e-6 relative: the two packages
   scale the PNG bytes by another route; the random background blend draws
   one numpy stream in both).
-- Dispatch, the script, and the options that are not ported raise.
+- Dispatch, the script, and the refused options raise.
 """
 import json
 import sys
@@ -37,6 +37,16 @@ from tests.data_fixtures import _write_png
 
 PIXEL_RTOL = 1e-6
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -232,12 +242,16 @@ def test_the_script_trains_on_the_cpu_and_refuses_a_missing_card(assets, tmp_pat
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"zero_impl": "shard_map"}, "shard_map"),
-    ({"optimizer_offload": True}, "optimizer_offload"),
+    ({"zero_impl": "shard_map", "gradient_accumulation_steps": 2}, "shard_map"),
+    ({"zero_impl": "shard_map", "optimizer_offload": True}, "optimizer_offload"),
     ("WORLD_SIZE", "more than one process"),
     ({"vae_gradient_checkpointing": "every_other"}, "vae_gradient_checkpointing"),
 ])
 def test_what_is_not_ported_raises(assets, tmp_path, monkeypatch, option, match):
+    """What the loop refuses: JAX's two refusals of `zero_impl: shard_map`
+    (accumulation, offload), a WORLD_SIZE above 1 with no rendezvous to join,
+    an unknown remat string. `shard_map` and `optimizer_offload` alone train
+    (`tests/test_torch_zero_step.py`, `tests/test_torch_parallel_loop.py`)."""
     training = {}
     if option == "WORLD_SIZE":
         monkeypatch.setenv("WORLD_SIZE", "2")

@@ -56,6 +56,16 @@ PIXEL_RTOL = 1e-6
 TILE_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: tiny tensors gain
+    nothing from intra-op threads, and the workers stop fighting for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _same_arrays(got, want, rtol=PIXEL_RTOL):
     assert sorted(got) == sorted(want)
     for key in want:

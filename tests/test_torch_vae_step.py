@@ -34,6 +34,8 @@ from ragb_vae_tpu_torch.models import lpips as tlp
 from ragb_vae_tpu_torch.models import weights as tw
 from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
 from ragb_vae_tpu_torch.parallel.grad_accum import accumulated_grads, split_microbatches
+from ragb_vae_tpu_torch.parallel.mesh import Mesh
+from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW
 from ragb_vae_tpu_torch.training import vae_step as tvs
 from test_torch_vae import _configs, _random_params
 from torch_lpips_ref import make_lpips_state
@@ -238,12 +240,13 @@ def test_split_microbatches_and_unported_options(world):
     model, _ = _port_models(world)
     optimizer = tvs.make_optimizer(tvs.trainable_parameters(model), LR)
     cfg = (tl.AlphaVaeLossConfig(), tvs.VaeStepConfig())
-    with pytest.raises(NotImplementedError):
-        tvs.make_train_step(model, optimizer, *cfg, mesh=object())
-    with pytest.raises(NotImplementedError):
+    # a mesh makes the step ZeRO-2 (tests/test_torch_zero_step.py); offload needs one, as in JAX
+    zero = tvs.init_train_state(model, optimizer, mesh=Mesh(), offload=True)
+    assert isinstance(zero, ZeroAdamW) and zero.offload and callable(
+        tvs.make_train_step(model, zero, *cfg, mesh=Mesh(), offload_opt_state=True))
+    with pytest.raises(ValueError, match="requires a mesh"):
         tvs.make_train_step(model, optimizer, *cfg, offload_opt_state=True)
-    with pytest.raises(NotImplementedError):
-        tvs.make_eval_step(model, mesh=object())
+    assert callable(tvs.make_eval_step(model, mesh=Mesh()))
     with pytest.raises(ValueError):
         tvs.resolve_background_spec("green")
     with pytest.raises(ValueError):

@@ -1,0 +1,172 @@
+"""Run a function of this module on N gloo ranks, for the port's data-parallel
+tests (`tests/test_torch_zero_step.py`, `tests/test_torch_parallel_loop.py`).
+
+`spawn(name, world, tmp_path, payload)` saves `payload` with torch.save,
+starts `world` spawned processes that join one gloo group through a
+`file://` rendezvous in `tmp_path` (with a timeout), each running
+`name(rank, world, payload, tmp_path)` with one torch thread, and returns
+each rank's result (and what `meanwhile()` returned, which runs here while
+the ranks do). A rank that fails passes its traceback on; a rank that has
+not ended 60 s after that (or after the start) is killed and the call
+fails, so a hung rendezvous never holds the suite. This module imports torch and the port
+only: the children never load JAX.
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+JOIN_SECONDS = 60
+
+
+def noise_decides(name) -> bool:
+    """The attention key bias: its true gradient is zero (softmax ignores a
+    constant key shift), so rounding noise decides AdamW's update there."""
+    return "to_k" in str(name) and "bias" in str(name)
+
+
+def assert_close_after_adamw(got: dict, want: dict, what: str, *, lr: float, rtol: float = 1e-5) -> None:
+    """Each tensor's mean error within `rtol` of its largest entry plus 1e-3
+    of one update (lr), and no entry beyond one update: AdamW divides by
+    sqrt(v), so where a gradient is near zero (a cancellation) its rounding
+    noise in another summation order decides a visible part of the update of
+    that entry, and a tensor that started at zero holds nothing but updates."""
+    assert set(got) == set(want), what
+    for k in want:
+        if noise_decides(k):
+            continue
+        w, g = want[k].double(), got[k].double()
+        err = (g - w).abs()
+        bound = rtol * float(w.abs().max()) + 1e-3 * lr
+        assert float(err.mean()) <= bound and float(err.max()) <= lr, (
+            f"{what} {k}: mean error {float(err.mean()):.3g} against {bound:.3g}, max error "
+            f"{float(err.max()):.3g} against {lr}")
+
+
+def _entry(name: str, rank: int, world: int, tmp: str) -> None:
+    tmp_path = Path(tmp)
+    try:
+        torch.set_num_threads(1)
+        from ragb_vae_tpu_torch.parallel.mesh import maybe_init_distributed
+
+        maybe_init_distributed("cpu", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=world,
+                               rank=rank, timeout=datetime.timedelta(seconds=JOIN_SECONDS))
+        payload = torch.load(tmp_path / "payload.pt", weights_only=False)
+        result = globals()[name](rank, world, payload, tmp_path)
+        torch.save(result, tmp_path / f"result_{rank}.pt")
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        (tmp_path / f"error_{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def spawn(name: str, world: int, tmp_path: Path, payload, meanwhile=None):
+    """-> each rank's result; with `meanwhile`, (those, `meanwhile()`), which
+    runs in this process while the ranks do."""
+    tmp_path = Path(tmp_path)
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    torch.save(payload, tmp_path / "payload.pt")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(name, r, world, str(tmp_path)), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        local = meanwhile() if meanwhile is not None else None
+    finally:
+        deadline = time.monotonic() + JOIN_SECONDS
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [(tmp_path / f"error_{r}.txt") for r in range(world)]
+    messages = [f"rank {r}:\n{e.read_text()}" for r, e in enumerate(errors) if e.exists()]
+    if hung or messages or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"ranks {hung} still running {JOIN_SECONDS} s into the join; exit codes "
+                             f"{[p.exitcode for p in procs]}\n" + "\n".join(messages))
+    results = [torch.load(tmp_path / f"result_{r}.pt", weights_only=False) for r in range(world)]
+    return results if meanwhile is None else (results, local)
+
+
+# ---------------------------------------------------------------------------
+# The ZeRO-2 step on the tiny RgbaVAE
+# ---------------------------------------------------------------------------
+def zero_steps(rank: int, world: int, payload: dict, tmp_path: Path, *, mesh=None) -> dict:
+    """Each case of `payload["cases"]`: a fresh tiny RgbaVAE from
+    `payload["state"]`, two ZeRO-2 steps over this rank's rows of the global
+    batches (images, weights, injected eps), -> per step the metrics, then
+    the parameters and the gathered optimizer state dict."""
+    from ragb_vae_tpu_torch.models.losses import AlphaVaeLossConfig
+    from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
+    from ragb_vae_tpu_torch.parallel.mesh import create_mesh, local_rows
+    from ragb_vae_tpu_torch.training import vae_step as tvs
+
+    mesh = mesh or create_mesh()
+    out = {}
+    for case in payload["cases"]:
+        model = RgbaVAE(payload["config"])
+        model.module.load_state_dict(payload["state"], strict=True)
+        optimizer = tvs.make_optimizer(tvs.trainable_parameters(model), payload["lr"],
+                                       max_grad_norm=payload["max_grad_norm"])
+        zero = tvs.init_train_state(model, optimizer, mesh=mesh, offload=case["offload"])
+        step = tvs.make_train_step(
+            model, zero, AlphaVaeLossConfig(reduce_mean=True),
+            tvs.VaeStepConfig(kl_scale=payload["kl_scale"], gradient_accumulation_steps=case["accum"]),
+            mesh=mesh, offload_opt_state=case["offload"])
+        metrics = []
+        for images, eps in zip(payload["images"], payload["eps"]):
+            batch = {"images": local_rows(torch.from_numpy(images), mesh)}
+            if case["weights"] is not None:
+                batch["weights"] = local_rows(torch.from_numpy(np.asarray(case["weights"], np.float32)), mesh)
+            got = step(batch, eps=local_rows(torch.from_numpy(eps), mesh))
+            metrics.append({k: float(v) for k, v in got.items()})
+        out[case["name"]] = {
+            "metrics": metrics,
+            "params": {k: v.clone() for k, v in model.module.state_dict().items()},
+            "optimizer": zero.state_dict(),
+            "moments_on_cpu": all(t.device.type == "cpu" for t in zero.moments().values()),
+        }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The stage-1 loop, the preemption flag and the LoRA stage
+# ---------------------------------------------------------------------------
+def tiny_lora_model():
+    """The LoRA stage tests' tiny FLUX-Kontext model (`tests/test_torch_lora_stage.py::_tiny_model`)."""
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+    from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
+    from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
+
+    vcfg = AutoencoderConfig.tiny()
+    vcfg.in_channels = vcfg.out_channels = 4
+    return FluxTextAlphaModel.random(FluxTransformerConfig.tiny(), vcfg, seed=0, device="cpu", prompt_len=4)
+
+
+def loop_runs(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
+    """Three polls of a guard that rank 1 flags before the second; the
+    stage-1 configs of `payload["stages"]` in order; one LoRA run of
+    `payload["lora"]` -> the polls, each run's metrics and the adapters."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_state
+    from ragb_vae_tpu_torch.training import flux_kontext_textalpha_lora as lora
+    from ragb_vae_tpu_torch.training.rgba_vae_stage import train_rgba_vae
+    from ragb_vae_tpu_torch.utils.preemption import PreemptionGuard
+
+    guard, polls = PreemptionGuard(enabled=False), []
+    for i in range(3):
+        if rank == 1 and i == 1:
+            guard.request_stop()
+        polls.append(guard.should_stop(sync=True))
+    stages = [train_rgba_vae(cfg, device="cpu") for cfg in payload["stages"]]
+    model = tiny_lora_model()
+    lora_metrics = lora.train_from_config(payload["lora"], model=model, device="cpu")
+    return {"polls": polls, "stages": stages, "lora": lora_metrics,
+            "adapters": {k: v.clone() for k, v in lora_state(model.transformer).items()}}
