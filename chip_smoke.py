@@ -53,6 +53,25 @@ clock; any failure exits non-zero without the final line):
              the probe loss, the gradients, the unchanged base and the launch
              counts, then holds the adapters' gradient tree through the int8
              matmul kernel against its plain version at 256^2.
+10. tp     - (after the int8 phase, once the serving model is freed) tensor
+             parallelism over two processes on the one card, joined in a gloo
+             group (NCCL refuses two ranks on one device; the collectives'
+             times are gloo's through host memory): each rank draws its shard
+             of the full-width FLUX.1-Kontext from the slice phase's seed,
+             rank 0 serves one 512^2 request through
+             `InferenceServer(tp_group=)` while rank 1 follows in
+             `serve_worker`, and its float answer, one bf16 forward and (each
+             rank quantising its shard with the whole layers' scales) one int8
+             forward are held against the slice and int8 phases' answers to
+             the same inputs; then one `make_lora_train_step` step at
+             tensor_parallel 2 over a full-width 2 + 4 block transformer with
+             non-zero biases, its summed adapter gradients held against the
+             same model unsharded, the two ranks' adapters equal bit for bit
+             after the update. Three planted faults (a row all-reduce
+             dropped, a row bias added twice, proj_out's rows in JAX's
+             contiguous order) must fail the same bounds. Prints each rank's
+             memory beside the slice phase's, the collectives per forward and
+             the s/step.
 7. convs   - the three stand-alone VAE convs through their entry points
              (`Downsample(fused=True)` feeding a fused resnet block,
              `Conv3x3`, `fused_gn_silu_conv3x3_batched`) at the FLUX `ae`
@@ -1160,6 +1179,7 @@ def phase_kernels() -> dict:
             lambda: check_attention(gen, (1, 1, 4096, 512)),
             lambda: check_attention(gen, (1, 1, 120, 512)),     # ragged: 24 keys in the last tile of 32
             lambda: check_attention(gen, (1, 1, 16384, 512)),
+            lambda: check_attention(gen, (1, 12, 2560, 128)),   # one rank's 12 heads at tensor_parallel 2
         ],
         # the shapes one training micro-batch of 4 at 512^2 gives them (the
         # encoder sees the triplet, batch 12; the decoder's last level runs at
@@ -1205,6 +1225,13 @@ def phase_kernels() -> dict:
             lambda: check_int8_matmul(gen, 2, 3072, 64, with_bias=False),
             lambda: check_int8_matmul(gen, 2, 3072, 64),
             lambda: check_int8_matmul(gen, 1001, 80, 136),      # every tile edge ragged
+            # one rank's shards at tensor_parallel 2: column q / k / v, column
+            # proj_mlp, the single blocks' row proj_out (K = (3072 + 12288) / 2),
+            # and a double block's column AdaLN GEMV
+            lambda: check_int8_matmul(gen, 2560, 3072, 1536),
+            lambda: check_int8_matmul(gen, 2560, 3072, 6144),
+            lambda: check_int8_matmul(gen, 2560, 7680, 3072, with_bias=False),
+            lambda: check_int8_matmul(gen, 1, 3072, 9216, dtype=torch.float32),
         ],
         # the decoder's mid width and last level, ragged tiles, and C not a
         # multiple of the 64-channel K chunk
@@ -1252,7 +1279,8 @@ def phase_kernels() -> dict:
     # K4 and K5 at the shapes a LoRA micro-batch gives them (24 heads x batch 2
     # at 512^2, batch 1 at 1024^2), ragged lengths, and Sq != Sk
     bwd_runs = [check_attention_bwd(gen, *shape) for shape in
-                ((48, 2560, 2560), (24, 8704, 8704), (24, 2600, 2600), (24, 300, 300), (24, 333, 777))]
+                ((48, 2560, 2560), (24, 8704, 8704), (24, 2600, 2600), (24, 300, 300), (24, 333, 777),
+                 (12, 2560, 2560))]      # one rank's 12 heads of one 512^2 pair at tensor_parallel 2
     for name in ("flash_attention_dq", "flash_attention_dkv"):
         all_ok &= summarise(name, [run[name] for run in bwd_runs])
     if not all_ok:
@@ -1380,9 +1408,11 @@ def _serve_three_http(phase: str, model, counters: dict, sizes=((512, 512), (512
     return counts, peak, health[1]["batches"]
 
 
-def phase_slice():
+def phase_slice(refs: dict):
     """-> (launch counts, the model, for the later phases to train and to
-    quantise, its peak memory)."""
+    quantise, its peak memory). Into `refs`, on the host, for the tp phase:
+    one 512^2 request's float answer through the serving program, one bf16
+    transformer forward (`_probe_forward`) and the memory it held."""
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
     from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
     from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
@@ -1400,11 +1430,20 @@ def phase_slice():
         f"RGBA VAE in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
+    resident = torch.cuda.memory_allocated()
     counts, peak, _ = _serve_three_http("slice", model, {
         "resnet_conv3x3_stats": lambda: rb.CONV_LAUNCHES,
         "subpixel_upsample_conv3x3_stats": lambda: rb.UPSAMPLE_LAUNCHES,
         "flash_attention_fwd": lambda: fa.LAUNCHES,
     })
+    from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
+
+    image = _tp_request()
+    with torch.inference_mode():
+        refs["answer"] = InferenceServer(model, ServeConfig(steps=SERVE_STEPS))._run_batch(
+            image[None], np.array([TP_SEED], np.uint32))[0]
+    refs["forward"] = _probe_forward(model, SEED + 4).cpu()
+    refs["peak"], refs["resident"] = peak, resident
     return counts, model, peak
 
 
@@ -1693,7 +1732,7 @@ BLOCKS = 19 + 38               # attention calls per transformer forward
 TRAIN_STEPS = 1                # optimizer steps of the VAE phase (the stage1 phase takes 3 more)
 STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO = 2, 4, 2     # of the LoRA and the QLoRA phase: steps, pairs per step, micro-batches
 LORA_PAIRS = 2                 # the LoRA phase's pairs per step (the QLoRA phase's probe loss needs 4 to fall)
-ALL_PHASES = ("kernels", "slice", "lora", "int8", "convs", "train", "stage1")
+ALL_PHASES = ("kernels", "slice", "lora", "int8", "tp", "convs", "train", "stage1")
 
 
 def _lora_counts() -> dict:
@@ -2078,14 +2117,15 @@ def _train_without_saving(model, cfg: dict, log_fn) -> tuple:
         stage.write_lora_metadata, torch.save = metadata, save
 
 
-def phase_int8(model, bf16_peak: int, work: Path) -> dict:
+def phase_int8(model, bf16_peak: int, work: Path, refs: dict) -> dict:
     """Quantises the serving phase's transformer where it lives, holds one
     forward against the bf16 one from the same weights, serves 3 requests
     through InferenceServer, takes 2 QLoRA optimizer steps through
     `train_from_config(weight_quant="int8")` on the PNG tree in `work`
     (without its final save), then holds the adapters' gradient tree through
-    K10 against the plain route."""
-    from ragb_vae_tpu_torch.models.flux_transformer import QLinear
+    K10 against the plain route. Into `refs`: the int8 forward without
+    the LoRA phase's adapters, for the tp phase."""
+    from ragb_vae_tpu_torch.models.flux_transformer import LoraDense, QLinear
     from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
     from ragb_vae_tpu_torch.models.quantize import quantize_module_
 
@@ -2121,6 +2161,13 @@ def phase_int8(model, bf16_peak: int, work: Path) -> dict:
     if not fine:
         raise SystemExit("[int8] the int8 transformer does not track the bf16 one, or a linear missed the kernel")
     del ref, out
+    # the same forward without the LoRA phase's adapters, for the tp phase
+    ranks = {m: m.lora_rank for m in model.transformer.modules() if isinstance(m, LoraDense)}
+    for m in ranks:
+        m.lora_rank = 0
+    refs["int8_forward"] = _probe_forward(model, SEED + 4).cpu()
+    for m, r in ranks.items():
+        m.lora_rank = r
 
     counts, peak, batches = _serve_three("int8", model, {
         "int8_matmul": lambda: i8.LAUNCHES,
@@ -2197,6 +2244,365 @@ def phase_int8(model, bf16_peak: int, work: Path) -> dict:
     for key, n in q_counts.items():
         counts[key] = counts.get(key, 0) + n
     _qlora_grad_tree_check(model, len(linears), in_blocks)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallel, two processes on the one card
+# ---------------------------------------------------------------------------
+# Two processes on cuda:0 join a gloo group (NCCL refuses two ranks on one
+# device; on a node of several cards the port's code takes the NCCL group it
+# is given): the collectives here go through host memory, and their times are
+# gloo's, not NCCL's. Each rank draws its shard of FLUX.1-Kontext from seed
+# 0's stream as `FluxTextAlphaModel.random(tp=)` does, so the two ranks hold
+# the slice phase's model between them, and their answers are held against
+# the slice and int8 phases' answers to the same inputs.
+#
+# The sharded model differs from the whole one in its rounding only: each
+# row layer's two partial sums are rounded to bf16 before the all-reduce, so
+# every output carries one or two more bf16 roundings, and that noise rides
+# through 57 blocks of a random-init residual stream. A planted fault is of
+# another size: a row all-reduce left out drops half of every row layer's sum
+# (relative error ~0.5 and more, compounding), a row bias added twice shifts
+# every such output by its bias, and the single blocks' proj_out over JAX's
+# contiguous rows multiplies half of each rank's activations with weights of
+# other channels. Each fault is planted in the same run and must fail the
+# bound it is listed under: the forward's bound (a row all-reduce left out;
+# the random-init biases are zero, so a bias added twice cannot show there)
+# and the LoRA gradients' bound (all three, over non-zero biases). On an
+# H100 the sound run reads 0.0177 (forward), 0.0082 (answer), 0.0173 (int8)
+# and 0.0183 (worst gradient leaf); the faults 0.83-1.35.
+TP = 2                         # ranks of the model group
+TP_SEED = 7                    # the request's seed
+TP_LORA_DEPTH = (2, 4)         # the LoRA part's double and single blocks (full width)
+TP_FORWARD_TOL = (0.05, 0.998)         # bf16 forward vs the slice phase's: relative error, cosine
+TP_ANSWER_TOL = (0.02, 0.999)          # the served 512^2 answer vs the slice phase's
+TP_INT8_TOL = (0.05, 0.998)            # int8 forward vs the int8 phase's (same int8 weights)
+TP_GRAD_TOL = (LORA_GRAD_REL_TOL, LORA_GRAD_COS_TOL)   # LoRA gradients vs the unsharded model's
+TP_JOIN_SECONDS = 600
+
+
+def _tp_request() -> np.ndarray:
+    """The 512^2 request the slice and tp phases both answer."""
+    return np.random.default_rng(SEED + 9).uniform(size=(512, 512, 4)).astype(np.float32)
+
+
+def _tracks(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(||got - want|| / ||want||, cosine) over the whole tensors, in fp64."""
+    got, want = got.double().flatten(), want.double().flatten()
+    return ((got - want).norm() / want.norm()).item(), (torch.dot(got, want) / (got.norm() * want.norm())).item()
+
+
+def _within(track: tuple, tol: tuple) -> bool:
+    return math.isfinite(track[0]) and track[0] <= tol[0] and track[1] >= tol[1]
+
+
+def _tp_child(rank: int, work: str) -> None:
+    """One rank of the tp phase: its results, or its traceback, into `work`."""
+    import traceback
+
+    try:
+        torch.save(_tp_rank(rank, Path(work)), Path(work) / f"tp_result_{rank}.pt")
+    except BaseException:
+        (Path(work) / f"tp_error_{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def _tp_rank(rank: int, work: Path) -> dict:
+    import torch.distributed as dist
+
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+    from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig, QLinear
+    from ragb_vae_tpu_torch.models.quantize import quantize_module_
+    from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
+    from ragb_vae_tpu_torch.parallel import tensor_parallel as tpm
+    from ragb_vae_tpu_torch.parallel.mesh import create_training_mesh
+    from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'tp_rendezvous'}", world_size=TP, rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_JOIN_SECONDS))
+    _, tp = create_training_mesh(tp=TP)
+    out: dict = {}
+
+    # the serving path at full width and depth: rank 0 serves, rank 1 follows
+    vae_cfg = AutoencoderConfig.flux()
+    vae_cfg.in_channels = vae_cfg.out_channels = 4
+    t0 = time.perf_counter()
+    model = FluxTextAlphaModel.random(FluxTransformerConfig(), vae_cfg, seed=SEED, device="cuda",
+                                      dtype=torch.bfloat16, fused=True, tp=tp)
+    torch.cuda.synchronize()
+    out["build_s"], out["resident"] = time.perf_counter() - t0, torch.cuda.memory_allocated()
+    out["transformer_bytes"] = tpm.shard_bytes(model.transformer)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    tpm.reset_counts()
+    server = InferenceServer(model, ServeConfig(max_batch=1, steps=SERVE_STEPS, auto_batch=False), tp_group=tp)
+    t0 = time.perf_counter()
+    if rank == 0:
+        with server:
+            out["answer"] = server.submit(_tp_request(), seed=TP_SEED).result(timeout=TP_JOIN_SECONDS)
+    else:
+        out["batches"] = server.serve_worker()
+    torch.cuda.synchronize()
+    out["request_s"] = time.perf_counter() - t0
+    out["serve_peak"] = torch.cuda.max_memory_allocated()
+    out["serve_launches"] = {"resnet_conv3x3_stats": rb.CONV_LAUNCHES,
+                             "subpixel_upsample_conv3x3_stats": rb.UPSAMPLE_LAUNCHES,
+                             "flash_attention_fwd": fa.LAUNCHES}
+    out["serve_collectives"] = dict(tpm.COUNTS)
+
+    # one transformer forward: the collectives, s/step, a dropped row all-reduce
+    from ragb_vae_tpu_torch.models import flux_transformer as ft
+
+    tpm.reset_counts()
+    out["forward"] = _probe_forward(model, SEED + 4).cpu()
+    out["forward_collectives"] = dict(tpm.COUNTS)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _probe_forward(model, SEED + 4)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["forward_s"] = times
+    x = torch.randn((2560, 3072), device="cuda").to(torch.bfloat16)   # a single block's all-reduce
+    out["allreduce_ms"] = time_ms(lambda: dist.all_reduce(x), runs=5, warmups=1)
+    real = ft.region_out
+    ft.region_out = lambda y, mesh: y
+    try:
+        out["fault_forward"] = _probe_forward(model, SEED + 4).cpu()
+    finally:
+        ft.region_out = real
+
+    # int8: each rank quantises its shard, a row shard with the whole layer's scales
+    quantize_module_(model.transformer)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    out["int8_forward"] = _probe_forward(model, SEED + 4).cpu()
+    out["int8_launches"] = i8.LAUNCHES
+    out["int8_linears"] = sum(1 for m in model.transformer.modules() if isinstance(m, QLinear))
+    del model, server
+    torch.cuda.empty_cache()
+    out.update(_tp_lora(rank, tp, vae_cfg))
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _tp_lora(rank: int, tp, vae_cfg) -> dict:
+    """One `make_lora_train_step` step of one 512^2 pair at tensor_parallel 2
+    over a full-width transformer of TP_LORA_DEPTH blocks with non-zero
+    biases, rank-128 adapters (B non-zero); rank 0 holds the summed adapter
+    gradients against the same model unsharded, and against each planted
+    fault's."""
+    import torch.distributed as dist
+
+    from ragb_vae_tpu_torch.models import flux_transformer as ft
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+    from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig, QLinear
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
+    from ragb_vae_tpu_torch.parallel import tensor_parallel as tpm
+    from ragb_vae_tpu_torch.parallel.mesh import Mesh
+    from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW
+    from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import make_lora_optimizer, make_lora_train_step
+
+    cfg = FluxTransformerConfig(num_layers=TP_LORA_DEPTH[0], num_single_layers=TP_LORA_DEPTH[1])
+    rng = np.random.default_rng(SEED + 11)
+    pair = {k: torch.from_numpy(rng.uniform(size=(1, 512, 512, 4)).astype(np.float32)) for k in ("gt", "text_alpha")}
+
+    def build(mesh):
+        m = FluxTextAlphaModel.random(cfg, vae_cfg, seed=SEED + 10, device="cuda", dtype=torch.bfloat16, fused=True,
+                                      lora_rank=LORA_CONFIG["rank"], lora_alpha=float(LORA_CONFIG["lora_alpha"]),
+                                      use_gradient_checkpointing=True, tp=mesh)
+        gen = torch.Generator("cuda").manual_seed(SEED + 12)
+        with torch.no_grad():
+            for mod in m.transformer.modules():
+                if isinstance(mod, QLinear) and mod.bias is not None:
+                    full = torch.empty(mod.out_features, device="cuda", dtype=mod.bias.dtype)
+                    mod.bias.copy_(mod.shard_of("bias", full.normal_(0.0, 0.1, generator=gen)))
+            for name, p in lora_parameters(m.transformer).items():
+                if name.endswith("lora_B"):
+                    p.normal_(0.0, 0.01, generator=gen)
+        return m
+
+    def grads_of(m, mesh):
+        params = lora_parameters(m.transformer)
+        loss, _ = m.compute_loss(pair["gt"], pair["text_alpha"], torch.Generator("cuda").manual_seed(SEED + 13))
+        loss.backward()
+        tpm.sum_grads_over(list(params.values()), mesh)
+        return loss.item(), {n: p.grad.detach().float().cpu() for n, p in params.items()}
+
+    def held(got: dict, want: dict) -> tuple:
+        """(worst leaf's relative error, its name, worst cosine, its name)."""
+        rel = max((_tracks(got[n], want[n])[0], n) for n in want)
+        cos = min((_tracks(got[n], want[n])[1], n) for n in want)
+        return (*rel, *cos)
+
+    out: dict = {}
+    if rank == 0:
+        whole = build(Mesh())
+        out["lora_ref_loss"], ref = grads_of(whole, Mesh())
+        del whole
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # the sound step, through make_lora_train_step with ZeroAdamW
+    model = build(tp)
+    params = lora_parameters(model.transformer)
+    optimizer = ZeroAdamW(make_lora_optimizer(list(params.values()), LORA_CONFIG["learning_rate"],
+                                              betas=(LORA_CONFIG["adam_beta1"], LORA_CONFIG["adam_beta2"]),
+                                              weight_decay=LORA_CONFIG["weight_decay"],
+                                              max_grad_norm=LORA_CONFIG["max_grad_norm"]), Mesh())
+    summed, real_step = {}, optimizer.step
+
+    def recording_step(*args, **kwargs):
+        summed.update({n: p.grad.detach().float().cpu() for n, p in params.items()})
+        return real_step(*args, **kwargs)
+
+    optimizer.step = recording_step
+    heads, real_attention = set(), ft.attention
+
+    def attention(q, k, v):
+        heads.add(q.shape[1])
+        return real_attention(q, k, v)
+
+    step = make_lora_train_step(model, optimizer, 1, mesh=Mesh(), model_mesh=tp)
+    reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ft.attention = attention
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grad_norm = step(pair, torch.Generator("cuda").manual_seed(SEED + 13))
+        torch.cuda.synchronize()
+        out["lora_step_s"] = time.perf_counter() - t0
+    finally:
+        ft.attention = real_attention
+    out["lora_peak"] = torch.cuda.max_memory_allocated()
+    out["lora_launches"] = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_dq": fa.DQ_LAUNCHES,
+                            "flash_attention_dkv": fa.DKV_LAUNCHES, "resnet_conv3x3_stats": rb.CONV_LAUNCHES}
+    out["lora_heads"], out["lora_loss"], out["lora_grad_norm"] = sorted(heads), loss.item(), grad_norm.item()
+    flat = torch.cat([p.detach().reshape(-1) for p in params.values()])
+    parts = [torch.empty_like(flat) for _ in range(TP)]
+    dist.all_gather(parts, flat)
+    out["lora_replicas_equal"] = all(torch.equal(parts[0], q) for q in parts[1:])
+    if rank == 0:
+        out["lora_held"] = held(summed, ref)
+    del model, optimizer, step, summed
+    torch.cuda.empty_cache()
+
+    # the planted faults, each on a model built with it
+    real_shard_ranges, real_finish = tpm.shard_ranges, QLinear.finish
+
+    def contiguous(name, kind, full, dim, size, rank_):
+        per = full // size
+        return ((rank_ * per, per),)
+
+    def bias_twice(self, y):
+        y = real_finish(self, y)
+        return y if self.tp_kind != "row" or self.bias is None else (y.float() + self.bias.float()).to(y.dtype)
+
+    faults = {"row all-reduce dropped": (ft, "region_out", lambda y, mesh: y),
+              "row bias added twice": (QLinear, "finish", bias_twice),
+              "proj_out rows in JAX's contiguous order": (tpm, "shard_ranges", contiguous)}
+    out["lora_faults"] = {}
+    for label, (owner, attr, fn) in faults.items():
+        real = getattr(owner, attr)
+        setattr(owner, attr, fn)
+        try:
+            _, got = grads_of(build(tp), tp)
+        finally:
+            setattr(owner, attr, real)
+        if rank == 0:
+            out["lora_faults"][label] = held(got, ref)
+        torch.cuda.empty_cache()
+    assert tpm.shard_ranges is real_shard_ranges and QLinear.finish is real_finish
+    return out
+
+
+def phase_tp(refs: dict, work: Path) -> dict:
+    """Two ranks on the card (`_tp_rank`), then their results held against
+    the slice and int8 phases' answers in `refs`. -> launch counts of both."""
+    import multiprocessing
+
+    torch.save(refs, work / "tp_refs.pt")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_tp_child, args=(r, str(work)), name=f"tp-rank-{r}") for r in range(TP)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_JOIN_SECONDS
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [p.name for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [(work / f"tp_error_{r}.txt") for r in range(TP)]
+    messages = [f"rank {r}:\n{e.read_text()}" for r, e in enumerate(errors) if e.exists()]
+    if hung or messages or any(p.exitcode != 0 for p in procs):
+        raise SystemExit(f"[tp] ranks still running {hung}, exit codes {[p.exitcode for p in procs]}\n"
+                         + "\n".join(messages))
+    res = [torch.load(work / f"tp_result_{r}.pt", weights_only=False) for r in range(TP)]
+    r0 = res[0]
+    ok = True
+    for r, x in enumerate(res):
+        log("tp", f"rank {r}: built its shard in {x['build_s']:.1f} s; transformer {x['transformer_bytes'] / 1e9:.2f} GB; "
+            f"resident {x['resident'] / 2**30:.2f} GiB, serving peak {x['serve_peak'] / 2**30:.2f} GiB, LoRA peak "
+            f"{x['lora_peak'] / 2**30:.2f} GiB (the slice phase's whole model: resident {refs['resident'] / 2**30:.2f} "
+            f"GiB, serving peak {refs['peak'] / 2**30:.2f} GiB)")
+    fwd = r0["forward_collectives"]
+    want_fwd = {"all_reduce": 4 * 19 + 38 + 3, "all_gather": 2 * 19 + 38 + 1}
+    ok &= fwd == want_fwd and all(x["forward_collectives"] == fwd for x in res)
+    log("tp", f"one transformer forward at 512^2 (b1): {fwd['all_reduce']} all-reduces and {fwd['all_gather']} "
+        f"all-gathers per rank (the plan: {want_fwd}); serving's 4-step request made {r0['serve_collectives']}; "
+        f"gloo through host memory (not NCCL): one bf16 all-reduce of (2560, 3072) {r0['allreduce_ms']:.3f} ms; "
+        f"forward {', '.join(f'{t:.3f}' for t in r0['forward_s'])} s (s/step); request {r0['request_s']:.3f} s "
+        f"for {SERVE_STEPS} steps; rank 1 ran {res[1]['batches']} batch(es)")
+    answer = _tracks(torch.from_numpy(r0["answer"]), torch.from_numpy(refs["answer"]))
+    err = float(np.abs(r0["answer"] - refs["answer"]).max())
+    forward = _tracks(r0["forward"], refs["forward"])
+    fault = _tracks(r0["fault_forward"], refs["forward"])
+    int8 = _tracks(r0["int8_forward"], refs["int8_forward"])
+    same = torch.equal(res[0]["forward"], res[1]["forward"]) and torch.equal(res[0]["int8_forward"], res[1]["int8_forward"])
+    checks = [
+        (f"served 512^2 answer vs the slice phase's: relative error {answer[0]:.5f} cosine {answer[1]:.6f} "
+         f"max abs {err:.4f}", _within(answer, TP_ANSWER_TOL), TP_ANSWER_TOL),
+        (f"bf16 forward vs the slice phase's: relative error {forward[0]:.5f} cosine {forward[1]:.6f}",
+         _within(forward, TP_FORWARD_TOL), TP_FORWARD_TOL),
+        (f"planted fault (row all-reduce dropped) forward: relative error {fault[0]:.4f} cosine {fault[1]:.5f}, "
+         "must fail", not _within(fault, TP_FORWARD_TOL), TP_FORWARD_TOL),
+        (f"int8 forward vs the int8 phase's: relative error {int8[0]:.5f} cosine {int8[1]:.6f}; K10 launched "
+         f"{r0['int8_launches']} times for {r0['int8_linears']} linears",
+         _within(int8, TP_INT8_TOL) and r0["int8_launches"] == r0["int8_linears"], TP_INT8_TOL),
+        ("both ranks' forwards (bf16 and int8) bit for bit equal", same, None),
+    ]
+    lora_ok = (r0["lora_heads"] == [24 // TP] and r0["lora_replicas_equal"] and res[1]["lora_replicas_equal"]
+               and all(n > 0 for n in r0["lora_launches"].values()))
+    checks.append((f"LoRA step ({TP_LORA_DEPTH[0]} + {TP_LORA_DEPTH[1]} blocks at full width, one 512^2 pair): loss "
+                   f"{r0['lora_loss']:.6f} (unsharded {r0['lora_ref_loss']:.6f}) grad_norm {r0['lora_grad_norm']:.4f} "
+                   f"in {r0['lora_step_s']:.2f} s; attention heads {r0['lora_heads']}; launches {r0['lora_launches']}; "
+                   f"adapters bit for bit equal on both ranks after the update: {r0['lora_replicas_equal']}",
+                   lora_ok, None))
+    rel, rel_at, cos, cos_at = r0["lora_held"]
+    checks.append((f"summed adapter gradients vs the unsharded model's: worst relative error {rel:.4f} ({rel_at}), "
+                   f"worst cosine {cos:.5f} ({cos_at})", _within((rel, cos), TP_GRAD_TOL), TP_GRAD_TOL))
+    for label, (rel, rel_at, cos, cos_at) in r0["lora_faults"].items():
+        checks.append((f"planted fault ({label}) gradients: worst relative error {rel:.4f} ({rel_at}), worst cosine "
+                       f"{cos:.5f}, must fail", not _within((rel, cos), TP_GRAD_TOL), TP_GRAD_TOL))
+    for text, fine, tol in checks:
+        ok &= fine
+        log("tp", f"{text}{'' if tol is None else f' (bound <= {tol[0]}, >= {tol[1]})'} {'ok' if fine else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[tp] the tensor-parallel run disagrees with the whole model's, or a planted fault passed")
+    counts: dict = {}
+    for x in res:
+        for part in (x["serve_launches"], x["lora_launches"], {"int8_matmul": x["int8_launches"]}):
+            for k, n in part.items():
+                counts[k] = counts.get(k, 0) + n
     return counts
 
 
@@ -2485,14 +2891,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help=f"comma-separated subset of {','.join(ALL_PHASES)} (device and build always "
-                             "run; lora and int8 need slice, whose model they train and quantise); the "
-                             "final ok line is printed only when all ran")
+                             "run; lora and int8 need slice, whose model they train and quantise; tp needs "
+                             "slice and int8, whose answers it is held against); the final ok line is "
+                             "printed only when all ran")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if phases - set(ALL_PHASES):
         parser.error(f"unknown phases {sorted(phases - set(ALL_PHASES))}")
     if phases & {"lora", "int8"} and "slice" not in phases:
         parser.error("--phases lora and int8 need slice: they work on the serving phase's model")
+    if "tp" in phases and not {"slice", "int8"} <= phases:
+        parser.error("--phases tp needs slice and int8: it is held against their answers")
     t_start = time.perf_counter()
     counts: dict = {}
 
@@ -2513,7 +2922,8 @@ def main(argv=None) -> int:
     run("build", phase_build)
     results = run("kernels", phase_kernels) if "kernels" in phases else {}
     if "slice" in phases:
-        _, model, bf16_peak = run("slice", phase_slice)
+        refs: dict = {}     # the whole model's answers, on the host, for the tp phase
+        _, model, bf16_peak = run("slice", phase_slice, refs)
         with tempfile.TemporaryDirectory() as tmp:
             if phases & {"lora", "int8"}:
                 # one (gt, text_alpha) PNG tree for both stages
@@ -2521,9 +2931,12 @@ def main(argv=None) -> int:
             if "lora" in phases:
                 run("lora", phase_lora, model, Path(tmp))
             if "int8" in phases:
-                run("int8", phase_int8, model, bf16_peak, Path(tmp))
+                run("int8", phase_int8, model, bf16_peak, Path(tmp), refs)
         del model
         torch.cuda.empty_cache()
+        if "tp" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                run("tp", phase_tp, refs, Path(tmp))
     if "convs" in phases:
         run("convs", phase_convs)
     if "train" in phases:

@@ -1,17 +1,22 @@
-"""Text-alpha inference (library + CLI core), single device.
+"""Text-alpha inference (library + CLI core), on one device or tensor-parallel.
 
-Counterpart of the single-device branch of `ragb_vae_tpu/inference.py`:
-same flags, seeded sampling, one image or a batch of images grouped by size.
+Counterpart of `ragb_vae_tpu/inference.py` without `--pp`: same flags,
+seeded sampling, one image or a batch of images grouped by size.
 On a CUDA device the RGBA VAE runs its fused kernels. `--lora_path` loads
 peft-format adapters (written by either package's LoRA stage) at `--rank` /
 `--lora_alpha`. `--quant int8` serves the transformer in weight-only int8: a
 quantised checkpoint directory (`scripts/quantize_flux_checkpoint_torch.py`)
 loads as it is, a plain one is quantised at load. `--device` names where it
 runs (default `cuda`; a missing card raises, nothing falls back to the CPU).
-`--tp` and `--pp` are not ported yet and raise.
+`--tp N` runs the transformer tensor-parallel over N processes, one per
+device, under `torchrun --nproc-per-node N` (N must equal the world size):
+each rank loads its shard, every rank reads the same inputs and samples them
+alike, and rank 0 alone writes the outputs. `--pp` is not ported yet and
+raises.
 
     python -m ragb_vae_tpu_torch.inference --pretrained_model_name_or_path CKPT \
         --rgba_vae_path VAE --input_image in.png --output_path out.png
+    torchrun --nproc-per-node 2 -m ragb_vae_tpu_torch.inference --tp 2 ...
 """
 from __future__ import annotations
 
@@ -53,14 +58,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", type=str, default="cuda",
                    help="Device to run on. 'cuda' without a CUDA device is an error.")
     p.add_argument("--pp", type=int, default=1, help="Pipeline parallelism: not ported yet.")
-    p.add_argument("--tp", type=int, default=1, help="Tensor parallelism: not ported yet.")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor parallelism over N processes under torchrun --nproc-per-node N.")
     return p.parse_args(argv)
 
 
 def _check_ported(args: argparse.Namespace) -> None:
     missing = []
-    if args.tp > 1:
-        missing.append(f"--tp {args.tp}")
     if args.pp > 1:
         missing.append(f"--pp {args.pp}")
     if missing:
@@ -90,8 +94,14 @@ def run(args: argparse.Namespace) -> None:
     from ragb_vae_tpu_torch.data.image_io import load_rgba, save_rgba
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
 
+    from ragb_vae_tpu_torch.parallel.bootstrap import build_tp_group, validate_tp_pp
+    from ragb_vae_tpu_torch.parallel.mesh import local_device
+
+    validate_tp_pp(args.tp, args.pp)
     _check_ported(args)
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
+    tp = build_tp_group(args.tp, device)
+    writes = tp.rank == 0          # under --tp every rank samples; rank 0 writes
     model = FluxTextAlphaModel.from_pretrained(
         args.pretrained_model_name_or_path,
         vae_path=args.rgba_vae_path,
@@ -102,6 +112,7 @@ def run(args: argparse.Namespace) -> None:
         lora_rank=args.rank if args.lora_path else 0,
         lora_alpha=float(args.lora_alpha) if args.lora_path else 0.0,
         weight_quant=args.quant,
+        tp=tp,
     )
     if args.lora_path:
         model.load_lora(args.lora_path)
@@ -114,12 +125,14 @@ def run(args: argparse.Namespace) -> None:
     paths = _resolve_inputs(args.input_image)
     if len(paths) == 1:
         pred = run_sample(load_rgba(paths[0])[None])
-        save_rgba(pred[0], args.output_path)
-        print(f"Saved to {args.output_path}")
+        if writes:
+            save_rgba(pred[0], args.output_path)
+            print(f"Saved to {args.output_path}")
         return
 
     out_dir = Path(args.output_path)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if writes:
+        out_dir.mkdir(parents=True, exist_ok=True)
     by_size: dict = {}
     for path in paths:
         arr = load_rgba(path)
@@ -131,6 +144,9 @@ def run(args: argparse.Namespace) -> None:
         for start in range(0, len(items), step):
             chunk = items[start : start + step]
             preds = run_sample(np.stack([arr for _, arr in chunk]))
+            done += len(chunk)
+            if not writes:
+                continue
             outs = []
             for path, _ in chunk:
                 out = out_dir / (Path(path).stem + "_text_alpha.png")
@@ -145,8 +161,8 @@ def run(args: argparse.Namespace) -> None:
             else:
                 for out, pred in zip(outs, preds):
                     save_rgba(pred, out)
-            done += len(chunk)
-    print(f"Saved {done} predictions to {out_dir}")
+    if writes:
+        print(f"Saved {done} predictions to {out_dir}")
 
 
 def main(argv=None) -> None:

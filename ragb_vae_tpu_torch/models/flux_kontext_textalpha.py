@@ -67,6 +67,7 @@ from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
 from ragb_vae_tpu_torch.models.weights import load_autoencoder_params, load_torch_state, save_torch_state
 from ragb_vae_tpu_torch.ops.packing import pack_latents, prepare_latent_image_ids, unpack_latents
 from ragb_vae_tpu_torch.parallel.mesh import Mesh, randn_rows
+from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_state_entry, shard_transformer_, validate_tp
 
 Tensor = torch.Tensor
 
@@ -75,16 +76,22 @@ LORA_WEIGHT_FILES = ("pytorch_lora_weights.safetensors", "pytorch_lora_weights.b
 
 
 def load_transformer(
-    model_path: Union[str, Path], *, subfolder: Optional[str] = "transformer"
+    model_path: Union[str, Path], *, subfolder: Optional[str] = "transformer", take=None
 ) -> Tuple[FluxTransformerConfig, StateDict, bool]:
     """(config, the port's state dict, whether it is weight-only int8). A
     directory with the quantisation marker is read as the quantised tree it
-    holds (written by either package); any other as a diffusers checkpoint."""
+    holds (written by either package); any other as a diffusers checkpoint.
+    `take(key, full) -> part` keeps part of each entry (a tensor-parallel
+    rank's slice): a diffusers checkpoint is then read one tensor at a time,
+    a quantised tree whole and cut afterwards."""
     directory = Path(model_path) / subfolder if subfolder else Path(model_path)
     if is_quantized_checkpoint(directory):
         config, tree = load_quantized_transformer(directory)
-        return config, params_from_flax(tree), True
-    return (*load_flux_transformer_params(model_path, subfolder), False)
+        state = params_from_flax(tree)
+        if take is not None:
+            state = {k: take(k, v).clone() for k, v in state.items()}
+        return config, state, True
+    return (*load_flux_transformer_params(model_path, subfolder, take=take), False)
 
 
 def load_scheduler(model_path: Union[str, Path]) -> FlowMatchEulerScheduler:
@@ -131,15 +138,25 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     An int8 linear draws its integers uniformly with the scale
     3 / sqrt(in) / 127 (the JAX package's `random_quantized_params_like`):
     about what a quantised lecun-normal layer carries, so activations stay
-    O(1) in a model too large to build in bf16 first."""
+    O(1) in a model too large to build in bf16 first.
+
+    A tensor-parallel shard (`QLinear.shard_`) draws its layer's FULL weight
+    in turn and keeps its slice, so a seed fixes the same model at any degree
+    and no more than one full weight exists at a time."""
+    def draw(m, leaf: str, like: Tensor, fill) -> Tensor:
+        if not isinstance(m, QLinear) or m.tp_kind == "none":
+            return fill(like)
+        full = torch.empty((m.out_features, m.in_features), dtype=like.dtype, device=like.device)
+        return like.copy_(m.shard_of(leaf, fill(full)))
+
     for m in module.modules():
         if isinstance(m, QLinear) and m.weight_quant == "int8":
-            m.weight_q.random_(-127, 128, generator=generator)
+            draw(m, "weight_q", m.weight_q, lambda t: t.random_(-127, 128, generator=generator))
             m.weight_scale.fill_(3.0 / math.sqrt(m.in_features) / 127.0)
             if m.bias is not None:
                 m.bias.zero_()
     for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
+        owner, leaf = name.rpartition(".")[::2]
         if leaf == "lora_B" or leaf == "bias":
             p.zero_()
         elif p.ndim == 1:
@@ -147,7 +164,19 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
         elif leaf == "lora_A":
             p.normal_(0.0, 1.0 / p.shape[0], generator=generator)  # std 1/rank, as peft
         else:
-            p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=generator)
+            m = module.get_submodule(owner)
+            fan_in = m.in_features if isinstance(m, QLinear) else p[0].numel()
+            draw(m, leaf, p, lambda t: t.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator))
+
+
+def _sharded(transformer: FluxTransformer2D, tp: Optional[Mesh], device, weight_quant: str) -> FluxTransformer2D:
+    """`transformer` (on the meta device) cut to this rank's shard over the
+    model axis `tp`; a degree that does not divide the heads, or a shard the
+    kernels cannot take, raises before anything is drawn or read."""
+    if tp is None or tp.size == 1:
+        return transformer
+    validate_tp(transformer.config, tp.size, cuda=torch.device(device).type == "cuda", weight_quant=weight_quant)
+    return shard_transformer_(transformer, tp)
 
 
 class FluxTextAlphaModel:
@@ -215,6 +244,7 @@ class FluxTextAlphaModel:
         lora_alpha: float = 0.0,
         use_gradient_checkpointing: bool = True,
         weight_quant: str = "none",
+        tp: Optional[Mesh] = None,
     ) -> "FluxTextAlphaModel":
         """A model with random weights and random prompt embeddings, all
         drawn from `seed` on `device` (the card unless the caller names the
@@ -222,13 +252,18 @@ class FluxTextAlphaModel:
         and materialised directly on `device` in `dtype`, so a full-size
         transformer never exists in host memory. With `lora_rank` > 0 fresh
         adapters are attached after the base is drawn and the base is frozen.
-        `weight_quant="int8"` draws the transformer's linears as int8."""
+        `weight_quant="int8"` draws the transformer's linears as int8.
+
+        `tp` (a model axis, `parallel/mesh.py`): this rank's tensor-parallel
+        shard of the transformer, drawn from the same seeded stream as the
+        whole one (each full weight in turn, its slice kept); the VAE and the
+        embeddings are whole on every rank."""
         device = resolve_device(device)
         gen = torch.Generator(device).manual_seed(seed)
-        transformer = FluxTransformer2D(
+        transformer = _sharded(FluxTransformer2D(
             t_config, remat=use_gradient_checkpointing, weight_quant=weight_quant,
             device="meta", dtype=dtype,
-        ).to_empty(device=device)
+        ), tp, device, weight_quant).to_empty(device=device)
         vae = RgbaVAE(vae_config, dtype=dtype, fused=fused, device="meta")
         vae.module.to_empty(device=device)
         init_random_(transformer, gen)
@@ -256,6 +291,7 @@ class FluxTextAlphaModel:
         lora_alpha: float = 0.0,
         use_gradient_checkpointing: bool = True,
         weight_quant: str = "none",
+        tp: Optional[Mesh] = None,
     ) -> "FluxTextAlphaModel":
         """Transformer from `<model_path>/transformer`, scheduler config and
         `empty_prompt_embeds.npz` from `model_path`, RGBA VAE from
@@ -268,12 +304,20 @@ class FluxTextAlphaModel:
         `device`, so the result is the JAX package's bit for bit and no more
         than one float weight is on the device at once.
 
+        `tp` (a model axis, `parallel/mesh.py`): this rank keeps only its
+        tensor-parallel shard. A diffusers checkpoint is read one tensor at a
+        time and cut as it is read; a quantised one is read whole and cut; a
+        plain one quantised at load is quantised shard by shard, each row
+        shard with the scale of the whole layer (the max over the model
+        group), so the int8 shards are slices of the quantised whole layer.
+
         `device` is the card unless the caller names the CPU; a missing card
         raises."""
         device = resolve_device(device)
         if weight_quant not in WEIGHT_QUANT_MODES:
             raise ValueError(f"Unknown weight_quant mode {weight_quant!r}.")
-        t_config, t_state, quantized = load_transformer(model_path)
+        t_dir = Path(model_path) / "transformer"
+        quantized = is_quantized_checkpoint(t_dir)
         if quantized and weight_quant != "int8":
             raise ValueError(
                 f"{model_path} holds a weight-only int8 transformer: load it with weight_quant='int8'.")
@@ -282,10 +326,14 @@ class FluxTextAlphaModel:
         except FileNotFoundError:
             v_config, v_state = load_autoencoder_params(vae_path, None, adapt_to_rgba=True)
         quantize_here = weight_quant == "int8" and not quantized
-        transformer = FluxTransformer2D(
-            t_config, remat=use_gradient_checkpointing,
+        transformer = _sharded(FluxTransformer2D(
+            FluxTransformerConfig.from_json(t_dir / "config.json"), remat=use_gradient_checkpointing,
             weight_quant="int8" if quantized else "none",
-            device="meta", dtype=torch.float32 if quantize_here else dtype)
+            device="meta", dtype=torch.float32 if quantize_here else dtype), tp, device, weight_quant)
+        take = None
+        if transformer.tp.size > 1:
+            take = lambda key, full: shard_state_entry(transformer, key, full)   # noqa: E731
+        _, t_state, _ = load_transformer(model_path, take=take)
         vae = RgbaVAE(v_config, dtype=dtype, fused=fused, device="meta")
         for module, state in ((transformer, t_state), (vae.module, v_state)):
             # each tensor keeps the dtype its module declared (fp32 for the

@@ -14,6 +14,12 @@ embeddings run in fp32. Attention goes through the flash kernel
 `weight_q` (out, in), `weight_scale`, fp32 `bias`; none of them a parameter)
 and multiplies through `ops/kernels/int8_matmul.py`, so no weight is ever
 dequantised. LoRA adapters stay fp32 parameters beside an int8 base.
+
+Under tensor parallelism (`parallel/tensor_parallel.py::shard_transformer_`)
+each linear may hold a column or a row shard over a model group (`tp`, a
+`parallel/mesh.py::Mesh`): `in_features` / `out_features` stay the layer's
+full sizes, the tensors are this rank's slices, and the attention modules run
+on their H / T heads.
 """
 from __future__ import annotations
 
@@ -24,12 +30,15 @@ from pathlib import Path
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ragb_vae_tpu_torch.ops.kernels.flash_attention import attention
 from ragb_vae_tpu_torch.ops.kernels.int8_matmul import int8_matmul
+from ragb_vae_tpu_torch.parallel.mesh import Mesh, all_reduce
+from ragb_vae_tpu_torch.parallel.tensor_parallel import gather_last, region_in, region_out, take
 
 Tensor = torch.Tensor
 Rope = Tuple[Tensor, Tensor]
@@ -131,7 +140,17 @@ class QLinear(nn.Module):
     The compute dtype of an int8 layer is fixed when it is built or
     quantised (`dtype=`): no float weight is left to read it from, so
     `module.to(dtype)` does not change it (and would round the fp32 scale
-    and bias). Build the model in the dtype it is to run in."""
+    and bias). Build the model in the dtype it is to run in.
+
+    Tensor parallel (`shard_`): a "column" shard holds the output channels
+    `tp_ranges` (weight rows, bias, scale), a "row" shard the input channels
+    `tp_ranges` (weight columns) and the whole bias and scale; a row shard's
+    partial product (bias-free: K10 fuses the bias, so it is called without
+    one) is all-reduced over `tp` and the bias added once after it."""
+
+    tp_kind = "none"
+    tp = Mesh()
+    tp_ranges: Tuple[Tuple[int, int], ...] = ()
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  weight_quant: str = "none", device=None, dtype=None):
@@ -172,7 +191,11 @@ class QLinear(nn.Module):
         if self.weight_quant == "int8":
             return
         self._dtype = dtype or self.weight.dtype
-        qk = quantize_kernel(self.weight.detach().to(device).t())
+        # a row shard sees part of each output channel's inputs: its scale is
+        # the max over the model group, the full layer's, bit for bit
+        reduce_max = None if self.tp_kind != "row" else (
+            lambda absmax: all_reduce(absmax, self.tp, op=dist.ReduceOp.MAX))
+        qk = quantize_kernel(self.weight.detach().to(device).t(), reduce_absmax=reduce_max)
         bias = None if self.bias is None else self.bias.detach().to(device, torch.float32)
         del self.weight, self.bias
         self.register_buffer("weight_q", qk["kernel_q"].t().contiguous())
@@ -181,13 +204,51 @@ class QLinear(nn.Module):
         self.weight_quant = "int8"
 
     def base(self, x: Tensor) -> Tensor:
-        """The base linear on x, already in the compute dtype."""
+        """The base linear on x, already in the compute dtype (on a row shard:
+        this rank's partial product, without the bias)."""
+        bias = None if self.tp_kind == "row" else self.bias
         if self.weight_quant == "int8":
-            return int8_matmul(x, self.weight_q, self.weight_scale, self.bias)
-        return F.linear(x, self.weight, self.bias)
+            return int8_matmul(x, self.weight_q, self.weight_scale, bias)
+        return F.linear(x, self.weight, bias)
+
+    def finish(self, y: Tensor) -> Tensor:
+        """A row shard's partial sums all-reduced over the model group, then
+        the bias added once; any other layer's output as it is."""
+        if self.tp_kind != "row":
+            return y
+        y = region_out(y, self.tp)
+        return y if self.bias is None else (y.float() + self.bias.float()).to(y.dtype)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.base(x.to(self.compute_dtype))
+        return self.finish(self.base(x.to(self.compute_dtype)))
+
+    # -- tensor parallel --------------------------------------------------
+    def shard_of(self, leaf: str, full: Tensor) -> Tensor:
+        """This shard's part of the full-size tensor `full` of entry `leaf`."""
+        if self.tp_kind == "none":
+            return full
+        if leaf in ("weight", "weight_q"):
+            return take(full, 0 if self.tp_kind == "column" else 1, self.tp_ranges)
+        if leaf in ("bias", "weight_scale") and self.tp_kind == "column":
+            return take(full, 0, self.tp_ranges)
+        return full
+
+    @torch.no_grad()
+    def shard_(self, mesh: Mesh, kind: str, ranges) -> None:
+        """Keep only this rank's `kind` ("column" or "row") shard: the
+        channels `ranges` ((start, length) pieces) of the output or input axis."""
+        if self.tp_kind != "none":
+            raise ValueError(f"{self} is already sharded")
+        self.tp_kind, self.tp, self.tp_ranges = kind, mesh, tuple(ranges)
+        for leaf in ("weight", "weight_q", "bias", "weight_scale"):
+            t = getattr(self, leaf, None)
+            if t is None:
+                continue
+            part = self.shard_of(leaf, t).contiguous()
+            if part.shape == t.shape:
+                continue
+            setattr(self, leaf, nn.Parameter(part, requires_grad=t.requires_grad)
+                    if isinstance(t, nn.Parameter) else part)
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}, weight_quant={self.weight_quant}"
@@ -229,9 +290,13 @@ class LoraDense(QLinear):
         x = x.to(self.compute_dtype)
         y = self.base(x)
         if self.lora_rank > 0:
-            a, b = self.lora_A.to(x.dtype), self.lora_B.to(x.dtype)
-            y = y + self.scaling * F.linear(F.linear(x, a), b)
-        return y
+            a, b = self.lora_A, self.lora_B
+            if self.tp_kind == "row":       # this rank's inputs: its columns of A
+                a = take(a, 1, self.tp_ranges)
+            elif self.tp_kind == "column":  # its outputs: its rows of B
+                b = take(b, 0, self.tp_ranges)
+            y = y + self.scaling * F.linear(F.linear(x, a.to(x.dtype)), b.to(x.dtype))
+        return self.finish(y)
 
 
 class Fp32Linear(QLinear):
@@ -247,11 +312,13 @@ class Fp32Linear(QLinear):
                          dtype=torch.float32)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.base(x.float())
+        return self.finish(self.base(x.float()))
 
 
 class MLPEmbedder(nn.Module):
-    """linear_1 -> SiLU -> linear_2."""
+    """linear_1 -> SiLU -> linear_2 (column, then row under TP)."""
+
+    tp = Mesh()
 
     def __init__(self, in_dim: int, dim: int, **kw):
         super().__init__()
@@ -259,7 +326,7 @@ class MLPEmbedder(nn.Module):
         self.linear_2 = LoraDense(dim, dim, **kw)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.linear_2(F.silu(self.linear_1(x)))
+        return self.linear_2(F.silu(self.linear_1(region_in(x, self.tp))))
 
 
 class CombinedTimestepEmbeddings(nn.Module):
@@ -316,7 +383,9 @@ def _merge_heads(x: Tensor) -> Tensor:
 
 class JointAttention(nn.Module):
     """Double-stream joint attention: txt tokens prepended to img tokens,
-    RoPE over the joint sequence."""
+    RoPE over the joint sequence (this rank's heads under TP)."""
+
+    tp = Mesh()
 
     def __init__(self, cfg: FluxTransformerConfig, **kw):
         super().__init__()
@@ -332,6 +401,7 @@ class JointAttention(nn.Module):
 
     def forward(self, img: Tensor, txt: Tensor, rope: Rope) -> Tuple[Tensor, Tensor]:
         h = self.heads
+        img, txt = region_in(img, self.tp), region_in(txt, self.tp)
         q = self.norm_q(_split_heads(self.to_q(img), h))
         k = self.norm_k(_split_heads(self.to_k(img), h))
         v = _split_heads(self.to_v(img), h)
@@ -379,18 +449,24 @@ class _GeluProj(nn.Module):
 class FeedForward(nn.Module):
     """net.0.proj -> GELU(tanh) -> net.2 (diffusers FeedForward 'gelu-approximate')."""
 
+    tp = Mesh()
+
     def __init__(self, dim: int, mult: int = 4, **kw):
         super().__init__()
         self.net = nn.ModuleList([_GeluProj(dim, dim * mult, **kw), nn.Identity(),
                                   LoraDense(dim * mult, dim, **kw)])
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.net[2](self.net[0](x))
+        return self.net[2](self.net[0](region_in(x, self.tp)))
 
 
 class AdaLayerNormZero(nn.Module):
     """silu(temb) -> fp32 Linear(n*dim); affine-free LayerNorm modulated by the
-    first (shift, scale); the remaining chunks come back as gates."""
+    first (shift, scale); the remaining chunks come back as gates. Under TP
+    the linear is column-sharded and its output all-gathered before the
+    chunks are cut."""
+
+    tp = Mesh()
 
     def __init__(self, dim: int, n_chunks: int = 6, *, weight_quant: str = "none", device=None):
         super().__init__()
@@ -398,7 +474,7 @@ class AdaLayerNormZero(nn.Module):
         self.linear = Fp32Linear(dim, n_chunks * dim, weight_quant=weight_quant, device=device)
 
     def forward(self, x: Tensor, temb: Tensor):
-        emb = self.linear(F.silu(temb.float()))[:, None, :]
+        emb = gather_last(self.linear(region_in(F.silu(temb.float()), self.tp)), self.tp)[:, None, :]
         chunks = emb.chunk(self.n_chunks, dim=-1)
         shift, scale = chunks[0], chunks[1]
         out = (_layer_norm(x) * (1.0 + scale) + shift).to(x.dtype)
@@ -434,6 +510,8 @@ class FluxTransformerBlock(nn.Module):
 
 
 class FluxSingleTransformerBlock(nn.Module):
+    tp = Mesh()
+
     def __init__(self, cfg: FluxTransformerConfig, **kw):
         super().__init__()
         # proj_mlp and proj_out carry no adapter
@@ -447,20 +525,24 @@ class FluxSingleTransformerBlock(nn.Module):
 
     def forward(self, x: Tensor, temb: Tensor, rope: Rope) -> Tensor:
         norm_x, gate = self.norm(x, temb)
+        norm_x = region_in(norm_x, self.tp)    # one column region: proj_mlp and q, k, v
         mlp = F.gelu(self.proj_mlp(norm_x), approximate="tanh")
         attn_out = self.attn(norm_x, rope)
         return x + gate * self.proj_out(torch.cat([attn_out, mlp], dim=-1))
 
 
 class AdaLayerNormContinuous(nn.Module):
-    """silu(temb) -> fp32 Linear(2*dim) -> (scale, shift) over an affine-free LayerNorm."""
+    """silu(temb) -> fp32 Linear(2*dim) -> (scale, shift) over an affine-free
+    LayerNorm (the linear column-sharded and gathered under TP)."""
+
+    tp = Mesh()
 
     def __init__(self, dim: int, *, weight_quant: str = "none", device=None):
         super().__init__()
         self.linear = Fp32Linear(dim, 2 * dim, weight_quant=weight_quant, device=device)
 
     def forward(self, x: Tensor, temb: Tensor) -> Tensor:
-        emb = self.linear(F.silu(temb.float()))[:, None, :]
+        emb = gather_last(self.linear(region_in(F.silu(temb.float()), self.tp)), self.tp)[:, None, :]
         scale, shift = emb.chunk(2, dim=-1)
         return _layer_norm(x) * (1.0 + scale) + shift
 
@@ -470,7 +552,10 @@ class AdaLayerNormContinuous(nn.Module):
 # ---------------------------------------------------------------------------
 class FluxTransformer2D(nn.Module):
     """Forward signature mirrors the diffusers call (hidden_states are
-    pre-packed latent tokens; ids carry no batch dim)."""
+    pre-packed latent tokens; ids carry no batch dim). `tp`: the model axis
+    it is sharded over (`parallel/tensor_parallel.py`), size 1 when whole."""
+
+    tp = Mesh()
 
     def __init__(self, config: FluxTransformerConfig, *, lora_rank: int = 0,
                  lora_alpha: float = 0.0, weight_quant: str = "none", remat: bool = False,

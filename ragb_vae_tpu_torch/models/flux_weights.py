@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
-from ragb_vae_tpu_torch.models.weights import load_torch_state, save_torch_state
+from ragb_vae_tpu_torch.models.weights import iter_torch_state, save_torch_state
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -243,28 +243,36 @@ _WEIGHT_CANDIDATES = (
 )
 
 
-def _load_state_maybe_sharded(directory: Path) -> StateDict:
+def _weight_files(directory: Path):
     index_files = list(directory.glob("*.safetensors.index.json")) + list(
         directory.glob("*.bin.index.json")
     )
     if index_files:
         index = json.loads(index_files[0].read_text())
-        state: StateDict = {}
-        for shard in sorted(set(index["weight_map"].values())):
-            state.update(load_torch_state(directory / shard))
-        return state
+        return [directory / shard for shard in sorted(set(index["weight_map"].values()))]
     for name in _WEIGHT_CANDIDATES:
         if (directory / name).exists():
-            return load_torch_state(directory / name)
+            return [directory / name]
     raise FileNotFoundError(f"No transformer weights found in {directory}.")
 
 
 def load_flux_transformer_params(
-    model_path: Union[str, Path], subfolder: Optional[str] = "transformer"
+    model_path: Union[str, Path], subfolder: Optional[str] = "transformer", *, take=None
 ) -> Tuple[FluxTransformerConfig, StateDict]:
+    """(config, the port's fp32 state dict) of a diffusers checkpoint, read
+    one tensor at a time. With `take(key, full) -> part` (a tensor-parallel
+    rank's slice) each entry is cut and copied as it is read, so the host
+    never holds more than this rank's part and one full tensor."""
     directory = Path(model_path) / subfolder if subfolder else Path(model_path)
     config = FluxTransformerConfig.from_json(directory / "config.json")
-    return config, flux_state_to_params(_load_state_maybe_sharded(directory))
+    state: StateDict = {}
+    for path in _weight_files(directory):
+        for key, value in iter_torch_state(path):
+            key = key[len("transformer."):] if key.startswith("transformer.") else key
+            full = value.float()
+            part = full if take is None else take(key, full)
+            state[key] = part.clone() if part.numel() != full.numel() else part
+    return config, state
 
 
 def save_flux_transformer_params(

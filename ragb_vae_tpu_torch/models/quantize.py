@@ -36,14 +36,19 @@ def _is_dense_params(node: Any) -> bool:
     return isinstance(node, dict) and "kernel" in node and getattr(node["kernel"], "ndim", 0) == 2
 
 
-def quantize_kernel(kernel, device=None) -> Dict[str, torch.Tensor]:
+def quantize_kernel(kernel, device=None, reduce_absmax=None) -> Dict[str, torch.Tensor]:
     """Per-output-channel symmetric int8 of a kernel (in, out):
     scale = max|w| / 127 per column (1 for an all-zero column). `torch.round`
     rounds half to even, as `np.round` does. The arithmetic runs where the
     kernel lives, or on `device` when one is named, and the result stays
-    there."""
+    there. `reduce_absmax(absmax)` turns the per-column max of these rows
+    into that of the whole kernel: a row shard of a tensor-parallel layer
+    (some of the input rows) passes the max over its model group, so its int8
+    rows and its scale are the whole kernel's, bit for bit (max is exact)."""
     w = torch.as_tensor(kernel).to(device=device, dtype=torch.float32)
     absmax = w.abs().amax(dim=0)
+    if reduce_absmax is not None:
+        absmax = reduce_absmax(absmax)
     scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     q = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
     return {"kernel_q": q, "kernel_scale": scale}

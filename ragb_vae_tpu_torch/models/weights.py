@@ -36,6 +36,22 @@ def load_torch_state(weight_file: Union[str, Path]) -> StateDict:
     return {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
 
 
+def iter_torch_state(weight_file: Union[str, Path]):
+    """(key, CPU tensor) of every entry of a .safetensors or torch .bin
+    checkpoint, one at a time: a .safetensors file is read a tensor at a
+    time, a .bin file is memory-mapped."""
+    weight_file = Path(weight_file)
+    if weight_file.suffix == ".safetensors":
+        from safetensors import safe_open
+
+        with safe_open(str(weight_file), framework="pt") as handle:
+            for key in handle.keys():
+                yield key, handle.get_tensor(key)
+        return
+    state = torch.load(weight_file, map_location="cpu", weights_only=True, mmap=True)
+    yield from ((k, v) for k, v in state.items() if isinstance(v, torch.Tensor))
+
+
 def save_torch_state(state: StateDict, weight_file: Union[str, Path]) -> None:
     from safetensors.torch import save_file
 

@@ -1,1 +1,1 @@
-"""Data-parallel building blocks of the PyTorch port (single device so far)."""
+"""Parallel axes of the PyTorch port: data (ZeRO-2) and model (tensor parallel) over process groups."""

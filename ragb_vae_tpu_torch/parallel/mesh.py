@@ -1,18 +1,24 @@
-"""Process group and the 1-D "data" axis of the training loops.
+"""Process groups and the axes they form: "data" and "model".
 
 Counterpart of the process side of `ragb_vae_tpu/parallel/mesh.py`. The JAX
 package runs one program over a device mesh; the port runs one process per
 device under `torchrun` and a `torch.distributed` process group, the setup of
-the reference (Accelerate / DeepSpeed). `Mesh` is that group seen as the data
-axis: its size and this process's rank. Without a group it is a data axis of
-size 1, and every collective below returns its input untouched at size 1.
+the reference (Accelerate / DeepSpeed). `Mesh` is a group seen as one axis:
+its size, this process's rank in it, and the group itself (None: the default
+group). Without a group it is an axis of size 1, and every collective below
+returns its input untouched at size 1.
+
+`create_training_mesh(tp)` splits the world into a data axis and a model
+axis, as the JAX package's ("data", "model") mesh does: the T ranks of one
+model group are consecutive (global rank r has model rank r % T and data rank
+r // T), so a model group sits on one node.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
 import os
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -22,11 +28,12 @@ DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis over the default process group: `size` processes, this
-    one `rank`."""
+    """One axis over a process group: `size` processes, this one `rank` in
+    it; `group` None is the default group (the whole world)."""
 
     size: int = 1
     rank: int = 0
+    group: Optional[Any] = dataclasses.field(default=None, compare=False)
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -82,6 +89,47 @@ def create_mesh() -> Mesh:
     return Mesh()
 
 
+def create_training_mesh(tp: int = 1, sp: int = 1) -> Tuple[Mesh, Mesh]:
+    """(data axis, model axis) of the world: W processes as W / tp data
+    groups of tp consecutive ranks each. Every rank builds every group, in one
+    order, as `dist.new_group` requires; an axis of size 1 gets no group. At
+    tp 1 it is (`create_mesh()`, an axis of size 1). `sp` above 1 (sequence
+    parallel) is not ported yet and raises."""
+    tp, sp = int(tp), int(sp)
+    if tp < 1 or sp < 1:
+        raise ValueError(f"tensor_parallel={tp} and sequence_parallel={sp} must be >= 1")
+    if sp > 1:
+        raise NotImplementedError(f"sequence_parallel={sp}: not ported yet to the PyTorch package")
+    world = create_mesh()
+    if tp == 1:
+        return world, Mesh()
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"tensor_parallel={tp} needs a process group of {tp} or more processes "
+                         "(run under torchrun)")
+    if world.size % tp:
+        raise ValueError(f"tensor_parallel={tp} must divide the {world.size} processes")
+    n_data = world.size // tp
+    data_rank, model_rank = divmod(world.rank, tp)
+    model_group = data_group = None
+    for d in range(n_data):         # the model groups: consecutive ranks
+        g = dist.new_group(list(range(d * tp, (d + 1) * tp)))
+        if d == data_rank:
+            model_group = g
+    if n_data > 1:
+        for m in range(tp):          # the data groups: one model rank each
+            g = dist.new_group(list(range(m, world.size, tp)))
+            if m == model_rank:
+                data_group = g
+    data = Mesh(n_data, data_rank, data_group) if n_data > 1 else Mesh()
+    return data, Mesh(tp, model_rank, model_group)
+
+
+def create_dp_tp_mesh(tp: int) -> Tuple[Mesh, Mesh]:
+    """`create_training_mesh(tp=tp)`: the two-axis serving and training
+    layout (JAX `create_dp_tp_mesh`)."""
+    return create_training_mesh(tp=tp)
+
+
 def process_index() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
@@ -98,7 +146,7 @@ def barrier(mesh: Optional[Mesh] = None) -> None:
     """Wait for every process of the axis (nothing at size 1)."""
     mesh = mesh or create_mesh()
     if mesh.size > 1:
-        dist.barrier()
+        dist.barrier(group=mesh.group)
 
 
 def pad_batch_to_mesh(batch_size: int, mesh: Mesh) -> int:
@@ -107,12 +155,20 @@ def pad_batch_to_mesh(batch_size: int, mesh: Mesh) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Collectives over the data axis (each returns its input at size 1)
+# Collectives over one axis (each returns its input at size 1)
 # ---------------------------------------------------------------------------
 def all_reduce(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In place: the reduction of `t` over the axis."""
     if mesh.size > 1:
-        dist.all_reduce(t, op=op)
+        dist.all_reduce(t, op=op, group=mesh.group)
+    return t
+
+
+def broadcast(t: torch.Tensor, mesh: Mesh, src_rank: int = 0) -> torch.Tensor:
+    """In place: the axis's rank `src_rank`'s `t` on every rank."""
+    if mesh.size > 1:
+        src = src_rank if mesh.group is None else dist.get_global_rank(mesh.group, src_rank)
+        dist.broadcast(t, src, group=mesh.group)
     return t
 
 
@@ -122,7 +178,7 @@ def reduce_scatter(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.size == 1:
         return flat
     out = flat.new_empty(flat.numel() // mesh.size)
-    dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM)
+    dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM, group=mesh.group)
     return out
 
 
@@ -131,7 +187,7 @@ def all_gather(shard: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.size == 1:
         return shard
     out = shard.new_empty(shard.numel() * mesh.size)
-    dist.all_gather_into_tensor(out, shard.contiguous())
+    dist.all_gather_into_tensor(out, shard.contiguous(), group=mesh.group)
     return out
 
 

@@ -176,13 +176,22 @@ class ZeroAdamW:
         self._take_template_state()
 
     def _take_template_state(self) -> None:
-        states = [self.template.state[p] for p in self.params]
+        """The wrapped optimizer's state as this rank's slice. A parameter
+        without state (`torch.optim.AdamW` makes it at the parameter's first
+        gradient, so a single-device state dict may lack it) contributes zero
+        moments. The flat shard keeps ONE step count, as optax and the JAX
+        package's `zero_step.py` do: the largest of the entries that exist (0
+        when none does)."""
+        states = [self.template.state.get(p, {}) for p in self.params]
         group = self.template.param_groups[0]
         for key in ("lr", "betas", "eps", "weight_decay"):
             self.inner.param_groups[0][key] = group[key]
+        steps = [float(s["step"]) for s in states if "step" in s]
         self.inner.state[self.shard] = {
-            "step": torch.as_tensor(states[0]["step"], dtype=torch.float32).detach().cpu().clone(),
-            **{k: self.layout.slice_of([s[k] for s in states], self.mesh.rank, like=self.shard) for k in MOMENTS},
+            "step": torch.tensor(max(steps, default=0.0), dtype=torch.float32),
+            **{k: self.layout.slice_of([s[k] if k in s else torch.zeros_like(p, dtype=torch.float32)
+                                        for s, p in zip(states, self.params)], self.mesh.rank, like=self.shard)
+               for k in MOMENTS},
         }
         self.template.state.clear()
         self._park()

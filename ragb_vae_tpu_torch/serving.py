@@ -1,7 +1,7 @@
 """Batched text-alpha inference serving (resident process + dynamic batcher).
 
-Counterpart of `ragb_vae_tpu/serving.py` on one device (the tensor- and
-pipeline-parallel variants are not ported yet):
+Counterpart of `ragb_vae_tpu/serving.py`, on one device or tensor-parallel
+over a model group (the pipeline-parallel variant is not ported yet):
 
 - requests are snapped host-side to a small bucket envelope (`snap_size`),
   and a batch holds requests of one bucket only;
@@ -15,6 +15,14 @@ pipeline-parallel variants are not ported yet):
 
 `torch.inference_mode` is thread-local, so the batcher thread enters it
 itself; otherwise every served batch would record an autograd graph.
+
+Tensor parallel (`tp_group=`, the model axis of a transformer sharded by
+`parallel/tensor_parallel.py`): one process per device. Rank 0 holds the
+queues and the batcher; each batch it launches is first broadcast to the
+group (a header, the images, the seeds), and every rank then encodes,
+samples and decodes it, the VAE replicated as in the JAX package's
+`sharded_sample_fn`. Ranks above 0 run `serve_worker()`, which follows those
+broadcasts until rank 0's `stop()` broadcasts the stop message.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ragb_vae_tpu_torch.parallel.mesh import Mesh, broadcast
 
 
 def snap_size(
@@ -106,10 +116,22 @@ class InferenceServer:
     `submit()` is thread-safe and returns a Future of the predicted
     text-alpha RGBA (H, W, 4) float32 at the request's original size.
     `start()`/`stop()` manage the batcher thread; the object is also a
-    context manager."""
+    context manager. With `tp_group` (a model axis of size > 1) it runs on
+    every rank of the group: see the module docstring; `pipeline` (PP) is
+    not ported yet, and TP with PP is refused as in the JAX package."""
 
-    def __init__(self, model, config: Optional[ServeConfig] = None) -> None:
+    # header of a batch broadcast: (kind, batch, height, width)
+    _BATCH, _STOP = 1, 0
+
+    def __init__(self, model, config: Optional[ServeConfig] = None, *, tp_group: Optional[Mesh] = None,
+                 pipeline=None) -> None:
+        if tp_group is not None and tp_group.size > 1 and pipeline is not None:
+            raise ValueError("tp_group (TP) and pipeline (PP) are mutually exclusive.")
+        if pipeline is not None:
+            raise NotImplementedError("pipeline-parallel serving is not ported yet to the PyTorch package")
         self.model = model
+        self.tp = tp_group or Mesh()
+        self._stop_sent = False
         self.config = config or ServeConfig()
         self._bucket_batch: Dict[Tuple[int, int], int] = {}
         self._bucket_deadlines: Dict[Tuple[int, int], float] = {}
@@ -127,7 +149,13 @@ class InferenceServer:
 
     # -- the serving program --------------------------------------------
     def _run_batch(self, images: np.ndarray, seeds: np.ndarray) -> np.ndarray:
-        """encode -> sample -> decode for one assembled batch."""
+        """encode -> sample -> decode for one assembled batch (under TP, on
+        rank 0: broadcast first, so every rank of the group runs it)."""
+        if self.tp.size > 1:
+            self._send(self._BATCH, images, seeds)
+        return self._compute(images, seeds)
+
+    def _compute(self, images: np.ndarray, seeds: np.ndarray) -> np.ndarray:
         model = self.model
         steps = self.config.steps
         gt = torch.from_numpy(images).to(model.device)
@@ -140,6 +168,40 @@ class InferenceServer:
         cond = model.encode_latents(gt, eps)
         lat = model.sample_latents_from_noise(cond, init, per_step.transpose(0, 1))
         return model.decode_latents(lat).cpu().numpy()
+
+    # -- tensor parallel: rank 0 sends, the others follow -----------------
+    def _send(self, kind: int, images: Optional[np.ndarray] = None, seeds: Optional[np.ndarray] = None) -> None:
+        device = self.model.device
+        shape = (0, 0, 0) if images is None else images.shape[:3]
+        broadcast(torch.tensor([kind, *shape], dtype=torch.int64, device=device), self.tp)
+        if kind == self._BATCH:
+            broadcast(torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(device), self.tp)
+            broadcast(torch.from_numpy(seeds.astype(np.int64)).to(device), self.tp)
+
+    def serve_worker(self) -> int:
+        """On a rank above 0 of the model group: run every batch rank 0
+        broadcasts until it broadcasts the stop message; returns the number
+        of batches run."""
+        if self.tp.rank == 0:
+            raise RuntimeError("serve_worker() runs on the ranks above 0 of the model group")
+        device, batches = self.model.device, 0
+        with torch.inference_mode():
+            while True:
+                header = broadcast(torch.zeros(4, dtype=torch.int64, device=device), self.tp).tolist()
+                if header[0] == self._STOP:
+                    return batches
+                b, h, w = header[1:]
+                images = broadcast(torch.empty((b, h, w, 4), dtype=torch.float32, device=device), self.tp)
+                seeds = broadcast(torch.empty((b,), dtype=torch.int64, device=device), self.tp)
+                self._compute(images.cpu().numpy(), seeds.cpu().numpy())
+                batches += 1
+
+    def _send_stop(self) -> None:
+        """Release the workers (once), from the thread that ran the last
+        batch or after it has ended."""
+        if self.tp.size > 1 and self.tp.rank == 0 and not self._stop_sent:
+            self._stop_sent = True
+            self._send(self._STOP)
 
     # -- public API ------------------------------------------------------
     def submit(self, image: np.ndarray, *, seed: Optional[int] = None) -> "Future[np.ndarray]":
@@ -211,6 +273,8 @@ class InferenceServer:
         return self
 
     def stop(self) -> None:
+        """Stop the batcher; under TP also release the worker ranks (after
+        the batcher has ended: two threads never broadcast at once)."""
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
@@ -220,6 +284,7 @@ class InferenceServer:
                 # cannot spawn a second batcher over the same queues
                 return
             self._thread = None
+        self._send_stop()
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Refuse new requests, finish the queued ones, stop. True when the

@@ -1,4 +1,4 @@
-"""HTTP serving daemon for text-alpha inference (CLI core), single device.
+"""HTTP serving daemon for text-alpha inference (CLI core).
 
 Counterpart of `ragb_vae_tpu/serving_daemon.py`: one resident process
 holding the model and a dynamic batcher (`serving.py`), the same flags, the
@@ -18,8 +18,16 @@ Endpoints:
                                  "latency_max_ms": x}
 
 `--device` names where it runs (default `cuda`; a missing card raises). On a
-CUDA device the RGBA VAE runs its fused kernels. `--tp` and `--pp` above 1
-are not ported yet and raise; `--compilation-cache` is accepted so that a
+CUDA device the RGBA VAE runs its fused kernels. `--tp N` serves the
+transformer tensor-parallel over N processes, one per device:
+
+    torchrun --nproc-per-node N -m ragb_vae_tpu_torch.serving_daemon --tp N ...
+
+(N must equal the world size). Rank 0 binds the HTTP port and runs the
+batcher; every batch is broadcast to the other ranks, which follow in
+`InferenceServer.serve_worker` until rank 0's SIGTERM drain broadcasts the
+stop message, so all ranks exit. `--pp` above 1 is not ported yet and
+raises; `--compilation-cache` is accepted so that a
 command line of the JAX daemon runs unchanged, and has no effect (the CUDA
 kernels are built once into `build/kernels/` and kept there).
 
@@ -61,7 +69,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-delay-ms", type=float, default=30.0)
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--precision", type=str, default="bf16", choices=["bf16", "fp32"])
-    p.add_argument("--tp", type=int, default=1, help="Tensor parallelism: not ported yet.")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor parallelism over N processes under torchrun --nproc-per-node N.")
     p.add_argument("--pp", type=int, default=1, help="Pipeline parallelism: not ported yet.")
     p.add_argument("--quant", type=str, default="none", choices=["none", "int8"],
                    help="Weight-only int8 transformer: a quantised checkpoint "
@@ -85,8 +94,13 @@ def build_server(args: argparse.Namespace):
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel, read_lora_metadata
     from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
 
+    from ragb_vae_tpu_torch.parallel.bootstrap import build_tp_group, validate_tp_pp
+    from ragb_vae_tpu_torch.parallel.mesh import local_device
+
+    validate_tp_pp(args.tp, args.pp)
     _check_ported(args)
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
+    tp = build_tp_group(args.tp, device)
     if getattr(args, "compilation_cache", "off") != "off":
         print("[serve] --compilation-cache has no effect in the PyTorch port", flush=True)
     if args.lora_path:
@@ -104,6 +118,7 @@ def build_server(args: argparse.Namespace):
         lora_rank=args.rank if args.lora_path else 0,
         lora_alpha=float(args.lora_alpha) if args.lora_path else 0.0,
         weight_quant=args.quant,
+        tp=tp,
     )
     if args.lora_path:
         model.load_lora(args.lora_path)
@@ -111,7 +126,7 @@ def build_server(args: argparse.Namespace):
         max_batch=args.max_batch, max_delay_ms=args.max_delay_ms, steps=args.steps,
         auto_batch=not getattr(args, "no_auto_batch", False),
     )
-    return InferenceServer(model, cfg)
+    return InferenceServer(model, cfg, tp_group=tp)
 
 
 def make_handler(server) -> type:
@@ -181,6 +196,18 @@ def _parse_sizes(spec: str):
 def main(argv=None) -> None:
     args = parse_args(argv)
     server = build_server(args)
+    if server.tp.rank > 0:
+        # a worker rank: follow rank 0's batches until its drain stops us.
+        # torchrun passes a SIGTERM to every rank; this one waits for rank
+        # 0's stop message instead, so rank 0 can finish the queued batches.
+        try:
+            signal.signal(signal.SIGTERM, lambda signum, frame: print(
+                f"[serve] rank {server.tp.rank}: SIGTERM - waiting for rank 0's drain", flush=True))
+        except ValueError:
+            pass  # not the main thread (embedded use)
+        n = server.serve_worker()
+        print(f"[serve] rank {server.tp.rank}: ran {n} batches, stopped by rank 0", flush=True)
+        return
     if args.warmup:
         sizes = _parse_sizes(args.warmup)
         print(f"[serve] warming up {sizes} ...", flush=True)

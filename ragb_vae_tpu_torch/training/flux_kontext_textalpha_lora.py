@@ -46,8 +46,20 @@ any process stops all at the same step, and process 0 alone writes the
 checkpoints (after the optimizer state is gathered from all), the metrics
 log and the validation pairs, which every process samples alike.
 
-Not ported yet (each raises): `--shard_base_params`, `--tensor_parallel` and
-`--sequence_parallel` above 1.
+`tensor_parallel: T` (above 1) splits the W processes into W / T data groups
+of T consecutive ranks (`parallel/mesh.py::create_training_mesh`): the
+frozen base is Megatron-sharded over each model group
+(`parallel/tensor_parallel.py`), the adapters are replicated, and the input
+shards, the noise rows and the loss's weighted means go by the DATA rank, so
+the T ranks of one model group see the same rows and the same noise. Each
+rank's adapter gradients are partials: they are summed over the model group
+before `ZeroAdamW` reduces them over the data group, and the replicas of one
+model group stay bit-identical. Validation samples on every rank, the
+preemption flag is synced over the world, and global rank 0 writes.
+
+Not ported yet (each raises): `--shard_base_params` and
+`--sequence_parallel` above 1; `tensor_parallel` together with
+`shard_base_params` is refused, as in the JAX stage.
 """
 from __future__ import annotations
 
@@ -65,7 +77,15 @@ from ragb_vae_tpu_torch.data.loader import DataLoader, cuda_prefetch
 from ragb_vae_tpu_torch.data.sampler import BucketBatchSampler
 from ragb_vae_tpu_torch.data.text_alpha_dataset import TextAlphaBucketDataset
 from ragb_vae_tpu_torch.device import resolve_device
-from ragb_vae_tpu_torch.parallel.mesh import Mesh, barrier, create_mesh, local_device, maybe_init_distributed
+from ragb_vae_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    create_training_mesh,
+    local_device,
+    maybe_init_distributed,
+    process_index,
+)
+from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_transformer_, sum_grads_over, validate_tp
 from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW, weighted_mean_over_ranks
 from ragb_vae_tpu_torch.models.flux_kontext_textalpha import (
     LORA_WEIGHT_FILES,
@@ -149,23 +169,31 @@ def parse_args(args: Optional[List[str]] = None, *, allow_missing: bool = False)
                         help="On SIGTERM, save a resumable checkpoint-N at the next step and stop "
                              "(default on; RAGB_NO_PREEMPTION=1 also turns it off).")
     parser.add_argument("--shard_base_params", action="store_true", help="Not ported yet.")
-    parser.add_argument("--tensor_parallel", type=int, default=1, help="Above 1: not ported yet.")
+    parser.add_argument("--tensor_parallel", type=int, default=1,
+                        help="Megatron tensor parallelism of the frozen base over T consecutive processes.")
     parser.add_argument("--sequence_parallel", type=int, default=1, help="Above 1: not ported yet.")
     return parser.parse_args(args=args)
 
 
 def _check_ported(args: argparse.Namespace) -> None:
+    if _tp_degree(args) > 1 and getattr(args, "shard_base_params", False):
+        raise ValueError(
+            "tensor_parallel and shard_base_params are mutually exclusive "
+            "(Megatron model-axis sharding vs FSDP data-axis sharding of the same frozen base)")
     missing = []
     if getattr(args, "shard_base_params", False):
         missing.append("shard_base_params")
-    for name in ("tensor_parallel", "sequence_parallel"):
-        if int(getattr(args, name, 1) or 1) > 1:
-            missing.append(f"{name}={getattr(args, name)}")
+    if int(getattr(args, "sequence_parallel", 1) or 1) > 1:
+        missing.append(f"sequence_parallel={args.sequence_parallel}")
     if missing:
         raise NotImplementedError(
             f"{', '.join(missing)}: not ported yet to the PyTorch package "
             "(use ragb_vae_tpu.training.flux_kontext_textalpha_lora)."
         )
+
+
+def _tp_degree(args: argparse.Namespace) -> int:
+    return max(1, int(getattr(args, "tensor_parallel", 1) or 1))
 
 
 def latest_complete_lora_checkpoint(root: Path) -> Optional[Path]:
@@ -235,6 +263,7 @@ def make_lora_train_step(
     n_micro: int,
     lr_schedule: Optional[Callable[[int], float]] = None,
     mesh: Optional[Mesh] = None,
+    model_mesh: Optional[Mesh] = None,
 ):
     """Build `step(batch, generator, step_index) -> (loss, stats, grad_norm)`.
 
@@ -245,7 +274,10 @@ def make_lora_train_step(
     clip and the AdamW update of the adapters, at `lr_schedule(step_index)`
     with `step_index` the number of updates made before this one. With a
     `mesh`, `batch` is this process's rows, `optimizer` a `ZeroAdamW` over
-    the adapters, and the loss and stats are weighted means over all rows."""
+    the adapters, and the loss and stats are weighted means over all rows.
+    With a `model_mesh` of size > 1 (the transformer is tensor-parallel over
+    it; `mesh` is then the data axis), each rank's adapter gradients are
+    partials and are summed over the model group before the update."""
     params = list(lora_parameters(model.transformer).values())
     over_mesh = {} if mesh is None else {"mesh": mesh}
 
@@ -258,6 +290,8 @@ def make_lora_train_step(
             loss_fn, params, batch, n_micro,
             micro_weight_fn=(lambda mb: mb["weights"].sum()) if "weights" in batch else None,
         )
+        if model_mesh is not None:
+            sum_grads_over(params, model_mesh)
         if lr_schedule is not None:
             for group in optimizer.param_groups:
                 group["lr"] = lr_schedule(step_index)
@@ -303,10 +337,16 @@ def train(
     step with the loss, the gradient norm before the clip and the learning
     rate; the loss and the learning rate also go to `<ckpt_dir>/metrics.jsonl`."""
     _check_ported(args)
+    tp = _tp_degree(args)
+    if tp > 1:   # the degree against the heads, before any model is built
+        from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
+
+        validate_tp(model.transformer_config if model is not None else FluxTransformerConfig.from_json(
+            Path(args.pretrained_model_name_or_path) / "transformer" / "config.json"), tp)
     device = local_device(resolve_device(device if device is not None else getattr(args, "device", "cuda")))
     maybe_init_distributed(model.device if model is not None else device)
-    mesh = create_mesh()
-    is_main = mesh.rank == 0
+    mesh, model_mesh = create_training_mesh(tp=tp)     # the data axis, the model axis
+    is_main = process_index() == 0
     weight_quant = getattr(args, "weight_quant", "none")
     dtype = torch.bfloat16 if args.mixed_precision in ("bf16", "fp16") else torch.float32
 
@@ -321,6 +361,7 @@ def train(
             lora_rank=args.rank,
             lora_alpha=float(args.lora_alpha),
             weight_quant=weight_quant,
+            tp=model_mesh,
         )
     elif model.transformer.weight_quant != weight_quant:
         raise ValueError(f"weight_quant={weight_quant!r} but the model given stores its transformer "
@@ -328,6 +369,11 @@ def train(
     elif not lora_parameters(model.transformer):
         model.lora_rank, model.lora_alpha = args.rank, float(args.lora_alpha)
         model.init_lora(torch.Generator(model.device).manual_seed(0))
+    if model.transformer.tp.size != model_mesh.size:
+        if model.transformer.tp.size > 1:
+            raise ValueError(f"tensor_parallel={tp}, but the model given is sharded {model.transformer.tp.size} ways")
+        validate_tp(model.transformer_config, tp, cuda=model.device.type == "cuda", weight_quant=weight_quant)
+        shard_transformer_(model.transformer, model_mesh)
     device = model.device
     model.vae.module.requires_grad_(False)
     lora = lora_parameters(model.transformer)
@@ -365,10 +411,11 @@ def train(
         weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
     ), mesh)
     n_micro = max(1, args.grad_accum_steps)
-    train_step = make_lora_train_step(model, optimizer, n_micro, lr_schedule, mesh=mesh)
+    train_step = make_lora_train_step(model, optimizer, n_micro, lr_schedule, mesh=mesh, model_mesh=model_mesh)
 
-    print(f"[Batch] effective_per_step={args.batch_size} (grad_accum={n_micro}, {mesh.size} process(es) -> "
-          f"{args.batch_size / (n_micro * mesh.size):g} rows per micro-batch) device={device}")
+    print(f"[Batch] effective_per_step={args.batch_size} (grad_accum={n_micro}, {mesh.size} data group(s) "
+          f"of {tp} process(es) -> {args.batch_size / (n_micro * mesh.size):g} rows per micro-batch) "
+          f"device={device}")
     print(f"[Train] {len(train_ds)} samples across {len(train_ds.bucket_to_indices)} buckets.")
     print(f"[Val]   {len(val_ds)} samples." if val_ds is not None
           else "[Val]   (disabled: no val_split provided)")
@@ -399,9 +446,9 @@ def train(
         print(f"[val-{step_label}] saved {saved} GT|pred pairs to {out_dir}")
 
     def save_lora(step: int, subdir: str) -> None:
-        optimizer_state = optimizer.state_dict()   # a collective: every process gathers
+        optimizer_state = optimizer.state_dict()   # a data-group collective: every process gathers
         if not is_main:
-            barrier(mesh)
+            barrier()
             return
         save_dir = Path(args.ckpt_dir) / subdir
         model.save_lora_weights(save_dir)
@@ -414,7 +461,7 @@ def train(
         torch.save({"optimizer": optimizer_state, "generator": generator.get_state()},
                    save_dir / TRAIN_STATE_FILE)
         print(f"[ckpt] saved LoRA weights to {save_dir}")
-        barrier(mesh)
+        barrier()
 
     metrics_logger = MetricsLogger(args.ckpt_dir if is_main else None)
     total_steps = 0

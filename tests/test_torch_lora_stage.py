@@ -153,7 +153,7 @@ def test_build_args_names_the_missing_fields():
 
 
 @pytest.mark.parametrize("flag", [{"weight_quant": "int8", "shard_base_params": True}, {"shard_base_params": True},
-                                  {"tensor_parallel": 2}, {"sequence_parallel": 2}])
+                                  {"tensor_parallel": 2, "sequence_parallel": 2}, {"sequence_parallel": 2}])
 def test_unported_options_raise(flag):
     cfg = {"model": {"pretrained_model_name_or_path": "m", "rgba_vae_path": "v"}, "data": {"root": "d"},
            "training": flag}

@@ -150,7 +150,7 @@ def test_inference_run_on_a_jax_written_checkpoint(tmp_path):
     np.testing.assert_array_equal(load_rgba(tmp_path / "again.png"), first)
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2", "--quant", "int8"], ["--tp", "2"], ["--pp", "2"],
+@pytest.mark.parametrize("flag", [["--pp", "2", "--quant", "int8"], ["--pp", "3"], ["--pp", "2"],
                                   ["--lora_path", "x", "--pp", "2", "--device", "cpu"]])
 def test_inference_unported_options_raise(flag):
     args = inference.parse_args(

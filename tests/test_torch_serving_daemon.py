@@ -163,8 +163,11 @@ def test_flags_and_defaults_match_the_jax_daemon():
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp"])
 def test_parallel_serving_is_not_ported(flag):
+    """--pp is not ported; --tp is, and without torchrun's process group of
+    that size it exits naming torchrun."""
     args = serving_daemon.parse_args(REQUIRED + [flag, "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=f"{flag} 2"):
+    raised, match = (SystemExit, "torchrun") if flag == "--tp" else (NotImplementedError, f"{flag} 2")
+    with pytest.raises(raised, match=match):
         serving_daemon.build_server(args)
 
 

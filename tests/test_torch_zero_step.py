@@ -87,6 +87,7 @@ def run(tmp_path_factory):
         "kl_scale": KL_SCALE, "cases": CASES,
         "images": [rng.uniform(size=(4, 32, 32, 4)).astype(np.float32) for _ in range(2)],
         "eps": [rng.standard_normal((4, 16, 16, 4)).astype(np.float32) for _ in range(2)],
+        "partial": _partial_state_dict(),
     }
     # the one-process run and JAX's steps here while the two ranks run
     ranks, (one, jax_out) = spawn(
@@ -254,3 +255,42 @@ def test_offload_needs_a_mesh(run):
         tvs.make_train_step(model, optimizer, AlphaVaeLossConfig(), tvs.VaeStepConfig(), offload_opt_state=True)
     with pytest.raises(ValueError, match="requires a mesh"):
         tvs.init_train_state(model, optimizer, offload=True)
+
+
+# ---------------------------------------------------------------------------
+# A single-device state dict in which a parameter has no state (C3)
+# ---------------------------------------------------------------------------
+def _partial_state_dict() -> dict:
+    """Two parameters, one of them (5 elements, so the flat layout of 12 puts
+    it across both ranks' slices at world 2) stepped twice: `torch.optim`
+    makes a parameter's state only at its first gradient."""
+    params = [torch.nn.Parameter(torch.arange(7.0)), torch.nn.Parameter(-torch.arange(5.0))]
+    opt = tvs.ClippedAdamW(params, 1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.01, max_grad_norm=1.0)
+    for _ in range(2):
+        params[1].grad = torch.linspace(-1.0, 1.0, 5)
+        opt.step()
+    sd = opt.state_dict()
+    assert set(sd["state"]) == {1}
+    return {"params": [p.detach().clone() for p in params], "state_dict": sd}
+
+
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("way", ["wrapped", "load_state_dict"])
+def test_partial_state_dict_loads_with_zero_moments(run, world, way):
+    """The stepped parameter's moments and step come through, the other's
+    moments are zeros, and the gathered state dict is the whole one: every
+    parameter's entry, the missing one's at zero and at the stepped step."""
+    partial = run["payload"]["partial"]
+    want = partial["state_dict"]["state"][1]
+    results = [run["one"]["partial"]] if world == 1 else [r["partial"] for r in run["ranks"]]
+    flat = {k: torch.cat([r[way][k] for r in results])[:12] for k in ("exp_avg", "exp_avg_sq")}
+    for k, v in flat.items():
+        assert torch.equal(v[:7], torch.zeros(7)), k
+        assert torch.equal(v[7:], want[k]), k
+    for r in results:
+        assert r[way]["step"] == float(want["step"]) == 2.0
+        sd = r[way]["state_dict"]
+        assert set(sd["state"]) == {0, 1}
+        assert torch.equal(sd["state"][0]["exp_avg"], torch.zeros(7))
+        assert torch.equal(sd["state"][1]["exp_avg_sq"], want["exp_avg_sq"])
+        assert float(sd["state"][0]["step"]) == 2.0

@@ -134,6 +134,39 @@ def zero_steps(rank: int, world: int, payload: dict, tmp_path: Path, *, mesh=Non
             "optimizer": zero.state_dict(),
             "moments_on_cpu": all(t.device.type == "cpu" for t in zero.moments().values()),
         }
+    if "partial" in payload:
+        out["partial"] = partial_state_loads(payload["partial"], mesh)
+    return out
+
+
+def partial_state_loads(partial: dict, mesh) -> dict:
+    """A `ClippedAdamW` state dict in which one of two parameters has no
+    state, taken by `ZeroAdamW` over `mesh` both ways: from the wrapped
+    optimizer's state and through `load_state_dict` -> each way's slice
+    (step, moments) and its gathered state dict."""
+    from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW
+    from ragb_vae_tpu_torch.training.vae_step import ClippedAdamW
+
+    def fresh():
+        params = [torch.nn.Parameter(t.clone()) for t in partial["params"]]
+        return params, ClippedAdamW(params, 1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.01, max_grad_norm=1.0)
+
+    out = {}
+    _, opt = fresh()
+    opt.load_state_dict(partial["state_dict"])
+    ways = {"wrapped": lambda: ZeroAdamW(opt, mesh)}
+
+    def through_load():
+        zero = ZeroAdamW(fresh()[1], mesh)
+        zero.load_state_dict(partial["state_dict"])
+        return zero
+
+    ways["load_state_dict"] = through_load
+    for name, make in ways.items():
+        zero = make()
+        state = zero.state[zero.shard]
+        out[name] = {"step": float(state["step"]), **{k: v.clone() for k, v in zero.moments().items()},
+                     "state_dict": zero.state_dict()}
     return out
 
 
@@ -170,3 +203,126 @@ def loop_runs(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
     lora_metrics = lora.train_from_config(payload["lora"], model=model, device="cpu")
     return {"polls": polls, "stages": stages, "lora": lora_metrics,
             "adapters": {k: v.clone() for k, v in lora_state(model.transformer).items()}}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallel: the sample, the int8 shards and the LoRA gradients
+# ---------------------------------------------------------------------------
+TP_RANK, TP_ALPHA = 4, 6.0
+
+
+def tp_model(payload: dict):
+    """The payload's tiny FLUX-Kontext model, whole (fp32, rank-4 adapters
+    from the payload's state, per-block recompute)."""
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+    from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformer2D, freeze_base_parameters
+    from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
+    from ragb_vae_tpu_torch.models.scheduler import FlowMatchEulerScheduler
+
+    transformer = FluxTransformer2D(payload["config"], lora_rank=TP_RANK, lora_alpha=TP_ALPHA, remat=True)
+    transformer.load_state_dict(payload["state"], strict=True)
+    freeze_base_parameters(transformer)
+    vae = RgbaVAE(payload["vae_config"], fused=True)
+    vae.module.load_state_dict(payload["vae_state"], strict=True)
+    return FluxTextAlphaModel(transformer.eval(), vae, FlowMatchEulerScheduler(),
+                              *(torch.from_numpy(payload[k]) for k in ("prompt", "pooled", "text_ids")),
+                              lora_rank=TP_RANK, lora_alpha=TP_ALPHA)
+
+
+def _tp_sample(model, payload: dict) -> dict:
+    t = {k: torch.from_numpy(payload[k]) for k in ("gt", "eps", "init", "noises")}
+    with torch.no_grad():
+        cond = model.encode_latents(t["gt"], t["eps"])
+        final, traj = model.sample_latents_from_noise(cond, t["init"], t["noises"], return_trajectory=True)
+        return {"traj": traj, "image": model.decode_latents(final)}
+
+
+def tp_case(model, payload: dict, tp) -> dict:
+    """On a whole model (`tp` of size 1) or this rank's shard: the sample
+    with injected noise, the LoRA loss and its adapter-gradient tree (summed
+    over the model group), the bytes of each shard, then the same sample over
+    the int8 transformer and the int8 entries."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_grads_to_flax, lora_parameters
+    from ragb_vae_tpu_torch.models.quantize import quantize_module_
+    from ragb_vae_tpu_torch.parallel.tensor_parallel import COUNTS, reset_counts, sum_grads_over
+
+    out = {"sample": _tp_sample(model, payload)}
+    reset_counts()
+    lat = [torch.from_numpy(a) for a in payload["latents"]]
+    loss, _ = model.compute_loss_from_latents(*lat, torch.from_numpy(payload["u"]))
+    loss.backward()
+    sum_grads_over(list(lora_parameters(model.transformer).values()), tp)
+    out["lora"] = {"loss": loss.item(), "grads": lora_grads_to_flax(model.transformer), "counts": dict(COUNTS)}
+    out["bytes"] = {k: v.numel() * v.element_size() for k, v in model.transformer.state_dict().items()}
+    quantize_module_(model.transformer)
+    out["int8"] = {"sample": _tp_sample(model, payload),
+                   "entries": {k: v.clone() for k, v in model.transformer.state_dict().items()
+                               if k.endswith(("weight_q", "weight_scale"))}}
+    return out
+
+
+def tp_loads(payload: dict, tp) -> dict:
+    """The transformer state of `from_pretrained(tp=)` from each checkpoint
+    of `payload["checkpoints"]` ((label, model dir, weight_quant))."""
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+
+    out = {}
+    for label, path, quant in payload["checkpoints"]:
+        model = FluxTextAlphaModel.from_pretrained(path, vae_path=payload["vae_dir"], device="cpu",
+                                                   weight_quant=quant, tp=tp)
+        out[label] = {k: v.clone() for k, v in model.transformer.state_dict().items()}
+    return out
+
+
+def tp_runs(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
+    """`tp_case` on this rank's shard over a model axis of the whole world,
+    and `tp_loads`."""
+    from ragb_vae_tpu_torch.parallel.mesh import create_training_mesh
+    from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_transformer_
+
+    _, tp = create_training_mesh(tp=world)
+    model = tp_model(payload)
+    shard_transformer_(model.transformer, tp)
+    return {**tp_case(model, payload, tp), "loads": tp_loads(payload, tp)}
+
+
+def tp_train_steps(rank: int, world: int, payload: dict, tmp_path: Path, *, tp: int = 2) -> dict:
+    """Two steps of `make_lora_train_step` at (data world / tp, model tp):
+    this rank's data rows of each global batch, ZeroAdamW over the data
+    group -> the losses, gradient norms and adapters after each step."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters, lora_state
+    from ragb_vae_tpu_torch.parallel.mesh import create_training_mesh, local_rows
+    from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_transformer_
+    from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW
+    from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import make_lora_optimizer, make_lora_train_step
+
+    data, model_mesh = create_training_mesh(tp=tp)
+    model = tp_model(payload)
+    shard_transformer_(model.transformer, model_mesh)
+    optimizer = ZeroAdamW(make_lora_optimizer(list(lora_parameters(model.transformer).values()),
+                                              payload["lr"]), data)
+    step = make_lora_train_step(model, optimizer, 1, mesh=data, model_mesh=model_mesh)
+    generator = torch.Generator().manual_seed(payload["seed"])
+    out = []
+    for gt, ta in payload["batches"]:
+        batch = {"gt": local_rows(torch.from_numpy(gt), data), "text_alpha": local_rows(torch.from_numpy(ta), data)}
+        loss, _, grad_norm = step(batch, generator)
+        out.append({"loss": float(loss), "grad_norm": float(grad_norm),
+                    "adapters": {k: v.clone() for k, v in lora_state(model.transformer).items()}})
+    return {"steps": out}
+
+
+def tp_stage(cfg: dict) -> dict:
+    """The LoRA stage's own loop on the tiny model -> its result and adapters."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_state
+    from ragb_vae_tpu_torch.training import flux_kontext_textalpha_lora as lora
+
+    model = tiny_lora_model()
+    result = lora.train_from_config(cfg, model=model, device="cpu")
+    return {"result": result, "adapters": {k: v.clone() for k, v in lora_state(model.transformer).items()}}
+
+
+def tp_world4(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
+    """`tp_train_steps` at (data 2, model 2), then the LoRA stage through
+    `train_from_config` with `tensor_parallel: 2`."""
+    return {**tp_train_steps(rank, world, payload, tmp_path), "stage": tp_stage(payload["stage"])}
