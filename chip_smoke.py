@@ -19,7 +19,8 @@ clock; any failure exits non-zero without the final line):
              exact fp32 reference (the attention's log-sum-exp included; the
              Winograd conv against the exact direct conv), in
              bf16 at the shapes the serving path and the training step give it
-             plus short ragged ones: errors, tolerances, the median of 10
+             (the attention also at a sequence-parallel rank's queries
+             against the gathered keys) plus short ragged ones: errors, tolerances, the median of 10
              CUDA-event-timed runs of kernel and plain version, and the bound
              (the least time the card could take for the same work); K6's
              dskip also alone, at the four shapes of a VAE micro-batch,
@@ -72,6 +73,24 @@ clock; any failure exits non-zero without the final line):
              contiguous order) must fail the same bounds. Prints each rank's
              memory beside the slice phase's, the collectives per forward and
              the s/step.
+11. axes   - (after tp; needs no other phase) the LoRA stage's FSDP and
+             sequence-parallel axes over two processes on the one card in a
+             gloo group, on a full-width 2 + 4 block FLUX.1-Kontext
+             transformer from a seed: at data 2 each rank draws only its
+             FSDP part of the frozen base and takes one
+             `make_lora_train_step` step of its own 512^2 pair, the two
+             ranks' mean adapter gradients held against the whole model's
+             over both pairs, and an int8 base drawn split runs one forward
+             through K10 on gathered weights against the whole int8
+             model's; at sequence_parallel 2 one step on one 512^2 pair with
+             K3, K4 and K5 at 1280 queries x 2560 gathered keys, its summed
+             gradients against the unsharded run, and a 4-step sample
+             against the whole model's. Prints each rank's resident and
+             peak memory, the base bytes a rank holds (also full-depth, from
+             the plan), the collectives a step; four planted faults (dK / dV
+             not summed, the prediction's gradient summed, RoPE ids cut
+             strided, FSDP's shards in reversed rank order) must fail the
+             gradients' bound.
 7. convs   - the three stand-alone VAE convs through their entry points
              (`Downsample(fused=True)` feeding a fused resnet block,
              `Conv3x3`, `fused_gn_silu_conv3x3_batched`) at the FLUX `ae`
@@ -1026,9 +1045,13 @@ def check_upsample_bwd(gen, shape, n_out):
         lib_name="aten.convolution_backward over the upsampled input (conv part only, 2.25x the products)")
 
 
-def check_attention(gen, shape):
+def check_attention(gen, shape, seq_k=None):
+    """K3 on (B, H, S, D) queries and `seq_k` keys (default S: a sequence
+    parallel rank's queries against the gathered keys otherwise)."""
     bsz, heads, seq, d = shape
-    q, k, v = (_randn(gen, (bsz * heads, seq, d)) for _ in range(3))
+    seq_k = seq_k or seq
+    q = _randn(gen, (bsz * heads, seq, d))
+    k, v = (_randn(gen, (bsz * heads, seq_k, d)) for _ in range(2))
     scale = 1.0 / math.sqrt(d)
     run_k = lambda: fa.flash_attention_cuda(q, k, v, sm_scale=scale)
     run_p = lambda: fa.attention_plain(q, k, v, sm_scale=scale)
@@ -1043,17 +1066,18 @@ def check_attention(gen, shape):
     ms, plain_ms, queued_ms = time_ms(run_k), time_ms(run_p), time_queued_ms(run_k)
     # the one PyTorch call that computes the same function: a yardstick here,
     # called nowhere in the port
-    q4, k4, v4 = (t.reshape(bsz, heads, seq, d) for t in (q, k, v))
+    q4, k4, v4 = (t.reshape(bsz, heads, -1, d) for t in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
-    limit = bound(4 * bsz * heads * seq * seq * d, _nbytes(q, k, v, out, lse))
+    limit = bound(4 * bsz * heads * seq * seq_k * d, _nbytes(q, k, v, out, lse))
+    label = f"{shape}" if seq_k == seq else f"{shape} keys {seq_k}"
     ok = (rel_p <= ATTN_PLAIN_REL_TOL and rel_x <= ATTN_EXACT_REL_TOL
           and err_lse <= ATTN_LSE_ABS_TOL and bool(torch.isfinite(out.float()).all()))
-    log("kernels", f"flash_attention_fwd {shape}: vs plain max_abs_err={err:.4g} "
+    log("kernels", f"flash_attention_fwd {label}: vs plain max_abs_err={err:.4g} "
         f"(rel {rel_p:.3g} <= {ATTN_PLAIN_REL_TOL}); vs fp32 rel {rel_x:.3g} "
         f"(<= {ATTN_EXACT_REL_TOL}) lse {err_lse:.3g} (<= {ATTN_LSE_ABS_TOL}); "
         f"kernel {ms:.3f} ms (back to back {queued_ms:.3f}) plain {plain_ms:.3f} ms scaled_dot_product_attention "
         f"{library_ms:.3f} ms bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}) {'ok' if ok else 'FAIL'}")
-    return ok, f"{shape}", err, ms, plain_ms, library_ms, limit
+    return ok, label, err, ms, plain_ms, library_ms, limit
 
 
 def attention_bwd_exact(q, k, v, out, lse, g, scale, heads_per_pass=4):
@@ -1180,6 +1204,10 @@ def phase_kernels() -> dict:
             lambda: check_attention(gen, (1, 1, 120, 512)),     # ragged: 24 keys in the last tile of 32
             lambda: check_attention(gen, (1, 1, 16384, 512)),
             lambda: check_attention(gen, (1, 12, 2560, 128)),   # one rank's 12 heads at tensor_parallel 2
+            # one rank's queries at sequence_parallel 2 against the gathered
+            # keys: a 512^2 pair (512 + 2048 tokens) and a 1024^2 one (512 + 8192)
+            lambda: check_attention(gen, (1, 24, 1280, 128), 2560),
+            lambda: check_attention(gen, (1, 24, 4352, 128), 8704),
         ],
         # the shapes one training micro-batch of 4 at 512^2 gives them (the
         # encoder sees the triplet, batch 12; the decoder's last level runs at
@@ -1280,7 +1308,8 @@ def phase_kernels() -> dict:
     # at 512^2, batch 1 at 1024^2), ragged lengths, and Sq != Sk
     bwd_runs = [check_attention_bwd(gen, *shape) for shape in
                 ((48, 2560, 2560), (24, 8704, 8704), (24, 2600, 2600), (24, 300, 300), (24, 333, 777),
-                 (12, 2560, 2560))]      # one rank's 12 heads of one 512^2 pair at tensor_parallel 2
+                 (12, 2560, 2560),       # one rank's 12 heads of one 512^2 pair at tensor_parallel 2
+                 (24, 1280, 2560), (24, 4352, 8704))]    # one rank's queries at sequence_parallel 2
     for name in ("flash_attention_dq", "flash_attention_dkv"):
         all_ok &= summarise(name, [run[name] for run in bwd_runs])
     if not all_ok:
@@ -1732,7 +1761,7 @@ BLOCKS = 19 + 38               # attention calls per transformer forward
 TRAIN_STEPS = 1                # optimizer steps of the VAE phase (the stage1 phase takes 3 more)
 STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO = 2, 4, 2     # of the LoRA and the QLoRA phase: steps, pairs per step, micro-batches
 LORA_PAIRS = 2                 # the LoRA phase's pairs per step (the QLoRA phase's probe loss needs 4 to fall)
-ALL_PHASES = ("kernels", "slice", "lora", "int8", "tp", "convs", "train", "stage1")
+ALL_PHASES = ("kernels", "slice", "lora", "int8", "tp", "axes", "convs", "train", "stage1")
 
 
 def _lora_counts() -> dict:
@@ -1832,7 +1861,7 @@ def _hold_grad_routes(phase, named, out, comparisons, rel_tol, cos_tol) -> bool:
 
 def _lora_grad_tree_check(model) -> None:
     def plain_route(compute_dtype):
-        def attention(q, k, v):
+        def attention(q, k, v, seq=None, segments=None):      # the phase runs no sequence axis
             b, h, s, d = q.shape
             out = fa.attention_plain(*(x.reshape(b * h, s, d).to(compute_dtype) for x in (q, k, v)),
                                      sm_scale=1.0 / math.sqrt(d))
@@ -2324,7 +2353,7 @@ def _tp_rank(rank: int, work: Path) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"file://{work / 'tp_rendezvous'}", world_size=TP, rank=rank,
                             timeout=datetime.timedelta(seconds=TP_JOIN_SECONDS))
-    _, tp = create_training_mesh(tp=TP)
+    _, tp, _ = create_training_mesh(tp=TP)
     out: dict = {}
 
     # the serving path at full width and depth: rank 0 serves, rank 1 follows
@@ -2465,9 +2494,9 @@ def _tp_lora(rank: int, tp, vae_cfg) -> dict:
     optimizer.step = recording_step
     heads, real_attention = set(), ft.attention
 
-    def attention(q, k, v):
+    def attention(q, k, v, **kw):
         heads.add(q.shape[1])
-        return real_attention(q, k, v)
+        return real_attention(q, k, v, **kw)
 
     step = make_lora_train_step(model, optimizer, 1, mesh=Mesh(), model_mesh=tp)
     reset_all_counts()
@@ -2601,6 +2630,406 @@ def phase_tp(refs: dict, work: Path) -> dict:
     counts: dict = {}
     for x in res:
         for part in (x["serve_launches"], x["lora_launches"], {"int8_matmul": x["int8_launches"]}):
+            for k, n in part.items():
+                counts[k] = counts.get(k, 0) + n
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the LoRA stage's FSDP and sequence-parallel axes
+# ---------------------------------------------------------------------------
+# Two ranks on the one card in a gloo group, as the tp phase (NCCL refuses two
+# ranks on one device; the collectives go through host memory and their times
+# are gloo's). Both axes run on a full-width FLUX.1-Kontext transformer cut to
+# AXES_DEPTH blocks, rank-128 adapters with B non-zero, drawn from one seed:
+#
+# - FSDP at data 2: each rank draws only its part of the frozen base
+#   (`random(fsdp=)`), takes one `make_lora_train_step` step of its own 512^2
+#   pair (ZeroAdamW over the data group), and the mean of the two ranks'
+#   adapter gradients is held against the whole model's over both pairs with
+#   the same noise. An int8 base drawn the same way runs one forward through
+#   K10 on gathered weights, held against the whole int8 model's.
+# - SP 2: both ranks hold the whole model and take one step on one 512^2 pair
+#   with the streams split: K3 runs at 1280 queries x 2560 gathered keys, K4
+#   and K5 at the same shapes; the summed adapter gradients are held against
+#   the unsharded run, and a 4-step sample against the whole model's.
+# - Four planted faults must fail the gradients' bound: dK / dV kept local
+#   instead of summed over the ranks, the prediction's gather summing its
+#   gradient (every adapter gradient doubled), the RoPE ids cut strided while
+#   the tokens are cut contiguous, and FSDP's shards concatenated in reversed
+#   rank order. (Rank 0's ids on both ranks cannot show at sp 2: the cond and
+#   target halves of the image stream share one id grid and the prompt's ids
+#   are all zero, so the two ranks' ids are equal.)
+#
+# The sound runs differ from the whole model in rounding only: FSDP gathers
+# the weights exactly, and SP keeps each token's sums (the keys are gathered
+# back into the unsharded order) except that dK and dV add two ranks' partial
+# sums, in bf16 at the gather's reduce.
+AXES_DEPTH = TP_LORA_DEPTH             # double and single blocks (full width)
+AXES_SEED = SEED + 20
+AXES_GRAD_TOL = TP_GRAD_TOL            # the tp phase's bound: worst leaf's relative error, cosine
+AXES_SAMPLE_TOL = TP_ANSWER_TOL        # the 4-step sample vs the whole model's
+AXES_INT8_TOL = (1e-3, 0.99999)        # the int8 FSDP forward vs the whole int8 model's
+AXES_JOIN_SECONDS = 600
+
+
+def _axes_child(rank: int, work: str) -> None:
+    """One rank of the axes phase: its results, or its traceback, into `work`."""
+    import traceback
+
+    try:
+        torch.save(_axes_rank(rank, Path(work)), Path(work) / f"axes_result_{rank}.pt")
+    except BaseException:
+        (Path(work) / f"axes_error_{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def _axes_rank(rank: int, work: Path) -> dict:
+    import torch.distributed as dist
+
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+    from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformer2D, FluxTransformerConfig
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
+    from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
+    from ragb_vae_tpu_torch.parallel import fsdp as fsdpm
+    from ragb_vae_tpu_torch.parallel import sequence_parallel as spm
+    from ragb_vae_tpu_torch.parallel.mesh import Mesh, create_training_mesh
+    from ragb_vae_tpu_torch.parallel.tensor_parallel import sum_grads_over
+    from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW
+    from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import make_lora_optimizer, make_lora_train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'axes_rendezvous'}", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=AXES_JOIN_SECONDS))
+    data, _, _ = create_training_mesh()            # the data axis: both ranks
+    _, _, seq = create_training_mesh(sp=2)         # the sequence axis: both ranks
+    cfg = FluxTransformerConfig(num_layers=AXES_DEPTH[0], num_single_layers=AXES_DEPTH[1])
+    vae_cfg = AutoencoderConfig.flux()
+    vae_cfg.in_channels = vae_cfg.out_channels = 4
+    rng = np.random.default_rng(SEED + 21)
+    pairs = {k: torch.from_numpy(rng.uniform(size=(2, 512, 512, 4)).astype(np.float32)) for k in ("gt", "text_alpha")}
+    out: dict = {}
+
+    def build(**kw):
+        t0 = time.perf_counter()
+        m = FluxTextAlphaModel.random(cfg, vae_cfg, seed=AXES_SEED, device="cuda", dtype=torch.bfloat16, fused=True,
+                                      lora_rank=LORA_CONFIG["rank"], lora_alpha=float(LORA_CONFIG["lora_alpha"]),
+                                      use_gradient_checkpointing=True, **kw)
+        gen = torch.Generator("cuda").manual_seed(SEED + 22)
+        with torch.no_grad():
+            for name, p in lora_parameters(m.transformer).items():
+                if name.endswith("lora_B"):
+                    p.normal_(0.0, 0.01, generator=gen)
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t0
+
+    def loss_of(m, rows, mesh=None):
+        for p in lora_parameters(m.transformer).values():
+            p.grad = None
+        loss, _ = m.compute_loss(pairs["gt"][rows], pairs["text_alpha"][rows],
+                                 torch.Generator("cuda").manual_seed(SEED + 23), mesh=mesh)
+        loss.backward()
+        return loss.detach()
+
+    def grads(m) -> dict:
+        return {n: p.grad.detach().float().cpu() for n, p in lora_parameters(m.transformer).items()}
+
+    def data_mean(named: dict) -> dict:
+        """The mean over the data axis of each rank's gradients (one all-reduce)."""
+        flat = torch.cat([g.reshape(-1) for g in named.values()]).cuda()
+        dist.all_reduce(flat)
+        flat = (flat / data.size).cpu()
+        got, start = {}, 0
+        for n, g in named.items():
+            got[n] = flat[start : start + g.numel()].view(g.shape)
+            start += g.numel()
+        return got
+
+    def held(got: dict, want: dict) -> tuple:
+        rel = max((_tracks(got[n], want[n])[0], n) for n in want)
+        cos = min((_tracks(got[n], want[n])[1], n) for n in want)
+        return (*rel, *cos)
+
+    def sp_grads(m) -> dict:
+        loss_of(m, slice(0, 1))
+        sum_grads_over(list(lora_parameters(m.transformer).values()), seq)
+        return grads(m)
+
+    # the whole model on both ranks: the references (rank 0), then SP over it
+    model, out["whole_build_s"] = build()
+    out["whole_resident"] = torch.cuda.memory_allocated()
+    out["whole_bytes"] = fsdpm.shard_bytes(model.transformer)
+    if rank == 0:
+        ref_loss_a = loss_of(model, slice(0, 1)).item()
+        ref_a = grads(model)
+        out["ref_loss_ab"] = loss_of(model, slice(0, 2)).item()
+        ref_ab = grads(model)
+    dist.barrier()
+
+    # planted SP faults, each on the sound model's adapters (before its step)
+    real_gather_bwd, real_out_bwd, real_local = spm._GatherSeq.backward, spm._GatherOut.backward, spm.local_part
+
+    def dkv_local(ctx, g):
+        return spm._reshard(g, ctx.dim, ctx.segments, ctx.mesh.size)[ctx.mesh.rank].contiguous(), None, None, None
+
+    def pred_summed(ctx, g):
+        return spm._reduce_scatter(spm._reshard(g, ctx.dim, (ctx.length,), ctx.mesh.size), ctx.mesh), None, None
+
+    def ids_strided(t, mesh, dim=1):
+        return t[mesh.rank :: mesh.size] if dim == 0 else real_local(t, mesh, dim)
+
+    sp_faults = {"dK / dV kept local, not summed over the ranks": (spm._GatherSeq, "backward", staticmethod(dkv_local)),
+                 "the prediction's gather summing its gradient": (spm._GatherOut, "backward",
+                                                                  staticmethod(pred_summed)),
+                 "RoPE ids cut strided, the tokens contiguous": (spm, "local_part", ids_strided)}
+    model.seq = seq
+    out["faults"] = {}
+    for label, (owner, attr, fn) in sp_faults.items():
+        real = owner.__dict__[attr]
+        setattr(owner, attr, fn)
+        try:
+            got = sp_grads(model)
+        finally:
+            setattr(owner, attr, real)
+        if rank == 0:
+            out["faults"][label] = held(got, ref_a)
+    assert (spm._GatherSeq.backward, spm._GatherOut.backward, spm.local_part) == (
+        real_gather_bwd, real_out_bwd, real_local)
+
+    # the sound SP step through make_lora_train_step
+    params = lora_parameters(model.transformer)
+    optimizer = ZeroAdamW(make_lora_optimizer(list(params.values()), LORA_CONFIG["learning_rate"],
+                                              betas=(LORA_CONFIG["adam_beta1"], LORA_CONFIG["adam_beta2"]),
+                                              weight_decay=LORA_CONFIG["weight_decay"],
+                                              max_grad_norm=LORA_CONFIG["max_grad_norm"]), Mesh())
+    summed, real_step = {}, optimizer.step
+
+    def recording_step(*args, **kwargs):
+        summed.update(grads(model))
+        return real_step(*args, **kwargs)
+
+    optimizer.step = recording_step
+    shapes, real_fwd, real_bwd = set(), fa.flash_attention_cuda, fa.flash_attention_bwd_cuda
+
+    def fwd(q, k, v, **kw):
+        shapes.add(("K3", tuple(q.shape), k.shape[1]))
+        return real_fwd(q, k, v, **kw)
+
+    def bwd(q, k, v, o, lse, g, **kw):
+        shapes.add(("K4 + K5", tuple(q.shape), k.shape[1]))
+        return real_bwd(q, k, v, o, lse, g, **kw)
+
+    step = make_lora_train_step(model, optimizer, 1, mesh=Mesh(), seq_mesh=seq)
+    reset_all_counts()
+    spm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_cuda, fa.flash_attention_bwd_cuda = fwd, bwd
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = step({k: v[0:1] for k, v in pairs.items()}, torch.Generator("cuda").manual_seed(SEED + 23))
+        torch.cuda.synchronize()
+        out["sp_step_s"] = time.perf_counter() - t0
+    finally:
+        fa.flash_attention_cuda, fa.flash_attention_bwd_cuda = real_fwd, real_bwd
+    out["sp_peak"] = torch.cuda.max_memory_allocated()
+    out["sp_launches"] = _lora_counts()
+    out["sp_collectives"] = dict(spm.COUNTS)
+    out["sp_shapes"] = sorted(x for x in shapes if x[1][-1] == 128)
+    out["sp_loss"] = loss.item()
+    if rank == 0:
+        out["ref_loss_a"] = ref_loss_a
+        out["sp_held"] = held(summed, ref_a)
+
+    # a 4-step sample split over the sequence axis, and the whole model's
+    def sample(m):
+        return m.sample(pairs["gt"][0:1], num_inference_steps=SERVE_STEPS,
+                        generator=torch.Generator("cuda").manual_seed(SEED + 24)).cpu()
+
+    spm.reset_counts()
+    out["sp_sample"] = sample(model)
+    out["sp_sample_gathers"] = spm.COUNTS["all_gather"]
+    if rank == 0:
+        model.seq = Mesh()
+        out["whole_sample"] = sample(model)
+    del model, optimizer, step, summed
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # FSDP at data 2: each rank draws only its part of the base
+    model, out["fsdp_build_s"] = build(fsdp=data)
+    out["fsdp_resident"] = torch.cuda.memory_allocated()
+    out["fsdp_bytes"] = fsdpm.shard_bytes(model.transformer)
+    mine = slice(rank, rank + 1)
+
+    class Reversed:
+        """`torch.distributed` with all_gather's list in reversed rank order."""
+
+        def __getattr__(self, name):
+            return getattr(dist, name)
+
+        @staticmethod
+        def all_gather(parts, t, group=None):
+            dist.all_gather(parts, t, group=group)
+            parts.reverse()
+
+    fsdpm.dist = Reversed()
+    try:
+        loss_of(model, mine, data)
+        got = data_mean(grads(model))
+    finally:
+        fsdpm.dist = dist
+    if rank == 0:
+        out["faults"]["FSDP shards gathered in reversed rank order"] = held(got, ref_ab)
+
+    params = lora_parameters(model.transformer)
+    optimizer = ZeroAdamW(make_lora_optimizer(list(params.values()), LORA_CONFIG["learning_rate"],
+                                              betas=(LORA_CONFIG["adam_beta1"], LORA_CONFIG["adam_beta2"]),
+                                              weight_decay=LORA_CONFIG["weight_decay"],
+                                              max_grad_norm=LORA_CONFIG["max_grad_norm"]), data)
+    local, real_step = {}, optimizer.step
+
+    def recording_step(*args, **kwargs):
+        local.update(grads(model))
+        return real_step(*args, **kwargs)
+
+    optimizer.step = recording_step
+    step = make_lora_train_step(model, optimizer, 1, mesh=data)
+    reset_all_counts()
+    fsdpm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, _ = step({k: v[mine] for k, v in pairs.items()}, torch.Generator("cuda").manual_seed(SEED + 23))
+    torch.cuda.synchronize()
+    out["fsdp_step_s"] = time.perf_counter() - t0
+    out["fsdp_peak"] = torch.cuda.max_memory_allocated()
+    out["fsdp_launches"] = _lora_counts()
+    out["fsdp_collectives"] = dict(fsdpm.COUNTS)
+    out["fsdp_loss"] = loss.item()
+    mean = data_mean(local)
+    if rank == 0:
+        out["fsdp_held"] = held(mean, ref_ab)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+
+    # an int8 base drawn split, one forward through K10 on gathered weights
+    def build_int8(**kw):
+        return FluxTextAlphaModel.random(cfg, vae_cfg, seed=AXES_SEED, device="cuda", dtype=torch.bfloat16,
+                                         fused=True, weight_quant="int8", **kw)
+
+    model = build_int8(fsdp=data)
+    reset_all_counts()
+    fsdpm.reset_counts()
+    out["int8_forward"] = _probe_forward(model, SEED + 25).cpu()
+    out["int8_launches"] = i8.LAUNCHES
+    out["int8_gathers"] = dict(fsdpm.COUNTS)
+    del model
+    torch.cuda.empty_cache()
+    if rank == 0:
+        whole = build_int8()
+        out["int8_whole_forward"] = _probe_forward(whole, SEED + 25).cpu()
+        del whole
+        torch.cuda.empty_cache()
+        # a rank's part of the full-depth FLUX.1-Kontext base, from the plan alone
+        plans = {}
+        for n in (1, 2, 4, 8):
+            meta = FluxTransformer2D(FluxTransformerConfig(), device="meta", dtype=torch.bfloat16)
+            plans[n] = fsdpm.shard_bytes(fsdpm.shard_base_(meta, Mesh(n, 0)))
+        out["plans"] = plans
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def phase_axes(work: Path) -> dict:
+    """Two ranks on the card (`_axes_rank`), their results held against the
+    whole model's. -> launch counts of both."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_axes_child, args=(r, str(work)), name=f"axes-rank-{r}") for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + AXES_JOIN_SECONDS
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [p.name for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [(work / f"axes_error_{r}.txt") for r in range(2)]
+    messages = [f"rank {r}:\n{e.read_text()}" for r, e in enumerate(errors) if e.exists()]
+    if hung or messages or any(p.exitcode != 0 for p in procs):
+        raise SystemExit(f"[axes] ranks still running {hung}, exit codes {[p.exitcode for p in procs]}\n"
+                         + "\n".join(messages))
+    res = [torch.load(work / f"axes_result_{r}.pt", weights_only=False) for r in range(2)]
+    r0 = res[0]
+    gib = 2**30
+    for r, x in enumerate(res):
+        log("axes", f"rank {r}: whole {AXES_DEPTH[0]} + {AXES_DEPTH[1]} block model built in {x['whole_build_s']:.1f} s, "
+            f"resident {x['whole_resident'] / gib:.3f} GiB, SP step peak {x['sp_peak'] / gib:.3f} GiB; FSDP part built "
+            f"in {x['fsdp_build_s']:.1f} s, resident {x['fsdp_resident'] / gib:.3f} GiB, step peak "
+            f"{x['fsdp_peak'] / gib:.3f} GiB; base held: split {x['fsdp_bytes']['split'] / gib:.3f} GiB, whole "
+            f"{x['fsdp_bytes']['whole'] / gib:.3f} GiB, adapters {x['fsdp_bytes']['adapters'] / gib:.3f} GiB")
+    whole = r0["plans"][1]["whole"]
+    log("axes", "full-depth FLUX.1-Kontext transformer (bf16, fp32 AdaLN), a rank's base by the plan: " + "; ".join(
+        f"data {n}: {p['split'] / gib:.3f} GiB split + {p['whole'] / gib:.3f} GiB whole" for n, p in r0["plans"].items()
+        if n > 1) + f" (whole: {whole / gib:.3f} GiB)")
+    fwd_gathers = 2 * sum(AXES_DEPTH) + 1
+    log("axes", f"SP step: {r0['sp_collectives']} sequence collectives (a forward {fwd_gathers} all-gathers, the "
+        f"recompute {2 * sum(AXES_DEPTH)} more, {2 * sum(AXES_DEPTH)} reduce-scatters of dK / dV), launches "
+        f"{r0['sp_launches']}, {r0['sp_step_s']:.2f} s; kernels at {r0['sp_shapes']}; FSDP step: "
+        f"{r0['fsdp_collectives']['all_gather']} all-gathers of {r0['fsdp_collectives']['gathered_bytes'] / gib:.3f} "
+        f"GiB, launches {r0['fsdp_launches']}, {r0['fsdp_step_s']:.2f} s (gloo through host memory, not NCCL)")
+    ok = True
+    sample = _tracks(r0["sp_sample"], r0["whole_sample"])
+    int8 = _tracks(r0["int8_forward"], r0["int8_whole_forward"])
+    want_shapes = {("K3", (24, 1280, 128), 2560), ("K4 + K5", (24, 1280, 128), 2560)}
+    rel, rel_at, cos, cos_at = r0["sp_held"]
+    frel, frel_at, fcos, fcos_at = r0["fsdp_held"]
+    checks = [
+        (f"SP 2 step on one 512^2 pair: loss {r0['sp_loss']:.6f} (unsharded {r0['ref_loss_a']:.6f}); summed adapter "
+         f"gradients vs the unsharded model's: worst relative error {rel:.4f} ({rel_at}), worst cosine {cos:.5f} "
+         f"({cos_at})", _within((rel, cos), AXES_GRAD_TOL), AXES_GRAD_TOL),
+        (f"K3 and K4 + K5 ran at the shard's shapes {sorted(want_shapes)} and launched "
+         f"{r0['sp_launches']}", set(r0["sp_shapes"]) == want_shapes and all(
+             r0["sp_launches"][k] > 0 for k in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"))
+         and r0["sp_collectives"] == {"all_gather": fwd_gathers + 2 * sum(AXES_DEPTH),
+                                      "reduce_scatter": 2 * sum(AXES_DEPTH)}, None),
+        (f"SP 2 {SERVE_STEPS}-step sample vs the whole model's: relative error {sample[0]:.5f} cosine "
+         f"{sample[1]:.6f}; {r0['sp_sample_gathers']} all-gathers ({fwd_gathers} a forward)",
+         _within(sample, AXES_SAMPLE_TOL) and torch.equal(res[0]["sp_sample"], res[1]["sp_sample"])
+         and r0["sp_sample_gathers"] == SERVE_STEPS * fwd_gathers, AXES_SAMPLE_TOL),
+        (f"FSDP data 2 step, one 512^2 pair a rank: loss {r0['fsdp_loss']:.6f} (whole model over both "
+         f"{r0['ref_loss_ab']:.6f}); mean adapter gradients vs the whole model's: worst relative error {frel:.4f} "
+         f"({frel_at}), worst cosine {fcos:.5f} ({fcos_at})", _within((frel, fcos), AXES_GRAD_TOL), AXES_GRAD_TOL),
+        (f"FSDP int8 forward on gathered weights vs the whole int8 model's: relative error {int8[0]:.3g} cosine "
+         f"{int8[1]:.7f} (bit for bit: {torch.equal(r0['int8_forward'], r0['int8_whole_forward'])}); K10 launched "
+         f"{r0['int8_launches']} times; {r0['int8_gathers']['all_gather']} all-gathers of "
+         f"{r0['int8_gathers']['gathered_bytes'] / gib:.3f} GiB",
+         _within(int8, AXES_INT8_TOL) and r0["int8_launches"] > 0, AXES_INT8_TOL),
+        ("each rank holds at most half of the base plus the leaves kept whole: " + ", ".join(
+            f"{(x['fsdp_bytes']['split'] + x['fsdp_bytes']['whole']) / gib:.3f}" for x in res)
+         + f" GiB of the whole model's {r0['whole_bytes']['whole'] / gib:.3f} GiB",
+         all(2 * x["fsdp_bytes"]["split"] <= r0["whole_bytes"]["whole"] - x["fsdp_bytes"]["whole"] for x in res),
+         None),
+    ]
+    for label, (frel, frel_at, fcos, _) in r0["faults"].items():
+        checks.append((f"planted fault ({label}) gradients: worst relative error {frel:.4f} ({frel_at}), worst cosine "
+                       f"{fcos:.5f}, must fail", not _within((frel, fcos), AXES_GRAD_TOL), AXES_GRAD_TOL))
+    ok &= len(r0["faults"]) == 4
+    for text, fine, tol in checks:
+        ok &= fine
+        log("axes", f"{text}{'' if tol is None else f' (bound <= {tol[0]}, >= {tol[1]})'} {'ok' if fine else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[axes] an axis disagrees with the whole model, or a planted fault passed")
+    counts: dict = {}
+    for x in res:
+        for part in (x["sp_launches"], x["fsdp_launches"], {"int8_matmul": x["int8_launches"]}):
             for k, n in part.items():
                 counts[k] = counts.get(k, 0) + n
     return counts
@@ -2892,8 +3321,8 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help=f"comma-separated subset of {','.join(ALL_PHASES)} (device and build always "
                              "run; lora and int8 need slice, whose model they train and quantise; tp needs "
-                             "slice and int8, whose answers it is held against); the final ok line is "
-                             "printed only when all ran")
+                             "slice and int8, whose answers it is held against; axes needs none); the final "
+                             "ok line is printed only when all ran")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if phases - set(ALL_PHASES):
@@ -2937,6 +3366,9 @@ def main(argv=None) -> int:
         if "tp" in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 run("tp", phase_tp, refs, Path(tmp))
+    if "axes" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            run("axes", phase_axes, Path(tmp))
     if "convs" in phases:
         run("convs", phase_convs)
     if "train" in phases:

@@ -19,6 +19,12 @@ All randomness comes from an explicit `torch.Generator`, drawn in a fixed
 order: sampling draws posterior eps, initial latents, then one noise tensor
 per step; the training loss draws the condition's eps, the target's eps, the
 noise and the timestep density.
+
+Two parallel axes of the LoRA stage live here: `fsdp=` (a data axis) keeps
+this rank's part of the frozen base (`parallel/fsdp.py`), and `seq=` (a
+sequence axis) runs every transformer call on this rank's 1/sp of the image
+and prompt streams and gathers the prediction (`_transformer_pred`, JAX
+`_constrain_seq`), in the loss and in the sampler alike.
 """
 from __future__ import annotations
 
@@ -66,6 +72,8 @@ from ragb_vae_tpu_torch.models.scheduler import (
 from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
 from ragb_vae_tpu_torch.models.weights import load_autoencoder_params, load_torch_state, save_torch_state
 from ragb_vae_tpu_torch.ops.packing import pack_latents, prepare_latent_image_ids, unpack_latents
+from ragb_vae_tpu_torch.parallel import sequence_parallel as spm
+from ragb_vae_tpu_torch.parallel.fsdp import shard_base_
 from ragb_vae_tpu_torch.parallel.mesh import Mesh, randn_rows
 from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_state_entry, shard_transformer_, validate_tp
 
@@ -140,18 +148,25 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     about what a quantised lecun-normal layer carries, so activations stay
     O(1) in a model too large to build in bf16 first.
 
-    A tensor-parallel shard (`QLinear.shard_`) draws its layer's FULL weight
-    in turn and keeps its slice, so a seed fixes the same model at any degree
-    and no more than one full weight exists at a time."""
-    def draw(m, leaf: str, like: Tensor, fill) -> Tensor:
+    A tensor-parallel shard (`QLinear.shard_`) and an FSDP part
+    (`parallel/fsdp.py`) draw the FULL tensor in turn and keep their slice, so
+    a seed fixes the same model at any degree and no more than one full
+    weight exists at a time."""
+    plan = getattr(module, "fsdp", None)
+
+    def draw(m, key: str, like: Tensor, fill) -> Tensor:
+        split = None if plan is None else plan.split_of(key)
+        if split is not None:
+            full = torch.empty(split[1], dtype=like.dtype, device=like.device)
+            return like.copy_(plan.part(fill(full), split[0]))
         if not isinstance(m, QLinear) or m.tp_kind == "none":
             return fill(like)
         full = torch.empty((m.out_features, m.in_features), dtype=like.dtype, device=like.device)
-        return like.copy_(m.shard_of(leaf, fill(full)))
+        return like.copy_(m.shard_of(key.rsplit(".", 1)[-1], fill(full)))
 
-    for m in module.modules():
+    for name, m in module.named_modules():
         if isinstance(m, QLinear) and m.weight_quant == "int8":
-            draw(m, "weight_q", m.weight_q, lambda t: t.random_(-127, 128, generator=generator))
+            draw(m, f"{name}.weight_q", m.weight_q, lambda t: t.random_(-127, 128, generator=generator))
             m.weight_scale.fill_(3.0 / math.sqrt(m.in_features) / 127.0)
             if m.bias is not None:
                 m.bias.zero_()
@@ -166,17 +181,19 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
         else:
             m = module.get_submodule(owner)
             fan_in = m.in_features if isinstance(m, QLinear) else p[0].numel()
-            draw(m, leaf, p, lambda t: t.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator))
+            draw(m, name, p, lambda t: t.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator))
 
 
-def _sharded(transformer: FluxTransformer2D, tp: Optional[Mesh], device, weight_quant: str) -> FluxTransformer2D:
+def _sharded(transformer: FluxTransformer2D, tp: Optional[Mesh], device, weight_quant: str,
+             fsdp: Optional[Mesh] = None) -> FluxTransformer2D:
     """`transformer` (on the meta device) cut to this rank's shard over the
-    model axis `tp`; a degree that does not divide the heads, or a shard the
-    kernels cannot take, raises before anything is drawn or read."""
-    if tp is None or tp.size == 1:
-        return transformer
-    validate_tp(transformer.config, tp.size, cuda=torch.device(device).type == "cuda", weight_quant=weight_quant)
-    return shard_transformer_(transformer, tp)
+    model axis `tp`, or to its FSDP part over the data axis `fsdp`; a degree
+    that does not divide the heads, or a shard the kernels cannot take,
+    raises before anything is drawn or read."""
+    if tp is not None and tp.size > 1:
+        validate_tp(transformer.config, tp.size, cuda=torch.device(device).type == "cuda", weight_quant=weight_quant)
+        shard_transformer_(transformer, tp)
+    return shard_base_(transformer, fsdp) if fsdp is not None else transformer
 
 
 class FluxTextAlphaModel:
@@ -195,8 +212,11 @@ class FluxTextAlphaModel:
         lora_rank: int = 0,
         lora_alpha: float = 0.0,
         dtype: torch.dtype = torch.float32,
+        seq: Optional[Mesh] = None,
     ):
         self.transformer = transformer
+        self.seq = seq or Mesh()
+        self._told_unsharded = False
         self.lora_rank = lora_rank
         self.lora_alpha = lora_alpha
         self.transformer_config = transformer.config
@@ -245,6 +265,8 @@ class FluxTextAlphaModel:
         use_gradient_checkpointing: bool = True,
         weight_quant: str = "none",
         tp: Optional[Mesh] = None,
+        fsdp: Optional[Mesh] = None,
+        seq: Optional[Mesh] = None,
     ) -> "FluxTextAlphaModel":
         """A model with random weights and random prompt embeddings, all
         drawn from `seed` on `device` (the card unless the caller names the
@@ -257,13 +279,15 @@ class FluxTextAlphaModel:
         `tp` (a model axis, `parallel/mesh.py`): this rank's tensor-parallel
         shard of the transformer, drawn from the same seeded stream as the
         whole one (each full weight in turn, its slice kept); the VAE and the
-        embeddings are whole on every rank."""
+        embeddings are whole on every rank. `fsdp` (a data axis): this rank's
+        FSDP part of the frozen base, drawn the same way. `seq` (a sequence
+        axis): the transformer runs sequence-parallel over it."""
         device = resolve_device(device)
         gen = torch.Generator(device).manual_seed(seed)
         transformer = _sharded(FluxTransformer2D(
             t_config, remat=use_gradient_checkpointing, weight_quant=weight_quant,
             device="meta", dtype=dtype,
-        ), tp, device, weight_quant).to_empty(device=device)
+        ), tp, device, weight_quant, fsdp).to_empty(device=device)
         vae = RgbaVAE(vae_config, dtype=dtype, fused=fused, device="meta")
         vae.module.to_empty(device=device)
         init_random_(transformer, gen)
@@ -272,7 +296,7 @@ class FluxTextAlphaModel:
         pooled = torch.randn((1, t_config.pooled_projection_dim), generator=gen, device=device)
         text_ids = torch.zeros((prompt_len, 3), device=device)
         model = cls(transformer.eval(), vae, FlowMatchEulerScheduler(), prompt, pooled, text_ids,
-                    lora_rank=lora_rank, lora_alpha=lora_alpha, dtype=dtype)
+                    lora_rank=lora_rank, lora_alpha=lora_alpha, dtype=dtype, seq=seq)
         if lora_rank > 0:
             model.init_lora(gen)
         return model
@@ -292,6 +316,8 @@ class FluxTextAlphaModel:
         use_gradient_checkpointing: bool = True,
         weight_quant: str = "none",
         tp: Optional[Mesh] = None,
+        fsdp: Optional[Mesh] = None,
+        seq: Optional[Mesh] = None,
     ) -> "FluxTextAlphaModel":
         """Transformer from `<model_path>/transformer`, scheduler config and
         `empty_prompt_embeds.npz` from `model_path`, RGBA VAE from
@@ -311,6 +337,11 @@ class FluxTextAlphaModel:
         shard with the scale of the whole layer (the max over the model
         group), so the int8 shards are slices of the quantised whole layer.
 
+        `fsdp` (a data axis): this rank keeps only its FSDP part of the frozen
+        base, read the same ways; a plain checkpoint quantised at load is
+        quantised part by part (`fsdp.quantize_sharded_`), so the parts are
+        those of the quantised whole. `seq`: as in `random`.
+
         `device` is the card unless the caller names the CPU; a missing card
         raises."""
         device = resolve_device(device)
@@ -329,10 +360,12 @@ class FluxTextAlphaModel:
         transformer = _sharded(FluxTransformer2D(
             FluxTransformerConfig.from_json(t_dir / "config.json"), remat=use_gradient_checkpointing,
             weight_quant="int8" if quantized else "none",
-            device="meta", dtype=torch.float32 if quantize_here else dtype), tp, device, weight_quant)
+            device="meta", dtype=torch.float32 if quantize_here else dtype), tp, device, weight_quant, fsdp)
         take = None
         if transformer.tp.size > 1:
             take = lambda key, full: shard_state_entry(transformer, key, full)   # noqa: E731
+        elif transformer.fsdp is not None:
+            take = transformer.fsdp.take
         _, t_state, _ = load_transformer(model_path, take=take)
         vae = RgbaVAE(v_config, dtype=dtype, fused=fused, device="meta")
         for module, state in ((transformer, t_state), (vae.module, v_state)):
@@ -351,7 +384,7 @@ class FluxTextAlphaModel:
         prompt, pooled, text_ids = load_empty_prompt(model_path)
         model = cls(transformer.eval(), vae, load_scheduler(model_path), torch.from_numpy(prompt),
                     torch.from_numpy(pooled), torch.from_numpy(text_ids),
-                    lora_rank=lora_rank, lora_alpha=lora_alpha, dtype=dtype)
+                    lora_rank=lora_rank, lora_alpha=lora_alpha, dtype=dtype, seq=seq)
         if lora_rank > 0:
             model.init_lora(torch.Generator(model.device).manual_seed(0))
         return model
@@ -410,18 +443,42 @@ class FluxTextAlphaModel:
             return None
         return torch.full((batch_size,), self.guidance_scale, dtype=torch.float32, device=self.device)
 
+    def sequence_sharded(self, height: int, width: int) -> bool:
+        """Whether a batch of (height, width) images runs sequence-parallel
+        over `seq`: both streams (2 x the packed latent tokens, and the
+        prompt) divide by its size."""
+        h, w, _ = self.latent_shape(height, width)
+        return spm.applies(self.seq, 2 * (h // 2) * (w // 2), self.prompt_embeds.shape[1])
+
     def _transformer_pred(self, packed: Tensor, timestep: Tensor, img_ids: Tensor, batch_size: int) -> Tensor:
+        """The transformer's prediction for the whole packed stream. Over a
+        sequence axis each rank runs this rank's contiguous 1/sp of the image
+        and the prompt streams and of their ids (txt first, as in the joint
+        sequence), and the prediction is gathered; where a stream does not
+        divide by sp the whole call runs unsharded on every rank, as JAX's
+        `_constrain_seq` and `attention` fall back."""
         prompt = self.prompt_embeds.expand(batch_size, -1, -1).to(self.dtype)
         pooled = self.pooled_prompt_embeds.expand(batch_size, -1).to(self.dtype)
-        return self.transformer(
+        txt_ids, seq = self.text_ids, None
+        if spm.applies(self.seq, packed.shape[1], prompt.shape[1]):
+            seq = self.seq
+            packed, prompt = spm.local_part(packed, seq), spm.local_part(prompt, seq)
+            img_ids, txt_ids = spm.local_part(img_ids, seq, 0), spm.local_part(txt_ids, seq, 0)
+        elif self.seq.size > 1 and not self._told_unsharded:
+            self._told_unsharded = True
+            print(f"[sequence_parallel] streams of {packed.shape[1]} image and {prompt.shape[1]} prompt tokens "
+                  f"do not divide by {self.seq.size}: the transformer runs unsharded on every rank", flush=True)
+        pred = self.transformer(
             hidden_states=packed,
             encoder_hidden_states=prompt,
             pooled_projections=pooled,
             timestep=timestep,
             img_ids=img_ids,
-            txt_ids=self.text_ids,
+            txt_ids=txt_ids,
             guidance=self._guidance(batch_size),
+            seq=seq,
         )
+        return pred if seq is None else spm.gather_out(pred, seq)
 
     # ------------------------------------------------------------------
     # Training loss

@@ -20,6 +20,13 @@ each linear may hold a column or a row shard over a model group (`tp`, a
 `parallel/mesh.py::Mesh`): `in_features` / `out_features` stay the layer's
 full sizes, the tensors are this rank's slices, and the attention modules run
 on their H / T heads.
+
+Under FSDP (`parallel/fsdp.py::shard_base_`) the frozen leaves hold this
+rank's part over the data group and `FluxTransformer2D.fsdp` gathers each
+unit (a block; an embedder, `norm_out`, `proj_out`) for the call. Under
+sequence parallelism (`forward(seq=)`, `parallel/sequence_parallel.py`) the
+token streams and their ids are this rank's 1/sp, and attention gathers k and
+v over the sequence group.
 """
 from __future__ import annotations
 
@@ -182,10 +189,12 @@ class QLinear(nn.Module):
         return self._dtype if self.weight_quant == "int8" else self.weight.dtype
 
     @torch.no_grad()
-    def quantize_(self, device=None, dtype: Optional[torch.dtype] = None) -> None:
+    def quantize_(self, device=None, dtype: Optional[torch.dtype] = None, reduce_absmax=None) -> None:
         """Replace the float weight by its int8 form, made where the weight
         lives or on `device`; the layer then computes in `dtype` (default: the
-        weight's own)."""
+        weight's own). `reduce_absmax` turns this shard's per-column max into
+        the whole layer's (default: the max over the model group on a row
+        shard)."""
         from ragb_vae_tpu_torch.models.quantize import quantize_kernel
 
         if self.weight_quant == "int8":
@@ -193,8 +202,9 @@ class QLinear(nn.Module):
         self._dtype = dtype or self.weight.dtype
         # a row shard sees part of each output channel's inputs: its scale is
         # the max over the model group, the full layer's, bit for bit
-        reduce_max = None if self.tp_kind != "row" else (
-            lambda absmax: all_reduce(absmax, self.tp, op=dist.ReduceOp.MAX))
+        reduce_max = reduce_absmax
+        if reduce_max is None and self.tp_kind == "row":
+            reduce_max = lambda absmax: all_reduce(absmax, self.tp, op=dist.ReduceOp.MAX)   # noqa: E731
         qk = quantize_kernel(self.weight.detach().to(device).t(), reduce_absmax=reduce_max)
         bias = None if self.bias is None else self.bias.detach().to(device, torch.float32)
         del self.weight, self.bias
@@ -383,7 +393,8 @@ def _merge_heads(x: Tensor) -> Tensor:
 
 class JointAttention(nn.Module):
     """Double-stream joint attention: txt tokens prepended to img tokens,
-    RoPE over the joint sequence (this rank's heads under TP)."""
+    RoPE over the joint sequence (this rank's heads under TP; under SP this
+    rank's tokens of both streams, k and v gathered over `seq`)."""
 
     tp = Mesh()
 
@@ -399,7 +410,7 @@ class JointAttention(nn.Module):
         self.to_out = nn.ModuleList([LoraDense(dim, dim, **kw)])
         self.to_add_out = LoraDense(dim, dim, **kw)
 
-    def forward(self, img: Tensor, txt: Tensor, rope: Rope) -> Tuple[Tensor, Tensor]:
+    def forward(self, img: Tensor, txt: Tensor, rope: Rope, seq: Optional[Mesh] = None) -> Tuple[Tensor, Tensor]:
         h = self.heads
         img, txt = region_in(img, self.tp), region_in(txt, self.tp)
         q = self.norm_q(_split_heads(self.to_q(img), h))
@@ -412,8 +423,8 @@ class JointAttention(nn.Module):
         q = apply_rotary_emb(torch.cat([tq, q], dim=2), cos, sin)
         k = apply_rotary_emb(torch.cat([tk, k], dim=2), cos, sin)
         v = torch.cat([tv, v], dim=2)
-        out = _merge_heads(attention(q, k, v))
         s_txt = txt.shape[1]
+        out = _merge_heads(attention(q, k, v, seq=seq, segments=(s_txt, img.shape[1])))
         return self.to_out[0](out[:, s_txt:]), self.to_add_out(out[:, :s_txt])
 
 
@@ -428,13 +439,14 @@ class SingleAttention(nn.Module):
         self.to_q, self.to_k, self.to_v = (LoraDense(dim, dim, **kw) for _ in range(3))
         self.norm_q, self.norm_k = RMSNorm(hd, **nkw), RMSNorm(hd, **nkw)
 
-    def forward(self, x: Tensor, rope: Rope) -> Tensor:
+    def forward(self, x: Tensor, rope: Rope, seq: Optional[Mesh] = None,
+                segments: Optional[Tuple[int, ...]] = None) -> Tensor:
         h = self.heads
         cos, sin = rope
         q = apply_rotary_emb(self.norm_q(_split_heads(self.to_q(x), h)), cos, sin)
         k = apply_rotary_emb(self.norm_k(_split_heads(self.to_k(x), h)), cos, sin)
         v = _split_heads(self.to_v(x), h)
-        return _merge_heads(attention(q, k, v))
+        return _merge_heads(attention(q, k, v, seq=seq, segments=segments))
 
 
 class _GeluProj(nn.Module):
@@ -494,10 +506,11 @@ class FluxTransformerBlock(nn.Module):
         self.ff = FeedForward(cfg.inner_dim, **kw)
         self.ff_context = FeedForward(cfg.inner_dim, **kw)
 
-    def forward(self, img: Tensor, txt: Tensor, temb: Tensor, rope: Rope) -> Tuple[Tensor, Tensor]:
+    def forward(self, img: Tensor, txt: Tensor, temb: Tensor, rope: Rope,
+                seq: Optional[Mesh] = None) -> Tuple[Tensor, Tensor]:
         norm_img, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(img, temb)
         norm_txt, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(txt, temb)
-        attn_img, attn_txt = self.attn(norm_img, norm_txt, rope)
+        attn_img, attn_txt = self.attn(norm_img, norm_txt, rope, seq)
 
         img = img + gate_msa * attn_img
         norm2 = (_layer_norm(img) * (1.0 + scale_mlp) + shift_mlp).to(img.dtype)
@@ -523,11 +536,12 @@ class FluxSingleTransformerBlock(nn.Module):
         self.attn = SingleAttention(cfg, **kw)
         self.proj_out = LoraDense(5 * dim, dim, **nkw)
 
-    def forward(self, x: Tensor, temb: Tensor, rope: Rope) -> Tensor:
+    def forward(self, x: Tensor, temb: Tensor, rope: Rope, seq: Optional[Mesh] = None,
+                segments: Optional[Tuple[int, ...]] = None) -> Tensor:
         norm_x, gate = self.norm(x, temb)
         norm_x = region_in(norm_x, self.tp)    # one column region: proj_mlp and q, k, v
         mlp = F.gelu(self.proj_mlp(norm_x), approximate="tanh")
-        attn_out = self.attn(norm_x, rope)
+        attn_out = self.attn(norm_x, rope, seq, segments)
         return x + gate * self.proj_out(torch.cat([attn_out, mlp], dim=-1))
 
 
@@ -553,9 +567,12 @@ class AdaLayerNormContinuous(nn.Module):
 class FluxTransformer2D(nn.Module):
     """Forward signature mirrors the diffusers call (hidden_states are
     pre-packed latent tokens; ids carry no batch dim). `tp`: the model axis
-    it is sharded over (`parallel/tensor_parallel.py`), size 1 when whole."""
+    it is sharded over (`parallel/tensor_parallel.py`), size 1 when whole;
+    `fsdp`: the plan of its base split over the data axis
+    (`parallel/fsdp.py`), None when whole."""
 
     tp = Mesh()
+    fsdp = None
 
     def __init__(self, config: FluxTransformerConfig, *, lora_rank: int = 0,
                  lora_alpha: float = 0.0, weight_quant: str = "none", remat: bool = False,
@@ -585,10 +602,15 @@ class FluxTransformer2D(nn.Module):
         self.norm_out = AdaLayerNormContinuous(dim, weight_quant=weight_quant, device=device)
         self.proj_out = LoraDense(dim, cfg.out_channels or cfg.in_channels, **nkw)
 
-    def _run_block(self, block: nn.Module, *args):
+    def _unit(self, name: str, module: nn.Module, *args):
+        """`module(*args)`; under FSDP on its leaves gathered for the call."""
+        return module(*args) if self.fsdp is None else self.fsdp.call(name, module, *args)
+
+    def _run_block(self, name: str, block: nn.Module, *args):
+        # the FSDP gather runs inside what the checkpoint recomputes
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
-        return block(*args)
+            return checkpoint(self._unit, name, block, *args, use_reentrant=False)
+        return self._unit(name, block, *args)
 
     def forward(
         self,
@@ -599,20 +621,25 @@ class FluxTransformer2D(nn.Module):
         img_ids: Tensor,                # (img_seq, 3)
         txt_ids: Tensor,                # (txt_seq, 3)
         guidance: Optional[Tensor] = None,  # (B,)
+        seq: Optional[Mesh] = None,
     ) -> Tensor:
+        """`seq` (a sequence axis of size above 1): the streams and their ids
+        are this rank's contiguous 1/sp of each (`parallel/sequence_parallel.
+        py::local_part`), and so is the prediction that comes back."""
         cfg = self.config
-        img = self.x_embedder(hidden_states)
-        txt = self.context_embedder(encoder_hidden_states)
-        temb = self.time_text_embed(timestep, guidance, pooled_projections)
+        img = self._unit("x_embedder", self.x_embedder, hidden_states)
+        txt = self._unit("context_embedder", self.context_embedder, encoder_hidden_states)
+        temb = self._unit("time_text_embed", self.time_text_embed, timestep, guidance, pooled_projections)
         rope = rope_frequencies(torch.cat([txt_ids, img_ids], dim=0), cfg.axes_dims_rope)
-        for block in self.transformer_blocks:
-            img, txt = self._run_block(block, img, txt, temb, rope)
+        for i, block in enumerate(self.transformer_blocks):
+            img, txt = self._run_block(f"transformer_blocks.{i}", block, img, txt, temb, rope, seq)
+        segments = (txt.shape[1], img.shape[1])
         x = torch.cat([txt, img], dim=1)  # txt first
-        for block in self.single_transformer_blocks:
-            x = self._run_block(block, x, temb, rope)
+        for i, block in enumerate(self.single_transformer_blocks):
+            x = self._run_block(f"single_transformer_blocks.{i}", block, x, temb, rope, seq, segments)
         x = x[:, txt.shape[1]:]
-        x = self.norm_out(x, temb).to(self.proj_out.compute_dtype)
-        return self.proj_out(x)
+        x = self._unit("norm_out", self.norm_out, x, temb).to(self.proj_out.compute_dtype)
+        return self._unit("proj_out", self.proj_out, x)
 
 
 # ---------------------------------------------------------------------------

@@ -110,9 +110,14 @@ def quantize_module_(transformer: torch.nn.Module, device=None, dtype=None) -> t
     place, one layer at a time, on the device it lives on or on `device` (the
     float weight is freed as soon as its int8 copy exists). `dtype`: what the
     linears then compute in (default: each weight's own); the AdaLN
-    modulation stays fp32."""
+    modulation stays fp32. An FSDP-sharded transformer quantises its parts
+    (`parallel/fsdp.py::quantize_sharded_`)."""
     from ragb_vae_tpu_torch.models.flux_transformer import Fp32Linear, QLinear
 
+    if getattr(transformer, "fsdp", None) is not None:
+        from ragb_vae_tpu_torch.parallel.fsdp import quantize_sharded_
+
+        return quantize_sharded_(transformer, device, dtype)
     for module in transformer.modules():
         if isinstance(module, QLinear):
             module.quantize_(device, None if isinstance(module, Fp32Linear) else dtype)

@@ -28,6 +28,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ragb_vae_tpu_torch.ops.kernels import _build
+from ragb_vae_tpu_torch.parallel.sequence_parallel import gather_seq
 
 Tensor = torch.Tensor
 
@@ -363,15 +364,26 @@ class _Attention(torch.autograd.Function):
         return grads + (None,)
 
 
-def attention(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: Optional[float] = None) -> Tensor:
+def attention(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: Optional[float] = None,
+              seq=None, segments: Optional[Tuple[int, ...]] = None) -> Tensor:
     """(B, H, S, D) attention: the flash kernel on CUDA, the plain version on
     CPU; differentiable as `backward_route` says (on CUDA a gradient at a head
-    dim below 384 other than 128 raises in the backward wrapper)."""
+    dim below 384 other than 128 raises in the backward wrapper).
+
+    `seq` (a sequence axis, `parallel/mesh.py::Mesh`): q, k and v are this
+    rank's tokens of a sequence-sharded stream; q stays local, k and v are
+    all-gathered over the axis before the kernel (in the unsharded order of
+    `segments`, the local lengths of the streams the tokens are made of) and
+    their gradients reduce-scattered after the backward kernels
+    (`parallel/sequence_parallel.py::gather_seq`; JAX `attention(mesh=,
+    seq_axis=)`)."""
     b, h, s, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: unsupported device {q.device}")
+    if seq is not None and seq.size > 1:
+        k, v = gather_seq(k, seq, 2, segments), gather_seq(v, seq, 2, segments)
     q3 = q.reshape(b * h, s, d)
     k3 = k.reshape(b * h, k.shape[2], d)
     v3 = v.reshape(b * h, v.shape[2], d)

@@ -8,10 +8,11 @@ its size, this process's rank in it, and the group itself (None: the default
 group). Without a group it is an axis of size 1, and every collective below
 returns its input untouched at size 1.
 
-`create_training_mesh(tp)` splits the world into a data axis and a model
-axis, as the JAX package's ("data", "model") mesh does: the T ranks of one
-model group are consecutive (global rank r has model rank r % T and data rank
-r // T), so a model group sits on one node.
+`create_training_mesh(tp, sp)` splits the world into a data axis, a model
+axis and a sequence axis, as the JAX package's ("data", "model", "sp") mesh
+does, sp innermost: global rank r has sequence rank r % sp, model rank
+(r // sp) % tp and data rank r // (tp * sp), so the tp * sp ranks of one
+data replica are consecutive and sit on one node.
 """
 from __future__ import annotations
 
@@ -89,45 +90,57 @@ def create_mesh() -> Mesh:
     return Mesh()
 
 
-def create_training_mesh(tp: int = 1, sp: int = 1) -> Tuple[Mesh, Mesh]:
-    """(data axis, model axis) of the world: W processes as W / tp data
-    groups of tp consecutive ranks each. Every rank builds every group, in one
-    order, as `dist.new_group` requires; an axis of size 1 gets no group. At
-    tp 1 it is (`create_mesh()`, an axis of size 1). `sp` above 1 (sequence
-    parallel) is not ported yet and raises."""
+def create_training_mesh(tp: int = 1, sp: int = 1) -> Tuple[Mesh, Mesh, Mesh]:
+    """(data axis, model axis, sequence axis) of the world: W processes as
+    W / (tp * sp) data replicas of tp * sp consecutive ranks, sp innermost
+    (JAX `create_training_mesh`'s axis order). Every rank builds every group,
+    in one order, as `dist.new_group` requires; an axis of size 1 gets no
+    group. At tp = sp = 1 it is (`create_mesh()`, size 1, size 1)."""
     tp, sp = int(tp), int(sp)
     if tp < 1 or sp < 1:
         raise ValueError(f"tensor_parallel={tp} and sequence_parallel={sp} must be >= 1")
-    if sp > 1:
-        raise NotImplementedError(f"sequence_parallel={sp}: not ported yet to the PyTorch package")
     world = create_mesh()
-    if tp == 1:
-        return world, Mesh()
+    per = tp * sp
+    if per == 1:
+        return world, Mesh(), Mesh()
     if not (dist.is_available() and dist.is_initialized()):
-        raise ValueError(f"tensor_parallel={tp} needs a process group of {tp} or more processes "
-                         "(run under torchrun)")
-    if world.size % tp:
-        raise ValueError(f"tensor_parallel={tp} must divide the {world.size} processes")
-    n_data = world.size // tp
-    data_rank, model_rank = divmod(world.rank, tp)
-    model_group = data_group = None
-    for d in range(n_data):         # the model groups: consecutive ranks
-        g = dist.new_group(list(range(d * tp, (d + 1) * tp)))
-        if d == data_rank:
-            model_group = g
-    if n_data > 1:
-        for m in range(tp):          # the data groups: one model rank each
-            g = dist.new_group(list(range(m, world.size, tp)))
-            if m == model_rank:
-                data_group = g
-    data = Mesh(n_data, data_rank, data_group) if n_data > 1 else Mesh()
-    return data, Mesh(tp, model_rank, model_group)
+        names = " x ".join(f"{n}={w}" for n, w in (("tensor_parallel", tp), ("sequence_parallel", sp)) if w > 1)
+        raise ValueError(f"{names} needs a process group of {per} or more processes (run under torchrun)")
+    if world.size % per:
+        raise ValueError(f"tensor_parallel={tp} x sequence_parallel={sp} must divide {world.size} devices")
+    n_data = world.size // per
+    r = world.rank
+    coords = (r // per, (r // sp) % tp, r % sp)        # (data, model, seq) rank
+
+    def rank_of(d: int, m: int, s: int) -> int:
+        return d * per + m * sp + s
+
+    def axis(size: int, members, mine: int) -> Mesh:
+        """One group per fixing of the other two coordinates, all built in
+        one order on every rank; this rank's is kept."""
+        if size == 1:
+            return Mesh()
+        kept = None
+        for fixed, ranks in members:
+            g = dist.new_group(ranks)
+            if fixed:
+                kept = g
+        return Mesh(size, mine, kept)
+
+    d0, m0, s0 = coords
+    data = axis(n_data, [((m, s) == (m0, s0), [rank_of(d, m, s) for d in range(n_data)])
+                         for m in range(tp) for s in range(sp)], d0)
+    model = axis(tp, [((d, s) == (d0, s0), [rank_of(d, m, s) for m in range(tp)])
+                      for d in range(n_data) for s in range(sp)], m0)
+    seq = axis(sp, [((d, m) == (d0, m0), [rank_of(d, m, s) for s in range(sp)])
+                    for d in range(n_data) for m in range(tp)], s0)
+    return data, model, seq
 
 
 def create_dp_tp_mesh(tp: int) -> Tuple[Mesh, Mesh]:
-    """`create_training_mesh(tp=tp)`: the two-axis serving and training
-    layout (JAX `create_dp_tp_mesh`)."""
-    return create_training_mesh(tp=tp)
+    """(data axis, model axis) of `create_training_mesh(tp=tp)`: the
+    two-axis serving and training layout (JAX `create_dp_tp_mesh`)."""
+    return create_training_mesh(tp=tp)[:2]
 
 
 def process_index() -> int:

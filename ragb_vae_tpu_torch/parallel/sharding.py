@@ -8,15 +8,50 @@ ranks and gives rank r the contiguous slice [r * k, (r + 1) * k) of
 k = padded / ranks elements. The layout lives only in memory: checkpoints
 gather the slices back into per-parameter tensors (`zero_step.ZeroAdamW.
 state_dict`), so they do not depend on the number of ranks.
+
+`spec_dim` / `zero_sharding` / `fsdp_sharding` restate JAX's per-leaf rule
+(`_spec_for_leaf`): a leaf of fewer than `DEFAULT_MIN_SHARD_SIZE` elements
+stays replicated, any other is split on the first dim that the axis size
+divides. The port's FSDP (`parallel/fsdp.py`) splits the frozen base by it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 Tensor = torch.Tensor
+
+# Leaves smaller than this stay replicated (JAX `DEFAULT_MIN_SHARD_SIZE`):
+# splitting a bias or a norm scale buys no memory and costs a collective.
+DEFAULT_MIN_SHARD_SIZE = 2**16
+
+
+def spec_dim(shape: Sequence[int], axis_size: int, min_size: int = DEFAULT_MIN_SHARD_SIZE) -> Optional[int]:
+    """The dim a leaf of `shape` is split on over an axis of `axis_size`, or
+    None for a replicated one (JAX `_spec_for_leaf`)."""
+    shape = tuple(int(n) for n in shape)
+    if axis_size <= 1 or not shape or math.prod(shape) < min_size:
+        return None
+    for dim, n in enumerate(shape):
+        if n % axis_size == 0 and n >= axis_size:
+            return dim
+    return None
+
+
+def zero_sharding(shapes: Dict[str, Sequence[int]], axis_size: int,
+                  min_size: int = DEFAULT_MIN_SHARD_SIZE) -> Dict[str, Optional[int]]:
+    """{name: split dim or None} of every leaf of `shapes` (JAX
+    `zero_sharding`, as dims instead of `NamedSharding`s)."""
+    return {k: spec_dim(shape, axis_size, min_size) for k, shape in shapes.items()}
+
+
+def fsdp_sharding(shapes: Dict[str, Sequence[int]], axis_size: int,
+                  min_size: int = DEFAULT_MIN_SHARD_SIZE) -> Dict[str, Optional[int]]:
+    """The same rule over a parameter tree (JAX `fsdp_sharding`)."""
+    return zero_sharding(shapes, axis_size, min_size)
 
 
 @dataclasses.dataclass(frozen=True)

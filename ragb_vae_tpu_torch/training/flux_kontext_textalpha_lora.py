@@ -57,9 +57,22 @@ before `ZeroAdamW` reduces them over the data group, and the replicas of one
 model group stay bit-identical. Validation samples on every rank, the
 preemption flag is synced over the world, and global rank 0 writes.
 
-Not ported yet (each raises): `--shard_base_params` and
-`--sequence_parallel` above 1; `tensor_parallel` together with
-`shard_base_params` is refused, as in the JAX stage.
+`shard_base_params` splits the frozen base over the data group (FSDP,
+`parallel/fsdp.py`): each rank keeps its part of every leaf that JAX's rule
+splits and all-gathers a block's leaves inside the block's recompute, so
+the backward gathers again instead of keeping the base alive; the adapters
+stay replicated. `tensor_parallel` together with `shard_base_params` is
+refused, as in the JAX stage.
+
+`sequence_parallel: S` (above 1) adds a sequence axis inside each data
+replica (`create_training_mesh(tp, sp)`, sp innermost): the S ranks of a
+sequence group read the same rows and draw the same noise, run each
+transformer call on their 1/S of the image and prompt streams with k and v
+all-gathered for attention (`parallel/sequence_parallel.py`), and sum their
+partial adapter gradients over the group (over the model group too under
+TP x SP) before `ZeroAdamW` runs over the data group. Validation samples
+sequence-parallel on every rank and global rank 0 writes. A stream whose
+length does not divide by S runs unsharded on every rank, as in JAX.
 """
 from __future__ import annotations
 
@@ -85,6 +98,7 @@ from ragb_vae_tpu_torch.parallel.mesh import (
     maybe_init_distributed,
     process_index,
 )
+from ragb_vae_tpu_torch.parallel.fsdp import shard_base_, shard_bytes
 from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_transformer_, sum_grads_over, validate_tp
 from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW, weighted_mean_over_ranks
 from ragb_vae_tpu_torch.models.flux_kontext_textalpha import (
@@ -168,10 +182,14 @@ def parse_args(args: Optional[List[str]] = None, *, allow_missing: bool = False)
     parser.add_argument("--handle_preemption", action=argparse.BooleanOptionalAction, default=argparse.SUPPRESS,
                         help="On SIGTERM, save a resumable checkpoint-N at the next step and stop "
                              "(default on; RAGB_NO_PREEMPTION=1 also turns it off).")
-    parser.add_argument("--shard_base_params", action="store_true", help="Not ported yet.")
+    parser.add_argument("--shard_base_params", action="store_true",
+                        help="FSDP: split the frozen base over the data processes, each block all-gathered "
+                             "before it runs.")
     parser.add_argument("--tensor_parallel", type=int, default=1,
                         help="Megatron tensor parallelism of the frozen base over T consecutive processes.")
-    parser.add_argument("--sequence_parallel", type=int, default=1, help="Above 1: not ported yet.")
+    parser.add_argument("--sequence_parallel", type=int, default=1,
+                        help="Split the token streams over S consecutive processes (k / v all-gathered for "
+                             "attention).")
     return parser.parse_args(args=args)
 
 
@@ -180,20 +198,14 @@ def _check_ported(args: argparse.Namespace) -> None:
         raise ValueError(
             "tensor_parallel and shard_base_params are mutually exclusive "
             "(Megatron model-axis sharding vs FSDP data-axis sharding of the same frozen base)")
-    missing = []
-    if getattr(args, "shard_base_params", False):
-        missing.append("shard_base_params")
-    if int(getattr(args, "sequence_parallel", 1) or 1) > 1:
-        missing.append(f"sequence_parallel={args.sequence_parallel}")
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)}: not ported yet to the PyTorch package "
-            "(use ragb_vae_tpu.training.flux_kontext_textalpha_lora)."
-        )
 
 
 def _tp_degree(args: argparse.Namespace) -> int:
     return max(1, int(getattr(args, "tensor_parallel", 1) or 1))
+
+
+def _sp_degree(args: argparse.Namespace) -> int:
+    return max(1, int(getattr(args, "sequence_parallel", 1) or 1))
 
 
 def latest_complete_lora_checkpoint(root: Path) -> Optional[Path]:
@@ -264,6 +276,7 @@ def make_lora_train_step(
     lr_schedule: Optional[Callable[[int], float]] = None,
     mesh: Optional[Mesh] = None,
     model_mesh: Optional[Mesh] = None,
+    seq_mesh: Optional[Mesh] = None,
 ):
     """Build `step(batch, generator, step_index) -> (loss, stats, grad_norm)`.
 
@@ -277,7 +290,10 @@ def make_lora_train_step(
     the adapters, and the loss and stats are weighted means over all rows.
     With a `model_mesh` of size > 1 (the transformer is tensor-parallel over
     it; `mesh` is then the data axis), each rank's adapter gradients are
-    partials and are summed over the model group before the update."""
+    partials and are summed over the model group before the update. With a
+    `seq_mesh` of size > 1 (the model runs sequence-parallel over it), a
+    batch whose streams were sharded leaves each rank the partial over its
+    tokens: those are summed over the sequence group too."""
     params = list(lora_parameters(model.transformer).values())
     over_mesh = {} if mesh is None else {"mesh": mesh}
 
@@ -292,6 +308,8 @@ def make_lora_train_step(
         )
         if model_mesh is not None:
             sum_grads_over(params, model_mesh)
+        if seq_mesh is not None and model.sequence_sharded(*batch["gt"].shape[1:3]):
+            sum_grads_over(params, seq_mesh)
         if lr_schedule is not None:
             for group in optimizer.param_groups:
                 group["lr"] = lr_schedule(step_index)
@@ -337,7 +355,7 @@ def train(
     step with the loss, the gradient norm before the clip and the learning
     rate; the loss and the learning rate also go to `<ckpt_dir>/metrics.jsonl`."""
     _check_ported(args)
-    tp = _tp_degree(args)
+    tp, sp = _tp_degree(args), _sp_degree(args)
     if tp > 1:   # the degree against the heads, before any model is built
         from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
 
@@ -345,7 +363,8 @@ def train(
             Path(args.pretrained_model_name_or_path) / "transformer" / "config.json"), tp)
     device = local_device(resolve_device(device if device is not None else getattr(args, "device", "cuda")))
     maybe_init_distributed(model.device if model is not None else device)
-    mesh, model_mesh = create_training_mesh(tp=tp)     # the data axis, the model axis
+    mesh, model_mesh, seq_mesh = create_training_mesh(tp=tp, sp=sp)     # the data, model and sequence axes
+    fsdp = mesh if getattr(args, "shard_base_params", False) else None
     is_main = process_index() == 0
     weight_quant = getattr(args, "weight_quant", "none")
     dtype = torch.bfloat16 if args.mixed_precision in ("bf16", "fp16") else torch.float32
@@ -362,6 +381,8 @@ def train(
             lora_alpha=float(args.lora_alpha),
             weight_quant=weight_quant,
             tp=model_mesh,
+            fsdp=fsdp,
+            seq=seq_mesh,
         )
     elif model.transformer.weight_quant != weight_quant:
         raise ValueError(f"weight_quant={weight_quant!r} but the model given stores its transformer "
@@ -374,6 +395,9 @@ def train(
             raise ValueError(f"tensor_parallel={tp}, but the model given is sharded {model.transformer.tp.size} ways")
         validate_tp(model.transformer_config, tp, cuda=model.device.type == "cuda", weight_quant=weight_quant)
         shard_transformer_(model.transformer, model_mesh)
+    if fsdp is not None and fsdp.size > 1 and model.transformer.fsdp is None:
+        shard_base_(model.transformer, fsdp)
+    model.seq = seq_mesh
     device = model.device
     model.vae.module.requires_grad_(False)
     lora = lora_parameters(model.transformer)
@@ -411,11 +435,16 @@ def train(
         weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
     ), mesh)
     n_micro = max(1, args.grad_accum_steps)
-    train_step = make_lora_train_step(model, optimizer, n_micro, lr_schedule, mesh=mesh, model_mesh=model_mesh)
+    train_step = make_lora_train_step(model, optimizer, n_micro, lr_schedule, mesh=mesh, model_mesh=model_mesh,
+                                      seq_mesh=seq_mesh)
 
     print(f"[Batch] effective_per_step={args.batch_size} (grad_accum={n_micro}, {mesh.size} data group(s) "
-          f"of {tp} process(es) -> {args.batch_size / (n_micro * mesh.size):g} rows per micro-batch) "
+          f"of {tp * sp} process(es) -> {args.batch_size / (n_micro * mesh.size):g} rows per micro-batch) "
           f"device={device}")
+    if fsdp is not None and fsdp.size > 1:
+        held = shard_bytes(model.transformer)
+        print(f"[FSDP] base split over {fsdp.size} processes: {held['split'] / 2**20:.1f} MiB of split leaves "
+              f"and {held['whole'] / 2**20:.1f} MiB of whole ones on this process")
     print(f"[Train] {len(train_ds)} samples across {len(train_ds.bucket_to_indices)} buckets.")
     print(f"[Val]   {len(val_ds)} samples." if val_ds is not None
           else "[Val]   (disabled: no val_split provided)")

@@ -35,6 +35,7 @@ from ragb_vae_tpu_torch.training import flux_kontext_textalpha_lora as tstage
 from tests.data_fixtures import make_text_alpha_tree
 from tests.test_torch_lora_loss import pair  # noqa: F401
 from tests.test_torch_serving import _write_jax_checkpoint
+from tests.torch_dist_worker import assert_close_after_adamw
 
 LR, T = 1e-3, 4
 
@@ -152,13 +153,59 @@ def test_build_args_names_the_missing_fields():
         tstage.build_args_from_cfg({"model": {"pretrained_model_name_or_path": "m", "rgba_vae_path": "v"}})
 
 
+@pytest.fixture(scope="module")
+def world1_runs(tmp_path_factory):
+    """One step of the stage on the tiny model at world 1, plain and over an
+    int8 base -> (result, adapters) of each."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_state
+
+    root = tmp_path_factory.mktemp("world1")
+    make_text_alpha_tree(root / "data", n=2)
+    runs = {}
+    for quant in ("none", "int8"):
+        cfg = _cfg(root, max_train_steps=1, grad_accum_steps=1, ckpt_every_steps=1000, weight_quant=quant,
+                   ckpt_dir=str(root / f"plain_{quant}"))
+        cfg["data"].update(batch_size=2, num_workers=0)
+        model = _tiny_model()
+        if quant == "int8":
+            from ragb_vae_tpu_torch.models.quantize import quantize_module_
+
+            quantize_module_(model.transformer)
+        runs[quant] = (cfg, tstage.train_from_config(cfg, model=model, device="cpu"),
+                       lora_state(model.transformer))
+    return runs
+
+
 @pytest.mark.parametrize("flag", [{"weight_quant": "int8", "shard_base_params": True}, {"shard_base_params": True},
                                   {"tensor_parallel": 2, "sequence_parallel": 2}, {"sequence_parallel": 2}])
-def test_unported_options_raise(flag):
-    cfg = {"model": {"pretrained_model_name_or_path": "m", "rgba_vae_path": "v"}, "data": {"root": "d"},
-           "training": flag}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tstage.train_from_config(cfg, device="cpu")
+def test_unported_options_raise(flag, world1_runs, tmp_path):
+    """Each option that raised before the port had it now takes its working
+    path at world 1: `shard_base_params` (over a bf16 or an int8 base) runs
+    and equals the plain run (the adapters as AdamW moves them, where a
+    near-zero gradient's rounding decides an update's sign), as FSDP over a
+    data axis of 1 splits nothing;
+    `sequence_parallel` above 1 without a process group raises the
+    ValueError that names torchrun."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_state
+    from ragb_vae_tpu_torch.models.quantize import quantize_module_
+
+    if "sequence_parallel" in flag:
+        cfg = {"model": {"pretrained_model_name_or_path": "m", "rgba_vae_path": "v"}, "data": {"root": "d"},
+               "training": flag}
+        with pytest.raises(ValueError, match="needs a process group .*run under torchrun"):
+            tstage.train_from_config(cfg, model=_tiny_model(), device="cpu")
+        return
+    quant = flag.get("weight_quant", "none")
+    base_cfg, want, want_adapters = world1_runs[quant]
+    cfg = {**base_cfg, "training": {**base_cfg["training"], **flag, "ckpt_dir": str(tmp_path / "fsdp")}}
+    model = _tiny_model()
+    if quant == "int8":
+        quantize_module_(model.transformer)
+    got = tstage.train_from_config(cfg, model=model, device="cpu")
+    assert model.transformer.fsdp is None
+    assert got["global_step"] == want["global_step"] == 1.0
+    np.testing.assert_allclose(got["train/loss"], want["train/loss"], rtol=1e-6)
+    assert_close_after_adamw(lora_state(model.transformer), want_adapters, "adapters", lr=1e-3)
 
 
 @pytest.mark.parametrize("n,multiple", [(3, 2), (4, 2), (1, 4), (5, 1)])

@@ -473,7 +473,11 @@ def test_flux_degrees_pass_the_kernels_checks(tp):
 
 
 def test_sequence_parallel_is_not_ported():
+    """A sequence axis is ported (`tests/test_torch_parallel_axes.py`); without
+    a process group it raises the ValueError that names torchrun, at JAX's
+    axis checks."""
     from ragb_vae_tpu_torch.parallel.mesh import create_training_mesh
 
-    with pytest.raises(NotImplementedError, match="sequence_parallel=2"):
+    with pytest.raises(ValueError, match=r"sequence_parallel=2 needs a process group .*torchrun"):
         create_training_mesh(tp=1, sp=2)
+    assert [m.size for m in create_training_mesh()] == [1, 1, 1]

@@ -1,5 +1,6 @@
-"""Run a function of this module on N gloo ranks, for the port's data-parallel
-tests (`tests/test_torch_zero_step.py`, `tests/test_torch_parallel_loop.py`).
+"""Run a function of this module on N gloo ranks, for the port's parallel
+tests (`tests/test_torch_zero_step.py`, `tests/test_torch_parallel_loop.py`,
+`tests/test_torch_tensor_parallel.py`, `tests/test_torch_parallel_axes.py`).
 
 `spawn(name, world, tmp_path, payload)` saves `payload` with torch.save,
 starts `world` spawned processes that join one gloo group through a
@@ -211,22 +212,24 @@ def loop_runs(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
 TP_RANK, TP_ALPHA = 4, 6.0
 
 
-def tp_model(payload: dict):
-    """The payload's tiny FLUX-Kontext model, whole (fp32, rank-4 adapters
-    from the payload's state, per-block recompute)."""
+def tp_model(payload: dict, dtype=torch.float32):
+    """The payload's tiny FLUX-Kontext model, whole (rank-4 fp32 adapters
+    from the payload's state, per-block recompute; the base and the VAE in
+    `dtype`, the AdaLN modulation fp32)."""
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
     from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformer2D, freeze_base_parameters
     from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
     from ragb_vae_tpu_torch.models.scheduler import FlowMatchEulerScheduler
 
-    transformer = FluxTransformer2D(payload["config"], lora_rank=TP_RANK, lora_alpha=TP_ALPHA, remat=True)
+    transformer = FluxTransformer2D(payload["config"], lora_rank=TP_RANK, lora_alpha=TP_ALPHA, remat=True,
+                                    dtype=dtype)
     transformer.load_state_dict(payload["state"], strict=True)
     freeze_base_parameters(transformer)
-    vae = RgbaVAE(payload["vae_config"], fused=True)
+    vae = RgbaVAE(payload["vae_config"], fused=True, dtype=dtype)
     vae.module.load_state_dict(payload["vae_state"], strict=True)
     return FluxTextAlphaModel(transformer.eval(), vae, FlowMatchEulerScheduler(),
                               *(torch.from_numpy(payload[k]) for k in ("prompt", "pooled", "text_ids")),
-                              lora_rank=TP_RANK, lora_alpha=TP_ALPHA)
+                              lora_rank=TP_RANK, lora_alpha=TP_ALPHA, dtype=dtype)
 
 
 def _tp_sample(model, payload: dict) -> dict:
@@ -280,28 +283,34 @@ def tp_runs(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
     from ragb_vae_tpu_torch.parallel.mesh import create_training_mesh
     from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_transformer_
 
-    _, tp = create_training_mesh(tp=world)
+    _, tp, _ = create_training_mesh(tp=world)
     model = tp_model(payload)
     shard_transformer_(model.transformer, tp)
     return {**tp_case(model, payload, tp), "loads": tp_loads(payload, tp)}
 
 
-def tp_train_steps(rank: int, world: int, payload: dict, tmp_path: Path, *, tp: int = 2) -> dict:
-    """Two steps of `make_lora_train_step` at (data world / tp, model tp):
+def tp_train_steps(rank: int, world: int, payload: dict, tmp_path: Path, *, tp: int = 2, sp: int = 1,
+                   fsdp: bool = False) -> dict:
+    """Two steps of `make_lora_train_step` at (data world / (tp sp), model
+    tp, sequence sp), the base FSDP-split over the data group with `fsdp`:
     this rank's data rows of each global batch, ZeroAdamW over the data
     group -> the losses, gradient norms and adapters after each step."""
     from ragb_vae_tpu_torch.models.flux_weights import lora_parameters, lora_state
+    from ragb_vae_tpu_torch.parallel.fsdp import shard_base_
     from ragb_vae_tpu_torch.parallel.mesh import create_training_mesh, local_rows
     from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_transformer_
     from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW
     from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import make_lora_optimizer, make_lora_train_step
 
-    data, model_mesh = create_training_mesh(tp=tp)
+    data, model_mesh, seq = create_training_mesh(tp=tp, sp=sp)
     model = tp_model(payload)
     shard_transformer_(model.transformer, model_mesh)
+    if fsdp:
+        shard_base_(model.transformer, data)
+    model.seq = seq
     optimizer = ZeroAdamW(make_lora_optimizer(list(lora_parameters(model.transformer).values()),
                                               payload["lr"]), data)
-    step = make_lora_train_step(model, optimizer, 1, mesh=data, model_mesh=model_mesh)
+    step = make_lora_train_step(model, optimizer, 1, mesh=data, model_mesh=model_mesh, seq_mesh=seq)
     generator = torch.Generator().manual_seed(payload["seed"])
     out = []
     for gt, ta in payload["batches"]:
@@ -326,3 +335,179 @@ def tp_world4(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
     """`tp_train_steps` at (data 2, model 2), then the LoRA stage through
     `train_from_config` with `tensor_parallel: 2`."""
     return {**tp_train_steps(rank, world, payload, tmp_path), "stage": tp_stage(payload["stage"])}
+
+
+# ---------------------------------------------------------------------------
+# FSDP of the base and sequence parallelism
+# ---------------------------------------------------------------------------
+def _segments_local(t: torch.Tensor, segments, mesh, dim: int = 2) -> torch.Tensor:
+    """This rank's part of each stream of `t` (streams of `segments` lengths
+    end to end along `dim`), end to end: the local tokens of a joint stream."""
+    from ragb_vae_tpu_torch.parallel.sequence_parallel import local_part
+
+    parts, start = [], 0
+    for n in segments:
+        parts.append(local_part(t.narrow(dim, start, n), mesh, dim))
+        start += n
+    return torch.cat(parts, dim=dim)
+
+
+def sp_attention(payload: dict, seq) -> dict:
+    """`attention(seq=)` on this rank's tokens of each case of
+    `payload["attention"]` (q, k, v, dO and the streams' lengths) -> this
+    rank's output and q, k, v gradients."""
+    from ragb_vae_tpu_torch.ops.kernels.flash_attention import attention
+
+    out = {}
+    for label, case in payload["attention"].items():
+        segments = case["segments"]
+        q, k, v = (_segments_local(torch.from_numpy(case[n]), segments, seq).requires_grad_(True) for n in "qkv")
+        local = tuple(n // seq.size for n in segments)
+        o = attention(q, k, v, seq=seq, segments=local if seq.size > 1 else None)
+        o.backward(_segments_local(torch.from_numpy(case["g"]), segments, seq))
+        out[label] = {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    return out
+
+
+def sp_case(payload: dict, seq) -> dict:
+    """On the whole model over a sequence axis `seq` (size 1: one process):
+    the LoRA loss and its adapter-gradient tree (summed over the group) with
+    the collectives it made, the sample with injected noise in fp32, bf16
+    and over the int8 transformer with the all-gathers of each, and over a
+    prompt of 3 tokens (a stream sp 2 does not divide) the loss and one step
+    of `make_lora_train_step`."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_grads_to_flax, lora_parameters
+    from ragb_vae_tpu_torch.models.quantize import quantize_module_
+    from ragb_vae_tpu_torch.parallel import sequence_parallel as spm
+    from ragb_vae_tpu_torch.parallel.mesh import Mesh
+    from ragb_vae_tpu_torch.parallel.tensor_parallel import sum_grads_over
+    from ragb_vae_tpu_torch.parallel.zero_step import ZeroAdamW
+    from ragb_vae_tpu_torch.training.flux_kontext_textalpha_lora import make_lora_optimizer, make_lora_train_step
+
+    def lora(model):
+        spm.reset_counts()
+        lat = [torch.from_numpy(a) for a in payload["latents"]]
+        loss, _ = model.compute_loss_from_latents(*lat, torch.from_numpy(payload["u"]))
+        loss.backward()
+        if model.sequence_sharded(32, 32):      # the latents' images: 32^2
+            sum_grads_over(list(lora_parameters(model.transformer).values()), seq)
+        return {"loss": loss.item(), "grads": lora_grads_to_flax(model.transformer), "counts": dict(spm.COUNTS)}
+
+    def sample(model):
+        spm.reset_counts()
+        return {**_tp_sample(model, payload), "counts": dict(spm.COUNTS)}
+
+    out = {}
+    model = tp_model(payload)
+    model.seq = seq
+    out["lora"] = lora(model)
+    out["sample"] = sample(model)
+    quantize_module_(model.transformer)
+    out["int8"] = sample(model)
+    bf16 = tp_model(payload, torch.bfloat16)
+    bf16.seq = seq
+    out["bf16"] = sample(bf16)
+    def odd_model():
+        odd = tp_model(payload)
+        odd.seq = seq
+        odd.prompt_embeds, odd.text_ids = odd.prompt_embeds[:, :3], odd.text_ids[:3]
+        return odd
+
+    out["odd"] = lora(odd_model())
+    # the stage's own step on it: no sum over the group where nothing was split
+    odd = odd_model()
+    params = list(lora_parameters(odd.transformer).values())
+    step = make_lora_train_step(odd, ZeroAdamW(make_lora_optimizer(params, payload["lr"]), Mesh()), 1,
+                                mesh=Mesh(), seq_mesh=seq)
+    gt, ta = (torch.from_numpy(a[:1]) for a in payload["batches"][0])
+    loss, _, grad_norm = step({"gt": gt, "text_alpha": ta}, torch.Generator().manual_seed(payload["seed"]))
+    out["odd_step"] = {"loss": float(loss), "grad_norm": float(grad_norm)}
+    return out
+
+
+def fsdp_case(payload: dict, data) -> dict:
+    """At the data axis `data`: this rank's rows of the LoRA loss with the
+    base whole and FSDP-split, in bf16 and over int8 -> both runs' loss and
+    adapter gradients, the bytes each holds and the FSDP run's gathers."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
+    from ragb_vae_tpu_torch.models.quantize import quantize_module_
+    from ragb_vae_tpu_torch.parallel import fsdp
+    from ragb_vae_tpu_torch.parallel.mesh import local_rows
+
+    lat = [local_rows(torch.from_numpy(a), data) for a in payload["latents"]]
+    u = local_rows(torch.from_numpy(payload["u"]), data)
+    out = {}
+    for label, dtype, int8 in (("bf16", torch.bfloat16, False), ("int8", torch.float32, True)):
+        runs = {}
+        for split in (False, True):
+            model = tp_model(payload, dtype)
+            if split:
+                fsdp.shard_base_(model.transformer, data)
+            if int8:
+                quantize_module_(model.transformer)
+            fsdp.reset_counts()
+            loss, _ = model.compute_loss_from_latents(*lat, u)
+            loss.backward()
+            runs["fsdp" if split else "whole"] = {
+                "loss": loss.detach(), "counts": dict(fsdp.COUNTS), "bytes": fsdp.shard_bytes(model.transformer),
+                "grads": {k: p.grad.clone() for k, p in lora_parameters(model.transformer).items()}}
+        out[label] = runs
+    return out
+
+
+def fsdp_loads(payload: dict, data) -> dict:
+    """`from_pretrained(fsdp=)` from each checkpoint of `payload["checkpoints"]`."""
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+
+    out = {}
+    for label, path, quant in payload["checkpoints"]:
+        model = FluxTextAlphaModel.from_pretrained(path, vae_path=payload["vae_dir"], device="cpu",
+                                                   weight_quant=quant, fsdp=data)
+        out[label] = {k: v.clone() for k, v in model.transformer.state_dict().items()}
+    return out
+
+
+def axes_stage(cfg: dict) -> dict:
+    """The LoRA stage's own loop on the tiny model -> its result, adapters,
+    the bytes of the base the process held and its sequence collectives."""
+    from ragb_vae_tpu_torch.models.flux_weights import lora_state
+    from ragb_vae_tpu_torch.parallel import sequence_parallel as spm
+    from ragb_vae_tpu_torch.parallel.fsdp import shard_bytes
+    from ragb_vae_tpu_torch.training import flux_kontext_textalpha_lora as lora
+
+    model = tiny_lora_model()
+    spm.reset_counts()
+    result = lora.train_from_config(cfg, model=model, device="cpu")
+    return {"result": result, "adapters": {k: v.clone() for k, v in lora_state(model.transformer).items()},
+            "bytes": shard_bytes(model.transformer), "seq_counts": dict(spm.COUNTS)}
+
+
+def _small_leaves_split(payload: dict) -> None:
+    """Split leaves down to `payload["min_size"]` elements: JAX's 2**16 would
+    leave every leaf of the tiny model whole."""
+    from ragb_vae_tpu_torch.parallel import sharding
+
+    sharding.DEFAULT_MIN_SHARD_SIZE = payload["min_size"]
+
+
+def axes_world2(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
+    """Sequence axis 2: `sp_attention` and `sp_case`; data axis 2: `fsdp_case`,
+    `fsdp_loads` and the LoRA stage with `shard_base_params`."""
+    from ragb_vae_tpu_torch.parallel.mesh import create_training_mesh
+
+    _small_leaves_split(payload)
+    data, _, _ = create_training_mesh()
+    _, _, seq = create_training_mesh(sp=world)
+    return {"attention": sp_attention(payload, seq), "sp": sp_case(payload, seq),
+            "fsdp": fsdp_case(payload, data), "loads": fsdp_loads(payload, data),
+            "stage": axes_stage(payload["stage"])}
+
+
+def axes_world4(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
+    """Two LoRA steps at (data 2, sequence 2) with the base FSDP-split, then
+    at (model 2, sequence 2); the LoRA stage with `sequence_parallel: 2` and
+    `shard_base_params`."""
+    _small_leaves_split(payload)
+    return {"dp2_sp2_fsdp": tp_train_steps(rank, world, payload, tmp_path, tp=1, sp=2, fsdp=True),
+            "tp2_sp2": tp_train_steps(rank, world, payload, tmp_path, tp=2, sp=2),
+            "stage": axes_stage(payload["stage_sp"])}
