@@ -32,6 +32,20 @@ clock; any failure exits non-zero without the final line):
              InferenceServer), reads /healthz before and after, checks each
              answer and that every kernel launched during that run, then
              shuts the daemon down and drains it.
+12. pp     - (right after phase 4, on its model) pipeline parallelism with
+             every stage on the one card: prints the plan's per-stage bytes
+             of full-depth FLUX.1-Kontext at pp 2, 4 and 8 and the device
+             guard's host cost per launch, serves the slice phase's 512^2
+             request at pp 4 through `InferenceServer(pipeline=)` (bit-equal
+             to the slice phase's answer, each stage's K3 launches counted),
+             holds a b2 forward at microbatch 2 and 1 against the monolithic
+             one, takes one `PipelineLoraTrainer` step at 2 stages on a
+             full-width 2 + 4 block transformer (512^2 b2, microbatch 1) and
+             holds its loss and adapter gradients against the monolithic
+             step's; four planted faults (a dropped block, txt and img
+             swapped, temb not carried, a microbatch divided by its own
+             weight sum) must fail the bounds. The int8 phase also runs its
+             forward at pp 4, bit-equal, K10 counted per stage.
 6. lora    - (runs before phase 5, on the serving phase's model) attaches
              rank-128 LoRA adapters to the full-width FLUX.1-Kontext
              transformer (frozen bf16 base, fp32 adapters, per-block
@@ -1761,7 +1775,7 @@ BLOCKS = 19 + 38               # attention calls per transformer forward
 TRAIN_STEPS = 1                # optimizer steps of the VAE phase (the stage1 phase takes 3 more)
 STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO = 2, 4, 2     # of the LoRA and the QLoRA phase: steps, pairs per step, micro-batches
 LORA_PAIRS = 2                 # the LoRA phase's pairs per step (the QLoRA phase's probe loss needs 4 to fall)
-ALL_PHASES = ("kernels", "slice", "lora", "int8", "tp", "axes", "convs", "train", "stage1")
+ALL_PHASES = ("kernels", "slice", "pp", "lora", "int8", "tp", "axes", "convs", "train", "stage1")
 
 
 def _lora_counts() -> dict:
@@ -2067,8 +2081,9 @@ def phase_convs() -> dict:
 # ---------------------------------------------------------------------------
 # phase 8: weight-only int8 serving and QLoRA at full width
 # ---------------------------------------------------------------------------
-def _probe_forward(model, gen_seed: int):
-    """One transformer forward at 512^2, batch 1, on seeded inputs."""
+def _probe_forward(model, gen_seed: int, transformer=None):
+    """One transformer forward at 512^2, batch 1, on seeded inputs (through
+    `transformer`, a pipeline, when given)."""
     from ragb_vae_tpu_torch.ops.packing import prepare_latent_image_ids
 
     gen = torch.Generator("cuda").manual_seed(gen_seed)
@@ -2076,7 +2091,7 @@ def _probe_forward(model, gen_seed: int):
     ids = prepare_latent_image_ids(32, 32, device="cuda")
     with torch.no_grad():
         return model._transformer_pred(packed, torch.full((1,), 0.5, device="cuda"),
-                                       torch.cat([ids, ids], dim=0), 1).float()
+                                       torch.cat([ids, ids], dim=0), 1, transformer).float()
 
 
 # The adapters' gradient tree through K10 (every base linear of the forward and
@@ -2189,7 +2204,21 @@ def phase_int8(model, bf16_peak: int, work: Path, refs: dict) -> dict:
         f"{'ok' if fine else 'FAIL'}")
     if not fine:
         raise SystemExit("[int8] the int8 transformer does not track the bf16 one, or a linear missed the kernel")
-    del ref, out
+    # the same forward through a pipeline of PP stages on the card: the same bits, the same K10 launches
+    from ragb_vae_tpu_torch.parallel.pipeline import PipelinedFluxTransformer
+
+    pipe = PipelinedFluxTransformer(model.transformer_config, ["cuda:0"] * PP).place_(model.transformer)
+    reset_all_counts()
+    with _StageCounts(pipe) as stage_launches:
+        staged = _probe_forward(model, SEED + 4, transformer=pipe)
+    torch.cuda.synchronize()
+    same = torch.equal(staged, out) and i8.LAUNCHES == per_forward
+    log("int8", f"the same forward at pp {PP}: {'bit-equal' if torch.equal(staged, out) else 'DIFFERS'}, "
+        f"{i8.LAUNCHES} K10 launches, per stage {[c['int8_matmul'] for c in stage_launches]} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("[int8] the pipelined int8 forward differs from the monolithic one")
+    del ref, out, staged, pipe
     # the same forward without the LoRA phase's adapters, for the tp phase
     ranks = {m: m.lora_rank for m in model.transformer.modules() if isinstance(m, LoraDense)}
     for m in ranks:
@@ -2273,6 +2302,298 @@ def phase_int8(model, bf16_peak: int, work: Path, refs: dict) -> dict:
     for key, n in q_counts.items():
         counts[key] = counts.get(key, 0) + n
     _qlora_grad_tree_check(model, len(linears), in_blocks)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: pipeline parallel, every stage on the one card
+# ---------------------------------------------------------------------------
+# One process drives the stages (`parallel/pipeline.py`); on one card every
+# stage sits on cuda:0, so the split, the stage boundaries and the carrier run
+# as they would across cards, and the answers can be held bit for bit. At
+# microbatch = batch a stage runs the same kernels on the same shapes as the
+# monolithic forward: the same bits. At microbatch 1 of a batch of 2 the
+# GEMMs see M = S instead of 2 S and cuBLAS may pick another tiling, so the
+# output is held to a bound beside the bit equality of each row's own
+# monolithic forward (the same shapes again). The bounds: the b2 forward at
+# microbatch 1 against the b2 monolithic one, and the adapters' gradients of
+# the 2-stage GPipe step (microbatch 1 of 2) against the monolithic step's,
+# both as the tp phase's (bf16 noise of one more rounding through the stack).
+# The forward's planted faults run at microbatch 2, where the sound pipeline
+# is the monolithic forward bit for bit, and must break that equality: on
+# random weights attention is near uniform, so txt and img swapped at a
+# single-range boundary (a reordered joint stream) moves the output by 0.044
+# only, inside the microbatch-1 bound (an H100 80GB HBM3 at 700 W). The
+# gradient fault must fail the gradients' bound.
+PP = 4                         # stages of the serving pipeline
+PP_TRAIN_STAGES = 2            # stages of the training pipeline
+PP_TRAIN_DEPTH = (2, 4)        # its transformer's double and single blocks (full width)
+PP_FORWARD_TOL = (0.05, 0.998)         # b2 at microbatch 1 vs the monolithic b2 forward (as TP_FORWARD_TOL)
+PP_GRAD_TOL = (LORA_GRAD_REL_TOL, LORA_GRAD_COS_TOL)   # GPipe adapter gradients vs the monolithic step's
+PP_WEIGHTS = (1.0, 0.5)        # the training step's sample weights
+GUARD_CALLS = 100_000          # calls timed for the device guard's host cost
+
+
+def _pp_faults(pp) -> dict:
+    """The planted faults of the pp phase: label -> (owner, attribute,
+    replacement). The first three must fail the forward's bound, the last the
+    gradients'."""
+    real_ranges, real_carry, real_numerator = pp.stage_ranges, pp.PipelinedFluxTransformer.carry, pp.loss_numerator
+
+    def dropped(config, n):
+        ranges = real_ranges(config, n)
+        dr, sr = ranges[1]
+        ranges[1] = (dr, range(sr.start, sr.stop - 1)) if len(sr) else (range(dr.start, dr.stop - 1), sr)
+        return ranges
+
+    def no_temb(carrier, device):
+        return real_carry((*carrier[:2], None if carrier[2] is None else torch.zeros_like(carrier[2])), device)
+
+    return {
+        "a stage range drops a block": [(pp, "stage_ranges", dropped)],
+        "txt and img swapped at a single-range boundary": [
+            (pp.PipelineStage, "join", staticmethod(lambda txt, img: torch.cat([img, txt], dim=1))),
+            (pp.PipelineStage, "split",
+             staticmethod(lambda x, n_txt: (x[:, x.shape[1] - n_txt:], x[:, :x.shape[1] - n_txt])))],
+        "temb not carried": [(pp.PipelinedFluxTransformer, "carry", staticmethod(no_temb))],
+        "each microbatch divided by its own weight sum": [
+            (pp, "loss_numerator", lambda pred, lt, wt, w, *a: real_numerator(pred, lt, wt, w, *a) / w.sum())],
+    }
+
+
+class _Planted:
+    """Plant a fault's replacements for a `with` block."""
+
+    def __init__(self, patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in self.patches]
+        for owner, attr, fn in self.patches:
+            setattr(owner, attr, fn)
+
+    def __exit__(self, *exc):
+        for owner, attr, real in self.saved:
+            setattr(owner, attr, real)
+
+
+class _StageCounts:
+    """For a `with` block: each stage's K3 and K10 launches in `pipe`, one
+    dict a stage (`PipelineStage.forward` wrapped)."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.counts = [{} for _ in pipe.stages]
+
+    def __enter__(self):
+        from ragb_vae_tpu_torch.parallel.pipeline import PipelineStage
+
+        self.real = real = PipelineStage.forward
+        counters = {"flash_attention_fwd": lambda: fa.LAUNCHES, "int8_matmul": lambda: i8.LAUNCHES}
+        pipe, counts = self.pipe, self.counts
+
+        def counted(stage, *args):
+            before = {k: read() for k, read in counters.items()}
+            out = real(stage, *args)
+            mine = counts[pipe.stages.index(stage)]
+            for k, read in counters.items():
+                mine[k] = mine.get(k, 0) + read() - before[k]
+            return out
+
+        PipelineStage.forward = counted
+        return counts
+
+    def __exit__(self, *exc):
+        from ragb_vae_tpu_torch.parallel.pipeline import PipelineStage
+
+        PipelineStage.forward = self.real
+
+
+def _guard_host_cost() -> dict:
+    """Host ns per launch of the device guard in `_build.launch`: reading the
+    current device and comparing (every launch), and switching there and back
+    (a launch for another device than the current one; on one card both
+    switches are to the current device, which costs what a real switch costs
+    in the runtime call)."""
+    get, set_ = torch._C._cuda_getDevice, torch._C._cuda_setDevice
+    t0 = time.perf_counter()
+    for _ in range(GUARD_CALLS):
+        if get() != 0:
+            pass
+    read = (time.perf_counter() - t0) / GUARD_CALLS * 1e9
+    t0 = time.perf_counter()
+    for _ in range(GUARD_CALLS):
+        set_(0)
+        set_(0)
+    switch = (time.perf_counter() - t0) / GUARD_CALLS * 1e9
+    return {"read_ns": read, "switch_ns": switch}
+
+
+def phase_pp(model, refs: dict) -> dict:
+    """(After slice, on its model.) The plan's per-stage bytes at full depth;
+    the slice phase's 512^2 request served at pp 4 through
+    `InferenceServer(pipeline=)` against the slice phase's answer; a b2
+    forward at microbatch 1 and 2 against the monolithic one; one
+    `PipelineLoraTrainer` step at 2 stages on a full-width 2 + 4 block
+    transformer; the planted faults; the device guard's host cost."""
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+    from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformer2D, FluxTransformerConfig, QLinear
+    from ragb_vae_tpu_torch.models.flux_weights import lora_parameters
+    from ragb_vae_tpu_torch.ops.packing import prepare_latent_image_ids
+    from ragb_vae_tpu_torch.parallel import pipeline as pp
+    from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
+
+    # the plan: what each card would hold of the full-depth transformer
+    meta = FluxTransformer2D(FluxTransformerConfig(), device="meta", dtype=torch.bfloat16)
+    whole = sum(t.numel() * t.element_size() for t in (*meta.parameters(), *meta.buffers()))
+    for n in (2, 4, 8):
+        per = pp.stage_bytes(meta, n)
+        log("pp", f"plan at pp {n} (bf16, fp32 AdaLN modulation): "
+            + ", ".join(f"stage {i} {b / 2**30:.3f} GiB" for i, b in enumerate(per))
+            + f" of {whole / 2**30:.3f} GiB whole; ranges {pp.stage_ranges(FluxTransformerConfig(), n)}")
+    del meta
+    guard = _guard_host_cost()
+    log("pp", f"device guard host cost per launch: {guard['read_ns']:.1f} ns to read and compare the current "
+        f"device, {guard['switch_ns']:.1f} ns more to switch there and back ({GUARD_CALLS} calls each)")
+
+    # serving at pp 4, the launches of each stage counted
+    pipe = pp.PipelinedFluxTransformer(model.transformer_config, ["cuda:0"] * PP).place_(model.transformer)
+    image = _tp_request()
+    reset_all_counts()
+    with _StageCounts(pipe) as stage_launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            answer = InferenceServer(model, ServeConfig(steps=SERVE_STEPS), pipeline=pipe)._run_batch(
+                image[None], np.array([TP_SEED], np.uint32))[0]
+        serve_s = time.perf_counter() - t0
+    counts = {"flash_attention_fwd": fa.LAUNCHES, "resnet_conv3x3_stats": rb.CONV_LAUNCHES,
+              "subpixel_upsample_conv3x3_stats": rb.UPSAMPLE_LAUNCHES}
+    same = bool(np.array_equal(answer, refs["answer"]))
+    per_step = [{k: n // SERVE_STEPS for k, n in c.items()} for c in stage_launches]
+    want_k3 = [len(dr) + len(sr) for dr, sr in pipe.ranges]
+    log("pp", f"one 512^2 request at pp {PP} (stages {[(len(d), len(s)) for d, s in pipe.ranges]} double, single "
+        f"blocks), {SERVE_STEPS} steps, through InferenceServer(pipeline=) in {serve_s:.3f} s: "
+        f"{'bit-equal to' if same else 'DIFFERS from'} the slice phase's answer; launches of each stage per "
+        f"denoising step {per_step}; whole request {counts}")
+    if not same or [c["flash_attention_fwd"] for c in per_step] != want_k3 or min(counts.values()) == 0:
+        raise SystemExit(f"[pp] the pipelined answer differs from the slice phase's, or a stage's K3 launches "
+                         f"are not its block count {want_k3}")
+
+    # a b2 forward: microbatch 2 (= batch) and 1 against the monolithic one
+    gen = torch.Generator("cuda").manual_seed(SEED + 14)
+    packed = torch.randn((2, 2048, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    ids = prepare_latent_image_ids(32, 32, device="cuda")
+    ids = torch.cat([ids, ids], dim=0)
+    t = torch.full((2,), 0.5, device="cuda")
+
+    def forward(microbatch=None, rows=slice(None)):
+        run = None if microbatch is None else (lambda **kw: pipe(**kw, microbatch=microbatch))
+        with torch.no_grad():
+            return model._transformer_pred(packed[rows], t[rows], ids, packed[rows].shape[0], transformer=run)
+
+    mono = forward()
+    whole_mb = forward(2)
+    mb1 = forward(1)
+    per_row = torch.cat([forward(None, slice(r, r + 1)) for r in range(2)])
+    track = _tracks(mb1.float(), mono.float())
+    sound = torch.equal(whole_mb, mono) and torch.equal(mb1, per_row) and _within(track, PP_FORWARD_TOL)
+    log("pp", f"b2 forward at 512^2: microbatch 2 {'bit-equal' if torch.equal(whole_mb, mono) else 'DIFFERS'}; "
+        f"microbatch 1 {'bit-equal' if torch.equal(mb1, per_row) else 'DIFFERS'} to each row's monolithic forward, "
+        f"relative error {track[0]:.4g} cosine {track[1]:.6f} against the b2 monolithic one "
+        f"(<= {PP_FORWARD_TOL[0]}, >= {PP_FORWARD_TOL[1]}) {'ok' if sound else 'FAIL'}")
+    if not sound:
+        raise SystemExit("[pp] the pipelined forward does not equal or track the monolithic one")
+    faults = _pp_faults(pp)
+    caught = True
+    for label in list(faults)[:3]:
+        with _Planted(faults[label]):
+            faulty = pp.PipelinedFluxTransformer(model.transformer_config, ["cuda:0"] * PP).place_(model.transformer)
+            with torch.no_grad():
+                out = model._transformer_pred(packed, t, ids, 2, transformer=lambda **kw: faulty(**kw, microbatch=2))
+        ft = _tracks(out.float(), mono.float())
+        failed = not torch.equal(out, mono)
+        caught &= failed
+        log("pp", f"planted fault '{label}': the b2 forward at microbatch 2 "
+            f"{'differs from' if failed else 'IS BIT-EQUAL TO'} the monolithic one (the sound run's bound), "
+            f"relative error {ft[0]:.4g} cosine {ft[1]:.6f} "
+            f"({'outside' if not _within(ft, PP_FORWARD_TOL) else 'inside'} the microbatch-1 bound)")
+    del mono, whole_mb, mb1, per_row, out, pipe, faulty
+    torch.cuda.empty_cache()
+
+    # one GPipe LoRA step at 2 stages on a full-width 2 + 4 block transformer
+    cfg = FluxTransformerConfig(num_layers=PP_TRAIN_DEPTH[0], num_single_layers=PP_TRAIN_DEPTH[1])
+    tpipe = pp.PipelinedFluxTransformer(cfg, ["cuda:0"] * PP_TRAIN_STAGES)
+    m = FluxTextAlphaModel.random(cfg, model.vae.config, seed=SEED + 15, dtype=torch.bfloat16, fused=True,
+                                  lora_rank=LORA_CONFIG["rank"], lora_alpha=float(LORA_CONFIG["lora_alpha"]),
+                                  use_gradient_checkpointing=True, pipeline=tpipe)
+    gen = torch.Generator("cuda").manual_seed(SEED + 16)
+    with torch.no_grad():
+        for mod in m.transformer.modules():
+            if isinstance(mod, QLinear) and mod.bias is not None:
+                mod.bias.normal_(0.0, 0.1, generator=gen)
+        for name, p in lora_parameters(m.transformer).items():
+            if name.endswith("lora_B"):
+                p.normal_(0.0, 0.01, generator=gen)
+    lat = (2, 64, 64, m.vae.config.latent_channels)      # 512^2, batch 2
+    cond, target, noise = (torch.randn(lat, generator=gen, device="cuda") for _ in range(3))
+    u = torch.tensor([0.3, 0.7], device="cuda")
+    w = torch.tensor(PP_WEIGHTS, device="cuda")
+    named = lora_parameters(m.transformer)
+    for p in named.values():
+        p.grad = None
+    ref_loss, _ = m.compute_loss_from_latents(cond, target, noise, u, weights=w)
+    ref_loss.backward()
+    ref = {n: p.grad.detach().float().clone() for n, p in named.items()}
+    trainer = pp.PipelineLoraTrainer(m, tpipe, lambda ps: torch.optim.AdamW(
+        ps, lr=LORA_CONFIG["learning_rate"], betas=(LORA_CONFIG["adam_beta1"], LORA_CONFIG["adam_beta2"]),
+        weight_decay=LORA_CONFIG["weight_decay"]))
+
+    def gpipe_grads():
+        loss, grads, _ = trainer.loss_and_grads(cond, target, noise, u, weights=w, microbatch=1)
+        flat = {k: g.float() for stage in grads for k, g in stage.items()}
+        rel = max((_tracks(flat[n], ref[n])[0], n) for n in ref)
+        cos = min((_tracks(flat[n], ref[n])[1], n) for n in ref)
+        return loss, rel, cos
+
+    label = list(faults)[3]          # planted first: the sound run then leaves its gradients for the update
+    with _Planted(faults[label]):
+        _, frel, fcos = gpipe_grads()
+    caught &= not _within((frel[0], fcos[0]), PP_GRAD_TOL)
+    log("pp", f"planted fault '{label}': worst gradient relative error {frel[0]:.4g} cosine {fcos[0]:.6f} "
+        f"{'fails the bound' if not _within((frel[0], fcos[0]), PP_GRAD_TOL) else 'PASSES THE BOUND'}")
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, rel, cos = gpipe_grads()
+    before = {n: p.detach().clone() for n, p in named.items()}
+    for opt in trainer.optimizers:
+        opt.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    train_counts = _lora_counts()
+    moved = sum(not torch.equal(before[n], p) for n, p in named.items())
+    blocks = sum(PP_TRAIN_DEPTH)
+    sound = (_within((rel[0], cos[0]), PP_GRAD_TOL) and math.isfinite(loss.item())
+             and abs(loss.item() - ref_loss.item()) <= 1e-2 * abs(ref_loss.item()) and moved == len(named)
+             and len(trainer.optimizers) == PP_TRAIN_STAGES)
+    log("pp", f"one PipelineLoraTrainer step at {PP_TRAIN_STAGES} stages {[(len(d), len(s)) for d, s in tpipe.ranges]}, "
+        f"512^2 batch 2 at microbatch 1, weights {PP_WEIGHTS}, in {step_s:.3f} s: loss {loss.item():.6f} "
+        f"(monolithic {ref_loss.item():.6f}); {len(ref)} adapter leaves, worst relative error {rel[0]:.4g} "
+        f"({rel[1]}), worst cosine {cos[0]:.6f} ({cos[1]}) (<= {PP_GRAD_TOL[0]}, >= {PP_GRAD_TOL[1]}); "
+        f"{moved} adapters moved; launches {train_counts} {'ok' if sound else 'FAIL'}")
+    if not sound:
+        raise SystemExit("[pp] the GPipe step's loss or gradients disagree with the monolithic step's")
+    if (train_counts["flash_attention_dq"] != blocks * 2 or train_counts["flash_attention_dkv"] != blocks * 2
+            or train_counts["flash_attention_fwd"] != 2 * blocks * 2):
+        raise SystemExit(f"[pp] launches of the GPipe step: K4 / K5 must be {blocks * 2} (a block per "
+                         f"microbatch), K3 {4 * blocks} (the forward and its recompute): {train_counts}")
+    if not caught:
+        raise SystemExit("[pp] a planted fault passed its bound")
+    for key, n in train_counts.items():
+        counts[key] = counts.get(key, 0) + n
+    del m, trainer, tpipe, ref, before
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3320,15 +3641,16 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help=f"comma-separated subset of {','.join(ALL_PHASES)} (device and build always "
-                             "run; lora and int8 need slice, whose model they train and quantise; tp needs "
+                             "run; lora, int8 and pp need slice, whose model they train, quantise and "
+                             "pipeline; tp needs "
                              "slice and int8, whose answers it is held against; axes needs none); the final "
                              "ok line is printed only when all ran")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     if phases - set(ALL_PHASES):
         parser.error(f"unknown phases {sorted(phases - set(ALL_PHASES))}")
-    if phases & {"lora", "int8"} and "slice" not in phases:
-        parser.error("--phases lora and int8 need slice: they work on the serving phase's model")
+    if phases & {"lora", "int8", "pp"} and "slice" not in phases:
+        parser.error("--phases lora, int8 and pp need slice: they work on the serving phase's model")
     if "tp" in phases and not {"slice", "int8"} <= phases:
         parser.error("--phases tp needs slice and int8: it is held against their answers")
     t_start = time.perf_counter()
@@ -3353,6 +3675,8 @@ def main(argv=None) -> int:
     if "slice" in phases:
         refs: dict = {}     # the whole model's answers, on the host, for the tp phase
         _, model, bf16_peak = run("slice", phase_slice, refs)
+        if "pp" in phases:
+            run("pp", phase_pp, model, refs)
         with tempfile.TemporaryDirectory() as tmp:
             if phases & {"lora", "int8"}:
                 # one (gt, text_alpha) PNG tree for both stages

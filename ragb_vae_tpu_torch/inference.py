@@ -1,7 +1,8 @@
-"""Text-alpha inference (library + CLI core), on one device or tensor-parallel.
+"""Text-alpha inference (library + CLI core), on one device, tensor-parallel
+or pipeline-parallel.
 
-Counterpart of `ragb_vae_tpu/inference.py` without `--pp`: same flags,
-seeded sampling, one image or a batch of images grouped by size.
+Counterpart of `ragb_vae_tpu/inference.py`: same flags, seeded sampling, one
+image or a batch of images grouped by size.
 On a CUDA device the RGBA VAE runs its fused kernels. `--lora_path` loads
 peft-format adapters (written by either package's LoRA stage) at `--rank` /
 `--lora_alpha`. `--quant int8` serves the transformer in weight-only int8: a
@@ -11,8 +12,11 @@ runs (default `cuda`; a missing card raises, nothing falls back to the CPU).
 `--tp N` runs the transformer tensor-parallel over N processes, one per
 device, under `torchrun --nproc-per-node N` (N must equal the world size):
 each rank loads its shard, every rank reads the same inputs and samples them
-alike, and rank 0 alone writes the outputs. `--pp` is not ported yet and
-raises.
+alike, and rank 0 alone writes the outputs. `--pp N` runs the transformer as
+an N-stage pipeline from this one process (`parallel/pipeline.py`): on the
+card over `cuda:0` .. `cuda:N-1`, with `--device cpu` N stages on the CPU;
+the VAE and the prompt live on the first stage's device, and a seed gives the
+answer it gives at `--pp 1`. `--tp` and `--pp` exclude each other.
 
     python -m ragb_vae_tpu_torch.inference --pretrained_model_name_or_path CKPT \
         --rgba_vae_path VAE --input_image in.png --output_path out.png
@@ -57,21 +61,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "plain checkpoint at load.")
     p.add_argument("--device", type=str, default="cuda",
                    help="Device to run on. 'cuda' without a CUDA device is an error.")
-    p.add_argument("--pp", type=int, default=1, help="Pipeline parallelism: not ported yet.")
+    p.add_argument("--pp", type=int, default=1,
+                   help="Pipeline parallelism: the transformer in N stages on cuda:0..N-1 (N stages on the "
+                        "CPU with --device cpu), driven by this one process.")
     p.add_argument("--tp", type=int, default=1,
                    help="Tensor parallelism over N processes under torchrun --nproc-per-node N.")
     return p.parse_args(argv)
-
-
-def _check_ported(args: argparse.Namespace) -> None:
-    missing = []
-    if args.pp > 1:
-        missing.append(f"--pp {args.pp}")
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)}: not ported yet to the PyTorch package "
-            "(use ragb_vae_tpu.inference)."
-        )
 
 
 def _resolve_inputs(spec: str):
@@ -94,13 +89,14 @@ def run(args: argparse.Namespace) -> None:
     from ragb_vae_tpu_torch.data.image_io import load_rgba, save_rgba
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
 
-    from ragb_vae_tpu_torch.parallel.bootstrap import build_tp_group, validate_tp_pp
+    from ragb_vae_tpu_torch.parallel.bootstrap import build_pipelined_transformer, build_tp_group, validate_tp_pp
     from ragb_vae_tpu_torch.parallel.mesh import local_device
+    from ragb_vae_tpu_torch.parallel.pipeline import pipelined_sample
 
     validate_tp_pp(args.tp, args.pp)
-    _check_ported(args)
     device = local_device(resolve_device(args.device))
     tp = build_tp_group(args.tp, device)
+    pipe = build_pipelined_transformer(args.pp, device, args.pretrained_model_name_or_path)
     writes = tp.rank == 0          # under --tp every rank samples; rank 0 writes
     model = FluxTextAlphaModel.from_pretrained(
         args.pretrained_model_name_or_path,
@@ -113,13 +109,18 @@ def run(args: argparse.Namespace) -> None:
         lora_alpha=float(args.lora_alpha) if args.lora_path else 0.0,
         weight_quant=args.quant,
         tp=tp,
+        pipeline=pipe,
     )
     if args.lora_path:
         model.load_lora(args.lora_path)
-    generator = torch.Generator(device).manual_seed(args.seed if args.seed is not None else 0)
+    generator = torch.Generator(model.device).manual_seed(args.seed if args.seed is not None else 0)
 
     def run_sample(batch: np.ndarray) -> np.ndarray:
-        out = model.sample(torch.from_numpy(batch), num_inference_steps=args.steps, generator=generator)
+        gt = torch.from_numpy(batch)
+        if pipe is None:
+            out = model.sample(gt, num_inference_steps=args.steps, generator=generator)
+        else:
+            out = pipelined_sample(model, pipe, gt, num_inference_steps=args.steps, generator=generator)
         return out.cpu().numpy()
 
     paths = _resolve_inputs(args.input_image)

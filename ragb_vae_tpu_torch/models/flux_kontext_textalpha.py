@@ -154,15 +154,22 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     weight exists at a time."""
     plan = getattr(module, "fsdp", None)
 
+    def drawn(like: Tensor, fill) -> Tensor:
+        """`fill(like)`, drawn on the generator's device: a pipeline stage on
+        another device gets the numbers the whole model on one device gets."""
+        if like.device == generator.device:
+            return fill(like)
+        return like.copy_(fill(torch.empty_like(like, device=generator.device)))
+
     def draw(m, key: str, like: Tensor, fill) -> Tensor:
         split = None if plan is None else plan.split_of(key)
         if split is not None:
             full = torch.empty(split[1], dtype=like.dtype, device=like.device)
-            return like.copy_(plan.part(fill(full), split[0]))
+            return like.copy_(plan.part(drawn(full, fill), split[0]))
         if not isinstance(m, QLinear) or m.tp_kind == "none":
-            return fill(like)
+            return drawn(like, fill)
         full = torch.empty((m.out_features, m.in_features), dtype=like.dtype, device=like.device)
-        return like.copy_(m.shard_of(key.rsplit(".", 1)[-1], fill(full)))
+        return like.copy_(m.shard_of(key.rsplit(".", 1)[-1], drawn(full, fill)))
 
     for name, m in module.named_modules():
         if isinstance(m, QLinear) and m.weight_quant == "int8":
@@ -177,7 +184,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
         elif p.ndim == 1:
             p.fill_(1.0)
         elif leaf == "lora_A":
-            p.normal_(0.0, 1.0 / p.shape[0], generator=generator)  # std 1/rank, as peft
+            drawn(p, lambda t: t.normal_(0.0, 1.0 / p.shape[0], generator=generator))  # std 1/rank, as peft
         else:
             m = module.get_submodule(owner)
             fan_in = m.in_features if isinstance(m, QLinear) else p[0].numel()
@@ -194,6 +201,14 @@ def _sharded(transformer: FluxTransformer2D, tp: Optional[Mesh], device, weight_
         validate_tp(transformer.config, tp.size, cuda=torch.device(device).type == "cuda", weight_quant=weight_quant)
         shard_transformer_(transformer, tp)
     return shard_base_(transformer, fsdp) if fsdp is not None else transformer
+
+
+def per_sample_loss(pred: Tensor, loss_target: Tensor, weighting: Tensor, seq_cond: int,
+                    latent_h: int, latent_w: int) -> Tensor:
+    """(B,) mean of weighting * (pred_target - loss_target)^2 in fp32 over the
+    target half of the packed prediction (B, seq_cond + n, C)."""
+    pred_target = unpack_latents(pred[:, seq_cond:, :].float(), latent_h, latent_w)
+    return (weighting * (pred_target - loss_target) ** 2).reshape(pred.shape[0], -1).mean(dim=1)
 
 
 class FluxTextAlphaModel:
@@ -267,6 +282,7 @@ class FluxTextAlphaModel:
         tp: Optional[Mesh] = None,
         fsdp: Optional[Mesh] = None,
         seq: Optional[Mesh] = None,
+        pipeline=None,
     ) -> "FluxTextAlphaModel":
         """A model with random weights and random prompt embeddings, all
         drawn from `seed` on `device` (the card unless the caller names the
@@ -281,13 +297,24 @@ class FluxTextAlphaModel:
         whole one (each full weight in turn, its slice kept); the VAE and the
         embeddings are whole on every rank. `fsdp` (a data axis): this rank's
         FSDP part of the frozen base, drawn the same way. `seq` (a sequence
-        axis): the transformer runs sequence-parallel over it."""
-        device = resolve_device(device)
+        axis): the transformer runs sequence-parallel over it.
+
+        `pipeline` (a `parallel/pipeline.py::PipelinedFluxTransformer` of this
+        config): each stage's part of the transformer is materialised on its
+        stage's device and drawn there from the same stream (each tensor
+        drawn on the first stage's device and copied over), so a seed gives
+        the same model at any placement; the VAE and the prompt live on the
+        first stage's device, which replaces `device`."""
+        device = resolve_device(device if pipeline is None else pipeline.device)
         gen = torch.Generator(device).manual_seed(seed)
         transformer = _sharded(FluxTransformer2D(
             t_config, remat=use_gradient_checkpointing, weight_quant=weight_quant,
             device="meta", dtype=dtype,
-        ), tp, device, weight_quant, fsdp).to_empty(device=device)
+        ), tp, device, weight_quant, fsdp)
+        if pipeline is None:
+            transformer.to_empty(device=device)
+        else:
+            pipeline.place_(transformer)
         vae = RgbaVAE(vae_config, dtype=dtype, fused=fused, device="meta")
         vae.module.to_empty(device=device)
         init_random_(transformer, gen)
@@ -318,6 +345,7 @@ class FluxTextAlphaModel:
         tp: Optional[Mesh] = None,
         fsdp: Optional[Mesh] = None,
         seq: Optional[Mesh] = None,
+        pipeline=None,
     ) -> "FluxTextAlphaModel":
         """Transformer from `<model_path>/transformer`, scheduler config and
         `empty_prompt_embeds.npz` from `model_path`, RGBA VAE from
@@ -342,9 +370,16 @@ class FluxTextAlphaModel:
         quantised part by part (`fsdp.quantize_sharded_`), so the parts are
         those of the quantised whole. `seq`: as in `random`.
 
+        `pipeline` (a `parallel/pipeline.py::PipelinedFluxTransformer` of the
+        checkpoint's config): the weights are read into host memory and each
+        stage's modules go straight to its stage's device; a plain checkpoint
+        quantised at load is quantised one linear at a time on its stage's
+        device. No device holds more than its stage, and the first stage's
+        device also the VAE and the prompt (it replaces `device`).
+
         `device` is the card unless the caller names the CPU; a missing card
         raises."""
-        device = resolve_device(device)
+        device = resolve_device(device if pipeline is None else pipeline.device)
         if weight_quant not in WEIGHT_QUANT_MODES:
             raise ValueError(f"Unknown weight_quant mode {weight_quant!r}.")
         t_dir = Path(model_path) / "transformer"
@@ -376,10 +411,19 @@ class FluxTextAlphaModel:
             module.load_state_dict({k: v.to(want.get(k, dtype)) for k, v in state.items()},
                                    strict=True, assign=True)
         if quantize_here:
-            quantize_module_(transformer, device=device, dtype=dtype)
+            if pipeline is None:
+                quantize_module_(transformer, device=device, dtype=dtype)
+            else:
+                for s, stage_device in enumerate(pipeline.devices):
+                    for part in pipeline.stage_modules(transformer, s):
+                        quantize_module_(part, device=stage_device, dtype=dtype)
+                transformer.weight_quant = "int8"
             for p in transformer.parameters():      # what is left: the RMSNorm weights
                 p.data = p.data.to(dtype)
-        transformer.to(device)
+        if pipeline is None:
+            transformer.to(device)
+        else:
+            pipeline.place_(transformer)
         vae.module.to(device)
         prompt, pooled, text_ids = load_empty_prompt(model_path)
         model = cls(transformer.eval(), vae, load_scheduler(model_path), torch.from_numpy(prompt),
@@ -450,15 +494,23 @@ class FluxTextAlphaModel:
         h, w, _ = self.latent_shape(height, width)
         return spm.applies(self.seq, 2 * (h // 2) * (w // 2), self.prompt_embeds.shape[1])
 
-    def _transformer_pred(self, packed: Tensor, timestep: Tensor, img_ids: Tensor, batch_size: int) -> Tensor:
+    def text_conditioning(self, batch_size: int) -> Tuple[Tensor, Tensor]:
+        """(prompt (B, txt_seq, joint_dim), pooled (B, pooled_dim)) in the model dtype."""
+        prompt = self.prompt_embeds.expand(batch_size, -1, -1).to(self.dtype)
+        pooled = self.pooled_prompt_embeds.expand(batch_size, -1).to(self.dtype)
+        return prompt, pooled
+
+    def _transformer_pred(self, packed: Tensor, timestep: Tensor, img_ids: Tensor, batch_size: int,
+                          transformer=None) -> Tensor:
         """The transformer's prediction for the whole packed stream. Over a
         sequence axis each rank runs this rank's contiguous 1/sp of the image
         and the prompt streams and of their ids (txt first, as in the joint
         sequence), and the prediction is gathered; where a stream does not
         divide by sp the whole call runs unsharded on every rank, as JAX's
-        `_constrain_seq` and `attention` fall back."""
-        prompt = self.prompt_embeds.expand(batch_size, -1, -1).to(self.dtype)
-        pooled = self.pooled_prompt_embeds.expand(batch_size, -1).to(self.dtype)
+        `_constrain_seq` and `attention` fall back. `transformer`: what runs
+        in place of `self.transformer`, with its keyword signature (a
+        pipeline, `parallel/pipeline.py`)."""
+        prompt, pooled = self.text_conditioning(batch_size)
         txt_ids, seq = self.text_ids, None
         if spm.applies(self.seq, packed.shape[1], prompt.shape[1]):
             seq = self.seq
@@ -468,7 +520,7 @@ class FluxTextAlphaModel:
             self._told_unsharded = True
             print(f"[sequence_parallel] streams of {packed.shape[1]} image and {prompt.shape[1]} prompt tokens "
                   f"do not divide by {self.seq.size}: the transformer runs unsharded on every rank", flush=True)
-        pred = self.transformer(
+        pred = (self.transformer if transformer is None else transformer)(
             hidden_states=packed,
             encoder_hidden_states=prompt,
             pooled_projections=pooled,
@@ -523,6 +575,23 @@ class FluxTextAlphaModel:
     ) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Deterministic core of the flow-matching loss: the noise and the
         timestep density are handed in."""
+        inp = self.loss_inputs(cond_latent, target_latent, noise, u)
+        pred = self._transformer_pred(inp["packed"], inp["timesteps"] / 1000.0, inp["img_ids"], inp["bsz"])
+        per_sample = per_sample_loss(pred, inp["loss_target"], inp["weighting"], inp["seq_cond"],
+                                     inp["latent_h"], inp["latent_w"])
+        if weights is None:
+            loss = per_sample.mean()
+        else:
+            w = weights.float()
+            loss = (per_sample * w).sum() / torch.clamp(w.sum(), min=1e-8)
+        stats = {"timesteps_mean": inp["timesteps"].mean(), "sigmas_mean": inp["sigmas"].mean()}
+        return loss, stats
+
+    def loss_inputs(self, cond_latent: Tensor, target_latent: Tensor, noise: Tensor, u: Tensor) -> Dict[str, Any]:
+        """What the loss feeds the transformer and compares its prediction
+        with: the timesteps and sigmas `u` picks from the train schedule, the
+        packed (cond, noisy target) stream, its image ids, noise - target and
+        the SD3 weighting, with the sizes to unpack the prediction."""
         bsz, latent_h, latent_w = target_latent.shape[:3]
         device = target_latent.device
         sched = self._train_sched
@@ -540,20 +609,12 @@ class FluxTextAlphaModel:
         # the SAME latent image-id grid for both halves
         ids_single = prepare_latent_image_ids(latent_h // 2, latent_w // 2, device=device)
         img_ids = torch.cat([ids_single, ids_single], dim=0)
-
-        pred = self._transformer_pred(packed, timesteps / 1000.0, img_ids, bsz)
-        seq_cond = packed_cond.shape[1]
-        pred_target = unpack_latents(pred[:, seq_cond:, :].float(), latent_h, latent_w)
-        loss_target = noise - target_latent
-        weighting = compute_loss_weighting_for_sd3(sigmas, weighting_scheme="logit_normal")
-        per_sample = (weighting * (pred_target - loss_target) ** 2).reshape(bsz, -1).mean(dim=1)
-        if weights is None:
-            loss = per_sample.mean()
-        else:
-            w = weights.float()
-            loss = (per_sample * w).sum() / torch.clamp(w.sum(), min=1e-8)
-        stats = {"timesteps_mean": timesteps.mean(), "sigmas_mean": sigmas.mean()}
-        return loss, stats
+        return {
+            "bsz": bsz, "latent_h": latent_h, "latent_w": latent_w, "timesteps": timesteps, "sigmas": sigmas,
+            "packed": packed, "img_ids": img_ids, "seq_cond": packed_cond.shape[1],
+            "loss_target": noise - target_latent,
+            "weighting": compute_loss_weighting_for_sd3(sigmas, weighting_scheme="logit_normal"),
+        }
 
     # ------------------------------------------------------------------
     # Sampling
@@ -571,13 +632,15 @@ class FluxTextAlphaModel:
         step_noises: Tensor,
         *,
         return_trajectory: bool = False,
+        transformer=None,
     ):
         """Deterministic core of `sample`: all noise is injected.
 
         `init_noise` initialises the latents; `step_noises` is
         (num_steps, B, h, w, C), one fresh tensor per denoising step. With
         `return_trajectory` the (num_steps, B, h, w, C) latents after each
-        Euler step come back beside the final latents."""
+        Euler step come back beside the final latents. `transformer`: what
+        runs in place of `self.transformer` (`_transformer_pred`)."""
         num_steps = step_noises.shape[0]
         sched = self.sampling_schedule(num_steps)
         bsz, latent_h, latent_w = cond_latent.shape[:3]
@@ -595,7 +658,7 @@ class FluxTextAlphaModel:
             noisy_target = (1.0 - sigma) * latents + sigma * step_noises[i].float()
             packed = torch.cat([packed_cond, pack_latents(noisy_target.to(self.dtype))], dim=1)
             timestep = torch.full((bsz,), float(sched.timesteps[i]) / 1000.0, device=device)
-            pred = self._transformer_pred(packed, timestep, img_ids, bsz)
+            pred = self._transformer_pred(packed, timestep, img_ids, bsz, transformer)
             pred_target = unpack_latents(pred[:, seq_cond:, :].float(), latent_h, latent_w)
             latents = sched.step(pred_target, i, latents)
             if return_trajectory:
@@ -620,13 +683,14 @@ class FluxTextAlphaModel:
 
     @torch.inference_mode()
     def sample(self, gt: Tensor, *, num_inference_steps: int = 20,
-               generator: Optional[torch.Generator] = None) -> Tensor:
+               generator: Optional[torch.Generator] = None, transformer=None) -> Tensor:
         """(B, H, W, 4) [0,1] condition -> (B, H, W, 4) [0,1] text-alpha
-        prediction. Each sample's noise is drawn from `generator` in order."""
+        prediction. Each sample's noise is drawn from `generator` in order.
+        `transformer`: as in `sample_latents_from_noise`."""
         gt = gt.to(self.device)
         lat_shape = self.latent_shape(gt.shape[1], gt.shape[2])
         draws = [self.draw_noise(lat_shape, num_inference_steps, generator) for _ in range(gt.shape[0])]
         eps, init, steps = (torch.stack(t) for t in zip(*draws))
         cond = self.encode_latents(gt, eps)
-        latents = self.sample_latents_from_noise(cond, init, steps.transpose(0, 1))
+        latents = self.sample_latents_from_noise(cond, init, steps.transpose(0, 1), transformer=transformer)
         return self.decode_latents(latents)

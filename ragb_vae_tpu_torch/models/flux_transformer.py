@@ -287,12 +287,14 @@ class LoraDense(QLinear):
                     generator: Optional[torch.Generator] = None) -> None:
         """Attach (or replace) the adapter on the weight's device:
         A ~ N(0, 1/rank), B = 0, so the bypass starts at zero (peft's
-        init_lora_weights="gaussian")."""
+        init_lora_weights="gaussian"). A is drawn on the generator's device
+        (a pipeline stage's weight may lie on another)."""
         device = self.base_weight.device
         self.lora_rank = rank
         self.scaling = alpha / rank
-        a = torch.empty(rank, self.in_features, device=device, dtype=torch.float32)
-        self.lora_A = nn.Parameter(a.normal_(0.0, 1.0 / rank, generator=generator))
+        a = torch.empty(rank, self.in_features, device=device if generator is None else generator.device,
+                        dtype=torch.float32)
+        self.lora_A = nn.Parameter(a.normal_(0.0, 1.0 / rank, generator=generator).to(device))
         self.lora_B = nn.Parameter(
             torch.zeros(self.out_features, rank, device=device, dtype=torch.float32))
 

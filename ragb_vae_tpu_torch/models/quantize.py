@@ -106,7 +106,8 @@ def random_quantized_params_like(shape_tree: PyTree, seed: int = 0, device="cuda
 
 @torch.no_grad()
 def quantize_module_(transformer: torch.nn.Module, device=None, dtype=None) -> torch.nn.Module:
-    """Turn every linear of a built `FluxTransformer2D` into its int8 form in
+    """Turn every linear of a built `FluxTransformer2D` (or of one of its
+    modules: a pipeline stage's block) into its int8 form in
     place, one layer at a time, on the device it lives on or on `device` (the
     float weight is freed as soon as its int8 copy exists). `dtype`: what the
     linears then compute in (default: each weight's own); the AdaLN
@@ -121,7 +122,8 @@ def quantize_module_(transformer: torch.nn.Module, device=None, dtype=None) -> t
     for module in transformer.modules():
         if isinstance(module, QLinear):
             module.quantize_(device, None if isinstance(module, Fp32Linear) else dtype)
-    transformer.weight_quant = "int8"
+    if hasattr(transformer, "weight_quant"):     # not a pipeline stage's block
+        transformer.weight_quant = "int8"
     return transformer
 
 

@@ -154,14 +154,44 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}: {msg}")
 
 
-def stream_ptr(device) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on the CUDA `device`:
-    one call into the extension, where `torch.cuda.current_stream(device)
-    .cuda_stream` builds a Stream object first."""
+def _stream_ptr(index: int) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on CUDA device
+    `index`: one call into the extension, where `torch.cuda.current_stream(
+    device).cuda_stream` builds a Stream object first."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(export: str, device, *args) -> int:
+    """Call the library's launcher `export` on `args` and the current stream
+    of the CUDA `device`, with `device` the CUDA runtime's current device for
+    the call; returns its cudaError_t (pass it to `check`). Every kernel
+    wrapper launches through here.
+
+    The launchers act on the current device: the shared-memory opt-in
+    (`cudaFuncSetAttribute`), the SM count and the launch itself. PyTorch's
+    own ops guard their tensor's device; this does the same for ours, so a
+    tensor on `cuda:1` launches on `cuda:1` whatever device is current (a
+    pipeline stage's forward, a caller that never set one). The guard reads
+    the current device and switches only when it differs, and switches back
+    after the call."""
     import torch
 
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+    current = torch._C._cuda_getDevice()
+    if current == index:
+        return getattr(library(), export)(*args, ctypes.c_void_p(_stream_ptr(index)))
+    torch._C._cuda_setDevice(index)
+    try:
+        return getattr(library(), export)(*args, ctypes.c_void_p(_stream_ptr(index)))
+    finally:
+        torch._C._cuda_setDevice(current)
+
+
+def query(export: str, *args) -> int:
+    """Call one of the library's host-only exports (a tile shape, no launch)."""
+    return getattr(library(), export)(*args)
 
 
 def rgba_io_path() -> Path:

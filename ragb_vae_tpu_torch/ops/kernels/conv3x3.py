@@ -12,8 +12,6 @@ reference.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ragb_vae_tpu_torch.ops.kernels import _build
@@ -57,9 +55,9 @@ def conv3x3_same_cuda(x: Tensor, w: Tensor) -> Tensor:
     if c_in % 8 or n_out % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out}")
     y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
-    err = _build.library().ragb_conv3x3_same(
+    err = _build.launch(
+        "ragb_conv3x3_same", x.device,
         _ptr(x), _ptr(w), _ptr(y), bsz, height, width, c_in, n_out,
-        ctypes.c_void_p(_build.stream_ptr(x.device)),
     )
     _build.check(err, name)
     LAUNCHES += 1

@@ -162,11 +162,11 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, sm_scale: float) ->
         parts = [torch.empty((splits, bh, seq_q, d), dtype=torch.float32, device=q.device),
                  torch.empty((splits, bh, seq_q), dtype=torch.float32, device=q.device),
                  torch.empty((splits, bh, seq_q), dtype=torch.float32, device=q.device)]
-    err = _build.library().ragb_flash_attention_fwd(
+    err = _build.launch(
+        "ragb_flash_attention_fwd", q.device,
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse),
         *(ctypes.c_void_p(None if t is None else t.data_ptr()) for t in parts),
         bh, seq_q, seq_k, d, splits, float(sm_scale),
-        ctypes.c_void_p(_build.stream_ptr(q.device)),
     )
     _build.check(err, name)
     LAUNCHES += 1
@@ -251,10 +251,10 @@ def flash_attention_dq_cuda(
     name = "flash_attention_dq"
     q, k, v, g, lse, delta = _bwd_operands(name, q, k, v, g, lse, delta)
     dq = torch.empty_like(q)
-    err = _build.library().ragb_flash_attention_dq(
+    err = _build.launch(
+        "ragb_flash_attention_dq", q.device,
         _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq),
-        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale),
-        ctypes.c_void_p(_build.stream_ptr(q.device)))
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale))
     _build.check(err, name)
     DQ_LAUNCHES += 1
     return dq
@@ -268,10 +268,10 @@ def flash_attention_dkv_cuda(
     name = "flash_attention_dkv"
     q, k, v, g, lse, delta = _bwd_operands(name, q, k, v, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.library().ragb_flash_attention_dkv(
+    err = _build.launch(
+        "ragb_flash_attention_dkv", q.device,
         _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale),
-        ctypes.c_void_p(_build.stream_ptr(q.device)))
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale))
     _build.check(err, name)
     DKV_LAUNCHES += 1
     return dk, dv
@@ -296,10 +296,10 @@ def flash_attention_bwd_cuda(
     delta = attention_delta(out, g)
     q, k, v, g, lse, delta = _bwd_operands(name, q, k, v, g, lse, delta)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = _build.library().ragb_flash_attention_bwd(
+    err = _build.launch(
+        "ragb_flash_attention_bwd", q.device,
         _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
-        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale),
-        ctypes.c_void_p(_build.stream_ptr(q.device)))
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], float(sm_scale))
     _build.check(err, name)
     DQ_LAUNCHES += 1
     DKV_LAUNCHES += 1

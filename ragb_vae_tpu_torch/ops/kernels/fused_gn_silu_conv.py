@@ -12,7 +12,6 @@ version, as the JAX package differentiates its XLA reference.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -69,9 +68,9 @@ def fused_gn_silu_conv3x3_cuda(x: Tensor, a: Tensor, b: Tensor, w: Tensor, bias:
     if c_in % 8 or n_out % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got C={c_in} N={n_out}")
     y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
-    err = _build.library().ragb_fused_gn_silu_conv3x3(
+    err = _build.launch(
+        "ragb_fused_gn_silu_conv3x3", x.device,
         _ptr(x), _ptr(a), _ptr(b), _ptr(w), _ptr(bias), _ptr(y), bsz, height, width, c_in, n_out,
-        ctypes.c_void_p(_build.stream_ptr(x.device)),
     )
     _build.check(err, name)
     LAUNCHES += 1

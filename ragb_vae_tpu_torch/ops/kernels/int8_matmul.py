@@ -80,10 +80,10 @@ def int8_matmul_cuda(x: Tensor, weight_q: Tensor, scale: Tensor, bias: Optional[
     y = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
     if rows:
         ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())
-        err = _build.library().ragb_int8_matmul(
+        err = _build.launch(
+            "ragb_int8_matmul", x.device,
             ptr(x2), ptr(weight_q), ptr(scale), ptr(bias), ptr(y), rows, n_out, k_in,
             1 if x.dtype == torch.float32 else 0,
-            ctypes.c_void_p(_build.stream_ptr(x.device)),
         )
         _build.check(err, name)
         LAUNCHES += 1

@@ -173,7 +173,7 @@ def _tile_shape(export: str) -> Tuple[int, int]:
     conv engine's: K1, K2, K6, K9)."""
     if export not in _TILE_SHAPES:
         th, tw = ctypes.c_int(), ctypes.c_int()
-        getattr(_build.library(), export)(ctypes.byref(th), ctypes.byref(tw))
+        _build.query(export, ctypes.byref(th), ctypes.byref(tw))
         _TILE_SHAPES[export] = (th.value, tw.value)
     return _TILE_SHAPES[export]
 
@@ -239,12 +239,12 @@ def conv3x3_stats_cuda(
     y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
     partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, 2, n_out), dtype=torch.float32, device=x.device)
-    err = _build.library().ragb_resnet_conv3x3_stats(
+    err = _build.launch(
+        "ragb_resnet_conv3x3_stats", x.device,
         _ptr(x), _ptr(a), _ptr(b), _ptr(w), _ptr(bias), _ptr(skip), _ptr(ws), _ptr(wsb),
         _ptr(y), _ptr(partial), _ptr(stats),
         tiles, bsz, height, width, c_in, n_out, c_skip,
         1 if activation == "silu" else 0, skip_mode,
-        ctypes.c_void_p(_build.stream_ptr(x.device)),
     )
     _build.check(err, name)
     CONV_LAUNCHES += 1
@@ -398,12 +398,12 @@ def wino_conv3x3_stats_cuda(
     y = torch.empty((bsz, height, width, n_out), dtype=x.dtype, device=x.device)
     partial = torch.empty(plan.partial, dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, 2, n_out), dtype=torch.float32, device=x.device)
-    err = _build.library().ragb_resnet_conv3x3_stats_wino(
+    err = _build.launch(
+        "ragb_resnet_conv3x3_stats_wino", x.device,
         _ptr(x), _ptr(a), _ptr(b), _ptr(u), _ptr(bias), _ptr(skip), _ptr(ws), _ptr(wsb),
         _ptr(xa), _ptr(y), _ptr(partial), _ptr(stats),
         plan.tiles, bsz, height, width, c_in, n_out, c_skip,
         1 if activation == "silu" else 0, skip_mode,
-        ctypes.c_void_p(_build.stream_ptr(x.device)),
     )
     _build.check(err, name)
     WINO_LAUNCHES += 1
@@ -626,13 +626,13 @@ def conv3x3_stats_bwd_cuda(
     dbias_partial = torch.empty(plan.dbias_partial, **f32)
     dab_partial = torch.empty(plan.dab_partial, **f32)
     dw_partial = torch.empty(plan.dw_partial, **f32)
-    err = _build.library().ragb_resnet_conv3x3_stats_bwd(
+    err = _build.launch(
+        "ragb_resnet_conv3x3_stats_bwd", dev,
         _ptr(x), _ptr(a), _ptr(b), _ptr(wt), _ptr(skip), _ptr(ws), _ptr(y), _ptr(gy), _ptr(gstats),
         _ptr(dye), _ptr(act), _ptr(dx), _ptr(dab), _ptr(dw), _ptr(dbias), _ptr(dskip), _ptr(dws),
         _ptr(dbias_partial), _ptr(dab_partial), _ptr(dw_partial), _ptr(dws_partial),
         plan.tiles, plan.s_dye, plan.s_w, plan.s_ws, bsz, height, width, c_in, n_out, c_skip,
         1 if activation == "silu" else 0, skip_mode,
-        ctypes.c_void_p(_build.stream_ptr(dev)),
     )
     _build.check(err, name)
     CONV_BWD_LAUNCHES += 1
@@ -663,9 +663,9 @@ def skip_grad_cuda(dye: Tensor, ws: Tensor) -> Tensor:
     if n_out % 8 or c_skip % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got N={n_out} Cs={c_skip}")
     dskip = torch.empty((bsz, height, width, c_skip), dtype=dye.dtype, device=dye.device)
-    err = _build.library().ragb_resnet_skip_grad(
-        _ptr(dye), _ptr(ws), _ptr(dskip), bsz, height, width, n_out, c_skip,
-        ctypes.c_void_p(_build.stream_ptr(dye.device)))
+    err = _build.launch(
+        "ragb_resnet_skip_grad", dye.device,
+        _ptr(dye), _ptr(ws), _ptr(dskip), bsz, height, width, n_out, c_skip)
     _build.check(err, name)
     SKIP_GRAD_LAUNCHES += 1
     return dskip
@@ -781,10 +781,10 @@ def upsample_conv3x3_stats_cuda(
     y = torch.empty((bsz, 2 * height, 2 * width, n_out), dtype=x.dtype, device=x.device)
     partial = torch.empty((bsz, tiles, 2, n_out), dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, 2, n_out), dtype=torch.float32, device=x.device)
-    err = _build.library().ragb_subpixel_upsample_conv3x3_stats(
+    err = _build.launch(
+        "ragb_subpixel_upsample_conv3x3_stats", x.device,
         _ptr(x), _ptr(w_fold), _ptr(bias), _ptr(y), _ptr(partial), _ptr(stats),
         tiles, bsz, height, width, c_in, n_out,
-        ctypes.c_void_p(_build.stream_ptr(x.device)),
     )
     _build.check(err, name)
     UPSAMPLE_LAUNCHES += 1
@@ -900,11 +900,11 @@ def upsample_conv3x3_stats_bwd_cuda(
     dbias = torch.empty((n_out,), **f32)
     dbias_partial = torch.empty(plan.dbias_partial, **f32)
     dw_partial = torch.empty(plan.dw_partial, **f32)
-    err = _build.library().ragb_subpixel_upsample_conv3x3_stats_bwd(
+    err = _build.launch(
+        "ragb_subpixel_upsample_conv3x3_stats_bwd", dev,
         _ptr(x), _ptr(wb), _ptr(y), _ptr(gy), _ptr(gstats),
         _ptr(dye), _ptr(dx), _ptr(dw_fold), _ptr(dbias), _ptr(dbias_partial), _ptr(dw_partial),
         plan.s_dye, plan.s_w, bsz, height, width, c_in, n_out,
-        ctypes.c_void_p(_build.stream_ptr(dev)),
     )
     _build.check(err, name)
     UPSAMPLE_BWD_LAUNCHES += 1
@@ -978,10 +978,10 @@ def downsample_conv3x3_stats_cuda(x: Tensor, w: Tensor, bias: Tensor) -> Tuple[T
     # one allocation: the (B, T, 2, N) partials, then the (B, 2, N) statistics
     scratch = torch.empty(bsz * (tiles + 1) * 2 * n_out, dtype=torch.float32, device=x.device)
     partial, stats = scratch[: bsz * tiles * 2 * n_out], scratch[bsz * tiles * 2 * n_out:].view(bsz, 2, n_out)
-    err = _build.library().ragb_downsample_conv3x3_stats(
+    err = _build.launch(
+        "ragb_downsample_conv3x3_stats", x.device,
         _ptr(x), _ptr(w), _ptr(bias), _ptr(y), _ptr(partial), _ptr(stats),
         tiles, bsz, height, width, c_in, n_out,
-        ctypes.c_void_p(_build.stream_ptr(x.device)),
     )
     _build.check(err, name)
     DOWNSAMPLE_LAUNCHES += 1

@@ -1,7 +1,7 @@
 """Batched text-alpha inference serving (resident process + dynamic batcher).
 
-Counterpart of `ragb_vae_tpu/serving.py`, on one device or tensor-parallel
-over a model group (the pipeline-parallel variant is not ported yet):
+Counterpart of `ragb_vae_tpu/serving.py`, on one device, tensor-parallel
+over a model group or pipeline-parallel over several devices:
 
 - requests are snapped host-side to a small bucket envelope (`snap_size`),
   and a batch holds requests of one bucket only;
@@ -23,6 +23,11 @@ group (a header, the images, the seeds), and every rank then encodes,
 samples and decodes it, the VAE replicated as in the JAX package's
 `sharded_sample_fn`. Ranks above 0 run `serve_worker()`, which follows those
 broadcasts until rank 0's `stop()` broadcasts the stop message.
+
+Pipeline parallel (`pipeline=`, a `parallel/pipeline.py::PipelinedFluxTransformer`
+the model was placed on): one process; each batch draws its noise exactly as
+the single-device path does and samples through the pipeline, the VAE on the
+first stage's device.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from ragb_vae_tpu_torch.parallel.mesh import Mesh, broadcast
+from ragb_vae_tpu_torch.parallel.pipeline import pipelined_sample_latents
 
 
 def snap_size(
@@ -117,8 +123,8 @@ class InferenceServer:
     text-alpha RGBA (H, W, 4) float32 at the request's original size.
     `start()`/`stop()` manage the batcher thread; the object is also a
     context manager. With `tp_group` (a model axis of size > 1) it runs on
-    every rank of the group: see the module docstring; `pipeline` (PP) is
-    not ported yet, and TP with PP is refused as in the JAX package."""
+    every rank of the group, with `pipeline` (PP) through the pipeline: see
+    the module docstring. TP with PP is refused as in the JAX package."""
 
     # header of a batch broadcast: (kind, batch, height, width)
     _BATCH, _STOP = 1, 0
@@ -127,9 +133,8 @@ class InferenceServer:
                  pipeline=None) -> None:
         if tp_group is not None and tp_group.size > 1 and pipeline is not None:
             raise ValueError("tp_group (TP) and pipeline (PP) are mutually exclusive.")
-        if pipeline is not None:
-            raise NotImplementedError("pipeline-parallel serving is not ported yet to the PyTorch package")
         self.model = model
+        self.pipeline = pipeline
         self.tp = tp_group or Mesh()
         self._stop_sent = False
         self.config = config or ServeConfig()
@@ -166,7 +171,10 @@ class InferenceServer:
         ]
         eps, init, per_step = (torch.stack(t) for t in zip(*draws))
         cond = model.encode_latents(gt, eps)
-        lat = model.sample_latents_from_noise(cond, init, per_step.transpose(0, 1))
+        if self.pipeline is None:
+            lat = model.sample_latents_from_noise(cond, init, per_step.transpose(0, 1))
+        else:
+            lat = pipelined_sample_latents(model, self.pipeline, cond, init, per_step.transpose(0, 1))
         return model.decode_latents(lat).cpu().numpy()
 
     # -- tensor parallel: rank 0 sends, the others follow -----------------

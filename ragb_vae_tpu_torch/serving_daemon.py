@@ -26,8 +26,11 @@ transformer tensor-parallel over N processes, one per device:
 (N must equal the world size). Rank 0 binds the HTTP port and runs the
 batcher; every batch is broadcast to the other ranks, which follow in
 `InferenceServer.serve_worker` until rank 0's SIGTERM drain broadcasts the
-stop message, so all ranks exit. `--pp` above 1 is not ported yet and
-raises; `--compilation-cache` is accepted so that a
+stop message, so all ranks exit. `--pp N` serves the transformer as an
+N-stage pipeline from this one process (`parallel/pipeline.py`; on the card
+over `cuda:0` .. `cuda:N-1`, with `--device cpu` on the CPU), with the same
+answers as `--pp 1`; `--tp` and `--pp` exclude each other.
+`--compilation-cache` is accepted so that a
 command line of the JAX daemon runs unchanged, and has no effect (the CUDA
 kernels are built once into `build/kernels/` and kept there).
 
@@ -47,7 +50,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from ragb_vae_tpu_torch.inference import _DTYPES, _check_ported
+from ragb_vae_tpu_torch.inference import _DTYPES
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -71,7 +74,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--precision", type=str, default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--tp", type=int, default=1,
                    help="Tensor parallelism over N processes under torchrun --nproc-per-node N.")
-    p.add_argument("--pp", type=int, default=1, help="Pipeline parallelism: not ported yet.")
+    p.add_argument("--pp", type=int, default=1,
+                   help="Pipeline parallelism: the transformer in N stages on cuda:0..N-1 (N stages on the "
+                        "CPU with --device cpu), driven by this one process.")
     p.add_argument("--quant", type=str, default="none", choices=["none", "int8"],
                    help="Weight-only int8 transformer: a quantised checkpoint "
                         "(scripts/quantize_flux_checkpoint_torch.py) loads as it is, a plain one "
@@ -94,13 +99,13 @@ def build_server(args: argparse.Namespace):
     from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel, read_lora_metadata
     from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
 
-    from ragb_vae_tpu_torch.parallel.bootstrap import build_tp_group, validate_tp_pp
+    from ragb_vae_tpu_torch.parallel.bootstrap import build_pipelined_transformer, build_tp_group, validate_tp_pp
     from ragb_vae_tpu_torch.parallel.mesh import local_device
 
     validate_tp_pp(args.tp, args.pp)
-    _check_ported(args)
     device = local_device(resolve_device(args.device))
     tp = build_tp_group(args.tp, device)
+    pipe = build_pipelined_transformer(args.pp, device, args.pretrained_model_name_or_path)
     if getattr(args, "compilation_cache", "off") != "off":
         print("[serve] --compilation-cache has no effect in the PyTorch port", flush=True)
     if args.lora_path:
@@ -119,6 +124,7 @@ def build_server(args: argparse.Namespace):
         lora_alpha=float(args.lora_alpha) if args.lora_path else 0.0,
         weight_quant=args.quant,
         tp=tp,
+        pipeline=pipe,
     )
     if args.lora_path:
         model.load_lora(args.lora_path)
@@ -126,7 +132,7 @@ def build_server(args: argparse.Namespace):
         max_batch=args.max_batch, max_delay_ms=args.max_delay_ms, steps=args.steps,
         auto_batch=not getattr(args, "no_auto_batch", False),
     )
-    return InferenceServer(model, cfg, tp_group=tp)
+    return InferenceServer(model, cfg, tp_group=tp, pipeline=pipe)
 
 
 def make_handler(server) -> type:

@@ -34,7 +34,8 @@ PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py",
     "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py", "k1_stage_variants.py", "k8_variants.py",
     "serve_torch.py", "convert_qwen_vae_to_rgba_torch.py", "prepare_rgba_vae_init_torch.py",
-    "dataset_sanity_check_torch.py", "rgb_vae_sanity_check_torch.py", "time_serving_daemon.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
+    "dataset_sanity_check_torch.py", "rgb_vae_sanity_check_torch.py", "time_serving_daemon.py",
+    "pp_multicard_check.py", "tp_torchrun_check.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -989,3 +990,92 @@ def test_the_scan_catches_a_build_into_the_jax_package(tmp_path):
     planted = tmp_path / "planted.py"
     planted.write_text('import subprocess\nsubprocess.run(["make", "-C", "native"])\n')
     assert [s for s in _string_constants(planted) if s in ("make", "native")] == ["make", "native"]
+
+
+# ---------------------------------------------------------------------------
+# every launch runs on its tensor's device (`_build.launch`)
+# ---------------------------------------------------------------------------
+KERNEL_WRAPPERS = sorted(p for p in (ROOT / "ops" / "kernels").glob("*.py") if p.name not in ("_build.py", "__init__.py"))
+HOST_EXPORTS = ("ragb_error_string", "ragb_wino_tile_shape", "ragb_conv_sm90_tile_shape")
+
+
+def _unguarded_library_uses(path: Path):
+    """(what, line) of every way `path` reaches the library other than
+    `_build.launch` and `_build.query`: `library()`, `stream_ptr`, or an
+    export called as an attribute. -> (uses, exports launched through launch)."""
+    bad, launched = [], set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Attribute) and (node.attr in ("library", "stream_ptr", "_stream_ptr")
+                                                or node.attr.startswith("ragb_")):
+            bad.append((node.attr, node.lineno))
+        elif isinstance(node, ast.Name) and node.id in ("library", "stream_ptr", "_stream_ptr"):
+            bad.append((node.id, node.lineno))
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.func.attr == "launch"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            launched.add(node.args[0].value)
+    return bad, launched
+
+
+@pytest.mark.parametrize("path", KERNEL_WRAPPERS, ids=lambda p: p.name)
+def test_kernel_wrappers_launch_only_through_the_device_guard(path):
+    bad, _ = _unguarded_library_uses(path)
+    assert not bad, f"{path.name} reaches the kernel library around `_build.launch`: {bad}"
+
+
+def test_every_launcher_export_is_launched_through_the_guard():
+    from ragb_vae_tpu_torch.ops.kernels import _build
+
+    launched = set().union(*(_unguarded_library_uses(p)[1] for p in KERNEL_WRAPPERS))
+    assert launched == set(_build._SIGNATURES) - set(HOST_EXPORTS)
+    assert not hasattr(_build, "stream_ptr")     # the raw stream is taken only inside `launch`
+
+
+def test_the_guard_scan_sees_planted_calls(tmp_path):
+    planted = tmp_path / "planted.py"
+    planted.write_text(
+        "err = _build.library().ragb_conv3x3_same(x, ctypes.c_void_p(_build.stream_ptr(x.device)))\n"
+        "lib = library()\n"
+        "err = _build.launch('ragb_int8_matmul', x.device, x)\n")
+    bad, launched = _unguarded_library_uses(planted)
+    assert sorted(what for what, _ in bad) == ["library", "library", "ragb_conv3x3_same", "stream_ptr"]
+    assert launched == {"ragb_int8_matmul"}
+
+
+@pytest.mark.parametrize("current,target", [(0, 1), (1, 1), (2, None)])
+def test_launch_makes_the_tensor_device_current_for_the_call(monkeypatch, current, target):
+    """On a fake CUDA runtime: the launcher runs with the tensor's device
+    current and that device's stream appended; the caller's device is
+    restored; nothing is switched when it is current already (an index-less
+    device is the current one)."""
+    import ctypes
+
+    import torch
+
+    from ragb_vae_tpu_torch.ops.kernels import _build
+
+    state = {"device": current, "sets": []}
+
+    def set_device(i):
+        state["sets"].append(i)
+        state["device"] = i
+
+    seen = []
+
+    class FakeLibrary:
+        def ragb_int8_matmul(self, *args):
+            seen.append((state["device"], args))
+            return 0
+
+    # a CPU build of torch has none of these: raising=False adds them
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: state["device"], raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_setDevice", set_device, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: state["device"])
+    monkeypatch.setattr(_build, "library", lambda: FakeLibrary())
+    device = torch.device("cuda") if target is None else torch.device("cuda", target)
+    assert _build.launch("ragb_int8_matmul", device, 7) == 0
+    want = current if target is None else target
+    (ran_on, args), = seen
+    assert ran_on == want and args[0] == 7 and isinstance(args[1], ctypes.c_void_p) and args[1].value == 1000 + want
+    assert state["device"] == current
+    assert state["sets"] == ([] if want == current else [want, current])

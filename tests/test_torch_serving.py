@@ -150,15 +150,56 @@ def test_inference_run_on_a_jax_written_checkpoint(tmp_path):
     np.testing.assert_array_equal(load_rgba(tmp_path / "again.png"), first)
 
 
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """The tiny checkpoint tree, an input PNG and rank-2 adapters (non-zero B)
+    in peft format at `lora/`."""
+    from ragb_vae_tpu_torch.data.image_io import save_rgba
+
+    root = tmp_path_factory.mktemp("ckpt")
+    _write_jax_checkpoint(root)
+    save_rgba(np.random.default_rng(4).uniform(size=(32, 32, 4)), root / "in.png")
+    lora = FluxTextAlphaModel.random(FluxTransformerConfig.tiny(), _vae_config(), seed=1, device="cpu",
+                                     prompt_len=4, lora_rank=2, lora_alpha=4.0)
+    with torch.no_grad():
+        for name, p in lora.transformer.named_parameters():
+            if name.endswith("lora_B"):
+                p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(len(name)))
+    lora.save_lora_weights(root / "lora")
+    return root
+
+
 @pytest.mark.parametrize("flag", [["--pp", "2", "--quant", "int8"], ["--pp", "3"], ["--pp", "2"],
                                   ["--lora_path", "x", "--pp", "2", "--device", "cpu"]])
-def test_inference_unported_options_raise(flag):
-    args = inference.parse_args(
-        ["--pretrained_model_name_or_path", "m", "--rgba_vae_path", "v",
-         "--input_image", "i", "--output_path", "o", *flag]
-    )
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        inference.run(args)
+def test_inference_unported_options_raise(checkpoint, flag):
+    """`--pp N` (with int8, with adapters) samples through an N-stage
+    pipeline on the CPU and writes the PNG `--pp 1` writes, bit for bit
+    (`x` stands for the adapters' directory)."""
+    from ragb_vae_tpu_torch.data.image_io import load_rgba
+
+    flag = [str(checkpoint / "lora") if f == "x" else f for f in flag]
+    outs = []
+    for pp in (flag[flag.index("--pp") + 1], "1"):
+        out = checkpoint / f"out_{'_'.join(flag).replace('/', '')}_{pp}.png"
+        argv = ["--pretrained_model_name_or_path", str(checkpoint / "flux"), "--rgba_vae_path", str(checkpoint / "vae"),
+                "--input_image", str(checkpoint / "in.png"), "--output_path", str(out), "--steps", "1", "--seed", "0",
+                "--precision", "fp32", "--device", "cpu", "--rank", "2", "--lora_alpha", "4", *flag]
+        argv[argv.index("--pp", len(argv) - len(flag)) + 1] = pp
+        inference.main(argv)
+        outs.append(load_rgba(out))
+    assert outs[0].shape == (32, 32, 4)
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_pipelined_server_answers_as_the_single_device_one(model):
+    from ragb_vae_tpu_torch.parallel.pipeline import PipelinedFluxTransformer
+
+    img = _images(5)[0]
+    answers = []
+    for pipeline in (None, PipelinedFluxTransformer(model.transformer_config, ["cpu"] * 3).place_(model.transformer)):
+        with InferenceServer(model, ServeConfig(max_batch=1, steps=2, auto_batch=False), pipeline=pipeline) as server:
+            answers.append(server.submit(img, seed=21).result(timeout=TIMEOUT_S))
+    np.testing.assert_array_equal(answers[0], answers[1])
 
 
 def test_inference_refuses_a_missing_card(monkeypatch):
@@ -176,3 +217,13 @@ def test_inference_refuses_a_missing_card(monkeypatch):
         FluxTextAlphaModel.random(FluxTransformerConfig.tiny(), _vae_config(), prompt_len=4)
     with pytest.raises(RuntimeError, match="is_available.. is False"):
         FluxTextAlphaModel.from_pretrained("no such directory", vae_path="nor this one")
+
+
+def test_inference_pp_exits_naming_the_card_count(monkeypatch):
+    """On the card with fewer cards than `--pp`, before anything is read."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    args = inference.parse_args(["--pretrained_model_name_or_path", "m", "--rgba_vae_path", "v",
+                                 "--input_image", "i", "--output_path", "o", "--pp", "4"])
+    with pytest.raises(SystemExit, match="--pp 4 needs 4 devices, found 2"):
+        inference.run(args)

@@ -4,8 +4,9 @@ The daemon's HTTP handler against the JAX package's over one stub server
 (the same PNG bytes, statuses and JSON keys), one loopback round trip through
 `make_httpd` on the tiny random model (the answer equals `InferenceServer.submit`
 of the same uint8-quantised image and seed, bit for bit), its flags against
-the JAX daemon's, and what raises: `--tp` / `--pp` above 1 and `--device cuda`
-without a card. The daemon's `main` is never called here: it installs a
+the JAX daemon's, `--pp 2` on the CPU against `--pp 1`, and what raises:
+`--tp` above 1 without torchrun, `--pp` above the cards there are, and
+`--device cuda` without a card. The daemon's `main` is never called here: it installs a
 SIGTERM handler and serves forever.
 """
 import io
@@ -162,13 +163,34 @@ def test_flags_and_defaults_match_the_jax_daemon():
 
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp"])
-def test_parallel_serving_is_not_ported(flag):
-    """--pp is not ported; --tp is, and without torchrun's process group of
-    that size it exits naming torchrun."""
-    args = serving_daemon.parse_args(REQUIRED + [flag, "2", "--device", "cpu"])
-    raised, match = (SystemExit, "torchrun") if flag == "--tp" else (NotImplementedError, f"{flag} 2")
-    with pytest.raises(raised, match=match):
-        serving_daemon.build_server(args)
+def test_parallel_serving_is_not_ported(flag, tmp_path, monkeypatch):
+    """Both are ported. --tp without torchrun's process group of that size
+    exits naming torchrun. --pp 2 on the CPU serves through a 2-stage
+    pipeline, the same answer as --pp 1 bit for bit; on the card with fewer
+    cards than stages it exits naming the count."""
+    if flag == "--tp":
+        args = serving_daemon.parse_args(REQUIRED + [flag, "2", "--device", "cpu"])
+        with pytest.raises(SystemExit, match="torchrun"):
+            serving_daemon.build_server(args)
+        return
+    from tests.test_torch_serving import _write_jax_checkpoint
+
+    _write_jax_checkpoint(tmp_path)
+    paths = ["--pretrained_model_name_or_path", str(tmp_path / "flux"), "--rgba_vae_path", str(tmp_path / "vae"),
+             "--steps", "1", "--max-batch", "1", "--no-auto-batch", "--precision", "fp32"]
+    image = np.random.default_rng(3).uniform(size=(64, 48, 4)).astype(np.float32)
+    answers = []
+    for pp in ("2", "1"):
+        server = serving_daemon.build_server(serving_daemon.parse_args(paths + [flag, pp, "--device", "cpu"]))
+        assert (pp == "1" and server.pipeline is None) or len(server.pipeline.stages) == 2
+        with server:
+            answers.append(server.submit(image, seed=4).result(timeout=TIMEOUT_S))
+    assert answers[0].shape == image.shape
+    np.testing.assert_array_equal(answers[0], answers[1])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--pp 2 needs 2 devices, found 1"):
+        serving_daemon.build_server(serving_daemon.parse_args(paths + [flag, "2"]))
 
 
 def test_missing_card_raises(monkeypatch):
