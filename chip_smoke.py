@@ -377,6 +377,18 @@ def time_ms(fn, runs: int = 10, warmups: int = 2) -> float:
     return statistics.median(times)
 
 
+def log_tflops(phase: str, what: str, flops: float, seconds: float) -> None:
+    """One line of model TFLOP/s (`ops/flops.py`'s count of the work over the
+    time) and its share of the card's bf16 peak."""
+    from ragb_vae_tpu_torch.ops.flops import peak_flops_for
+
+    peak = peak_flops_for(torch.cuda.get_device_name(0))
+    rate = flops / seconds / 1e12
+    log(phase, f"model TFLOP/s, {what}: {flops / 1e12:.3f} TFLOP in {seconds * 1e3:.1f} ms -> {rate:.2f} TFLOP/s, "
+        + (f"{rate * 1e12 / peak:.2%} of the card's {peak / 1e12:.0f} TFLOP/s bf16 peak" if peak
+           else "no peak known for this card"))
+
+
 def time_queued_ms(fn, runs: int = 10) -> float:
     """Mean time of `runs` calls issued back to back between two CUDA events,
     after two warm-up calls: the host's work per call overlaps the card's, as
@@ -1481,10 +1493,17 @@ def phase_slice(refs: dict):
     })
     from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
 
+    from ragb_vae_tpu_torch.ops.flops import textalpha_sample_flops
+
     image = _tp_request()
     with torch.inference_mode():
+        t = time.perf_counter()
         refs["answer"] = InferenceServer(model, ServeConfig(steps=SERVE_STEPS))._run_batch(
-            image[None], np.array([TP_SEED], np.uint32))[0]
+            image[None], np.array([TP_SEED], np.uint32))[0]      # host arrays back: synchronised
+        seconds = time.perf_counter() - t
+    log_tflops("slice", f"one 512^2 request, {SERVE_STEPS} sampler steps, b1, through the serving program",
+               textalpha_sample_flops(model.transformer_config, vae_cfg, 512, SERVE_STEPS,
+                                      model.prompt_embeds.shape[1]), seconds)
     refs["forward"] = _probe_forward(model, SEED + 4).cpu()
     refs["peak"], refs["resident"] = peak, resident
     return counts, model, peak
@@ -1653,6 +1672,11 @@ def phase_train() -> dict:
                              f"grad norm {values['train/grad_norm']}")
         log("train", f"step {i}: " + " ".join(f"{k.split('/')[1]}={v:.6g}" for k, v in values.items())
             + f"; {start.elapsed_time(end):.1f} ms")
+    from ragb_vae_tpu_torch.ops.flops import vae_train_step_flops
+
+    log_tflops("train", f"step {TRAIN_STEPS - 1} (the phase's first and only: first-call costs included), "
+               "8 images at 512^2", 8 * vae_train_step_flops(model.config, 512, lpips=True),
+               start.elapsed_time(end) / 1e3)
     images = torch.rand((4, 512, 512, 4), generator=gen, device="cuda")
     out = eval_step(images, generator=gen)
     torch.cuda.synchronize()
@@ -1989,6 +2013,12 @@ def phase_lora(model, work: Path) -> dict:
         raise SystemExit("[lora] the reloaded adapters differ from the trained ones")
     del lora_before
 
+    from ragb_vae_tpu_torch.ops.flops import lora_train_step_flops
+
+    log_tflops("lora", f"step {steps - 1} ({pairs} pairs at 512^2 in {n_micro} micro-batches; wall clock, data "
+               "included)", pairs * lora_train_step_flops(model.transformer_config, 2 * (512 // 16) ** 2,
+                                                          model.prompt_embeds.shape[1]),
+               marks[steps] - marks[steps - 1])
     micro = steps * n_micro
     log("lora", f"{steps} steps of {pairs} pairs at 512^2 in {n_micro} micro-batches; final loss {result['train/loss']:.6f}; "
         f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; adapters saved and reloaded bit for bit; "

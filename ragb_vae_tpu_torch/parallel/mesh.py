@@ -13,6 +13,11 @@ axis and a sequence axis, as the JAX package's ("data", "model", "sp") mesh
 does, sp innermost: global rank r has sequence rank r % sp, model rank
 (r // sp) % tp and data rank r // (tp * sp), so the tp * sp ranks of one
 data replica are consecutive and sit on one node.
+
+Every group waits at most its timeout for a collective: `DEFAULT_TIMEOUT`,
+or `RAGB_DIST_TIMEOUT_S` seconds when that is set, or what the caller of
+`maybe_init_distributed` passes; the groups `create_training_mesh` builds
+take the world's. `group_timeout` reads a group's back from its backend.
 """
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
+TIMEOUT_ENV = "RAGB_DIST_TIMEOUT_S"
+
+_joined_timeout: Optional[datetime.timedelta] = None     # the world's, when joined here
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,14 +65,17 @@ def maybe_init_distributed(
     init_method: Optional[str] = None,
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
-    timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+    timeout: Optional[datetime.timedelta] = None,
 ) -> bool:
     """Join the process group that torchrun describes (`WORLD_SIZE`, `RANK`,
     `LOCAL_RANK`, `MASTER_ADDR` / `MASTER_PORT`), or the one the arguments
     name (`init_method` such as `file://...` or `tcp://localhost:PORT`): NCCL
     for a CUDA `device`, which binds `cuda:LOCAL_RANK`, gloo for the CPU.
-    Returns whether a group exists afterwards; does nothing when one already
-    does or when neither the environment nor the arguments name one."""
+    `timeout` defaults to `RAGB_DIST_TIMEOUT_S` seconds, else
+    `DEFAULT_TIMEOUT`. Returns whether a group exists afterwards; does
+    nothing when one already does or when neither the environment nor the
+    arguments name one."""
+    global _joined_timeout
     if dist.is_initialized():
         return True
     world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
@@ -77,10 +88,27 @@ def maybe_init_distributed(
     device = local_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    if timeout is None:
+        seconds = os.environ.get(TIMEOUT_ENV)
+        timeout = datetime.timedelta(seconds=float(seconds)) if seconds else DEFAULT_TIMEOUT
     dist.init_process_group(
         "nccl" if device.type == "cuda" else "gloo",
         init_method=init_method or "env://", world_size=world_size, rank=rank or 0, timeout=timeout)
+    _joined_timeout = timeout
     return True
+
+
+def group_timeout(mesh: Mesh, device) -> datetime.timedelta:
+    """How long a collective of `mesh`'s group on `device` may wait before
+    the backend fails it (NCCL's watchdog aborts the process): the backend's
+    own setting, else the world's as joined here, else `DEFAULT_TIMEOUT`."""
+    if mesh.size > 1:
+        group = mesh.group or dist.group.WORLD
+        try:
+            return group._get_backend(torch.device(device)).options._timeout
+        except (AttributeError, RuntimeError):
+            pass
+    return _joined_timeout or DEFAULT_TIMEOUT
 
 
 def create_mesh() -> Mesh:
@@ -122,7 +150,7 @@ def create_training_mesh(tp: int = 1, sp: int = 1) -> Tuple[Mesh, Mesh, Mesh]:
             return Mesh()
         kept = None
         for fixed, ranks in members:
-            g = dist.new_group(ranks)
+            g = dist.new_group(ranks, timeout=_joined_timeout)
             if fixed:
                 kept = g
         return Mesh(size, mine, kept)

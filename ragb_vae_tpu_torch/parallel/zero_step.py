@@ -38,6 +38,14 @@ from ragb_vae_tpu_torch.parallel.sharding import FlatLayout
 Tensor = torch.Tensor
 MOMENTS = ("exp_avg", "exp_avg_sq")
 
+# collectives made by `ZeroAdamW.step` over a data axis above size 1 since the last reset
+COUNTS = {"reduce_scatter": 0, "all_gather": 0, "all_reduce": 0}
+
+
+def reset_counts() -> None:
+    for key in COUNTS:
+        COUNTS[key] = 0
+
 
 class ZeroAdamW:
     """AdamW over this rank's slice of the flat parameter buffer.
@@ -136,6 +144,9 @@ class ZeroAdamW:
             w = torch.ones((), device=self.device) if w_local is None else w_local.detach().float().reshape(())
             w_global = torch.clamp(all_reduce(w.clone(), mesh), min=1e-8)
             grad = reduce_scatter(flat.mul_(w), mesh).div_(w_global)
+            COUNTS["reduce_scatter"] += 1
+            COUNTS["all_reduce"] += 2
+            COUNTS["all_gather"] += 1
         else:
             grad = flat
         grad_norm = torch.sqrt(all_reduce(torch.sum(grad * grad), mesh))

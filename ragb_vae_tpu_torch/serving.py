@@ -22,7 +22,11 @@ queues and the batcher; each batch it launches is first broadcast to the
 group (a header, the images, the seeds), and every rank then encodes,
 samples and decodes it, the VAE replicated as in the JAX package's
 `sharded_sample_fn`. Ranks above 0 run `serve_worker()`, which follows those
-broadcasts until rank 0's `stop()` broadcasts the stop message.
+broadcasts until rank 0's `stop()` broadcasts the stop message. A worker
+waits for the next header inside a collective, which the group's backend
+fails after the group's timeout (NCCL's watchdog then aborts the process):
+so while no batch comes, rank 0's batcher broadcasts an idle header every
+quarter of that timeout, which the workers skip.
 
 Pipeline parallel (`pipeline=`, a `parallel/pipeline.py::PipelinedFluxTransformer`
 the model was placed on): one process; each batch draws its noise exactly as
@@ -41,7 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ragb_vae_tpu_torch.parallel.mesh import Mesh, broadcast
+from ragb_vae_tpu_torch.parallel.mesh import Mesh, broadcast, group_timeout
 from ragb_vae_tpu_torch.parallel.pipeline import pipelined_sample_latents
 
 
@@ -126,8 +130,11 @@ class InferenceServer:
     every rank of the group, with `pipeline` (PP) through the pipeline: see
     the module docstring. TP with PP is refused as in the JAX package."""
 
-    # header of a batch broadcast: (kind, batch, height, width)
-    _BATCH, _STOP = 1, 0
+    # header of a broadcast: (kind, batch, height, width)
+    _BATCH, _STOP, _IDLE = 1, 0, 2
+    # under TP, an idle rank 0 broadcasts an idle header this often, as a
+    # fraction of the model group's timeout (see the module docstring)
+    _KEEPALIVE_FRACTION = 0.25
 
     def __init__(self, model, config: Optional[ServeConfig] = None, *, tp_group: Optional[Mesh] = None,
                  pipeline=None) -> None:
@@ -138,6 +145,9 @@ class InferenceServer:
         self.tp = tp_group or Mesh()
         self._stop_sent = False
         self.config = config or ServeConfig()
+        self._keepalive_s = (self._KEEPALIVE_FRACTION * group_timeout(self.tp, model.device).total_seconds()
+                             if self.tp.size > 1 else float("inf"))
+        self._last_send = time.monotonic()
         self._bucket_batch: Dict[Tuple[int, int], int] = {}
         self._bucket_deadlines: Dict[Tuple[int, int], float] = {}
         self._queues: Dict[Tuple[int, int], "queue.Queue[_Request]"] = {}
@@ -185,6 +195,13 @@ class InferenceServer:
         if kind == self._BATCH:
             broadcast(torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(device), self.tp)
             broadcast(torch.from_numpy(seeds.astype(np.int64)).to(device), self.tp)
+        self._last_send = time.monotonic()
+
+    def _keep_alive(self) -> None:
+        """On rank 0's batcher thread: the idle header, when the workers have
+        waited `_KEEPALIVE_FRACTION` of the group's timeout."""
+        if self.tp.rank == 0 and not self._stop_sent and time.monotonic() - self._last_send >= self._keepalive_s:
+            self._send(self._IDLE)
 
     def serve_worker(self) -> int:
         """On a rank above 0 of the model group: run every batch rank 0
@@ -198,6 +215,8 @@ class InferenceServer:
                 header = broadcast(torch.zeros(4, dtype=torch.int64, device=device), self.tp).tolist()
                 if header[0] == self._STOP:
                     return batches
+                if header[0] == self._IDLE:
+                    continue
                 b, h, w = header[1:]
                 images = broadcast(torch.empty((b, h, w, 4), dtype=torch.float32, device=device), self.tp)
                 seeds = broadcast(torch.empty((b,), dtype=torch.int64, device=device), self.tp)
@@ -376,6 +395,7 @@ class InferenceServer:
         first waiter has waited `max_delay` (deadlines are per bucket)."""
         deadlines = self._bucket_deadlines
         while not self._stop.is_set():
+            self._keep_alive()
             with self._queues_lock:
                 ready = [(q.qsize(), b, q) for b, q in self._queues.items() if q.qsize()]
             if not ready:

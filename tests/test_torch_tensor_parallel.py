@@ -62,6 +62,7 @@ from torch_dist_worker import (
     tp_case,
     tp_loads,
     tp_model,
+    tp_served,
     tp_stage,
     tp_train_steps,
 )
@@ -118,6 +119,7 @@ def setup():
         "noises": rng.standard_normal((steps, 1, 16, 16, 4)).astype(np.float32),
         "latents": [rng.standard_normal((2, 16, 16, 4)).astype(np.float32) for _ in range(3)],
         "u": np.array([0.3, 0.7], np.float32),
+        "serve_image": rng.uniform(size=(64, 64, 4)).astype(np.float32),
         "lr": LR, "seed": 5,
         "batches": [tuple(rng.uniform(size=(4, 32, 32, 4)).astype(np.float32) for _ in range(2))
                     for _ in range(STEPS)],
@@ -233,11 +235,12 @@ def _jax_runs(setup) -> dict:
 def world2(setup, tmp_path_factory):
     payload = setup["payload"]
     _write_checkpoints(setup, tmp_path_factory.mktemp("tp_checkpoints"))
-    ranks, (one, jax_out, loads) = spawn(
+    ranks, local = spawn(
         "tp_runs", 2, tmp_path_factory.mktemp("tp2"), payload,
         meanwhile=lambda: (tp_case(tp_model(payload), payload, Mesh()), _jax_runs(setup),
-                           tp_loads(payload, Mesh())))
-    return {"ranks": ranks, "one": one, "jax": jax_out, "loads": loads}
+                           tp_loads(payload, Mesh()), tp_served(tp_model(payload), Mesh(), payload)))
+    one, jax_out, loads, served = local
+    return {"ranks": ranks, "one": one, "jax": jax_out, "loads": loads, "served": served}
 
 
 def _close(got, want, tol, what):
@@ -260,6 +263,22 @@ def test_tp2_sample_matches(world2, quant, against):
     # the two ranks' answers are the same bits: the residual stream is replicated
     a, b = (r["sample"] if quant == "none" else r["int8"]["sample"] for r in world2["ranks"])
     assert torch.equal(a["traj"], b["traj"]) and torch.equal(a["image"], b["image"])
+
+
+def test_tp2_server_answers_after_idling_past_the_group_timeout(world2):
+    """A TP server's workers wait for the next batch inside a broadcast,
+    which the backend fails after the group's timeout (NCCL's watchdog
+    aborts the process). Idle for 2.5 of its group's timeouts, the server
+    still answers its next request as one process does, and the stop
+    message still releases the worker."""
+    from torch_dist_worker import IDLE_S, IDLE_TIMEOUT_S
+
+    assert IDLE_S > 2 * IDLE_TIMEOUT_S
+    rank0, worker = (r["idle"] for r in world2["ranks"])
+    assert worker == {"batches": 1}
+    want = world2["served"]["answer"]
+    assert rank0["answer"].shape == want.shape == (64, 64, 4)
+    _close(rank0["answer"], want, ONE_TOL, "served answer")
 
 
 def test_int8_shards_are_slices_of_jax_quantised_tree(world2, setup):

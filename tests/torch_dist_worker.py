@@ -277,16 +277,47 @@ def tp_loads(payload: dict, tp) -> dict:
     return out
 
 
+IDLE_TIMEOUT_S = 2.0           # the serving group's timeout in `tp_idle_serving`
+IDLE_S = 5.0                   # how long its server waits for a request
+
+
+def tp_served(model, mesh, payload: dict, idle_s: float = 0.0) -> dict:
+    """One request (`payload["serve_image"]`, seed 3) through a started
+    `InferenceServer(tp_group=mesh)` on rank 0 after `idle_s` seconds without
+    any, the other ranks in `serve_worker`: rank 0's answer, or a worker's
+    batch count."""
+    from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
+
+    server = InferenceServer(model, ServeConfig(max_batch=1, steps=2, auto_batch=False), tp_group=mesh)
+    if mesh.rank > 0:
+        return {"batches": server.serve_worker()}
+    with server:
+        time.sleep(idle_s)
+        answer = server.submit(payload["serve_image"], seed=3).result(timeout=JOIN_SECONDS)
+    return {"answer": answer}
+
+
+def tp_idle_serving(model, rank: int, world: int, payload: dict) -> dict:
+    """`tp_served` over a group of the whole world whose collectives time
+    out after IDLE_TIMEOUT_S, left idle for IDLE_S first: the workers wait
+    through 2.5 timeouts for the request's header."""
+    from ragb_vae_tpu_torch.parallel.mesh import Mesh
+
+    group = torch.distributed.new_group(list(range(world)), timeout=datetime.timedelta(seconds=IDLE_TIMEOUT_S))
+    return tp_served(model, Mesh(world, rank, group), payload, IDLE_S)
+
+
 def tp_runs(rank: int, world: int, payload: dict, tmp_path: Path) -> dict:
-    """`tp_case` on this rank's shard over a model axis of the whole world,
-    and `tp_loads`."""
+    """`tp_idle_serving` and `tp_case` on this rank's shard over a model axis
+    of the whole world, and `tp_loads`."""
     from ragb_vae_tpu_torch.parallel.mesh import create_training_mesh
     from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_transformer_
 
     _, tp, _ = create_training_mesh(tp=world)
     model = tp_model(payload)
     shard_transformer_(model.transformer, tp)
-    return {**tp_case(model, payload, tp), "loads": tp_loads(payload, tp)}
+    idle = tp_idle_serving(model, rank, world, payload)
+    return {**tp_case(model, payload, tp), "loads": tp_loads(payload, tp), "idle": idle}
 
 
 def tp_train_steps(rank: int, world: int, payload: dict, tmp_path: Path, *, tp: int = 2, sp: int = 1,
