@@ -137,6 +137,19 @@ clock; any failure exits non-zero without the final line):
              step and its checkpoints go through the gathered optimizer
              state; NCCL's reduce-scatter, all-gather and all-reduce are
              first run once on the card and checked.
+13. textenc - the empty prompt's text encoders (no kernel: plain PyTorch in
+             fp32, TF32 off): CLIP-L and the T5-v1.1-XXL encoder at full
+             published width and depth from a seed encode FLUX's empty-prompt
+             token ids (77 and 512 positions, read from FLUX-style tokenizer
+             files); prints the shapes, each encoder's ms and the peak
+             memory beside the card's name and power limit. Then both at
+             depth 2 and full width on the card against the CPU on the same
+             weights (bound TEXTENC_HOLD_TOL), and the card's run with the
+             padding mask dropped (a planted fault) must fail that bound.
+             Last, `from_pretrained` on the card on a narrow checkpoint with
+             tokenizer files and both encoders but no npz writes
+             empty_prompt_embeds.npz, a second load reads it back bit for bit,
+             and the embeddings agree with the CPU's.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -1799,7 +1812,7 @@ BLOCKS = 19 + 38               # attention calls per transformer forward
 TRAIN_STEPS = 1                # optimizer steps of the VAE phase (the stage1 phase takes 3 more)
 STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO = 2, 4, 2     # of the LoRA and the QLoRA phase: steps, pairs per step, micro-batches
 LORA_PAIRS = 2                 # the LoRA phase's pairs per step (the QLoRA phase's probe loss needs 4 to fall)
-ALL_PHASES = ("kernels", "slice", "pp", "lora", "int8", "tp", "axes", "convs", "train", "stage1")
+ALL_PHASES = ("kernels", "slice", "pp", "lora", "int8", "tp", "axes", "convs", "train", "stage1", "textenc")
 
 
 def _lora_counts() -> dict:
@@ -3667,6 +3680,189 @@ def phase_stage1(work: Path) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the empty-prompt text encoders
+# ---------------------------------------------------------------------------
+# The card against the CPU on the same weights, both encoders at depth 2 and
+# full width, fp32 with TF32 off on both sides: max |card - CPU| over max
+# |CPU| of each output. Summation order alone separates them (~1e-6); a
+# dropped padding mask moves every padded position (~1).
+TEXTENC_HOLD_TOL = 1e-4
+# FLUX.1-Kontext-dev's tokenizer files: CLIP pads with its eos
+CLIP_SPECIALS = {"bos_token": ("<|startoftext|>", 49406), "eos_token": ("<|endoftext|>", 49407),
+                 "pad_token": ("<|endoftext|>", 49407), "unk_token": ("<|endoftext|>", 49407)}
+T5_SPECIALS = {"pad_token": ("<pad>", 0), "eos_token": ("</s>", 1), "unk_token": ("<unk>", 2)}
+
+
+def _write_flux_tokenizers(root: Path) -> None:
+    """tokenizer/ and tokenizer_2/ as FLUX.1-Kontext-dev ships them, cut to
+    the fields the port reads: the special tokens, their ids in
+    `added_tokens_decoder` (and CLIP's vocab.json), `model_max_length`."""
+    for sub, specials, length in (("tokenizer", CLIP_SPECIALS, 77), ("tokenizer_2", T5_SPECIALS, 512)):
+        (root / sub).mkdir(parents=True)
+        decoder = {str(i): {"content": text, "special": True} for text, i in specials.values()}
+        (root / sub / "tokenizer_config.json").write_text(json.dumps(
+            {"model_max_length": length, "added_tokens_decoder": decoder,
+             **{field: text for field, (text, _) in specials.items()}}))
+    (root / "tokenizer" / "vocab.json").write_text(json.dumps({t: i for t, i in CLIP_SPECIALS.values()}))
+
+
+def _text_encoders(clip_cfg, t5_cfg, device, generator):
+    """(CLIP, T5) drawn from `generator` with transformers' per-layer stds,
+    built on the meta device and materialised on `device` (no default init)."""
+    from ragb_vae_tpu_torch.models import text_encoders as te
+
+    out = []
+    for cls, cfg in ((te.CLIPTextEncoder, clip_cfg), (te.T5Encoder, t5_cfg)):
+        module = cls(cfg, device="meta").to_empty(device=device)
+        te.init_text_encoder_(module, generator)
+        out.append(module.eval().requires_grad_(False))
+    return out
+
+
+def _truncated(module, depth: int, device):
+    """The first `depth` layers of `module` (embeddings and final norm too)
+    on `device`, sharing storage when `device` is the module's own."""
+    import dataclasses
+
+    field = "num_hidden_layers" if hasattr(module.config, "num_hidden_layers") else "num_layers"
+    small = type(module)(dataclasses.replace(module.config, **{field: depth}), device="meta")
+    keys = small.state_dict().keys()
+    small.load_state_dict({k: v.to(device) for k, v in module.state_dict().items() if k in keys},
+                          strict=True, assign=True)
+    return small.eval()
+
+
+def _encode(clip, t5, inputs, masked: bool = True):
+    """JAX's `encode_empty_prompt` on built encoders: (CLIP stream, pooled, T5 stream)."""
+    (ids1, mask1), (ids2, mask2) = inputs
+    dev = next(clip.parameters()).device
+    with torch.no_grad():
+        h1 = clip(ids1.to(dev), mask1.to(dev) if masked else None)
+        pooled = clip.text_model.final_layer_norm(h1)[:, 0]
+        h2 = t5(ids2.to(dev), mask2.to(dev) if masked else None)
+    return h1, pooled, h2
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _write_narrow_text_checkpoint(root: Path, device) -> None:
+    """flux/ (a tiny transformer taking a 128-wide prompt, the two encoders
+    at narrow width and published vocabularies, FLUX's tokenizer files, no
+    npz) and vae/ae, all from SEED."""
+    from ragb_vae_tpu_torch.models import text_encoders as te
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import FluxTextAlphaModel
+    from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
+    from ragb_vae_tpu_torch.models.flux_weights import save_flux_transformer_params
+    from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
+    from ragb_vae_tpu_torch.models.weights import save_autoencoder_params
+
+    clip_cfg = te.CLIPTextConfig(hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=2)
+    t5_cfg = te.T5EncoderConfig(d_model=128, d_kv=32, d_ff=256, num_layers=2, num_heads=4,
+                                feed_forward_proj="gated-gelu")
+    clip, t5 = _text_encoders(clip_cfg, t5_cfg, device, torch.Generator(device).manual_seed(SEED + 13))
+    te.save_text_encoder(clip, root / "flux" / "text_encoder")
+    te.save_text_encoder(t5, root / "flux" / "text_encoder_2")
+    _write_flux_tokenizers(root / "flux")
+    t_cfg = FluxTransformerConfig.tiny()
+    t_cfg.joint_attention_dim, t_cfg.pooled_projection_dim = t5_cfg.d_model, clip_cfg.hidden_size
+    v_cfg = AutoencoderConfig.tiny()
+    v_cfg.in_channels = v_cfg.out_channels = 4
+    model = FluxTextAlphaModel.random(t_cfg, v_cfg, seed=SEED, device=device, prompt_len=4)
+    save_flux_transformer_params(t_cfg, model.transformer.state_dict(), root / "flux" / "transformer")
+    save_autoencoder_params(v_cfg, model.vae.module.state_dict(), root / "vae" / "ae")
+
+
+def phase_textenc(work: Path, device="cuda") -> dict:
+    """CLIP-L and the T5-v1.1-XXL encoder at full published width and depth,
+    fp32, from a seed: encode the empty prompt, time it, its peak memory;
+    hold both at depth 2 against the CPU, and the same run with the padding
+    mask dropped must fail that bound; `from_pretrained` on a narrow
+    checkpoint without an npz writes one, and a second load reads it back
+    bit for bit. Launches no kernel."""
+    from ragb_vae_tpu_torch.models import flux_kontext_textalpha as fk
+    from ragb_vae_tpu_torch.models import text_encoders as te
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip() if on_card else "cpu"
+    _write_flux_tokenizers(work / "tok")
+    inputs = (te.clip_empty_prompt_ids(work / "tok" / "tokenizer"), te.t5_empty_prompt_ids(work / "tok" / "tokenizer_2"))
+    assert inputs[0][0].shape == (1, 77) and inputs[0][1].sum() == 2 and inputs[1][0].shape == (1, 512)
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    clip_cfg, t5_cfg = te.CLIPTextConfig.clip_l(), te.T5EncoderConfig.t5_xxl()
+    clip, t5 = _text_encoders(clip_cfg, t5_cfg, device, torch.Generator(device).manual_seed(SEED))
+    n_params = sum(p.numel() for m in (clip, t5) for p in m.parameters())
+    log("textenc", f"CLIP-L + T5-v1.1-XXL encoder, {n_params / 1e9:.3f} B parameters in fp32, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    h1, pooled, h2 = _encode(clip, t5, inputs)
+    prompt = h2 if h1.shape[-1] != h2.shape[-1] else torch.cat([h1, h2], dim=1)
+    if not (prompt.shape == (1, 512, t5_cfg.d_model) and pooled.shape == (1, clip_cfg.hidden_size)):
+        raise SystemExit(f"[textenc] FAIL: prompt {tuple(prompt.shape)}, pooled {tuple(pooled.shape)}")
+    if not (torch.isfinite(h1).all() and torch.isfinite(h2).all() and torch.isfinite(pooled).all()):
+        raise SystemExit("[textenc] FAIL: non-finite embeddings at full depth")
+    if on_card:
+        with torch.no_grad():
+            clip_ms = time_ms(lambda: clip(inputs[0][0].to(device), inputs[0][1].to(device)), runs=5, warmups=1)
+            t5_ms = time_ms(lambda: t5(inputs[1][0].to(device), inputs[1][1].to(device)), runs=5, warmups=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log("textenc", f"{smi}: empty prompt at full size: prompt {tuple(prompt.shape)} (T5 alone), pooled "
+            f"{tuple(pooled.shape)}, CLIP stream {tuple(h1.shape)}; CLIP-L {clip_ms:.2f} ms, T5-XXL {t5_ms:.2f} ms "
+            f"(median of 5, CUDA events, fp32 without TF32), peak memory {peak:.2f} GiB; |prompt| max "
+            f"{float(h2.abs().max()):.3f}, |pooled| max {float(pooled.abs().max()):.3f}")
+    # the hold: depth 2, full width, the same weights on the card and the host
+    t0 = time.perf_counter()
+    pairs = [(_truncated(m, 2, device), _truncated(m, 2, "cpu")) for m in (clip, t5)]
+    del clip, t5, h1, h2, prompt, pooled
+    if on_card:
+        torch.cuda.empty_cache()
+    card = _encode(pairs[0][0], pairs[1][0], inputs)
+    host = _encode(pairs[0][1], pairs[1][1], inputs)
+    fault = _encode(pairs[0][0], pairs[1][0], inputs, masked=False)
+    names = ("CLIP stream", "pooled", "T5 stream")
+    errs = [_rel_err(a, b) for a, b in zip(card, host)]
+    fault_errs = [_rel_err(a, b) for a, b in zip(fault, host)]
+    log("textenc", f"depth 2 at full width, card against CPU ({time.perf_counter() - t0:.1f} s): "
+        + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, errs)) + f" (bound {TEXTENC_HOLD_TOL:g}); padding mask "
+        "dropped on the card (planted fault): " + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, fault_errs)))
+    if max(errs) > TEXTENC_HOLD_TOL:
+        raise SystemExit("[textenc] FAIL: the card's encoders disagree with the CPU's")
+    if min(fault_errs[0], fault_errs[2]) <= TEXTENC_HOLD_TOL:
+        raise SystemExit("[textenc] FAIL: dropping the padding mask passed the bound")
+    del pairs, card, host, fault
+    # the checkpoint path: no npz, from_pretrained on the card writes it
+    t0 = time.perf_counter()
+    _write_narrow_text_checkpoint(work / "ckpt", device)
+    flux = work / "ckpt" / "flux"
+    model = fk.FluxTextAlphaModel.from_pretrained(flux, vae_path=work / "ckpt" / "vae", device=device)
+    if not (flux / fk.EMPTY_PROMPT_FILE).exists():
+        raise SystemExit("[textenc] FAIL: from_pretrained wrote no empty_prompt_embeds.npz")
+    again = fk.FluxTextAlphaModel.from_pretrained(flux, vae_path=work / "ckpt" / "vae", device=device)
+    if not (torch.equal(again.prompt_embeds, model.prompt_embeds)
+            and torch.equal(again.pooled_prompt_embeds, model.pooled_prompt_embeds)):
+        raise SystemExit("[textenc] FAIL: the second load did not read the npz back bit for bit")
+    host_dir = work / "ckpt" / "flux_host"
+    host_dir.mkdir()
+    for sub in ("tokenizer", "tokenizer_2", "text_encoder", "text_encoder_2"):
+        (host_dir / sub).symlink_to(flux / sub)
+    prompt_h, pooled_h, _ = fk.encode_empty_prompt(host_dir, device="cpu")
+    errs = (_rel_err(model.prompt_embeds, torch.from_numpy(prompt_h)),
+            _rel_err(model.pooled_prompt_embeds, torch.from_numpy(pooled_h)))
+    log("textenc", f"from_pretrained on a narrow checkpoint without an npz ({time.perf_counter() - t0:.1f} s): "
+        f"wrote {fk.EMPTY_PROMPT_FILE}, prompt {tuple(model.prompt_embeds.shape)}, pooled "
+        f"{tuple(model.pooled_prompt_embeds.shape)}, the second load bit-equal; against the CPU: prompt "
+        f"{errs[0]:.2e}, pooled {errs[1]:.2e}")
+    if max(errs) > TEXTENC_HOLD_TOL:
+        raise SystemExit("[textenc] FAIL: the checkpoint's embeddings disagree with the CPU's")
+    return {}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3730,6 +3926,9 @@ def main(argv=None) -> int:
     if "stage1" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             run("stage1", phase_stage1, Path(tmp))
+    if "textenc" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            run("textenc", phase_textenc, Path(tmp))
     if phases != set(ALL_PHASES):
         log("done", f"ran only {sorted(phases)}: no summary")
         return 0

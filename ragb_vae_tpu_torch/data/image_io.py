@@ -6,13 +6,21 @@ native failure, go through PIL, as in the JAX package.
 """
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Union
 
 import numpy as np
-from PIL import Image, UnidentifiedImageError
+from PIL import Image, PngImagePlugin, UnidentifiedImageError
 
 from ragb_vae_tpu_torch.data import native_io
+
+# PIL refuses a PNG text or iCCP chunk that decompresses past MAX_TEXT_CHUNK
+# (1 MiB by default); the datasets' large embedded profiles need more. Raised
+# to PNG_MAX_TEXT_CHUNK bytes (64 MiB unless set), as in the JAX package.
+PNG_TEXT_CHUNK_LIMIT = int(os.environ.get("PNG_MAX_TEXT_CHUNK", 64 * 1024 * 1024))
+if hasattr(PngImagePlugin, "MAX_TEXT_CHUNK"):
+    PngImagePlugin.MAX_TEXT_CHUNK = max(PngImagePlugin.MAX_TEXT_CHUNK, PNG_TEXT_CHUNK_LIMIT)
 
 
 def pil_to_array(img: Image.Image) -> np.ndarray:

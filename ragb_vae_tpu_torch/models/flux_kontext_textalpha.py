@@ -28,8 +28,10 @@ and prompt streams and gathers the prediction (`_transformer_pred`, JAX
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -68,6 +70,12 @@ from ragb_vae_tpu_torch.models.scheduler import (
     calc_mu,
     compute_density_for_timestep_sampling,
     compute_loss_weighting_for_sd3,
+)
+from ragb_vae_tpu_torch.models.text_encoders import (
+    clip_empty_prompt_ids,
+    load_clip_text_encoder,
+    load_t5_encoder,
+    t5_empty_prompt_ids,
 )
 from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
 from ragb_vae_tpu_torch.models.weights import load_autoencoder_params, load_torch_state, save_torch_state
@@ -108,18 +116,86 @@ def load_scheduler(model_path: Union[str, Path]) -> FlowMatchEulerScheduler:
     return FlowMatchEulerScheduler(config)
 
 
-def load_empty_prompt(model_path: Union[str, Path]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(prompt_embeds, pooled_prompt_embeds, text_ids) from the precomputed
-    `empty_prompt_embeds.npz` beside the checkpoint (the text encoders are
-    not ported)."""
+def read_empty_prompt(model_path: Union[str, Path]) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """(prompt_embeds, pooled_prompt_embeds, text_ids) from
+    `empty_prompt_embeds.npz` beside the checkpoint (written by either
+    package), or None when there is none."""
     path = Path(model_path) / EMPTY_PROMPT_FILE
     if not path.exists():
-        raise FileNotFoundError(
-            f"{path} not found: the port reads the empty-prompt embeddings only from "
-            f"{EMPTY_PROMPT_FILE} (write it with the JAX package's save_empty_prompt_embeds)."
-        )
-    data = np.load(path)
-    return data["prompt_embeds"], data["pooled_prompt_embeds"], data["text_ids"]
+        return None
+    with np.load(path) as data:
+        return data["prompt_embeds"], data["pooled_prompt_embeds"], data["text_ids"]
+
+
+def save_empty_prompt_embeds(path: Union[str, Path], prompt_embeds, pooled_prompt_embeds, text_ids) -> None:
+    """`empty_prompt_embeds.npz` in `path` with the JAX package's keys, in
+    fp32. Written under a name of this process's own and moved into place, so
+    ranks that write it at once never leave a torn file."""
+    target = Path(path) / EMPTY_PROMPT_FILE
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, prompt_embeds=np.asarray(prompt_embeds, np.float32),
+                     pooled_prompt_embeds=np.asarray(pooled_prompt_embeds, np.float32),
+                     text_ids=np.asarray(text_ids, np.float32))
+        os.replace(tmp, target)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+@contextlib.contextmanager
+def _full_fp32_matmuls():
+    """TF32 off for the matmuls and convolutions inside; the settings restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def encode_empty_prompt(
+    model_path: Union[str, Path], *, device: Union[str, torch.device] = "cuda"
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(prompt_embeds, pooled_prompt_embeds, text_ids) of the empty prompt,
+    as the JAX package's `encode_empty_prompt` computes them.
+
+    `empty_prompt_embeds.npz` beside the checkpoint is read when it exists.
+    Otherwise the checkpoint's CLIP (`tokenizer/`, `text_encoder/`) and T5
+    (`tokenizer_2/`, `text_encoder_2/`) encoders run once on `device` in
+    fp32 with TF32 off, one after the other, and are freed; the result is
+    written to the npz. The pooled embedding is CLIP's final LayerNorm
+    applied once more to its last hidden state, at token 0 (as in the JAX
+    package). The prompt is the CLIP stream then the T5 stream when their
+    widths match, else the T5 stream alone (published FLUX: (1, 512, 4096)).
+    `device` is the card unless the caller names the CPU; a missing card
+    raises."""
+    device = resolve_device(device)
+    model_path = Path(model_path)
+    cached = read_empty_prompt(model_path)
+    if cached is not None:
+        return cached
+    ids_one, mask_one = clip_empty_prompt_ids(model_path / "tokenizer")
+    ids_two, mask_two = t5_empty_prompt_ids(model_path / "tokenizer_2")
+    with _full_fp32_matmuls(), torch.no_grad():
+        clip = load_clip_text_encoder(model_path / "text_encoder", device=device)
+        prompt_one = clip(ids_one.to(device), mask_one.to(device))
+        pooled = clip.text_model.final_layer_norm(prompt_one)[:, 0]
+        del clip
+        t5 = load_t5_encoder(model_path / "text_encoder_2", device=device)
+        prompt_two = t5(ids_two.to(device), mask_two.to(device))
+        del t5
+    if prompt_one.shape[-1] == prompt_two.shape[-1]:
+        prompt = torch.cat([prompt_one, prompt_two], dim=1)
+    else:
+        prompt = prompt_two
+    out = (prompt.float().cpu().numpy(), pooled.float().cpu().numpy(),
+           np.zeros((prompt.shape[1], 3), dtype=np.float32))
+    del prompt_one, prompt_two, prompt, pooled
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    save_empty_prompt_embeds(model_path, *out)
+    return out
 
 
 def write_lora_metadata(directory: Union[str, Path], *, model_id: str, rank: int,
@@ -348,7 +424,8 @@ class FluxTextAlphaModel:
         pipeline=None,
     ) -> "FluxTextAlphaModel":
         """Transformer from `<model_path>/transformer`, scheduler config and
-        `empty_prompt_embeds.npz` from `model_path`, RGBA VAE from
+        the empty prompt's embeddings from `model_path` (`encode_empty_prompt`:
+        the npz, or the text encoders on `device`), RGBA VAE from
         `<vae_path>/<vae_subfolder>` (or `vae_path` itself). With `lora_rank`
         > 0 fresh adapters (seed 0) are attached and the base is frozen.
 
@@ -391,6 +468,9 @@ class FluxTextAlphaModel:
             v_config, v_state = load_autoencoder_params(vae_path, vae_subfolder, adapt_to_rgba=True)
         except FileNotFoundError:
             v_config, v_state = load_autoencoder_params(vae_path, None, adapt_to_rgba=True)
+        # the text encoders run (when the npz is absent) and are freed
+        # before any of the transformer reaches the device
+        prompt, pooled, text_ids = encode_empty_prompt(model_path, device=device)
         quantize_here = weight_quant == "int8" and not quantized
         transformer = _sharded(FluxTransformer2D(
             FluxTransformerConfig.from_json(t_dir / "config.json"), remat=use_gradient_checkpointing,
@@ -425,7 +505,6 @@ class FluxTextAlphaModel:
         else:
             pipeline.place_(transformer)
         vae.module.to(device)
-        prompt, pooled, text_ids = load_empty_prompt(model_path)
         model = cls(transformer.eval(), vae, load_scheduler(model_path), torch.from_numpy(prompt),
                     torch.from_numpy(pooled), torch.from_numpy(text_ids),
                     lora_rank=lora_rank, lora_alpha=lora_alpha, dtype=dtype, seq=seq)

@@ -35,7 +35,9 @@ PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py", "k1_stage_variants.py", "k8_variants.py",
     "serve_torch.py", "convert_qwen_vae_to_rgba_torch.py", "prepare_rgba_vae_init_torch.py",
     "dataset_sanity_check_torch.py", "rgb_vae_sanity_check_torch.py", "time_serving_daemon.py",
-    "pp_multicard_check.py", "tp_torchrun_check.py", "dist_multicard_check.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
+    "pp_multicard_check.py", "tp_torchrun_check.py", "dist_multicard_check.py", "export_empty_prompt_torch.py",
+    "prepare_rgba_buckets_torch.py", "prism_layer_real_bucketer_torch.py", "prism_layer_pro_bucketer_torch.py",
+    "laion_bucket_downloader_torch.py", "time_plain_gaps.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
