@@ -720,6 +720,12 @@ def _nan_guarded(t):
     return flat[: t.numel()].view(t.shape)
 
 
+def _activated_nchw(x, a, b, activation):
+    """bf16(act(x*a + b)) as NCHW: the input of K1's and K8's `F.conv2d` yardstick."""
+    t = x.float() * a[:, None, None, :] + b[:, None, None, :]
+    return (F.silu(t) if activation == "silu" else t).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+
 def check_conv(gen, shape, n_out, *, skip, activation, c_skip=None):
     """K1; beside its time, `F.conv2d` over the activation it forms in shared
     memory (a yardstick for its conv part only: no one PyTorch call computes
@@ -732,10 +738,7 @@ def check_conv(gen, shape, n_out, *, skip, activation, c_skip=None):
     flops = 2 * (9 * c + c_skip) * bsz * h * w * n_out
     nbytes = (_nbytes(x, a, b, wt, bias, ws, wsb) + (0 if sk is None or sk is x else _nbytes(sk))
               + 2 * bsz * h * w * n_out + 4 * bsz * 2 * n_out)       # y, stats
-    t = x.float() * a[:, None, None, :] + b[:, None, None, :]
-    t_lib = (F.silu(t) if activation == "silu" else t).to(torch.bfloat16).permute(0, 3, 1, 2)
-    w_lib = _oihw(wt)
-    del t
+    t_lib, w_lib = _activated_nchw(x, a, b, activation), _oihw(wt)
     return _check_conv(
         f"resnet_conv3x3_stats {shape}->{n_out} {activation} skip={skip}"
         + (f" Cs={c_skip}" if c_skip and sk is not x else ""),
@@ -752,7 +755,8 @@ def check_wino(gen, shape, n_out, *, skip, activation):
     the exact direct conv. K8's time is its wrapper's as the path calls it,
     U's tiles given (a fused ResnetBlock keeps them per weight); beside it,
     with U folded in the call, the fold alone and K1 on the same inputs, each
-    from an idle card and back to back."""
+    from an idle card and back to back, and K1's yardstick: `F.conv2d` over
+    the activated input (the conv part only)."""
     bsz, h, w, c = shape
     x, a, b, wt, bias, sk, ws, wsb = _conv_inputs(gen, shape, n_out, skip)
     args = (x, a, b, wt, bias, sk, ws, wsb, activation)
@@ -772,6 +776,9 @@ def check_wino(gen, shape, n_out, *, skip, activation):
     ms, plain_ms = time_ms(run_k), time_ms(lambda: rb.wino_conv3x3_stats_plain(*args))
     f_ms, k1_ms, fold_ms = time_ms(run_f), time_ms(run_k1), time_ms(lambda: rb.wino_tiles(wt, torch.bfloat16))
     queued_ms, f_queued_ms, k1_queued_ms = time_queued_ms(run_k), time_queued_ms(run_f), time_queued_ms(run_k1)
+    t_lib, w_lib = _activated_nchw(x, a, b, activation), _oihw(wt)
+    lib_ms = time_ms(lambda: F.conv2d(t_lib, w_lib, padding=1))
+    del t_lib
     c_skip = 0 if ws is None else sk.shape[3]
     pixels = bsz * h * w
     # the function's work: F(2x2, 3x3)'s 16 products a tile (4/9 of the
@@ -797,7 +804,8 @@ def check_wino(gen, shape, n_out, *, skip, activation):
         f"{s_x:.3g} (<= {WINO_STATS_DIRECT_TOL}); K8 as the blocks call it (U given) {ms:.3f} ms "
         f"(back to back {queued_ms:.3f}), U folded in the call {f_ms:.3f} ms ({f_queued_ms:.3f}; y the same: "
         f"{same_folded}), the U fold alone {fold_ms:.3f} ms, K1 "
-        f"on the same inputs {k1_ms:.3f} ms ({k1_queued_ms:.3f}), plain {plain_ms:.3f} ms; bound "
+        f"on the same inputs {k1_ms:.3f} ms ({k1_queued_ms:.3f}), plain {plain_ms:.3f} ms, F.conv2d on the "
+        f"activated input (conv part only) {lib_ms:.3f} ms; bound "
         f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}; Winograd's operations), the row fold's floor "
         f"{floor['bound_ms']:.4f} ms, a direct conv's {direct['bound_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
     return ok, f"{shape}->{n_out} {activation} skip={skip}", err_y, ms, plain_ms, None, limit
@@ -2014,6 +2022,19 @@ def phase_lora(model, work: Path) -> dict:
     moved_base = [n for (n, _), a, b in zip(base, base_before, checksums(base)) if a != b]
     if still or moved_base:
         raise SystemExit(f"[lora] lora_B that did not move: {still[:5]}; base parameters that did: {moved_base[:5]}")
+
+    # the inference CLI's reading of the final save's metadata.json, over its default flags
+    from ragb_vae_tpu_torch.inference import apply_lora_metadata, parse_args
+
+    cli = parse_args(["--pretrained_model_name_or_path", "-", "--rgba_vae_path", "-", "--input_image", "-",
+                      "--output_path", "-", "--lora_path", str(ckpt / "final")])
+    flags = (cli.rank, cli.lora_alpha)
+    apply_lora_metadata(cli)
+    log("lora", f"the inference CLI reads rank {cli.rank} and alpha {cli.lora_alpha} from final/metadata.json "
+        f"over its flags' {flags}")
+    if (cli.rank, cli.lora_alpha) != (LORA_CONFIG["rank"], LORA_CONFIG["lora_alpha"]):
+        raise SystemExit(f"[lora] the CLI read ({cli.rank}, {cli.lora_alpha}) from the metadata, not "
+                         f"({LORA_CONFIG['rank']}, {LORA_CONFIG['lora_alpha']})")
 
     # the final save, read back into zeroed adapters
     trained = lora_state(model.transformer)

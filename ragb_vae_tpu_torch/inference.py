@@ -4,8 +4,9 @@ or pipeline-parallel.
 Counterpart of `ragb_vae_tpu/inference.py`: same flags, seeded sampling, one
 image or a batch of images grouped by size.
 On a CUDA device the RGBA VAE runs its fused kernels. `--lora_path` loads
-peft-format adapters (written by either package's LoRA stage) at `--rank` /
-`--lora_alpha`. `--quant int8` serves the transformer in weight-only int8: a
+peft-format adapters (written by either package's LoRA stage) at the rank and
+alpha of their `metadata.json`, which win over `--rank` / `--lora_alpha` as in
+JAX; without that file the flags stand. `--quant int8` serves the transformer in weight-only int8: a
 quantised checkpoint directory (`scripts/quantize_flux_checkpoint_torch.py`)
 loads as it is, a plain one is quantised at load. `--device` names where it
 runs (default `cuda`; a missing card raises, nothing falls back to the CPU).
@@ -44,9 +45,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--rgba_vae_path", type=str, required=True)
     p.add_argument("--vae_subfolder", type=str, default="ae")
     p.add_argument("--lora_path", type=str, default=None,
-                   help="Directory with pytorch_lora_weights.safetensors (or .bin).")
-    p.add_argument("--rank", type=int, default=96)
-    p.add_argument("--lora_alpha", type=int, default=128)
+                   help="Directory with pytorch_lora_weights.safetensors (or .bin); the rank and alpha "
+                        "of its metadata.json override --rank / --lora_alpha.")
+    p.add_argument("--rank", type=int, default=96, help="LoRA rank when the adapters have no metadata.json.")
+    p.add_argument("--lora_alpha", type=int, default=128,
+                   help="LoRA alpha when the adapters have no metadata.json.")
     p.add_argument("--input_image", type=str, required=True,
                    help="RGBA input image, or a directory / glob of images.")
     p.add_argument("--output_path", type=str, required=True,
@@ -66,6 +69,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "CPU with --device cpu), driven by this one process.")
     p.add_argument("--tp", type=int, default=1,
                    help="Tensor parallelism over N processes under torchrun --nproc-per-node N.")
+    p.add_argument("--compilation_cache", type=str, default="auto",
+                   help="Accepted for the JAX CLI's command line; no effect here.")
     return p.parse_args(argv)
 
 
@@ -84,6 +89,23 @@ def _resolve_inputs(spec: str):
     return found
 
 
+def apply_lora_metadata(args: argparse.Namespace) -> None:
+    """Take the rank and alpha of `<lora_path>/metadata.json` into `args`
+    where the file gives them (JAX `inference.run`: the metadata wins over
+    the flags, and a fractional alpha is truncated by `int`)."""
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import read_lora_metadata
+
+    meta = read_lora_metadata(args.lora_path) if args.lora_path else None
+    if not meta:
+        return
+    if meta.get("rank") is not None:
+        args.rank = int(meta["rank"])
+    alpha = meta.get("lora_alpha", meta.get("alpha"))
+    if alpha is not None:
+        args.lora_alpha = int(alpha)
+    print(f"Loaded LoRA metadata: rank={args.rank} alpha={args.lora_alpha}")
+
+
 def run(args: argparse.Namespace) -> None:
     from ragb_vae_tpu_torch.data import native_io
     from ragb_vae_tpu_torch.data.image_io import load_rgba, save_rgba
@@ -93,11 +115,14 @@ def run(args: argparse.Namespace) -> None:
     from ragb_vae_tpu_torch.parallel.mesh import local_device
     from ragb_vae_tpu_torch.parallel.pipeline import pipelined_sample
 
+    apply_lora_metadata(args)      # every rank reads it, before any model is built
     validate_tp_pp(args.tp, args.pp)
     device = local_device(resolve_device(args.device))
     tp = build_tp_group(args.tp, device)
     pipe = build_pipelined_transformer(args.pp, device, args.pretrained_model_name_or_path)
     writes = tp.rank == 0          # under --tp every rank samples; rank 0 writes
+    if writes and args.compilation_cache != "off":
+        print("--compilation_cache has no effect in the PyTorch port")
     model = FluxTextAlphaModel.from_pretrained(
         args.pretrained_model_name_or_path,
         vae_path=args.rgba_vae_path,

@@ -116,6 +116,26 @@ def load_scheduler(model_path: Union[str, Path]) -> FlowMatchEulerScheduler:
     return FlowMatchEulerScheduler(config)
 
 
+def load_rgba_vae_from_path(vae_path: Union[str, Path], *, subfolder: Optional[str] = "ae",
+                            dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda",
+                            fused: bool = False) -> RgbaVAE:
+    """The RGBA VAE of `<vae_path>/<subfolder>`, or of `vae_path` itself when
+    that subfolder does not exist; an RGB checkpoint is widened to RGBA
+    (JAX's `load_rgba_vae_from_path`). The module holds its weights, in
+    `dtype` on `device`, where JAX returns (model, params). `device` is the
+    card unless the caller names the CPU; a missing card raises."""
+    device = resolve_device(device)
+    try:
+        config, state = load_autoencoder_params(vae_path, subfolder, adapt_to_rgba=True)
+    except FileNotFoundError:
+        config, state = load_autoencoder_params(vae_path, None, adapt_to_rgba=True)
+    vae = RgbaVAE(config, dtype=dtype, fused=fused, device="meta")
+    want = {k: p.dtype for k, p in vae.module.state_dict().items()}
+    vae.module.load_state_dict({k: v.to(want.get(k, dtype)) for k, v in state.items()}, strict=True, assign=True)
+    vae.module.to(device)
+    return vae
+
+
 def read_empty_prompt(model_path: Union[str, Path]) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """(prompt_embeds, pooled_prompt_embeds, text_ids) from
     `empty_prompt_embeds.npz` beside the checkpoint (written by either
@@ -464,10 +484,7 @@ class FluxTextAlphaModel:
         if quantized and weight_quant != "int8":
             raise ValueError(
                 f"{model_path} holds a weight-only int8 transformer: load it with weight_quant='int8'.")
-        try:
-            v_config, v_state = load_autoencoder_params(vae_path, vae_subfolder, adapt_to_rgba=True)
-        except FileNotFoundError:
-            v_config, v_state = load_autoencoder_params(vae_path, None, adapt_to_rgba=True)
+        vae = load_rgba_vae_from_path(vae_path, subfolder=vae_subfolder, dtype=dtype, device=device, fused=fused)
         # the text encoders run (when the npz is absent) and are freed
         # before any of the transformer reaches the device
         prompt, pooled, text_ids = encode_empty_prompt(model_path, device=device)
@@ -482,14 +499,11 @@ class FluxTextAlphaModel:
         elif transformer.fsdp is not None:
             take = transformer.fsdp.take
         _, t_state, _ = load_transformer(model_path, take=take)
-        vae = RgbaVAE(v_config, dtype=dtype, fused=fused, device="meta")
-        for module, state in ((transformer, t_state), (vae.module, v_state)):
-            # each tensor keeps the dtype its module declared (fp32 for the
-            # AdaLN modulation, int8 and fp32 for a quantised linear, `dtype`
-            # elsewhere)
-            want = {k: p.dtype for k, p in module.state_dict().items()}
-            module.load_state_dict({k: v.to(want.get(k, dtype)) for k, v in state.items()},
-                                   strict=True, assign=True)
+        # each tensor keeps the dtype its module declared (fp32 for the AdaLN
+        # modulation, int8 and fp32 for a quantised linear, `dtype` elsewhere)
+        want = {k: p.dtype for k, p in transformer.state_dict().items()}
+        transformer.load_state_dict({k: v.to(want.get(k, dtype)) for k, v in t_state.items()},
+                                    strict=True, assign=True)
         if quantize_here:
             if pipeline is None:
                 quantize_module_(transformer, device=device, dtype=dtype)
@@ -504,7 +518,6 @@ class FluxTextAlphaModel:
             transformer.to(device)
         else:
             pipeline.place_(transformer)
-        vae.module.to(device)
         model = cls(transformer.eval(), vae, load_scheduler(model_path), torch.from_numpy(prompt),
                     torch.from_numpy(pooled), torch.from_numpy(text_ids),
                     lora_rank=lora_rank, lora_alpha=lora_alpha, dtype=dtype, seq=seq)

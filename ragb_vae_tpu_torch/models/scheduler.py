@@ -115,6 +115,11 @@ class FlowMatchEulerScheduler:
         prev = sample.float() + (sigma_next - sigma) * model_output.float()
         return prev.to(sample.dtype)
 
+    def scale_noise(self, sample: torch.Tensor, sigma, noise: torch.Tensor) -> torch.Tensor:
+        """Forward process x_σ = (1−σ)·x₀ + σ·ε (training side), with JAX's
+        type promotion: a float σ keeps the sample's dtype."""
+        return (1.0 - sigma) * sample + sigma * noise
+
 
 # ---------------------------------------------------------------------------
 # Training side (diffusers.training_utils)

@@ -455,6 +455,14 @@ def gn_silu_conv3x3_stats(
     return _ConvStats.apply(x, a, b, w, bias, skip, ws, wsb, activation, route, u)
 
 
+def fused_conv3x3_stats(x: Tensor, kernel: Tensor, bias: Tensor) -> Tuple[Tensor, Tensor]:
+    """Bare conv3x3 + bias and the statistics of y: `gn_silu_conv3x3_stats`
+    with the identity activation and unit coefficients (JAX
+    `fused_conv3x3_stats`; unwired in both packages)."""
+    ones = torch.ones(x.shape[0], x.shape[-1], dtype=torch.float32, device=x.device)
+    return gn_silu_conv3x3_stats(x, ones, torch.zeros_like(ones), kernel, bias, activation="identity")
+
+
 # ---------------------------------------------------------------------------
 # K6: every cotangent of K1
 # ---------------------------------------------------------------------------

@@ -3,12 +3,20 @@
 Counterpart of `ragb_vae_tpu/training/__init__.py`: `run_stage` dispatches
 on `training.stage`. `rgba_vae` (stage 1) and `kontext_textalpha_lora` are
 real; `decompose` and `refine` are placeholders, as in the JAX package. The
-stage modules are imported when a stage runs, so importing this package
-loads neither.
+stage modules are imported when a stage runs, or when one of the stage-1
+names JAX re-exports here is first used (`ragb_vae_tpu_torch/_exports.py`),
+so importing this package loads neither.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
+
+from ragb_vae_tpu_torch._exports import lazy_exports
+
+_EXPORTS = dict.fromkeys(("build_dataloader", "build_training_batch", "evaluate_rgba_vae", "save_checkpoints",
+                          "train_rgba_vae"), "ragb_vae_tpu_torch.training.rgba_vae_stage")
+__all__ = sorted([*_EXPORTS, "run_stage", "train_decomposition", "train_refine"])
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)
 
 
 def train_decomposition(cfg: Dict[str, Any], **kwargs) -> None:

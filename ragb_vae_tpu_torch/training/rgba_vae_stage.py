@@ -74,6 +74,7 @@ from ragb_vae_tpu_torch.training.vae_step import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    resolve_background_spec,  # noqa: F401  (JAX keeps it in this module)
     trainable_parameters,
 )
 from ragb_vae_tpu_torch.utils.metrics_logger import MetricsLogger

@@ -48,6 +48,11 @@ class PreemptionGuard:
     def request_stop(self) -> None:
         self._event.set()
 
+    @property
+    def stop_requested(self) -> bool:
+        """The local flag only: no collective, safe from any thread."""
+        return self._event.is_set()
+
     def should_stop(self, sync: bool = False) -> bool:
         """Poll the flag; with `sync=True` OR it over the processes of the
         default group (one all-reduce MAX of a scalar; nothing at one

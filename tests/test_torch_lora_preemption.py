@@ -120,3 +120,10 @@ def test_guard_off_the_main_thread_installs_nothing():
     assert not thread.is_alive()
     assert seen == {"handler": prev, "before": False, "after": True}
     assert signal.getsignal(signal.SIGTERM) is prev
+
+
+def test_stop_requested_reads_the_local_flag():
+    guard = PreemptionGuard(enabled=False)
+    assert guard.stop_requested is False
+    guard.request_stop()
+    assert guard.stop_requested is True

@@ -250,10 +250,12 @@ def _cfg(root, **training):
     }
 
 
-def test_train_from_config_takes_two_steps_saves_and_serves_the_adapters(tmp_path):
+def test_train_from_config_takes_two_steps_saves_and_serves_the_adapters(tmp_path, capsys):
     """From a checkpoint tree on disk (written by the JAX package's savers):
     `from_pretrained` with adapters, 2 steps of 3 pairs in 2 micro-batches (one
-    padding row), checkpoints in peft format, then `inference.py --lora_path`."""
+    padding row), checkpoints in peft format, then `inference.py --lora_path`,
+    which takes the adapters' rank and alpha from their `metadata.json` over
+    `--rank` / `--lora_alpha`, as JAX's does."""
     _write_jax_checkpoint(tmp_path)
     make_text_alpha_tree(tmp_path / "data", n=6)
     logged = []
@@ -287,6 +289,25 @@ def test_train_from_config_takes_two_steps_saves_and_serves_the_adapters(tmp_pat
     assert with_lora.shape == (32, 32, 4) and not np.array_equal(with_lora, without)
     with pytest.raises(FileNotFoundError, match="No LoRA weights"):
         inference.main(argv + ["--output_path", str(tmp_path / "x.png"), "--lora_path", str(tmp_path / "data")])
+
+    # no flags: rank 4 and alpha 8 come from final/metadata.json
+    final = tmp_path / "ckpt" / "final"
+    capsys.readouterr()
+    inference.main(argv + ["--output_path", str(tmp_path / "meta.png"), "--lora_path", str(final)])
+    assert "Loaded LoRA metadata: rank=4 alpha=8" in capsys.readouterr().out
+    explicit = (tmp_path / "lora.png").read_bytes()
+    assert (tmp_path / "meta.png").read_bytes() == explicit
+    # a metadata alpha of 16 wins over --lora_alpha 8: the flags' run without the file at alpha 16
+    alpha16, bare = tmp_path / "alpha16", tmp_path / "bare"
+    for d in (alpha16, bare):
+        d.mkdir()
+        shutil.copy(final / "pytorch_lora_weights.safetensors", d)
+    (alpha16 / "metadata.json").write_text(json.dumps({**read_lora_metadata(final), "lora_alpha": 16.0}))
+    inference.main(argv + ["--output_path", str(tmp_path / "a16.png"), "--lora_path", str(alpha16),
+                           "--lora_alpha", "8"])
+    inference.main(argv + ["--output_path", str(tmp_path / "bare16.png"), "--lora_path", str(bare),
+                           "--rank", "4", "--lora_alpha", "16"])
+    assert (tmp_path / "a16.png").read_bytes() == (tmp_path / "bare16.png").read_bytes() != explicit
 
 
 def test_train_from_config_validates_on_start_and_on_schedule(tmp_path):

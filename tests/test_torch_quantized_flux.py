@@ -396,7 +396,8 @@ def _stage_cfg(root, **training):
 def test_qlora_stage_takes_two_steps_and_resumes(tmp_path):
     """`weight_quant: int8` from a plain checkpoint on disk: two steps, peft
     saves, then `resume_from: auto` for a third step; the saved adapters serve
-    under `--quant int8`."""
+    under `--quant int8`, at their metadata's rank and alpha when no flag
+    gives them."""
     _write_jax_checkpoint(tmp_path)
     make_text_alpha_tree(tmp_path / "data", n=4)
     logged = []
@@ -424,6 +425,9 @@ def test_qlora_stage_takes_two_steps_and_resumes(tmp_path):
     inference.main(argv + ["--output_path", str(tmp_path / "lora.png"), "--lora_path", str(final),
                            "--rank", "4", "--lora_alpha", "8"])
     assert not np.array_equal(load_rgba(tmp_path / "lora.png"), load_rgba(tmp_path / "base.png"))
+    # no flags: the rank and alpha come from final/metadata.json
+    inference.main(argv + ["--output_path", str(tmp_path / "meta.png"), "--lora_path", str(final)])
+    assert (tmp_path / "meta.png").read_bytes() == (tmp_path / "lora.png").read_bytes()
 
 
 def test_qlora_stage_checks_the_given_model_and_the_device(tmp_path, monkeypatch):

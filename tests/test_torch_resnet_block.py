@@ -88,6 +88,15 @@ def test_conv3x3_stats_plain_matches_pallas(activation, skip):
     _close(s_t, s_j, stats=True)
 
 
+def test_fused_conv3x3_stats_matches_pallas():
+    x, _, _, w, bias = _inputs(2, 8, 16, 128, 128)
+    y_j, s_j = jrb.fused_conv3x3_stats(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias))
+    y_t, s_t = trb.fused_conv3x3_stats(_t(x), _t(w), _t(bias))
+    assert trb.CONV_LAUNCHES == 0
+    _close(y_t, y_j)
+    _close(s_t, s_j, stats=True)
+
+
 def _block_params(c_in, c_out, seed):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0, shift=0.0: (rng.standard_normal(s) * scale + shift).astype(np.float32)

@@ -106,6 +106,20 @@ def test_schedule_matches_jax(pair):
     np.testing.assert_array_equal(ts.timesteps, js.timesteps)
 
 
+@pytest.mark.parametrize("per_sample", [False, True], ids=["float-sigma", "per-sample-sigma"])
+def test_scale_noise_matches_jax(per_sample):
+    rng = np.random.default_rng(5)
+    x0, noise = (rng.standard_normal((2, 16, 8)).astype(np.float32) for _ in range(2))
+    js, ts = JaxScheduler(), FlowMatchEulerScheduler()
+    sigma = rng.uniform(size=(2, 1, 1)).astype(np.float32) if per_sample else float(ts.sigmas[3])
+    want = np.asarray(js.scale_noise(jnp.asarray(x0), jnp.asarray(sigma) if per_sample else sigma,
+                                     jnp.asarray(noise)))
+    got = ts.scale_noise(torch.from_numpy(x0), torch.from_numpy(sigma) if per_sample else sigma,
+                         torch.from_numpy(noise))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
 def test_per_step_noise_is_consumed(pair):
     """The reference's re-noising quirk is live: changing only step 2's noise
     leaves steps 0-1 bit-identical and moves step 2."""

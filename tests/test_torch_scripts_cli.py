@@ -57,6 +57,26 @@ def rgb_source(tmp_path_factory):
     return source
 
 
+@pytest.mark.parametrize("where", ["subfolder", "fallback"])
+def test_load_rgba_vae_from_path_matches_jax(rgb_source, where):
+    """JAX's loader and the port's widen the same RGB checkpoint to the same
+    RGBA weights, from `<path>/<subfolder>` or, when that subfolder does not
+    exist, from the path itself."""
+    from ragb_vae_tpu.models.flux_kontext_textalpha import load_rgba_vae_from_path as jax_load
+    from ragb_vae_tpu_torch.models.flux_kontext_textalpha import load_rgba_vae_from_path
+    from ragb_vae_tpu_torch.models.weights import params_from_flax
+
+    path, subfolder = (rgb_source, "vae") if where == "subfolder" else (rgb_source / "vae", "ae")
+    jmodel, jparams = jax_load(path, subfolder=subfolder)
+    vae = load_rgba_vae_from_path(path, subfolder=subfolder, device="cpu")
+    assert jmodel.config.in_channels == vae.config.in_channels == 4
+    want = params_from_flax(jparams)
+    got = vae.module.state_dict()
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert got[key].dtype == torch.float32 and torch.equal(got[key], value), key
+
+
 def _weights(directory):
     return json.loads((directory / "config.json").read_text()), load_torch_state(
         directory / "diffusion_pytorch_model.safetensors")

@@ -131,7 +131,9 @@ def _write_jax_checkpoint(root):
     )
 
 
-def test_inference_run_on_a_jax_written_checkpoint(tmp_path):
+def test_inference_run_on_a_jax_written_checkpoint(tmp_path, capsys):
+    """The JAX CLI's `--compilation_cache` (default `auto`) is accepted and
+    reported once as having no effect."""
     from ragb_vae_tpu_torch.data.image_io import load_rgba, save_rgba
 
     _write_jax_checkpoint(tmp_path)
@@ -146,8 +148,11 @@ def test_inference_run_on_a_jax_written_checkpoint(tmp_path):
     inference.main(argv)
     first = load_rgba(tmp_path / "out.png")
     assert first.shape == (48, 32, 4)
-    inference.main(argv[:7] + [str(tmp_path / "again.png")] + argv[8:])
+    assert capsys.readouterr().out.count("--compilation_cache has no effect") == 1
+    inference.main(argv[:7] + [str(tmp_path / "again.png")] + argv[8:] + ["--compilation_cache", "off"])
     np.testing.assert_array_equal(load_rgba(tmp_path / "again.png"), first)
+    assert "--compilation_cache" not in capsys.readouterr().out
+    assert inference.parse_args(argv + ["--compilation_cache", "/tmp/cache"]).compilation_cache == "/tmp/cache"
 
 
 @pytest.fixture(scope="module")
