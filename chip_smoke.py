@@ -150,6 +150,19 @@ clock; any failure exits non-zero without the final line):
              tokenizer files and both encoders but no npz writes
              empty_prompt_embeds.npz, a second load reads it back bit for bit,
              and the embeddings agree with the CPU's.
+14. weights - a FLUX.1-Kontext-dev checkpoint directory in the published
+             layout (`transformer/`: full width, depth 1 + 2, random bf16 values
+             from a seed, 3 shards + index; `scheduler/`; the empty prompt's
+             npz) and the FLUX `ae` in RGB, written from the same seed's model
+             built in memory, through `from_pretrained`: load seconds, GiB on
+             disk, host peak RSS and device memory; weights bit-equal to the
+             model in memory, and a 4-step 512^2 sample (K1, K2, K3) against
+             that model's on the same noise; int8 at load (K10) against the
+             bf16 sample; the widened VAE's 256^2 encode and decode against the
+             CPU's fp32 plain route and `scripts/record_goldens_torch.py`'s
+             goldens; LPIPS from lpips' and torchvision's keys, identical; two
+             planted faults (a square tensor written transposed, an index that
+             names a key's shard wrongly) must fail.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -173,6 +186,7 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 
 from ragb_vae_tpu_torch.ops.kernels import _build  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import conv3x3 as c3  # noqa: E402
@@ -180,6 +194,7 @@ from ragb_vae_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import fused_gn_silu_conv as fgc  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import int8_matmul as i8  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import resnet_block as rb  # noqa: E402
+from rehearse_aux_assets_torch import write_flux_tokenizers  # noqa: E402
 
 SEED = 0
 
@@ -1820,7 +1835,8 @@ BLOCKS = 19 + 38               # attention calls per transformer forward
 TRAIN_STEPS = 1                # optimizer steps of the VAE phase (the stage1 phase takes 3 more)
 STAGE_STEPS, STAGE_PAIRS, STAGE_MICRO = 2, 4, 2     # of the LoRA and the QLoRA phase: steps, pairs per step, micro-batches
 LORA_PAIRS = 2                 # the LoRA phase's pairs per step (the QLoRA phase's probe loss needs 4 to fall)
-ALL_PHASES = ("kernels", "slice", "pp", "lora", "int8", "tp", "axes", "convs", "train", "stage1", "textenc")
+ALL_PHASES = ("kernels", "slice", "pp", "lora", "int8", "tp", "axes", "convs", "train", "stage1", "textenc",
+              "weights")
 
 
 def _lora_counts() -> dict:
@@ -3709,25 +3725,6 @@ def phase_stage1(work: Path) -> dict:
 # |CPU| of each output. Summation order alone separates them (~1e-6); a
 # dropped padding mask moves every padded position (~1).
 TEXTENC_HOLD_TOL = 1e-4
-# FLUX.1-Kontext-dev's tokenizer files: CLIP pads with its eos
-CLIP_SPECIALS = {"bos_token": ("<|startoftext|>", 49406), "eos_token": ("<|endoftext|>", 49407),
-                 "pad_token": ("<|endoftext|>", 49407), "unk_token": ("<|endoftext|>", 49407)}
-T5_SPECIALS = {"pad_token": ("<pad>", 0), "eos_token": ("</s>", 1), "unk_token": ("<unk>", 2)}
-
-
-def _write_flux_tokenizers(root: Path) -> None:
-    """tokenizer/ and tokenizer_2/ as FLUX.1-Kontext-dev ships them, cut to
-    the fields the port reads: the special tokens, their ids in
-    `added_tokens_decoder` (and CLIP's vocab.json), `model_max_length`."""
-    for sub, specials, length in (("tokenizer", CLIP_SPECIALS, 77), ("tokenizer_2", T5_SPECIALS, 512)):
-        (root / sub).mkdir(parents=True)
-        decoder = {str(i): {"content": text, "special": True} for text, i in specials.values()}
-        (root / sub / "tokenizer_config.json").write_text(json.dumps(
-            {"model_max_length": length, "added_tokens_decoder": decoder,
-             **{field: text for field, (text, _) in specials.items()}}))
-    (root / "tokenizer" / "vocab.json").write_text(json.dumps({t: i for t, i in CLIP_SPECIALS.values()}))
-
-
 def _text_encoders(clip_cfg, t5_cfg, device, generator):
     """(CLIP, T5) drawn from `generator` with transformers' per-layer stds,
     built on the meta device and materialised on `device` (no default init)."""
@@ -3787,7 +3784,7 @@ def _write_narrow_text_checkpoint(root: Path, device) -> None:
     clip, t5 = _text_encoders(clip_cfg, t5_cfg, device, torch.Generator(device).manual_seed(SEED + 13))
     te.save_text_encoder(clip, root / "flux" / "text_encoder")
     te.save_text_encoder(t5, root / "flux" / "text_encoder_2")
-    _write_flux_tokenizers(root / "flux")
+    write_flux_tokenizers(root / "flux")
     t_cfg = FluxTransformerConfig.tiny()
     t_cfg.joint_attention_dim, t_cfg.pooled_projection_dim = t5_cfg.d_model, clip_cfg.hidden_size
     v_cfg = AutoencoderConfig.tiny()
@@ -3811,7 +3808,7 @@ def phase_textenc(work: Path, device="cuda") -> dict:
     on_card = device.type == "cuda"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip() if on_card else "cpu"
-    _write_flux_tokenizers(work / "tok")
+    write_flux_tokenizers(work / "tok")
     inputs = (te.clip_empty_prompt_ids(work / "tok" / "tokenizer"), te.t5_empty_prompt_ids(work / "tok" / "tokenizer_2"))
     assert inputs[0][0].shape == (1, 77) and inputs[0][1].sum() == 2 and inputs[1][0].shape == (1, 512)
     t0 = time.perf_counter()
@@ -3884,6 +3881,258 @@ def phase_textenc(work: Path, device="cuda") -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: weights, a published-layout checkpoint through the port's loaders
+# ---------------------------------------------------------------------------
+WEIGHTS_SEED = SEED + 14
+WEIGHTS_SAMPLE_PX = 512        # the sample's size
+WEIGHTS_VAE_PX = 256           # the widened VAE's hold
+# the planted faults: a square tensor written transposed, and a key the index puts in the wrong shard
+WEIGHTS_TRANSPOSED_KEY = "single_transformer_blocks.0.attn.to_q.weight"
+WEIGHTS_MISPLACED_KEY = "transformer_blocks.0.attn.to_k.weight"
+# The widened VAE on the card (bf16, K1, K2 and K3 at head dim 512) against the
+# CPU's plain route in fp32 on the same weights, ||card - CPU|| / ||CPU|| of the
+# posterior mean and of the decoded image (the CPU's mean decoded on both): bf16
+# rounds each of the `ae`'s ~30 convolutions by up to 2^-9, about 1e-2 in all; a
+# wrong weight decorrelates what follows it (order 1). The same bound as
+# `record_goldens_torch.HOLD_REL_TOL`, which holds the card's VAE against its goldens.
+WEIGHTS_VAE_REL_TOL = 5e-2
+
+
+def _weights_configs():
+    """(transformer, RGB VAE) of the phase: FLUX.1-Kontext-dev at its
+    published width, depth cut to 1 double and 2 single blocks; the FLUX `ae`."""
+    from ragb_vae_tpu_torch.models.flux_transformer import FluxTransformerConfig
+    from ragb_vae_tpu_torch.models.vae_config import AutoencoderConfig
+
+    return FluxTransformerConfig(num_layers=1, num_single_layers=2), AutoencoderConfig.flux()
+
+
+def _sample_parts(model, gt: torch.Tensor, seed: int):
+    """`model.sample(gt, SERVE_STEPS steps, seed)` of one image, with the
+    sampler's final latents beside the image: (latents, image)."""
+    gen = torch.Generator(model.device).manual_seed(seed)
+    with torch.inference_mode():
+        eps, init, steps = model.draw_noise(model.latent_shape(gt.shape[1], gt.shape[2]), SERVE_STEPS, gen)
+        cond = model.encode_latents(gt.to(model.device), eps[None])
+        latents = model.sample_latents_from_noise(cond, init[None], steps[None].transpose(0, 1))
+        return latents.float(), model.decode_latents(latents)
+
+
+def _modules_differ(a: torch.nn.Module, b: torch.nn.Module) -> list:
+    """The state-dict keys whose presence, dtype or bits differ between two modules."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return sorted(k for k in set(sa) | set(sb) if k not in sa or k not in sb or sa[k].dtype != sb[k].dtype
+                  or sa[k].shape != sb[k].shape or not torch.equal(sa[k], sb[k].to(sa[k].device)))
+
+
+def _planted_copy(src: Path, dst: Path) -> Path:
+    """`dst`: a model directory whose every file links to `src`'s, to plant a fault in."""
+    for path in src.rglob("*"):
+        if path.is_file():
+            (dst / path.relative_to(src)).parent.mkdir(parents=True, exist_ok=True)
+            (dst / path.relative_to(src)).symlink_to(path)
+    return dst
+
+
+def phase_weights(work: Path, device="cuda") -> dict:
+    """A FLUX.1-Kontext-dev checkpoint directory in the published layout
+    (`transformer/` in 3 bf16 shards + index at full width, depth 1 + 2,
+    random values from a seed; `scheduler/`; the empty prompt's npz) and the
+    FLUX `ae` in RGB, written from a model built in memory from the seed
+    (its values made bf16, its alpha path zero: what the files hold). Then:
+    `from_pretrained` in bf16, its weights bit-equal to that model's, and a
+    4-step 512^2 sample against that model's on the same noise; int8 at load
+    (K10) against the bf16 sample; the widened VAE's 256^2 encode and decode
+    against the CPU's fp32 plain route; `record_goldens_torch` on the `ae` and
+    the card's model against its goldens; LPIPS from both key formats; two
+    planted faults (a square tensor written transposed, an index naming a
+    key's shard wrongly) must fail. -> the launches of the from-disk sample
+    and of the int8 sample."""
+    import dataclasses
+
+    import record_goldens_torch
+    import rehearse_aux_assets_torch as aux
+    import rehearse_real_geometry_torch as rehearse
+
+    from ragb_vae_tpu_torch.models import flux_kontext_textalpha as fk
+    from ragb_vae_tpu_torch.models.rgba_vae import RgbaVAE
+    from ragb_vae_tpu_torch.models.weights import load_torch_state, save_autoencoder_params, save_torch_state
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip() if on_card else "cpu"
+    t_cfg, rgb_cfg = _weights_configs()
+    rgba_cfg = dataclasses.replace(rgb_cfg, in_channels=4, out_channels=4)
+    t0 = time.perf_counter()
+    model = fk.FluxTextAlphaModel.random(t_cfg, rgba_cfg, seed=WEIGHTS_SEED, device=device, dtype=torch.bfloat16,
+                                         fused=True)
+    with torch.no_grad():
+        for module in (model.transformer, model.vae.module):
+            for t in module.state_dict().values():     # the fp32 AdaLN modulation: bf16 values
+                if t.is_floating_point():
+                    t.copy_(t.to(torch.bfloat16))
+        vae_state = model.vae.module.state_dict()      # the alpha path a widened RGB `ae` has
+        vae_state["encoder.conv_in.weight"][:, 3:] = 0
+        vae_state["decoder.conv_out.weight"][3:] = 0
+        vae_state["decoder.conv_out.bias"][3:] = 0
+    ckpt = work / "flux"
+    t_state = model.transformer.state_dict()
+    keys = [(k, tuple(v.shape)) for k, v in t_state.items()]
+    rehearse.write_transformer_config(t_cfg, ckpt / "transformer")
+    rehearse.write_sharded_transformer(keys, ckpt / "transformer", make=lambda k, s: t_state[k].cpu())
+    rehearse.write_model_dir(ckpt, model.prompt_embeds.cpu().numpy(), model.pooled_prompt_embeds.cpu().numpy(),
+                             model.text_ids.cpu().numpy())
+    rgb_state = {k: v.cpu() for k, v in vae_state.items()}
+    rgb_state["encoder.conv_in.weight"] = rgb_state["encoder.conv_in.weight"][:, :3]
+    rgb_state["decoder.conv_out.weight"] = rgb_state["decoder.conv_out.weight"][:3]
+    rgb_state["decoder.conv_out.bias"] = rgb_state["decoder.conv_out.bias"][:3]
+    save_autoencoder_params(rgb_cfg, rgb_state, work / "vae" / "ae")
+    n_params = sum(int(np.prod(s)) for _, s in keys)
+    log("weights", f"wrote {len(keys)} transformer tensors ({n_params / 1e9:.3f} B params, depth "
+        f"{t_cfg.num_layers} + {t_cfg.num_single_layers} at width {t_cfg.inner_dim}) in 3 bf16 shards + index and "
+        f"the RGB `ae` ({len(rgb_state)} tensors): {rehearse.disk_bytes(work) / 2**30:.3f} GiB on disk, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def load(path: Path, **kw):
+        return fk.FluxTextAlphaModel.from_pretrained(path, vae_path=work / "vae", dtype=torch.bfloat16, fused=True,
+                                                     device=device, **kw)
+
+    # the bf16 load: weights bit-equal to the model in memory
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with rehearse.HostPeak() as host:
+        loaded = load(ckpt)
+        if on_card:
+            torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    device_mem = (f"device {(torch.cuda.memory_allocated() - before) / 2**30:.3f} GiB resident, "
+                  f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.3f} GiB peak above the model in memory"
+                  if on_card else "no device")
+    differ = _modules_differ(loaded.transformer, model.transformer) + _modules_differ(loaded.vae.module,
+                                                                                      model.vae.module)
+    same_prompt = torch.equal(loaded.prompt_embeds, model.prompt_embeds) and torch.equal(
+        loaded.pooled_prompt_embeds, model.pooled_prompt_embeds)
+    log("weights", f"{smi}: from_pretrained bf16 in {load_s:.2f} s from {rehearse.disk_bytes(ckpt) / 2**30:.3f} GiB "
+        f"on disk; host peak RSS {host.peak / 2**30:.2f} GiB during the load (process "
+        f"{rehearse.process_peak_bytes() / 2**30:.2f} GiB), {device_mem}; weights "
+        f"{'bit-equal to the model in memory' if not differ else f'DIFFER at {differ[:3]}'}, prompt "
+        f"{'equal' if same_prompt else 'DIFFERS'}")
+    if differ or not same_prompt:
+        raise SystemExit("[weights] FAIL: the checkpoint did not load the weights it was written from")
+
+    # a 4-step sample through the entry point, against the model in memory on the same noise
+    gt = torch.rand((1, WEIGHTS_SAMPLE_PX, WEIGHTS_SAMPLE_PX, 4), generator=torch.Generator().manual_seed(WEIGHTS_SEED))
+    reset_all_counts()
+    image = loaded.sample(gt, num_inference_steps=SERVE_STEPS,
+                          generator=torch.Generator(device).manual_seed(WEIGHTS_SEED))
+    counts = {"resnet_conv3x3_stats": rb.CONV_LAUNCHES, "subpixel_upsample_conv3x3_stats": rb.UPSAMPLE_LAUNCHES,
+              "flash_attention_fwd": fa.LAUNCHES}
+    latents, parts_image = _sample_parts(loaded, gt, WEIGHTS_SEED)
+    want_latents, want_image = _sample_parts(model, gt, WEIGHTS_SEED)
+    again_latents, again_image = _sample_parts(model, gt, WEIGHTS_SEED)
+
+    def max_diff(a, b) -> float:
+        return float((a.float() - b.float()).abs().max())
+
+    # bit-equal, or within the model in memory's own run-to-run spread
+    spread = (max_diff(want_latents, again_latents), max_diff(want_image, again_image))
+    diffs = (max_diff(latents, want_latents), max_diff(image, want_image), max_diff(image, parts_image))
+    fine = (bool(torch.isfinite(image).all()) and diffs[0] <= spread[0] and diffs[1] <= spread[1]
+            and diffs[2] <= spread[1])
+    log("weights", f"{SERVE_STEPS}-step {WEIGHTS_SAMPLE_PX}^2 sample from disk (`sample`) against the model in memory "
+        f"on the same noise: latents max |diff| {diffs[0]:.3e}, image {diffs[1]:.3e} (the model in memory against "
+        f"itself: {spread[0]:.3e}, {spread[1]:.3e}; bound: bit-equal, or within that spread); launches {counts} "
+        f"{'ok' if fine else 'FAIL'}")
+    if not fine:
+        raise SystemExit("[weights] FAIL: the model from disk does not sample as the model it was written from")
+    if on_card and not all(n > 0 for n in counts.values()):
+        raise SystemExit(f"[weights] a kernel of the path never launched: {counts}")
+
+    # int8 at load, against the bf16 sample
+    del model, want_image, again_image
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    quantized = load(ckpt, weight_quant="int8")
+    q_load_s = time.perf_counter() - t0
+    reset_all_counts()
+    q_latents, q_image = _sample_parts(quantized, gt, WEIGHTS_SEED)
+    counts["int8_matmul"] = i8.LAUNCHES
+    rel = ((q_latents - latents).norm() / latents.norm()).item()
+    cos = (torch.dot(q_latents.flatten(), latents.flatten()) / (q_latents.norm() * latents.norm())).item()
+    fine = (bool(torch.isfinite(q_image).all()) and rel <= INT8_TRACK_REL_TOL and cos >= INT8_TRACK_COS_TOL
+            and (i8.LAUNCHES > 0 or not on_card))
+    log("weights", f"int8 at load ({q_load_s:.2f} s): the same sample's latents against bf16's: relative error "
+        f"{rel:.4f} (<= {INT8_TRACK_REL_TOL}) cosine {cos:.5f} (>= {INT8_TRACK_COS_TOL}), {i8.LAUNCHES} K10 launches "
+        f"{'ok' if fine else 'FAIL'}")
+    if not fine:
+        raise SystemExit("[weights] FAIL: the int8 model loaded from disk does not track the bf16 one")
+    del quantized, q_latents, q_image
+
+    # the widened VAE on the card against the CPU's fp32 plain route, and against record_goldens_torch
+    cpu_vae = RgbaVAE.from_pretrained_rgb(work / "vae", subfolder="ae", device="cpu")
+    x = torch.rand((1, WEIGHTS_VAE_PX, WEIGHTS_VAE_PX, 4), generator=torch.Generator().manual_seed(WEIGHTS_SEED + 1))
+    with torch.no_grad():
+        ref = cpu_vae.encode(x * 2.0 - 1.0).mean
+        ref_decoded = cpu_vae.decode(ref)
+        mean = loaded.vae.encode((x * 2.0 - 1.0).to(device)).mean.float().cpu()
+        decoded = loaded.vae.decode(ref.to(device)).float().cpu()
+    errs = {"mean": float((mean - ref).norm() / ref.norm()),
+            "decoded": float((decoded - ref_decoded).norm() / ref_decoded.norm())}
+    log("weights", f"widened VAE, {WEIGHTS_VAE_PX}^2 encode and decode in bf16 on {device} against the CPU's fp32 plain "
+        f"route: mean {errs['mean']:.3e}, decoded {errs['decoded']:.3e} (bound {WEIGHTS_VAE_REL_TOL:g})")
+    if not all(np.isfinite(e) and e <= WEIGHTS_VAE_REL_TOL for e in errs.values()):
+        raise SystemExit("[weights] FAIL: the card's VAE does not reproduce the CPU's")
+    del cpu_vae
+    goldens = work / "goldens"
+    goldens.mkdir()
+    record_goldens_torch.record_vae(work / "vae", "ae", goldens, False, device)
+    rehearse.hold_widened_vae(loaded.vae, goldens / "vae_goldens.npz", device)
+
+    # LPIPS from both key formats (and .pt): identical distances
+    dists = aux.lpips_distances(aux.write_lpips_files(work), device)
+    same = all(torch.equal(d, dists["safetensors"]) for d in dists.values())
+    log("weights", f"LPIPS from lpips' and torchvision's keys and from .pt on {device}: distances "
+        f"{[float(d) for d in dists['safetensors']]} {'identical' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit("[weights] FAIL: the LPIPS formats gave other distances")
+
+    # two planted faults, each of which must fail
+    index_name = "diffusion_pytorch_model.safetensors.index.json"
+    weight_map = json.loads((ckpt / "transformer" / index_name).read_text())["weight_map"]
+    bad = _planted_copy(ckpt, work / "transposed")
+    shard = bad / "transformer" / weight_map[WEIGHTS_TRANSPOSED_KEY]
+    tensors = load_torch_state(shard)
+    tensors[WEIGHTS_TRANSPOSED_KEY] = tensors[WEIGHTS_TRANSPOSED_KEY].t().contiguous()
+    shard.unlink()
+    save_torch_state(tensors, shard)
+    del tensors
+    differ = _modules_differ(load(bad).transformer, loaded.transformer)
+    caught_transposed = differ == [WEIGHTS_TRANSPOSED_KEY]
+    bad = _planted_copy(ckpt, work / "misplaced")
+    wrong = dict(weight_map)
+    wrong[WEIGHTS_MISPLACED_KEY] = next(n for n in sorted(set(weight_map.values()))
+                                        if n != weight_map[WEIGHTS_MISPLACED_KEY])
+    (bad / "transformer" / index_name).unlink()
+    (bad / "transformer" / index_name).write_text(json.dumps({"metadata": {}, "weight_map": wrong}))
+    try:
+        load(bad)
+        caught_misplaced, why = False, "it loaded"
+    except ValueError as err:
+        caught_misplaced, why = WEIGHTS_MISPLACED_KEY in str(err), str(err)
+    log("weights", f"planted faults: {WEIGHTS_TRANSPOSED_KEY} written transposed (shapes pass): the value check "
+        f"{'caught it' if caught_transposed else f'FAILED to catch it ({differ[:3]})'}; the index naming the wrong "
+        f"shard for {WEIGHTS_MISPLACED_KEY}: {'the load raised naming the key' if caught_misplaced else 'NOT caught'} "
+        f"({why[:160]})")
+    if not (caught_transposed and caught_misplaced):
+        raise SystemExit("[weights] FAIL: a planted fault passed")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3950,6 +4199,9 @@ def main(argv=None) -> int:
     if "textenc" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             run("textenc", phase_textenc, Path(tmp))
+    if "weights" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            run("weights", phase_weights, Path(tmp))
     if phases != set(ALL_PHASES):
         log("done", f"ran only {sorted(phases)}: no summary")
         return 0

@@ -49,6 +49,7 @@ from ragb_vae_tpu_torch.models.flux_transformer import (
     freeze_base_parameters,
 )
 from ragb_vae_tpu_torch.models.flux_weights import (
+    DTypes,
     StateDict,
     load_flux_transformer_params,
     load_lora_state,
@@ -92,11 +93,13 @@ LORA_WEIGHT_FILES = ("pytorch_lora_weights.safetensors", "pytorch_lora_weights.b
 
 
 def load_transformer(
-    model_path: Union[str, Path], *, subfolder: Optional[str] = "transformer", take=None
+    model_path: Union[str, Path], *, subfolder: Optional[str] = "transformer", take=None,
+    dtype: DTypes = torch.float32,
 ) -> Tuple[FluxTransformerConfig, StateDict, bool]:
     """(config, the port's state dict, whether it is weight-only int8). A
     directory with the quantisation marker is read as the quantised tree it
-    holds (written by either package); any other as a diffusers checkpoint.
+    holds (written by either package); any other as a diffusers checkpoint,
+    each entry cast to `dtype` as it is read (`load_flux_transformer_params`).
     `take(key, full) -> part` keeps part of each entry (a tensor-parallel
     rank's slice): a diffusers checkpoint is then read one tensor at a time,
     a quantised tree whole and cut afterwards."""
@@ -107,7 +110,7 @@ def load_transformer(
         if take is not None:
             state = {k: take(k, v).clone() for k, v in state.items()}
         return config, state, True
-    return (*load_flux_transformer_params(model_path, subfolder, take=take), False)
+    return (*load_flux_transformer_params(model_path, subfolder, take=take, dtype=dtype), False)
 
 
 def load_scheduler(model_path: Union[str, Path]) -> FlowMatchEulerScheduler:
@@ -498,12 +501,14 @@ class FluxTextAlphaModel:
             take = lambda key, full: shard_state_entry(transformer, key, full)   # noqa: E731
         elif transformer.fsdp is not None:
             take = transformer.fsdp.take
-        _, t_state, _ = load_transformer(model_path, take=take)
         # each tensor keeps the dtype its module declared (fp32 for the AdaLN
-        # modulation, int8 and fp32 for a quantised linear, `dtype` elsewhere)
+        # modulation, int8 and fp32 for a quantised linear, `dtype` elsewhere),
+        # cast as it is read: the host never holds a second copy of the model
         want = {k: p.dtype for k, p in transformer.state_dict().items()}
+        _, t_state, _ = load_transformer(model_path, take=take, dtype=want)
         transformer.load_state_dict({k: v.to(want.get(k, dtype)) for k, v in t_state.items()},
                                     strict=True, assign=True)
+        del t_state
         if quantize_here:
             if pipeline is None:
                 quantize_module_(transformer, device=device, dtype=dtype)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import json
 import re
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -114,6 +114,14 @@ def _set_path(tree: dict, path: Tuple[str, ...], value) -> None:
     for part in path[:-1]:
         node = node.setdefault(part, {})
     node[path[-1]] = value
+
+
+def merge_trees(into: dict, tree: dict) -> dict:
+    """Add `tree`'s leaves to the nested dict `into` (in place; a leaf both
+    hold is `tree`'s)."""
+    for path, value in iter_leaves(tree):
+        _set_path(into, path, value)
+    return into
 
 
 def params_from_flax(tree: dict) -> StateDict:
@@ -243,35 +251,57 @@ _WEIGHT_CANDIDATES = (
 )
 
 
-def _weight_files(directory: Path):
+def _weight_files(directory: Path) -> Tuple[list, Optional[Dict[str, str]]]:
+    """(the files to read, the index's key -> shard map or None for one file)."""
     index_files = list(directory.glob("*.safetensors.index.json")) + list(
         directory.glob("*.bin.index.json")
     )
     if index_files:
-        index = json.loads(index_files[0].read_text())
-        return [directory / shard for shard in sorted(set(index["weight_map"].values()))]
+        weight_map = json.loads(index_files[0].read_text())["weight_map"]
+        return [directory / shard for shard in sorted(set(weight_map.values()))], weight_map
     for name in _WEIGHT_CANDIDATES:
         if (directory / name).exists():
-            return [directory / name]
+            return [directory / name], None
     raise FileNotFoundError(f"No transformer weights found in {directory}.")
 
 
+DTypes = Union[torch.dtype, Mapping[str, torch.dtype], None]
+
+
 def load_flux_transformer_params(
-    model_path: Union[str, Path], subfolder: Optional[str] = "transformer", *, take=None
+    model_path: Union[str, Path], subfolder: Optional[str] = "transformer", *, take=None,
+    dtype: DTypes = torch.float32,
 ) -> Tuple[FluxTransformerConfig, StateDict]:
-    """(config, the port's fp32 state dict) of a diffusers checkpoint, read
-    one tensor at a time. With `take(key, full) -> part` (a tensor-parallel
+    """(config, the port's state dict) of a diffusers checkpoint, read one
+    tensor at a time, each cast as it is read to `dtype`: one dtype, a map of
+    key -> dtype (fp32 for a key it does not name; what a module declares,
+    so the host never holds the whole model in fp32), or None to keep each
+    entry as stored. With `take(key, full) -> part` (a tensor-parallel
     rank's slice) each entry is cut and copied as it is read, so the host
-    never holds more than this rank's part and one full tensor."""
+    never holds more than this rank's part and one full tensor.
+
+    A sharded checkpoint's index must name each entry's own shard, and
+    every key it names must be in a shard: a mismatch raises, naming the key."""
     directory = Path(model_path) / subfolder if subfolder else Path(model_path)
     config = FluxTransformerConfig.from_json(directory / "config.json")
+    files, weight_map = _weight_files(directory)
     state: StateDict = {}
-    for path in _weight_files(directory):
-        for key, value in iter_torch_state(path):
-            key = key[len("transformer."):] if key.startswith("transformer.") else key
-            full = value.float()
-            part = full if take is None else take(key, full)
-            state[key] = part.clone() if part.numel() != full.numel() else part
+    seen = set()
+    for path in files:
+        for raw_key, value in iter_torch_state(path):
+            if weight_map is not None and weight_map.get(raw_key) != path.name:
+                raise ValueError(f"{raw_key} lies in {path.name}, but the index names "
+                                 f"{weight_map.get(raw_key)!r} for it ({directory})")
+            seen.add(raw_key)
+            key = raw_key[len("transformer."):] if raw_key.startswith("transformer.") else raw_key
+            if dtype is not None:
+                value = value.to(dtype.get(key, torch.float32) if isinstance(dtype, Mapping) else dtype)
+            part = value if take is None else take(key, value)
+            state[key] = part.clone() if part.numel() != value.numel() else part
+    missing = sorted(set(weight_map or ()) - seen)
+    if missing:
+        raise ValueError(f"the index of {directory} names {missing[:3]} ({len(missing)} keys), "
+                         "which no shard holds")
     return config, state
 
 

@@ -40,6 +40,7 @@ def main(argv=None) -> None:
     from ragb_vae_tpu_torch.models.flux_weights import (
         iter_leaves,
         load_flux_transformer_params,
+        merge_trees,
         params_to_flax,
     )
     from ragb_vae_tpu_torch.models.quantize import (
@@ -48,10 +49,13 @@ def main(argv=None) -> None:
     )
 
     device = resolve_device(args.device)
-    config, state = load_flux_transformer_params(args.model_path, args.subfolder)
-    params = params_to_flax(state)
-    n_params = sum(int(leaf.size) for _, leaf in iter_leaves(params))
-    qparams = quantize_transformer_params(params, device)
+    # entries as stored (bf16 for a published checkpoint), each made fp32 and
+    # quantised in turn and then freed: the host never holds the model in fp32
+    config, state = load_flux_transformer_params(args.model_path, args.subfolder, dtype=None)
+    n_params = sum(v.numel() for v in state.values())
+    qparams: dict = {}
+    for key in list(state):
+        merge_trees(qparams, quantize_transformer_params(params_to_flax({key: state.pop(key)}), device))
     q_bytes = sum(leaf.numel() * leaf.element_size() if hasattr(leaf, "numel") else leaf.nbytes
                   for _, leaf in iter_leaves(qparams))
     save_quantized_transformer(config, qparams, args.output_dir)

@@ -37,7 +37,8 @@ PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "dataset_sanity_check_torch.py", "rgb_vae_sanity_check_torch.py", "time_serving_daemon.py",
     "pp_multicard_check.py", "tp_torchrun_check.py", "dist_multicard_check.py", "export_empty_prompt_torch.py",
     "prepare_rgba_buckets_torch.py", "prism_layer_real_bucketer_torch.py", "prism_layer_pro_bucketer_torch.py",
-    "laion_bucket_downloader_torch.py", "time_plain_gaps.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
+    "laion_bucket_downloader_torch.py", "time_plain_gaps.py", "record_goldens_torch.py",
+    "rehearse_real_geometry_torch.py", "rehearse_aux_assets_torch.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
@@ -68,6 +69,19 @@ def test_port_scripts_import_no_jax_script_by_its_bare_name(path):
     jax_scripts = {p.stem for p in (ROOT.parent / "scripts").glob("*.py")} - {p.stem for p in PORT_SCRIPTS}
     bad = [m for m in _imported_modules(path) if m in jax_scripts]
     assert not bad, f"{path} imports the JAX scripts {bad}"
+
+
+TEST_MODULES = {p.stem for p in (ROOT.parent / "tests").glob("*.py")}
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT.parent)))
+def test_no_test_module_imports(path):
+    """Nothing of the port imports from `tests/`, as `tests.x` or, with
+    `tests/` put on sys.path, by a test module's bare name: the restatements
+    there (`tests/torch_vae_ref.py`, `torch_flux_ref.py`) import the JAX
+    package's config classes, which the scan above does not see."""
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] == "tests" or m.split(".")[0] in TEST_MODULES]
+    assert not bad, f"{path} imports {bad} from tests/"
 
 
 def test_scan_covers_the_front_door():

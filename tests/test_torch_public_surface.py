@@ -100,9 +100,6 @@ NOT_PORTED = {
     "models.vae_tiling.sliced_apply": _SLICING,
     "models.vae_tiling.sharded_sliced_apply": _SLICING,
     "ops.pallas.int8_matmul.enable": "queue C (int8): no enable(); the int8 route is the only one on the card",
-    "scripts/record_goldens.py": "item 7: needs a real checkpoint",
-    "scripts/rehearse_aux_assets.py": "item 7: a JAX weight-drop rehearsal",
-    "scripts/rehearse_real_geometry.py": "item 7: a JAX weight-drop rehearsal",
 }
 
 # public names that are instance attributes in the port, with a factory of an instance
