@@ -10,16 +10,26 @@ the copy runs under the previous step's compute. A dataset with a
 `getitems(indices, map_fn=)` fetches a batch itself (the native batch PNG
 decode of `MixedBucketDataset`). `process_shard=(index, count)` gives each
 process its contiguous slice of every batch of one shared index stream.
+
+Spans (`utils/profiling.py`): `data.fetch` on the loader's thread covers one
+batch's items; on the consuming thread `data.next` covers the work of
+handing over one batch from `cuda_prefetch`: `data.wait` (the loader's
+queue), the caller's own stages (the LoRA stage's `data.pad`), `data.pin`
+and `data.copy` (enqueueing the copy). `cuda_prefetch` adds the host time
+of each `data.next` to its `Counter` (`data.next`).
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ragb_vae_tpu_torch.utils.profiling import Counter, annotate
 
 Item = Dict[str, Any]
 
@@ -138,7 +148,8 @@ class DataLoader:
                                  "use drop_last or a divisible batch_size")
             per = global_n // count
             batch_indices = batch_indices[index * per : (index + 1) * per]
-        batch = self.collate_fn(self._fetch_items(batch_indices))
+        with annotate("data.fetch"):
+            batch = self.collate_fn(self._fetch_items(batch_indices))
         if self.process_shard is not None:
             batch["global_batch_size"] = global_n
         return batch
@@ -186,7 +197,11 @@ class DataLoader:
         thread = threading.Thread(target=produce, daemon=True)
         thread.start()
         try:
-            while (item := ready.get()) is not done:
+            while True:
+                with annotate("data.wait"):
+                    item = ready.get()
+                if item is done:
+                    break
                 yield item
             if failure:
                 raise failure[0]
@@ -202,7 +217,8 @@ class DataLoader:
                 thread.join(timeout=0.05)
 
 
-def cuda_prefetch(batches: Iterable[Item], device, *, size: int = 2) -> Iterator[Item]:
+def cuda_prefetch(batches: Iterable[Item], device, *, size: int = 2,
+                  counter: Optional[Counter] = None) -> Iterator[Item]:
     """Move numeric numpy arrays of each batch to `device` ahead of their use.
 
     On a CUDA device every array is copied into a pinned host buffer and from
@@ -210,27 +226,27 @@ def cuda_prefetch(batches: Iterable[Item], device, *, size: int = 2) -> Iterator
     ahead; the consumer's stream waits on the copy before it gets the batch,
     and the tensors are recorded on it so their memory is not reused early.
     On the CPU the arrays become tensors and nothing else happens. Strings
-    and lists pass through."""
+    and lists pass through. Each batch handed over is one `data.next` span,
+    and its host seconds go to `counter` (a new `data.next` counter if none
+    is given)."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     stream = torch.cuda.Stream(device) if on_card else None
+    counter = counter or Counter("data.next")
 
     def move(batch: Item):
-        out: Item = {}
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray) and v.dtype != object}
         event = None
-        for key, value in batch.items():
-            if not (isinstance(value, np.ndarray) and value.dtype != object):
-                out[key] = value
-            elif not on_card:
-                out[key] = torch.from_numpy(value)
-            else:
-                pinned = torch.from_numpy(value).pin_memory()
-                with torch.cuda.stream(stream):
-                    out[key] = pinned.to(device, non_blocking=True)
         if on_card:
-            event = torch.cuda.Event()
-            event.record(stream)
-        return out, event
+            with annotate("data.pin"):
+                arrays = {k: torch.from_numpy(v).pin_memory() for k, v in arrays.items()}
+            with annotate("data.copy"), torch.cuda.stream(stream):
+                arrays = {k: v.to(device, non_blocking=True) for k, v in arrays.items()}
+                event = torch.cuda.Event()
+                event.record(stream)
+        else:
+            arrays = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        return {k: arrays.get(k, v) for k, v in batch.items()}, event
 
     def hand_over(moved):
         batch, event = moved
@@ -244,9 +260,17 @@ def cuda_prefetch(batches: Iterable[Item], device, *, size: int = 2) -> Iterator
 
     it = iter(batches)
     ahead: List = []
-    for batch in it:
-        ahead.append(move(batch))
-        if len(ahead) >= max(1, size):
-            yield hand_over(ahead.pop(0))
-    while ahead:
-        yield hand_over(ahead.pop(0))
+    exhausted = False
+    while True:
+        t0 = time.perf_counter()
+        with annotate("data.next"):
+            while not exhausted and len(ahead) < max(1, size):
+                try:
+                    ahead.append(move(next(it)))
+                except StopIteration:
+                    exhausted = True
+            batch = hand_over(ahead.pop(0)) if ahead else None
+        if batch is None:
+            return
+        counter.add(time.perf_counter() - t0)
+        yield batch

@@ -85,6 +85,7 @@ from ragb_vae_tpu_torch.parallel import sequence_parallel as spm
 from ragb_vae_tpu_torch.parallel.fsdp import shard_base_
 from ragb_vae_tpu_torch.parallel.mesh import Mesh, randn_rows
 from ragb_vae_tpu_torch.parallel.tensor_parallel import shard_state_entry, shard_transformer_, validate_tp
+from ragb_vae_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -646,21 +647,23 @@ class FluxTextAlphaModel:
         eps, the target's, the noise, the timestep density; over a `mesh`
         (the rows are this process's), each is drawn for every process's rows
         and this process keeps its own. Both encodes run without a gradient
-        (the VAE is frozen)."""
+        (the VAE is frozen). Spans: `lora.encode` (the draws and encodes),
+        `lora.forward` (the loss from the latents)."""
         gt, text_alpha = gt.to(self.device), text_alpha.to(self.device)
         bsz = gt.shape[0]
         lat_shape = (bsz,) + self.latent_shape(gt.shape[1], gt.shape[2])
         mesh = mesh or Mesh()
-        eps_cond = randn_rows(lat_shape, generator, mesh, device=self.device)
-        eps_target = randn_rows(lat_shape, generator, mesh, device=self.device)
-        with torch.no_grad():
+        with annotate("lora.encode"), torch.no_grad():
+            eps_cond = randn_rows(lat_shape, generator, mesh, device=self.device)
+            eps_target = randn_rows(lat_shape, generator, mesh, device=self.device)
             cond_latent = self.encode_latents(gt, eps_cond)
             target_latent = self.encode_latents(text_alpha, eps_target)
-        noise = randn_rows(lat_shape, generator, mesh, device=self.device)
-        u = compute_density_for_timestep_sampling(
-            generator, bsz, weighting_scheme="logit_normal", device=self.device,
-            draw=randn_rows((bsz,), generator, mesh, device=self.device))
-        return self.compute_loss_from_latents(cond_latent, target_latent, noise, u, weights=weights)
+        with annotate("lora.forward"):
+            noise = randn_rows(lat_shape, generator, mesh, device=self.device)
+            u = compute_density_for_timestep_sampling(
+                generator, bsz, weighting_scheme="logit_normal", device=self.device,
+                draw=randn_rows((bsz,), generator, mesh, device=self.device))
+            return self.compute_loss_from_latents(cond_latent, target_latent, noise, u, weights=weights)
 
     def compute_loss_from_latents(
         self,
@@ -750,14 +753,15 @@ class FluxTextAlphaModel:
         latents = init_noise.float()
         trajectory = []
         for i in range(num_steps):
-            sigma = float(sched.sigmas[i])
-            # the reference's quirk: fresh noise injected at EVERY step
-            noisy_target = (1.0 - sigma) * latents + sigma * step_noises[i].float()
-            packed = torch.cat([packed_cond, pack_latents(noisy_target.to(self.dtype))], dim=1)
-            timestep = torch.full((bsz,), float(sched.timesteps[i]) / 1000.0, device=device)
-            pred = self._transformer_pred(packed, timestep, img_ids, bsz, transformer)
-            pred_target = unpack_latents(pred[:, seq_cond:, :].float(), latent_h, latent_w)
-            latents = sched.step(pred_target, i, latents)
+            with annotate("serve.step", step=i):
+                sigma = float(sched.sigmas[i])
+                # the reference's quirk: fresh noise injected at EVERY step
+                noisy_target = (1.0 - sigma) * latents + sigma * step_noises[i].float()
+                packed = torch.cat([packed_cond, pack_latents(noisy_target.to(self.dtype))], dim=1)
+                timestep = torch.full((bsz,), float(sched.timesteps[i]) / 1000.0, device=device)
+                pred = self._transformer_pred(packed, timestep, img_ids, bsz, transformer)
+                pred_target = unpack_latents(pred[:, seq_cond:, :].float(), latent_h, latent_w)
+                latents = sched.step(pred_target, i, latents)
             if return_trajectory:
                 trajectory.append(latents)
         if return_trajectory:

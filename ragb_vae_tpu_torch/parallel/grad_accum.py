@@ -11,6 +11,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ragb_vae_tpu_torch.utils.profiling import annotate
+
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
 
@@ -34,6 +36,7 @@ def accumulated_grads(
     batch: Batch,
     num_micro: int,
     micro_weight_fn: Optional[Callable[[Batch], Tensor]] = None,
+    backward_span: str = "backward",
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Mean loss, aux and gradients over `num_micro` microbatches.
 
@@ -49,12 +52,19 @@ def accumulated_grads(
     weights per microbatch, sum(W * mean) / sum(W) is exactly the unpadded
     global mean, for the gradients as for the loss. Without it every
     microbatch counts the same.
+
+    Each microbatch's backward is a span (`utils/profiling.py::annotate`)
+    of the kind `backward_span`.
     """
+    def backward(loss: Tensor) -> None:
+        with annotate(backward_span):
+            loss.backward()
+
     for p in params:
         p.grad = None
     if num_micro <= 1:
         loss, aux = loss_fn(batch, 0)
-        loss.backward()
+        backward(loss)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     total_loss: Optional[Tensor] = None
@@ -63,7 +73,7 @@ def accumulated_grads(
     for index, micro in enumerate(split_microbatches(batch, num_micro)):
         loss, aux = loss_fn(micro, index)
         w = loss.new_ones(()) if micro_weight_fn is None else micro_weight_fn(micro).float()
-        (loss * w).backward()
+        backward(loss * w)
         loss = loss.detach()
         if total_loss is None:
             total_loss, total_w = w * loss, w

@@ -28,6 +28,17 @@ fails after the group's timeout (NCCL's watchdog then aborts the process):
 so while no batch comes, rank 0's batcher broadcasts an idle header every
 quarter of that timeout, which the workers skip.
 
+Spans and counters (`utils/profiling.py`): on the batcher thread
+`serve.batch#<batch>` covers `_launch`, with `serve.noise`, `serve.encode`,
+`serve.sample` (a `serve.step#<i>` a step), `serve.decode`, `serve.readback`
+and a `serve.answer#<request>` a request; the request's identifier is the
+one its `request_scope` (the daemon's handler) gave it. Each server owns the
+counters `serve.queue_wait` and `serve.service` (a request's enqueue to its
+batch's launch, and the launch to the batch's readback, after which the
+answers are handed back), `serve.latency` (their sum),
+`serve.rows` and `serve.pad_rows` (a batch's real and padding rows); `stats`
+reads them.
+
 Pipeline parallel (`pipeline=`, a `parallel/pipeline.py::PipelinedFluxTransformer`
 the model was placed on): one process; each batch draws its noise exactly as
 the single-device path does and samples through the pipeline, the VAE on the
@@ -35,6 +46,7 @@ first stage's device.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -47,6 +59,7 @@ import torch
 
 from ragb_vae_tpu_torch.parallel.mesh import Mesh, broadcast, group_timeout
 from ragb_vae_tpu_torch.parallel.pipeline import pipelined_sample_latents
+from ragb_vae_tpu_torch.utils.profiling import Counter, annotate, request_id
 
 
 def snap_size(
@@ -116,6 +129,7 @@ class _Request:
     image: np.ndarray          # bucket-sized (H, W, 4) float32 [0, 1]
     orig_size: Tuple[int, int]
     seed: int
+    rid: int = field(default_factory=request_id)
     future: "Future[np.ndarray]" = field(default_factory=Future)
     enqueued: float = field(default_factory=time.monotonic)
 
@@ -156,11 +170,13 @@ class InferenceServer:
         self._stop = threading.Event()
         self._draining = False
         self._thread: Optional[threading.Thread] = None
-        self._served = 0
-        self._batches = 0
         self._inflight = 0
-        self._lat_sum = 0.0
-        self._lat_max = 0.0
+        self._batch_ids = itertools.count()
+        self._queue_wait = Counter("serve.queue_wait")
+        self._service = Counter("serve.service")
+        self._latency = Counter("serve.latency")
+        self._rows = Counter("serve.rows")
+        self._pad_rows = Counter("serve.pad_rows")
 
     # -- the serving program --------------------------------------------
     def _run_batch(self, images: np.ndarray, seeds: np.ndarray) -> np.ndarray:
@@ -173,19 +189,24 @@ class InferenceServer:
     def _compute(self, images: np.ndarray, seeds: np.ndarray) -> np.ndarray:
         model = self.model
         steps = self.config.steps
-        gt = torch.from_numpy(images).to(model.device)
-        lat_shape = model.latent_shape(images.shape[1], images.shape[2])
-        draws = [
-            model.draw_noise(lat_shape, steps, torch.Generator(model.device).manual_seed(int(s)))
-            for s in seeds
-        ]
-        eps, init, per_step = (torch.stack(t) for t in zip(*draws))
-        cond = model.encode_latents(gt, eps)
-        if self.pipeline is None:
-            lat = model.sample_latents_from_noise(cond, init, per_step.transpose(0, 1))
-        else:
-            lat = pipelined_sample_latents(model, self.pipeline, cond, init, per_step.transpose(0, 1))
-        return model.decode_latents(lat).cpu().numpy()
+        with annotate("serve.noise"):
+            lat_shape = model.latent_shape(images.shape[1], images.shape[2])
+            draws = [
+                model.draw_noise(lat_shape, steps, torch.Generator(model.device).manual_seed(int(s)))
+                for s in seeds
+            ]
+            eps, init, per_step = (torch.stack(t) for t in zip(*draws))
+        with annotate("serve.encode"):
+            cond = model.encode_latents(torch.from_numpy(images).to(model.device), eps)
+        with annotate("serve.sample"):
+            if self.pipeline is None:
+                lat = model.sample_latents_from_noise(cond, init, per_step.transpose(0, 1))
+            else:
+                lat = pipelined_sample_latents(model, self.pipeline, cond, init, per_step.transpose(0, 1))
+        with annotate("serve.decode"):
+            decoded = model.decode_latents(lat)
+        with annotate("serve.readback"):
+            return decoded.cpu().numpy()
 
     # -- tensor parallel: rank 0 sends, the others follow -----------------
     def _send(self, kind: int, images: Optional[np.ndarray] = None, seeds: Optional[np.ndarray] = None) -> None:
@@ -340,10 +361,11 @@ class InferenceServer:
     def stats(self) -> Dict[str, float]:
         with self._queues_lock:
             pending = sum(q.qsize() for q in self._queues.values())
-        out = {"served": self._served, "pending": pending, "batches": self._batches}
-        if self._served:
-            out["latency_avg_ms"] = round(1000.0 * self._lat_sum / self._served, 1)
-            out["latency_max_ms"] = round(1000.0 * self._lat_max, 1)
+        latency = self._latency.snapshot()
+        out = {"served": latency["count"], "pending": pending, "batches": self._rows.count}
+        if latency["count"]:
+            out["latency_avg_ms"] = round(1000.0 * latency["total"] / latency["count"], 1)
+            out["latency_max_ms"] = round(1000.0 * latency["max"], 1)
         return out
 
     # -- batcher ---------------------------------------------------------
@@ -435,19 +457,22 @@ class InferenceServer:
         return out
 
     def _launch(self, reqs: List[_Request]) -> None:
-        n = len(reqs)
-        bucket = (reqs[0].image.shape[0], reqs[0].image.shape[1])
-        pad = max(self._batch_for(bucket), n) - n
-        images = np.stack([r.image for r in reqs] + [reqs[0].image] * pad)
-        seeds = np.asarray([r.seed for r in reqs] + [0] * pad, dtype=np.uint32)
-        out = self._run_batch(images, seeds)
-        done = time.monotonic()
-        self._batches += 1
-        for r, pred in zip(reqs, out[:n]):
-            if r.future.done():
-                continue  # raced stop()/expiry already failed it
-            r.future.set_result(resize_rgba(pred, r.orig_size))
-            self._served += 1
-            lat = done - r.enqueued
-            self._lat_sum += lat
-            self._lat_max = max(self._lat_max, lat)
+        launched = time.monotonic()
+        with annotate("serve.batch", batch=next(self._batch_ids)):
+            n = len(reqs)
+            bucket = (reqs[0].image.shape[0], reqs[0].image.shape[1])
+            pad = max(self._batch_for(bucket), n) - n
+            images = np.stack([r.image for r in reqs] + [reqs[0].image] * pad)
+            seeds = np.asarray([r.seed for r in reqs] + [0] * pad, dtype=np.uint32)
+            out = self._run_batch(images, seeds)
+            done = time.monotonic()
+            self._rows.add(n)
+            self._pad_rows.add(pad)
+            for r, pred in zip(reqs, out[:n]):
+                if r.future.done():
+                    continue  # raced stop()/expiry already failed it
+                with annotate("serve.answer", request=r.rid):
+                    r.future.set_result(resize_rgba(pred, r.orig_size))
+                self._queue_wait.add(launched - r.enqueued)
+                self._service.add(done - launched)
+                self._latency.add(done - r.enqueued)

@@ -16,6 +16,9 @@ Endpoints:
     GET  /healthz            -> {"status": "ok", "served": N, "pending": N,
                                  "batches": N, "latency_avg_ms": x,
                                  "latency_max_ms": x}
+    GET  /metrics            -> utils/profiling.py::counters(): {name: {"count",
+                                 "total", "max"}} of the batcher's counters
+                                 and `http.png`
 
 `--device` names where it runs (default `cuda`; a missing card raises). On a
 CUDA device the RGBA VAE runs its fused kernels. `--tp N` serves the
@@ -36,7 +39,11 @@ kernels are built once into `build/kernels/` and kept there).
 
 The HTTP handler threads only decode and encode PNGs and wait on a future:
 every tensor is made and used on the batcher thread, which runs in
-inference mode.
+inference mode. A handler opens a `request_scope`, whose identifier the
+request keeps in the batcher, and the spans `http.decode#<request>` (read
+the body, decode the PNG, convert to float), `http.wait#<request>` and
+`http.encode#<request>` (clip, encode the PNG, write); its counter
+`http.png` adds up a request's decode and encode.
 """
 from __future__ import annotations
 
@@ -45,12 +52,14 @@ import io
 import json
 import signal
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
 from ragb_vae_tpu_torch.inference import _DTYPES
+from ragb_vae_tpu_torch.utils.profiling import Counter, annotate, counters, request_scope
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -140,6 +149,8 @@ def make_handler(server) -> type:
     `stats` and `config.request_timeout_s`)."""
     from PIL import Image
 
+    png = Counter("http.png")
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *a):  # quiet by default
             pass
@@ -153,8 +164,11 @@ def make_handler(server) -> type:
             self.wfile.write(body)
 
         def do_GET(self):
-            if urlparse(self.path).path == "/healthz":
+            path = urlparse(self.path).path
+            if path == "/healthz":
                 self._json(200, {"status": "ok", **server.stats})
+            elif path == "/metrics":
+                self._json(200, counters())
             else:
                 self._json(404, {"error": "unknown path"})
 
@@ -163,24 +177,32 @@ def make_handler(server) -> type:
             if url.path != "/predict":
                 self._json(404, {"error": "unknown path"})
                 return
-            try:
-                length = int(self.headers.get("Content-Length", 0))
-                img = Image.open(io.BytesIO(self.rfile.read(length))).convert("RGBA")
-                arr = np.asarray(img, dtype=np.float32) / 255.0
-                qs = parse_qs(url.query)
-                seed = int(qs["seed"][0]) if "seed" in qs else None
-                pred = server.submit(arr, seed=seed).result(timeout=server.config.request_timeout_s)
-                out = Image.fromarray((np.clip(pred, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8), "RGBA")
-                buf = io.BytesIO()
-                out.save(buf, format="PNG")
-                data = buf.getvalue()
-                self.send_response(200)
-                self.send_header("Content-Type", "image/png")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-            except Exception as exc:  # the daemon answers every request
-                self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
+            with request_scope() as rid:
+                try:
+                    t0 = time.perf_counter()
+                    with annotate("http.decode", request=rid):
+                        length = int(self.headers.get("Content-Length", 0))
+                        img = Image.open(io.BytesIO(self.rfile.read(length))).convert("RGBA")
+                        arr = np.asarray(img, dtype=np.float32) / 255.0
+                    decode_s = time.perf_counter() - t0
+                    qs = parse_qs(url.query)
+                    seed = int(qs["seed"][0]) if "seed" in qs else None
+                    with annotate("http.wait", request=rid):
+                        pred = server.submit(arr, seed=seed).result(timeout=server.config.request_timeout_s)
+                    t1 = time.perf_counter()
+                    with annotate("http.encode", request=rid):
+                        out = Image.fromarray((np.clip(pred, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8), "RGBA")
+                        buf = io.BytesIO()
+                        out.save(buf, format="PNG")
+                        data = buf.getvalue()
+                        self.send_response(200)
+                        self.send_header("Content-Type", "image/png")
+                        self.send_header("Content-Length", str(len(data)))
+                        self.end_headers()
+                        self.wfile.write(data)
+                    png.add(decode_s + time.perf_counter() - t1)
+                except Exception as exc:  # the daemon answers every request
+                    self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
 
     return Handler
 

@@ -32,7 +32,9 @@ resumable `checkpoint-{N}`, no `final` is written, the result carries
 (`handle_preemption: false`, `--no-handle_preemption` or
 `RAGB_NO_PREEMPTION=1` turn the guard off). Every `log_every` steps the loss
 and the learning rate go to `<ckpt_dir>/metrics.jsonl`, as the JAX stage
-writes them.
+writes them; the printed line adds `data/wait_ms`, the mean host ms a step
+spent handing over its batch since the last line (the `data.next` counter).
+`RAGB_PROFILE_DIR` traces the loop (`utils/profiling.py::trace_context`).
 
 `--device` names where the stage runs (default `cuda`; a missing card raises).
 
@@ -113,6 +115,7 @@ from ragb_vae_tpu_torch.training.rgba_vae_stage import _to_uint8, pad_to_multipl
 from ragb_vae_tpu_torch.training.vae_step import ClippedAdamW, global_norm
 from ragb_vae_tpu_torch.utils.metrics_logger import MetricsLogger
 from ragb_vae_tpu_torch.utils.preemption import PreemptionGuard, preemption_enabled
+from ragb_vae_tpu_torch.utils.profiling import Counter, annotate, trace_context
 
 Tensor = torch.Tensor
 TRAIN_STATE_FILE = "train_state.pt"
@@ -293,7 +296,10 @@ def make_lora_train_step(
     partials and are summed over the model group before the update. With a
     `seq_mesh` of size > 1 (the model runs sequence-parallel over it), a
     batch whose streams were sharded leaves each rank the partial over its
-    tokens: those are summed over the sequence group too."""
+    tokens: those are summed over the sequence group too. A step is the span
+    `lora.step#<step_index>` around `lora.encode` and `lora.forward` (a
+    micro-batch's, `compute_loss`), `lora.backward`, `lora.grad_sum` (TP, SP)
+    and `lora.optimizer` (the clip and AdamW)."""
     params = list(lora_parameters(model.transformer).values())
     over_mesh = {} if mesh is None else {"mesh": mesh}
 
@@ -302,25 +308,33 @@ def make_lora_train_step(
             return model.compute_loss(micro["gt"], micro["text_alpha"], generator,
                                       weights=micro.get("weights"), **over_mesh)
 
-        loss, stats = accumulated_grads(
-            loss_fn, params, batch, n_micro,
-            micro_weight_fn=(lambda mb: mb["weights"].sum()) if "weights" in batch else None,
-        )
-        if model_mesh is not None:
-            sum_grads_over(params, model_mesh)
-        if seq_mesh is not None and model.sequence_sharded(*batch["gt"].shape[1:3]):
-            sum_grads_over(params, seq_mesh)
-        if lr_schedule is not None:
-            for group in optimizer.param_groups:
-                group["lr"] = lr_schedule(step_index)
-        if mesh is None:
-            grad_norm = global_norm([p.grad for p in params if p.grad is not None])
-            optimizer.clipped_step(grad_norm)
-            return loss, stats, grad_norm
-        w_local = batch["weights"].sum() if "weights" in batch else None
-        grad_norm = optimizer.step(w_local)
-        reduced = weighted_mean_over_ranks({"loss": loss, **stats}, w_local, mesh)
-        return reduced.pop("loss"), reduced, grad_norm
+        with annotate("lora.step", step=step_index):
+            loss, stats = accumulated_grads(
+                loss_fn, params, batch, n_micro,
+                micro_weight_fn=(lambda mb: mb["weights"].sum()) if "weights" in batch else None,
+                backward_span="lora.backward",
+            )
+            over_model = model_mesh is not None and model_mesh.size > 1
+            over_seq = seq_mesh is not None and model.sequence_sharded(*batch["gt"].shape[1:3])
+            if over_model or over_seq:
+                with annotate("lora.grad_sum"):
+                    if over_model:
+                        sum_grads_over(params, model_mesh)
+                    if over_seq:
+                        sum_grads_over(params, seq_mesh)
+            if lr_schedule is not None:
+                for group in optimizer.param_groups:
+                    group["lr"] = lr_schedule(step_index)
+            if mesh is None:
+                with annotate("lora.optimizer"):
+                    grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+                    optimizer.clipped_step(grad_norm)
+                return loss, stats, grad_norm
+            w_local = batch["weights"].sum() if "weights" in batch else None
+            with annotate("lora.optimizer"):
+                grad_norm = optimizer.step(w_local)
+            reduced = weighted_mean_over_ranks({"loss": loss, **stats}, w_local, mesh)
+            return reduced.pop("loss"), reduced, grad_norm
 
     return step
 
@@ -330,14 +344,16 @@ def make_lora_train_step(
 # ---------------------------------------------------------------------------
 def _padded_batches(loader: DataLoader, n_micro: int) -> Iterator[Dict[str, Any]]:
     for batch in loader:
-        gt = np.asarray(batch["gt"], np.float32)
-        n_real = gt.shape[0]
-        gt = pad_to_multiple(gt, n_micro)
-        yield {
-            "gt": gt,
-            "text_alpha": pad_to_multiple(np.asarray(batch["text_alpha"], np.float32), n_micro),
-            "weights": padding_weights(n_real, gt.shape[0]),
-        }
+        with annotate("data.pad"):
+            gt = np.asarray(batch["gt"], np.float32)
+            n_real = gt.shape[0]
+            gt = pad_to_multiple(gt, n_micro)
+            padded = {
+                "gt": gt,
+                "text_alpha": pad_to_multiple(np.asarray(batch["text_alpha"], np.float32), n_micro),
+                "weights": padding_weights(n_real, gt.shape[0]),
+            }
+        yield padded
 
 
 def train(
@@ -527,12 +543,14 @@ def train(
     t0 = time.time()
     start_steps = total_steps
     epoch = 0
+    feed = Counter("data.next")
+    fed = feed.snapshot()
     guard = PreemptionGuard(
         enabled=preemption_enabled({"handle_preemption": getattr(args, "handle_preemption", True)}))
-    with guard:
+    with guard, trace_context(None):
         while total_steps < args.max_train_steps and not preempted:
             train_dl.set_epoch(epoch)
-            for batch in cuda_prefetch(_padded_batches(train_dl, n_micro), device):
+            for batch in cuda_prefetch(_padded_batches(train_dl, n_micro), device, counter=feed):
                 loss, _, grad_norm = train_step(batch, generator, total_steps)
                 total_steps += 1
 
@@ -543,11 +561,14 @@ def train(
                     lr_now = lr_schedule(total_steps)
                     metrics_logger.log({"train/loss": last_loss, "lr": lr_now}, step=total_steps)
                     rate = (total_steps - start_steps) / max(time.time() - t0, 1e-9)
+                    now = feed.snapshot()
+                    wait_ms = 1000.0 * (now["total"] - fed["total"]) / max(now["count"] - fed["count"], 1)
+                    fed = now
                     print(f"[step {total_steps}] loss={last_loss:.4f} lr={lr_now:.6f} "
-                          f"({rate:.2f} steps/s)", flush=True)
+                          f"({rate:.2f} steps/s) data/wait_ms={wait_ms:.1f}", flush=True)
                     if log_fn is not None:
                         log_fn(total_steps, {"train/loss": last_loss, "lr": lr_now,
-                                             "train/grad_norm": float(grad_norm)})
+                                             "train/grad_norm": float(grad_norm), "data/wait_ms": wait_ms})
                 saved = bool(args.save_every) and total_steps % args.save_every == 0
                 if saved:
                     save_lora(total_steps, f"checkpoint-{total_steps}")

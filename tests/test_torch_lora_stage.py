@@ -263,6 +263,8 @@ def test_train_from_config_takes_two_steps_saves_and_serves_the_adapters(tmp_pat
     assert out["global_step"] == 2.0 and np.isfinite(out["train/loss"])
     assert [s for s, _ in logged] == [1, 2]
     assert all(np.isfinite(m["train/loss"]) and m["train/grad_norm"] > 0 for _, m in logged)
+    assert all(m["data/wait_ms"] > 0 for _, m in logged)          # the feed's `data.next` counter
+    assert capsys.readouterr().out.count(" data/wait_ms=") == 2
     assert logged[0][1]["lr"] == pytest.approx(0.5e-3) and logged[1][1]["lr"] == pytest.approx(0.0, abs=1e-12)
     for sub, step in (("checkpoint-1", 1), ("checkpoint-2", 2), ("final", 2)):
         d = tmp_path / "ckpt" / sub

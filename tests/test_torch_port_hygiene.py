@@ -34,7 +34,7 @@ PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "profile_torch_slice.py", "planted_faults_bwd.py", "quantize_flux_checkpoint_torch.py", "train_torch.py",
     "time_conv_engine.py", "time_int8_matmul.py", "time_conv_bwd.py", "k1_stage_variants.py", "k8_variants.py",
     "serve_torch.py", "convert_qwen_vae_to_rgba_torch.py", "prepare_rgba_vae_init_torch.py",
-    "dataset_sanity_check_torch.py", "rgb_vae_sanity_check_torch.py", "time_serving_daemon.py",
+    "dataset_sanity_check_torch.py", "rgb_vae_sanity_check_torch.py",
     "pp_multicard_check.py", "tp_torchrun_check.py", "dist_multicard_check.py", "export_empty_prompt_torch.py",
     "prepare_rgba_buckets_torch.py", "prism_layer_real_bucketer_torch.py", "prism_layer_pro_bucketer_torch.py",
     "laion_bucket_downloader_torch.py", "time_plain_gaps.py", "record_goldens_torch.py",
