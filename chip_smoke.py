@@ -24,7 +24,10 @@ clock; any failure exits non-zero without the final line):
              CUDA-event-timed runs of kernel and plain version, and the bound
              (the least time the card could take for the same work); K6's
              dskip also alone, at the four shapes of a VAE micro-batch,
-             beside `torch.matmul` of the same product.
+             beside `torch.matmul` of the same product; the attention
+             prologue (K13) forward against its plain version in ulps of
+             each rotated pair and backward against fp32 autograd through
+             the plain chain, timed beside that chain.
 4. slice   - builds FluxTextAlphaModel at full published width (FLUX.1-Kontext
              transformer, FLUX `ae` RGBA VAE) with random weights from a seed,
              serves 3 requests as uint8 PNGs over HTTP through the serving
@@ -55,7 +58,8 @@ clock; any failure exits non-zero without the final line):
              adapters, checks losses, gradients, what moved and that the
              attention forward and both backward kernels launched, then holds
              the adapters' gradient tree through the kernels against the plain
-             attention route at 256^2.
+             attention route at 256^2, and through K13 against the plain
+             prologue chain.
 8. int8    - (on the same model, after the LoRA phase) quantises every linear
              of the transformer to weight-only int8 on the card, holds one
              forward against the bf16 one from the same weights, serves 3
@@ -189,6 +193,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 
 from ragb_vae_tpu_torch.ops.kernels import _build  # noqa: E402
+from ragb_vae_tpu_torch.ops.kernels import attn_prologue as ap  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import conv3x3 as c3  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from ragb_vae_tpu_torch.ops.kernels import fused_gn_silu_conv as fgc  # noqa: E402
@@ -327,6 +332,16 @@ BWD_SUM_PLAIN_TOL = 2e-2
 # far past the exact bound.
 ATTN_BWD_EXACT_TOL = 1e-2
 ATTN_BWD_PLAIN_TOL = 5e-2
+# Attention prologue (K13): the forward against its plain version in ulps of
+# each rotated pair's length (the mean square summed in another order can
+# flip the normed pair's bf16 rounding, which RoPE spreads over the pair; one
+# flip per element of the pair at most); the backward's bf16 gradients
+# against autograd through the plain chain in fp32, relative to max|ref| (one
+# bf16 rounding, 2^-8). A row read with another row's rstd, a pair rotated
+# the wrong way or a stream's weights swapped moves an element by its own
+# size: far past both.
+PROLOGUE_PAIR_ULPS = 2.0
+PROLOGUE_BWD_REL_TOL = 1e-2
 # Winograd conv (K8): y relative to max|y|, statistics normalised as K1's.
 # Against its plain version, which rounds V, U and y where the kernel does, y
 # differs by one bf16 ulp of the largest value and the statistics by the order
@@ -381,7 +396,7 @@ SERVE_STEPS = 4                # sampler steps of a served request
 
 
 def reset_all_counts() -> None:
-    for module in (rb, fa, i8, c3, fgc):
+    for module in (rb, fa, i8, c3, fgc, ap):
         module.reset_launch_counts()
 
 
@@ -1142,6 +1157,74 @@ def check_attention(gen, shape, seq_k=None):
     return ok, label, err, ms, plain_ms, library_ms, limit
 
 
+def _pair_ulps(got, ref) -> float:
+    """Largest |got - ref| in bf16 ulps of each element's rotated pair's length."""
+    pairs = ref.float().reshape(*ref.shape[:-1], -1, 2)
+    length = pairs.square().sum(dim=-1, keepdim=True).sqrt().expand_as(pairs).reshape(ref.shape)
+    ulp = torch.exp2(torch.floor(torch.log2(length.clamp_min(2.0 ** -126))) - 7)
+    return ((got.float() - ref.float()).abs() / ulp).max().item()
+
+
+def check_attn_prologue(gen, bsz, s_img, s_txt, heads, d=128):
+    """K13 forward and backward on the projection outputs of `bsz` rows of
+    `s_img` image and `s_txt` text tokens (0: a single-stream block), held
+    against the plain chain, and timed beside it."""
+    from ragb_vae_tpu_torch.models.flux_transformer import rope_frequencies
+
+    width = heads * d
+    img = [_randn(gen, (bsz, s_img, width), 2.0) for _ in range(3)]
+    txt = [_randn(gen, (bsz, s_txt, width), 2.0) for _ in range(3)] if s_txt else [None] * 3
+    w = [(1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16) for _ in range(4)]
+    w_txt = w[2:] if s_txt else [None, None]
+    ids = torch.randint(0, 64, (s_txt + s_img, 3), generator=gen, device="cuda")
+    cos, sin = rope_frequencies(ids, (16, 56, 56))
+    args = (*img, *txt, *w[:2], *w_txt, cos, sin)
+    kw = {"heads": heads, "eps": 1e-6}
+    run_k = lambda: ap.attn_prologue_cuda(*args, **kw)
+    run_p = lambda: ap.attn_prologue_plain(*args, **kw)
+    got, ref = run_k(), run_p()
+    fwd_ulps = max(_pair_ulps(got[0], ref[0]), _pair_ulps(got[1], ref[1]))
+    same_v = torch.equal(got[2], ref[2])
+    grads = [_randn(gen, tuple(got[0].shape)) for _ in range(3)]
+    saved = (img[0], img[1], txt[0], txt[1], *w[:2], *w_txt, cos, sin)
+    run_b = lambda: ap.attn_prologue_bwd_cuda(*grads, *saved, **kw)
+    dk = [t for t in run_b() if t is not None]
+    leaves = [t.float().requires_grad_() for t in [*img, *(txt if s_txt else [])]]
+    t_img, t_txt = leaves[:3], leaves[3:] if s_txt else [None] * 3
+    out = ap.attn_prologue_plain(*t_img, *t_txt, *[x.float() for x in w[:2]],
+                                 *[None if x is None else x.float() for x in w_txt], cos, sin, **kw)
+    torch.autograd.backward(out, [g.float() for g in grads])
+    order = [0, 1, 2, 3, 4, 5] if s_txt else [0, 1, 2]
+    bwd_rel = max((dk[i].float() - leaves[i].grad).abs().max().item() / leaves[i].grad.abs().max().item()
+                  for i in order)
+    torch.cuda.synchronize()
+    ms, queued_ms, plain_ms = time_ms(run_k), time_queued_ms(run_k), time_ms(run_p)
+    bwd_ms, bwd_queued_ms = time_ms(run_b), time_queued_ms(run_b)
+    # the plain chain's backward as the model ran it: autograd through the
+    # plain forward on the bf16 projections
+    b_leaves = [t.detach().requires_grad_() for t in [*img, *(txt if s_txt else [])]]
+    b_txt = b_leaves[3:] if s_txt else [None] * 3
+
+    def plain_fwd_bwd():
+        torch.autograd.backward(ap.attn_prologue_plain(*b_leaves[:3], *b_txt, *w[:2], *w_txt, cos, sin, **kw),
+                                grads)
+
+    plain_fb_ms = time_ms(plain_fwd_bwd)
+    fwd_bytes = 2 * _nbytes(*img, *(txt if s_txt else []))
+    bwd_bytes = _nbytes(*grads, img[0], img[1], *(txt[:2] if s_txt else []), *dk)
+    limit, bwd_limit = bound(0, fwd_bytes), bound(0, bwd_bytes)
+    ok = (fwd_ulps <= PROLOGUE_PAIR_ULPS and same_v and bwd_rel <= PROLOGUE_BWD_REL_TOL
+          and all(bool(torch.isfinite(t.float()).all()) for t in [*got, *dk]))
+    label = f"({bsz}, {s_img} + {s_txt} tokens, {heads} x {d})"
+    log("kernels", f"attn_prologue {label}: forward vs plain {fwd_ulps:.3g} pair ulps (<= {PROLOGUE_PAIR_ULPS}), "
+        f"v {'equal' if same_v else 'DIFFERS'}; backward vs fp32 autograd rel {bwd_rel:.3g} "
+        f"(<= {PROLOGUE_BWD_REL_TOL}); forward {ms:.3f} ms (back to back {queued_ms:.3f}) plain {plain_ms:.3f} ms "
+        f"bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}); backward {bwd_ms:.3f} ms (back to back "
+        f"{bwd_queued_ms:.3f}) bound {bwd_limit['bound_ms']:.4f} ms; plain forward + autograd backward "
+        f"{plain_fb_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+    return ok, label, fwd_ulps, ms, plain_ms, None, limit
+
+
 def attention_bwd_exact(q, k, v, out, lse, g, scale, heads_per_pass=4):
     """K4's and K5's arithmetic in fp32 PyTorch with their rounding points: P
     and dS rounded to bf16 before their products, fp32 sums. A few heads at a
@@ -1338,6 +1421,16 @@ def phase_kernels() -> dict:
         ],
         # K1's first row (so the two compare), the decoder's last level with an
         # identity skip, and a projection (the ae's 256 -> 512 block)
+        # the serve cell's joint and single blocks (4 x 2,048 image + 512
+        # text tokens), the LoRA cell's (8 rows), one TP-2 rank's 12 heads,
+        # and odd token counts
+        "attn_prologue": [
+            lambda: check_attn_prologue(gen, 4, 2048, 512, 24),
+            lambda: check_attn_prologue(gen, 4, 2560, 0, 24),
+            lambda: check_attn_prologue(gen, 8, 2048, 512, 24),
+            lambda: check_attn_prologue(gen, 4, 2048, 512, 12),
+            lambda: check_attn_prologue(gen, 1, 77, 13, 24),
+        ],
         "resnet_conv3x3_stats_wino": [
             lambda: check_wino(gen, (2, 128, 128, 512), 512, skip=None, activation="silu"),
             lambda: check_wino(gen, (1, 512, 512, 128), 128, skip="identity", activation="silu"),
@@ -1526,6 +1619,7 @@ def phase_slice(refs: dict):
         "resnet_conv3x3_stats": lambda: rb.CONV_LAUNCHES,
         "subpixel_upsample_conv3x3_stats": lambda: rb.UPSAMPLE_LAUNCHES,
         "flash_attention_fwd": lambda: fa.LAUNCHES,
+        "attn_prologue": lambda: ap.LAUNCHES,
     })
     from ragb_vae_tpu_torch.serving import InferenceServer, ServeConfig
 
@@ -1962,6 +2056,27 @@ def _lora_grad_tree_check(model) -> None:
                                                   ("plain bf16 attention", "plain fp32 attention", False)),
                              LORA_GRAD_REL_TOL, LORA_GRAD_COS_TOL):
         raise SystemExit("[lora] the kernels' adapter gradients disagree with the plain route's")
+
+    # the attention prologue (K13) against the plain chain it replaced, with
+    # autograd through it (which rounds RoPE's cotangent to bf16 where K13
+    # keeps fp32)
+    def plain_prologue(img, weights, rope, *, heads, eps, txt=None, txt_weights=None):
+        return ap.attn_prologue_plain(*img, *(txt or (None,) * 3), *weights, *(txt_weights or (None, None)),
+                                      *rope, heads=heads, eps=eps)
+
+    before_bwd = ap.BWD_LAUNCHES
+
+    def after_prologue_route(label):
+        if ap.BWD_LAUNCHES != before_bwd + BLOCKS:
+            raise SystemExit(f"[lora] after the route {label!r}: K13's backward must have launched once per "
+                             "block on the kernel route and never on the plain one")
+
+    named, out = _adapter_grad_routes(
+        model, "attn_prologue", [("K13", ap.attn_prologue), ("plain prologue chain", plain_prologue)], SEED + 2,
+        after_prologue_route)
+    if not _hold_grad_routes("lora", named, out, (("K13", "plain prologue chain", True),),
+                             LORA_GRAD_REL_TOL, LORA_GRAD_COS_TOL):
+        raise SystemExit("[lora] the adapter gradients through K13 disagree with the plain prologue chain's")
 
 
 def _stage_config(data_root: Path, ckpt_dir: Path, pairs: int = STAGE_PAIRS, **training) -> dict:

@@ -7,7 +7,10 @@ text tokens are (B, S, C).
 Precision follows the JAX package: linears run in the compute dtype; the
 AdaLN modulation, LayerNorm, RMSNorm statistics, RoPE and timestep
 embeddings run in fp32. Attention goes through the flash kernel
-(`ops/kernels/flash_attention.py`) on CUDA.
+(`ops/kernels/flash_attention.py`) on CUDA, and the chain before it (heads,
+q/k RMSNorm, the joint text-then-image order, RoPE) through one prologue
+kernel (`ops/kernels/attn_prologue.py`); `RMSNorm` and `apply_rotary_emb`
+are that chain's plain arithmetic, and the norms hold its weights.
 
 `weight_quant="int8"` stores every linear the JAX package builds from
 `QDense` as int8 weights with one fp32 scale per output channel (buffers
@@ -42,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ragb_vae_tpu_torch.ops.kernels.attn_prologue import attn_prologue, merge_heads, rms_norm, rotary
 from ragb_vae_tpu_torch.ops.kernels.flash_attention import attention
 from ragb_vae_tpu_torch.ops.kernels.int8_matmul import int8_matmul
 from ragb_vae_tpu_torch.parallel.mesh import Mesh, all_reduce
@@ -125,10 +129,7 @@ def rope_frequencies(ids: Tensor, axes_dims: Sequence[int], theta: float = 10000
 
 def apply_rotary_emb(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     """Rotate adjacent pairs: x*cos + rot(x)*sin, rot(x0, x1) = (-x1, x0)."""
-    xf = x.float()
-    pairs = xf.reshape(*x.shape[:-1], -1, 2)
-    rot = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).reshape(xf.shape)
-    return (xf * cos + rot * sin).to(x.dtype)
+    return rotary(x, cos, sin)
 
 
 WEIGHT_QUANT_MODES = ("none", "int8")
@@ -373,24 +374,12 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
 
     def forward(self, x: Tensor) -> Tensor:
-        xf = x.float()
-        normed = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
-        return (normed * self.weight.float()).to(x.dtype)
+        return rms_norm(x, self.weight, self.eps)
 
 
 def _layer_norm(x: Tensor) -> Tensor:
     """Affine-free LayerNorm in fp32 (eps 1e-6)."""
     return F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6)
-
-
-def _split_heads(x: Tensor, heads: int) -> Tensor:
-    b, s, _ = x.shape
-    return x.reshape(b, s, heads, -1).transpose(1, 2)
-
-
-def _merge_heads(x: Tensor) -> Tensor:
-    b, h, s, d = x.shape
-    return x.transpose(1, 2).reshape(b, s, h * d)
 
 
 class JointAttention(nn.Module):
@@ -413,20 +402,14 @@ class JointAttention(nn.Module):
         self.to_add_out = LoraDense(dim, dim, **kw)
 
     def forward(self, img: Tensor, txt: Tensor, rope: Rope, seq: Optional[Mesh] = None) -> Tuple[Tensor, Tensor]:
-        h = self.heads
         img, txt = region_in(img, self.tp), region_in(txt, self.tp)
-        q = self.norm_q(_split_heads(self.to_q(img), h))
-        k = self.norm_k(_split_heads(self.to_k(img), h))
-        v = _split_heads(self.to_v(img), h)
-        tq = self.norm_added_q(_split_heads(self.add_q_proj(txt), h))
-        tk = self.norm_added_k(_split_heads(self.add_k_proj(txt), h))
-        tv = _split_heads(self.add_v_proj(txt), h)
-        cos, sin = rope
-        q = apply_rotary_emb(torch.cat([tq, q], dim=2), cos, sin)
-        k = apply_rotary_emb(torch.cat([tk, k], dim=2), cos, sin)
-        v = torch.cat([tv, v], dim=2)
+        q, k, v = attn_prologue(
+            (self.to_q(img), self.to_k(img), self.to_v(img)), (self.norm_q.weight, self.norm_k.weight), rope,
+            heads=self.heads, eps=self.norm_q.eps,
+            txt=(self.add_q_proj(txt), self.add_k_proj(txt), self.add_v_proj(txt)),
+            txt_weights=(self.norm_added_q.weight, self.norm_added_k.weight))
         s_txt = txt.shape[1]
-        out = _merge_heads(attention(q, k, v, seq=seq, segments=(s_txt, img.shape[1])))
+        out = merge_heads(attention(q, k, v, seq=seq, segments=(s_txt, img.shape[1])))
         return self.to_out[0](out[:, s_txt:]), self.to_add_out(out[:, :s_txt])
 
 
@@ -443,12 +426,9 @@ class SingleAttention(nn.Module):
 
     def forward(self, x: Tensor, rope: Rope, seq: Optional[Mesh] = None,
                 segments: Optional[Tuple[int, ...]] = None) -> Tensor:
-        h = self.heads
-        cos, sin = rope
-        q = apply_rotary_emb(self.norm_q(_split_heads(self.to_q(x), h)), cos, sin)
-        k = apply_rotary_emb(self.norm_k(_split_heads(self.to_k(x), h)), cos, sin)
-        v = _split_heads(self.to_v(x), h)
-        return _merge_heads(attention(q, k, v, seq=seq, segments=segments))
+        q, k, v = attn_prologue((self.to_q(x), self.to_k(x), self.to_v(x)),
+                                (self.norm_q.weight, self.norm_k.weight), rope, heads=self.heads, eps=self.norm_q.eps)
+        return merge_heads(attention(q, k, v, seq=seq, segments=segments))
 
 
 class _GeluProj(nn.Module):

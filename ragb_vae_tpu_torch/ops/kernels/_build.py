@@ -64,6 +64,8 @@ _SIGNATURES = {
     "ragb_conv3x3_same": [_P] * 3 + [_I] * 5 + [_P],
     "ragb_fused_gn_silu_conv3x3": [_P] * 6 + [_I] * 5 + [_P],
     "ragb_downsample_conv3x3_stats": [_P] * 6 + [_I] * 6 + [_P],
+    "ragb_attn_prologue_fwd": [_P] * 15 + [_I] * 7 + [_F, _P],
+    "ragb_attn_prologue_bwd": [_P] * 20 + [_I] * 8 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -38,7 +38,7 @@ PORT_SCRIPTS = [ROOT.parent / "scripts" / name for name in (
     "pp_multicard_check.py", "tp_torchrun_check.py", "dist_multicard_check.py", "export_empty_prompt_torch.py",
     "prepare_rgba_buckets_torch.py", "prism_layer_real_bucketer_torch.py", "prism_layer_pro_bucketer_torch.py",
     "laion_bucket_downloader_torch.py", "time_plain_gaps.py", "record_goldens_torch.py",
-    "rehearse_real_geometry_torch.py", "rehearse_aux_assets_torch.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
+    "rehearse_real_geometry_torch.py", "rehearse_aux_assets_torch.py", "attribute_elementwise.py")] + [ROOT.parent / "inference_rgba_flux_torch.py"]
 SOURCES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"] + PORT_SCRIPTS
 
 
